@@ -1,0 +1,118 @@
+"""Build and load the hand-written Hopper kernels (``csrc/*.cu``).
+
+At first CUDA use, ``nvcc`` compiles every source under ``csrc/`` into one
+shared library with a plain C interface under ``pqvector_tpu_torch/_build/``
+and ``ctypes`` loads it. The library's name carries a hash of the sources
+and flags, so an edited source builds anew. Nothing here runs at import:
+the CPU tests import every module and have no ``nvcc``.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper made; a run resets
+it to show which kernels a path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+#: Launches per kernel (K1 assign, K2 stream exact, K3 stream masked,
+#: K4 masked local) since the last ``reset_launches``.
+LAUNCHES: dict[str, int] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "pqv_assign": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "pqv_stream_exact_topk": [_P, _P, _P] + [_I] * 7 + [_P] * 5,
+    "pqv_stream_masked_topk": [_P] * 7 + [_I] * 9 + [_P] * 5,
+    "pqv_masked_local_topk": [_P] * 5 + [_I] * 7 + [_P] * 3,
+}
+
+_lib: ctypes.CDLL | None = None
+#: Seconds the last ``load`` spent compiling (0.0 when it found the library).
+build_seconds = 0.0
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _check_device() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the Hopper kernels need a CUDA device")
+    cap = torch.cuda.get_device_capability()
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"the kernels are built for sm_90a (Hopper); device capability is {cap}"
+        )
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, compiled on first use."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    _check_device()
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out = BUILD_DIR / f"libpqv_kernels_{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise when a kernel's C entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc}")
+
+
+def stream_ptr() -> int:
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream

@@ -1,0 +1,77 @@
+"""K1: nearest-centroid assignment, ``argmin_c |c|^2 - 2 x.c`` per row.
+
+Counterpart of ``pqvector_tpu/kernels/assign.py`` (``pallas_assign``). On
+CUDA tensors ``assign_rows`` launches the hand-written kernel
+(``csrc/assign.cu``); on CPU tensors it runs ``assign_rows_plain``, the same
+function in plain torch. Ties keep the lowest centroid index, as
+``jnp.argmin`` does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+
+#: Rows per block of the plain version: bounds its [block, k] score matrix.
+_PLAIN_BLOCK = 8192
+
+
+def assign_rows_plain(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """[n, d] f32 x [k, d] f32 -> [n] int32, in plain torch."""
+    c_norm = (centroids * centroids).sum(dim=1)
+    out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    for lo in range(0, x.shape[0], _PLAIN_BLOCK):
+        scores = x[lo : lo + _PLAIN_BLOCK] @ centroids.T
+        out[lo : lo + _PLAIN_BLOCK] = torch.argmin(
+            c_norm[None, :] - 2.0 * scores, dim=1
+        ).to(torch.int32)
+    return out
+
+
+def _assign_cuda(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    lib = _build.load()
+    n, d = x.shape
+    k = centroids.shape[0]
+    c_norm = (centroids * centroids).sum(dim=1).contiguous()
+    out = torch.empty(n, dtype=torch.int32, device=x.device)
+    rc = lib.pqv_assign(
+        x.data_ptr(), centroids.data_ptr(), c_norm.data_ptr(), n, d, k,
+        out.data_ptr(), _build.stream_ptr(),
+    )
+    _build.check(rc, "pqv_assign")
+    _build.LAUNCHES["K1"] += 1
+    return out
+
+
+def assign_rows(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """Nearest-centroid ids for every row of ``x`` ([n, d] -> [n] int32).
+
+    Both tensors are float32 on one device. The kernel masks the ragged last
+    block itself, so rows need no padding."""
+    if x.dtype != torch.float32 or centroids.dtype != torch.float32:
+        raise TypeError("assign_rows takes float32 rows and centroids")
+    if x.dim() != 2 or centroids.dim() != 2 or x.shape[1] != centroids.shape[1]:
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, centroids {tuple(centroids.shape)}"
+        )
+    if x.device != centroids.device:
+        raise ValueError("x and centroids must be on one device")
+    if x.device.type == "cpu":
+        return assign_rows_plain(x, centroids)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _assign_cuda(x.contiguous(), centroids.contiguous())
+
+
+def assign_clusters(
+    x: np.ndarray | torch.Tensor,
+    centroids: np.ndarray | torch.Tensor,
+    device: str | torch.device = "cpu",
+) -> np.ndarray:
+    """Host-friendly form: any row count in, numpy ids out (the counterpart
+    of ``assign_clusters_pallas``)."""
+    xt = torch.as_tensor(x, dtype=torch.float32, device=device)
+    ct = torch.as_tensor(centroids, dtype=torch.float32, device=device)
+    return assign_rows(xt, ct).cpu().numpy()

@@ -1,0 +1,183 @@
+"""K4: masked IVF scan with a per-tile local mask, plus the shared merge and
+re-score steps.
+
+Counterpart of ``pqvector_tpu/kernels/scan_topk.py``: ``_refine``,
+``_final_merge`` and ``pallas_masked_local_topk`` (K4). The per-tile scan is
+the hand-written kernel ``csrc/scan_topk.cu`` on CUDA tensors and
+``masked_local_scan_plain`` on CPU tensors. The probe mask, the ``lmask``
+gather, the cross-tile merge and the f32 re-score are plain torch, as they
+are XLA code outside the Pallas call in the JAX package.
+
+Every selection orders on (distance, id): ties go to the lower row id, since
+``torch.topk`` promises no order among ties.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+POS_INF = 3.0e38  # pad and masked rows, as in the kernels
+MAX_K = 128  # largest k a kernel's top-k list holds
+QUERY_BLOCK = 16  # queries per kernel block (kQB in csrc/common.cuh)
+
+
+def select_lex(d: torch.Tensor, ids: torch.Tensor, k: int):
+    """The ``k`` smallest (distance, id) pairs of each row, ascending."""
+    by_id = torch.argsort(ids, dim=-1, stable=True)
+    d = d.gather(-1, by_id)
+    ids = ids.gather(-1, by_id)
+    by_d = torch.argsort(d, dim=-1, stable=True)[..., :k]
+    return d.gather(-1, by_d), ids.gather(-1, by_d)
+
+
+def empty_lists(lead: tuple[int, ...], k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k lists with every slot empty: (+3e38, -1), as the kernels start."""
+    return (
+        torch.full(lead + (k,), POS_INF, dtype=torch.float32, device=device),
+        torch.full(lead + (k,), -1, dtype=torch.int32, device=device),
+    )
+
+
+def partial_scores(qf: torch.Tensor, x: torch.Tensor, x_sq: torch.Tensor) -> torch.Tensor:
+    """``|x|^2 - 2 q.x`` in f32 from storage-dtype operands ([B, T])."""
+    return x_sq[None, :] - 2.0 * (qf.float() @ x.float().T)
+
+
+def merge_candidates(best_d, best_i, part, ids, k):
+    """Fold candidates into running lists; sentinel scores never enter."""
+    valid = part < POS_INF
+    part = torch.where(valid, part, POS_INF)
+    ids = torch.where(valid, ids, -1)
+    return select_lex(
+        torch.cat([best_d, part], dim=-1), torch.cat([best_i, ids], dim=-1), k
+    )
+
+
+def check_scan_args(qf, emb, emb_sq, k: int, tile: int) -> None:
+    """What every scan kernel takes: shapes, dtypes, one device."""
+    if emb.dtype not in (torch.float32, torch.bfloat16) or qf.dtype != emb.dtype:
+        raise TypeError("emb is float32 or bfloat16, and queries share its dtype")
+    if emb_sq.dtype != torch.float32:
+        raise TypeError("emb_sq must be float32")
+    if qf.dim() != 2 or emb.dim() != 2 or qf.shape[1] != emb.shape[1]:
+        raise ValueError(f"shape mismatch: q {tuple(qf.shape)}, emb {tuple(emb.shape)}")
+    if emb_sq.shape != (emb.shape[0],):
+        raise ValueError("emb_sq must be [n_pad]")
+    if tile <= 0 or emb.shape[0] % tile:
+        raise ValueError(f"n_pad {emb.shape[0]} is not a multiple of tile {tile}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the scan kernels take 1 <= k <= {MAX_K}, got {k}")
+    if len({t.device for t in (qf, emb, emb_sq)}) != 1:
+        raise ValueError("all operands must be on one device")
+
+
+def check_cuda_operands(**tensors) -> None:
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, not on the CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def masked_local_scan_plain(qf, emb, emb_sq, local_cluster, lmask, k, tile):
+    """Per-tile masked top-k in plain torch -> ([nt, B, k] f32, i32)."""
+    n_pad = emb.shape[0]
+    b = qf.shape[0]
+    nt = n_pad // tile
+    out_d = torch.empty((nt, b, k), dtype=torch.float32, device=emb.device)
+    out_i = torch.empty((nt, b, k), dtype=torch.int32, device=emb.device)
+    group = max(1, 65536 // tile)
+    for t0 in range(0, nt, group):
+        g = min(group, nt - t0)
+        lo, hi = t0 * tile, (t0 + g) * tile
+        part = partial_scores(qf, emb[lo:hi], emb_sq[lo:hi])  # [B, g*tile]
+        part = part.view(b, g, tile).transpose(0, 1)  # [g, B, tile]
+        slots = local_cluster[lo:hi].view(g, 1, tile).expand(g, b, tile).long()
+        probed = lmask[t0 : t0 + g].gather(2, slots) > 0.5
+        part = torch.where(probed, part, POS_INF)
+        ids = torch.arange(lo, hi, dtype=torch.int32, device=emb.device)
+        ids = ids.view(g, 1, tile).expand(g, b, tile)
+        best_d, best_i = empty_lists((g, b), k, emb.device)
+        out_d[t0 : t0 + g], out_i[t0 : t0 + g] = merge_candidates(
+            best_d, best_i, part, ids, k
+        )
+    return out_d, out_i
+
+
+def _masked_local_cuda(qf, emb, emb_sq, local_cluster, lmask, k, tile):
+    check_cuda_operands(
+        q=qf, emb=emb, emb_sq=emb_sq, local_cluster=local_cluster, lmask=lmask
+    )
+    lib = _build.load()
+    n_pad, d = emb.shape
+    b = qf.shape[0]
+    nt = n_pad // tile
+    cmax = lmask.shape[2]
+    out_d = torch.empty((nt, b, k), dtype=torch.float32, device=emb.device)
+    out_i = torch.empty((nt, b, k), dtype=torch.int32, device=emb.device)
+    rc = lib.pqv_masked_local_topk(
+        qf.data_ptr(), emb.data_ptr(), emb_sq.data_ptr(),
+        local_cluster.data_ptr(), lmask.data_ptr(),
+        b, d, n_pad, k, tile, cmax, int(emb.dtype == torch.bfloat16),
+        out_d.data_ptr(), out_i.data_ptr(), _build.stream_ptr(),
+    )
+    _build.check(rc, "pqv_masked_local_topk")
+    _build.LAUNCHES["K4"] += 1
+    return out_d, out_i
+
+
+def masked_local_scan(qf, emb, emb_sq, local_cluster, lmask, k: int, tile: int):
+    """K4's scan: per-tile top-k of the probed rows -> ([nt, B, k], [nt, B, k]).
+
+    ``qf`` [B, d] in the storage dtype, ``emb`` [n_pad, d], ``emb_sq``
+    [n_pad] f32 (+3e38 on pad rows), ``local_cluster`` [n_pad] int32 (a row's
+    slot in its tile's cluster table), ``lmask`` [nt, B, cmax] f32."""
+    check_scan_args(qf, emb, emb_sq, k, tile)
+    nt = emb.shape[0] // tile
+    if local_cluster.dtype != torch.int32 or local_cluster.shape != (emb.shape[0],):
+        raise TypeError("local_cluster must be int32 [n_pad]")
+    if lmask.dtype != torch.float32 or lmask.shape[:2] != (nt, qf.shape[0]):
+        raise TypeError("lmask must be float32 [nt, B, cmax]")
+    if emb.device.type == "cpu":
+        return masked_local_scan_plain(qf, emb, emb_sq, local_cluster, lmask, k, tile)
+    return _masked_local_cuda(qf, emb, emb_sq, local_cluster, lmask, k, tile)
+
+
+def _refine(q, emb, best_d, best_i, out_k=None):
+    """Direct-form f32 re-score of the winners, then an ascending sort under
+    the (distance, id) order, trimmed to ``out_k``. Slots at or above the
+    sentinel's half become +inf; NaNs become +inf."""
+    invalid = best_d >= POS_INF / 2
+    x = emb[best_i.clamp_min(0).long()].float()
+    diff = x - q[:, None, :]
+    d2 = (diff * diff).sum(dim=-1)
+    d2 = torch.where(invalid | torch.isnan(d2), torch.inf, d2)
+    return select_lex(d2, best_i, out_k or d2.shape[1])
+
+
+def _final_merge(tile_d, tile_i, k):
+    """[nt, B, k] per-tile winners -> [B, k] global."""
+    nt, b, kk = tile_d.shape
+    all_d = tile_d.permute(1, 0, 2).reshape(b, nt * kk)
+    all_i = tile_i.permute(1, 0, 2).reshape(b, nt * kk)
+    return select_lex(all_d, all_i, k)
+
+
+def masked_local_topk(
+    q, centroids, c_sq, local_cluster, tile_clusters, emb, emb_sq, nprobe: int,
+    k: int, max_probe: int, tile: int, emb_ref=None,
+):
+    """IVF top-k over a cluster-sorted layout (``pallas_masked_local_topk``):
+    probe mask -> ``lmask`` gather -> K4 -> cross-tile merge -> re-score."""
+    from .stream_topk import _probe_mask
+
+    kc_pad = -(-(centroids.shape[0] + 1) // 128) * 128
+    mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe, kc_pad)
+    lmask = mask[:, tile_clusters.long()].permute(1, 0, 2).contiguous()
+    tile_d, tile_i = masked_local_scan(
+        q.to(emb.dtype), emb, emb_sq, local_cluster, lmask, k, tile
+    )
+    best_d, best_i = _final_merge(tile_d, tile_i, k)
+    return _refine(q, emb if emb_ref is None else emb_ref, best_d, best_i)

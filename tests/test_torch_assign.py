@@ -1,0 +1,88 @@
+"""K1 (nearest-centroid assignment) in the torch port against the JAX package.
+
+The same seeded numpy inputs go through ``assign_clusters_pallas`` (Pallas
+in interpret mode on the CPU) and through the port's ``assign_rows``, which
+runs its plain torch version on CPU tensors. Assignments must be equal: the
+data keeps every row's two nearest centroids apart by far more than f32
+rounding, so equal ids are the right test, not a tolerance. Ties go to the
+lower centroid index in both.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pqvector_tpu.kernels.assign import assign_clusters_pallas
+from pqvector_tpu_torch.kernels import _build
+from pqvector_tpu_torch.kernels.assign import (
+    assign_clusters,
+    assign_rows,
+    assign_rows_plain,
+)
+
+
+def _blobs(n, d, k, seed):
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((k, d)).astype(np.float32) * 4.0
+    x = c[rng.integers(0, k, n)] + 0.1 * rng.standard_normal((n, d)).astype(np.float32)
+    return x, c
+
+
+@pytest.mark.parametrize("n,d,k", [(256, 16, 8), (1000, 32, 37), (300, 64, 64), (5, 8, 3)])
+def test_plain_matches_pallas(n, d, k):
+    x, c = _blobs(n, d, k, seed=n + k)
+    want = assign_clusters_pallas(x, c, tile=128, interpret=True)
+    got = assign_clusters(x, c)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32
+
+
+def test_ties_go_to_lowest_centroid():
+    """Duplicated centroids: every row ties between copies; both packages
+    pick the lowest index (jnp.argmin's first minimum)."""
+    rng = np.random.default_rng(3)
+    base = rng.integers(-3, 4, (6, 8)).astype(np.float32)
+    c = np.concatenate([base, base, base])  # ids j, j + 6, j + 12 tie
+    # Small integers: every score is exact in f32, so the ties are exact.
+    x = base[rng.integers(0, 6, 200)] + rng.integers(-1, 2, (200, 8)).astype(np.float32)
+    want = assign_clusters_pallas(x, c, tile=128, interpret=True)
+    got = assign_clusters(x, c)
+    np.testing.assert_array_equal(got, want)
+    assert got.max() < 6
+
+
+def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
+    x, c = _blobs(500, 16, 10, seed=9)
+    xt, ct = torch.from_numpy(x), torch.from_numpy(c)
+    before = dict(_build.LAUNCHES)
+    np.testing.assert_array_equal(assign_rows(xt, ct), assign_rows_plain(xt, ct))
+    assert _build.LAUNCHES == before
+
+
+@pytest.mark.parametrize(
+    "x,c,err",
+    [
+        (torch.zeros(4, 8, dtype=torch.float64), torch.zeros(2, 8), TypeError),
+        (torch.zeros(4, 8), torch.zeros(2, 7), ValueError),
+    ],
+)
+def test_wrapper_rejects_bad_operands(x, c, err):
+    with pytest.raises(err):
+        assign_rows(x, c)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (sm_90a)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card(cuda_device):
+    x, c = _blobs(100_003, 128, 1024, seed=1)
+    xt = torch.from_numpy(x).to(cuda_device)
+    ct = torch.from_numpy(c).to(cuda_device)
+    got = assign_rows(xt, ct)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu(), assign_rows_plain(xt, ct).cpu())

@@ -1,0 +1,119 @@
+"""k-means and the IVF build in the torch port against the JAX package.
+
+Lloyd's loop is compared from one injected initialisation: the port draws
+its k-means++ seeds from numpy, the JAX package from ``jax.random``, so the
+seeds differ by design. Assignments must be equal and centroids agree at
+rtol 1e-5 (f32 sums taken in another order). On well-separated blobs the two
+full builds find the same partition up to a relabelling of clusters.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pqvector_tpu.index import build as jbuild
+from pqvector_tpu.index import kmeans as jkm
+from pqvector_tpu.types import Embeddings as JEmbeddings
+from pqvector_tpu_torch.errors import ValidationError
+from pqvector_tpu_torch.index import build as tbuild
+from pqvector_tpu_torch.index import kmeans as tkm
+from pqvector_tpu_torch.types import Embeddings
+
+
+def _blobs(n, d, k, seed, spread=0.05):
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-1.0, 1.0, (k, d)).astype(np.float32)
+    x = c[rng.integers(0, k, n)] + spread * rng.standard_normal((n, d)).astype(np.float32)
+    return x
+
+
+def _jax_lloyd(x, init, max_iters, block):
+    xp, w = jkm._pad_rows(x, block)
+    c, a = jkm._lloyd(xp, w, init, max_iters, block, init.shape[0])
+    return np.asarray(c), np.asarray(a)[: x.shape[0]]
+
+
+@pytest.mark.parametrize("n,d,k,iters", [(2000, 16, 12, 20), (1500, 32, 20, 3), (777, 8, 5, 20)])
+def test_lloyd_matches_jax_from_injected_init(n, d, k, iters):
+    x = _blobs(n, d, k, seed=n, spread=0.15)
+    rng = np.random.default_rng(k)
+    init = x[rng.choice(n, k, replace=False)]
+    want_c, want_a = _jax_lloyd(x, init, iters, 256)
+    got_c, got_a = tkm._lloyd(torch.from_numpy(x), torch.from_numpy(init), iters, 256, k)
+    np.testing.assert_array_equal(got_a.numpy(), want_a)
+    np.testing.assert_allclose(got_c.numpy(), want_c, rtol=1e-5, atol=1e-6)
+
+
+def test_lloyd_keeps_stale_centroid_for_empty_cluster():
+    x = _blobs(600, 8, 4, seed=2)
+    init = np.concatenate([x[:4], np.full((1, 8), 50.0, np.float32)])
+    want_c, want_a = _jax_lloyd(x, init, 20, 256)
+    got_c, got_a = tkm._lloyd(torch.from_numpy(x), torch.from_numpy(init), 20, 256, 5)
+    np.testing.assert_array_equal(got_a.numpy(), want_a)
+    np.testing.assert_allclose(got_c.numpy(), want_c, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got_c.numpy()[4], init[4])
+
+
+def test_host_sampling_and_sizes_match_jax():
+    np.testing.assert_array_equal(
+        tkm.sample_indices_host(7, 10_000, 500), jkm.sample_indices_host(7, 10_000, 500)
+    )
+    for n, k in [(10, 3), (1_000_000, 1024), (50_000, 300)]:
+        assert tkm.default_n_clusters(n) == jkm.default_n_clusters(n)
+        assert tkm.train_sample_size(n, k) == jkm.train_sample_size(n, k)
+
+
+def test_kmeans_pp_init_is_seeded_and_picks_sample_rows():
+    x = torch.from_numpy(_blobs(500, 8, 6, seed=4))
+    a = tkm._kmeans_pp_init(x, 42, 6)
+    b = tkm._kmeans_pp_init(x, 42, 6)
+    assert torch.equal(a, b)
+    # every seed is a row of the sample
+    assert all(bool((x == row).all(dim=1).any()) for row in a)
+
+
+def _same_partition(a, b):
+    """True when assignments a and b differ only by a relabelling."""
+    pairs = set(zip(a.tolist(), b.tolist()))
+    return len(pairs) == len(set(a.tolist())) == len(set(b.tolist()))
+
+
+@pytest.mark.parametrize("n,k", [(3000, 8), (40_000, 16)])
+def test_build_partition_matches_jax_up_to_relabelling(n, k):
+    """n=40k trains on the 5% sample both packages draw alike."""
+    x = _blobs(n, 16, k, seed=k, spread=0.02)
+    want = jbuild.build_ivf_index(JEmbeddings(x, 16), jbuild.IvfBuildConfig(n_clusters=k))
+    got = tbuild.build_ivf_index(Embeddings(x, 16), tbuild.IvfBuildConfig(n_clusters=k))
+
+    def assign(idx):
+        out = np.empty(idx.total_rows, np.int64)
+        for c in range(idx.n_clusters):
+            out[idx.cluster_rows(c)] = c
+        return out
+
+    assert _same_partition(assign(got), assign(want))
+
+
+def test_build_is_deterministic_per_seed():
+    x = _blobs(5000, 16, 10, seed=5, spread=0.2)
+    cfg = tbuild.IvfBuildConfig(n_clusters=10, seed=3)
+    a = tbuild.build_ivf_index(Embeddings(x, 16), cfg).to_bytes()
+    b = tbuild.build_ivf_index(Embeddings(x, 16), cfg).to_bytes()
+    assert a == b
+
+
+@pytest.mark.parametrize("wire", ["bfloat16", "int8"])
+def test_tunnel_wires_are_not_ported(wire):
+    x = _blobs(100, 4, 2, seed=1)
+    with pytest.raises(ValidationError, match="not ported"):
+        tbuild.build_ivf_index(
+            Embeddings(x, 4), tbuild.IvfBuildConfig(n_clusters=2, transfer_dtype=wire)
+        )
+
+
+@pytest.mark.parametrize("kw", [{"max_iters": 0}, {"n_clusters": 0}, {"transfer_dtype": "f16"}])
+def test_build_config_validation_matches_jax(kw):
+    with pytest.raises(ValidationError):
+        tbuild.IvfBuildConfig(**kw)
+    with pytest.raises(Exception):
+        jbuild.IvfBuildConfig(**kw)

@@ -1,0 +1,159 @@
+"""The port's slice end to end on the CPU, against the JAX package.
+
+A small Parquet file is indexed in place by each package; both read either
+file. ``DeviceIvfSearcher(..., cluster_sorted=True)`` of each package then
+serves the same index and rows, and every ported mode is compared with the
+JAX package's: exact ``auto``/``stream``, search
+``auto``/``stream``/``pallas``/``gather``, at f32 and at bf16 with the f32
+re-score. The rows lie on a 1/4 grid with |x| <= 4, so bf16 stores them
+exactly and bf16 selection can be held to the same ids (data whose
+neighbours lie closer than bf16's 2^-8 would select differently; that is
+what the re-score copy is for). Many distances tie there. The comparison is
+under the (distance, id) order, d² at rtol 1e-5 and atol 1e-5 * |q|^2; ids
+tied with the k-th distance may differ, because the JAX stream kernels and
+gather path do not always keep the lower id at the boundary. Among
+themselves the port's modes must agree exactly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+import pytest
+import torch
+
+import pqvector_tpu
+import pqvector_tpu_torch
+from pqvector_tpu.io.embed import read_index_from_parquet as j_read_index
+from pqvector_tpu.query.device import DeviceIvfSearcher as JSearcher
+from pqvector_tpu_torch import DeviceIvfSearcher
+from pqvector_tpu_torch.io.embed import read_index_from_parquet as t_read_index
+
+N, D, KC, K, NPROBE, TILE = 3000, 16, 12, 10, 3, 256
+
+
+def _grid_file(path, seed):
+    rng = np.random.default_rng(seed)
+    cent = rng.integers(-8, 9, (KC, D)).astype(np.float32) / 4.0
+    x = cent[rng.integers(0, KC, N)] + rng.integers(-2, 3, (N, D)).astype(np.float32) / 4.0
+    vec = pa.FixedSizeListArray.from_arrays(pa.array(x.reshape(-1)), D)
+    pq.write_table(pa.table({"id": np.arange(N), "embedding": vec}), path)
+    q = x[rng.integers(0, N, 8)] + rng.integers(-1, 2, (8, D)).astype(np.float32) / 4.0
+    return x, q
+
+
+@pytest.fixture(scope="module", params=["port", "jax"])
+def indexed(request, tmp_path_factory):
+    """A grid file indexed in place by the port or by the JAX package."""
+    path = tmp_path_factory.mktemp(request.param) / "slice.parquet"
+    x, q = _grid_file(path, seed=11)
+    pkg = pqvector_tpu_torch if request.param == "port" else pqvector_tpu
+    built = pkg.IndexBuilder(path, "embedding").n_clusters(KC).build_inplace()
+    assert pqvector_tpu_torch.has_pq_vector_index(path)
+    assert pqvector_tpu.io.embed.has_pq_vector_index(path)
+    assert t_read_index(path)[0].to_bytes() == built.to_bytes()
+    assert j_read_index(path)[0].to_bytes() == built.to_bytes()
+    return path, x, q
+
+
+def _canon(d, i):
+    d = np.asarray(d, np.float64)
+    i = np.asarray(i).astype(np.int64)
+    d = np.where(i >= 0, d, np.inf)
+    i = np.where(np.isfinite(d), i, -1)
+    order = np.lexsort((i, d), axis=-1)
+    return np.take_along_axis(d, order, -1), np.take_along_axis(i, order, -1)
+
+
+def assert_match(got, want, q):
+    gd, gi = _canon(*(t.numpy() if isinstance(t, torch.Tensor) else t for t in got))
+    wd, wi = _canon(*(np.asarray(t) for t in want))
+    scale = float((q.astype(np.float64) ** 2).sum(1).max())
+    # sqrt distances: compare squares at the stated d² tolerance
+    np.testing.assert_allclose(gd ** 2, wd ** 2, rtol=1e-5, atol=1e-5 * scale)
+    kth = np.where(np.isfinite(wd), wd, -np.inf).max(axis=1, keepdims=True)
+    inner = wd ** 2 < kth ** 2 - 1e-5 * scale
+    np.testing.assert_array_equal(np.where(inner, gi, 0), np.where(inner, wi, 0))
+
+
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def searchers(request, indexed):
+    path, x, q = indexed
+    jdt = jnp.float32 if request.param == "float32" else jnp.bfloat16
+    tdt = torch.float32 if request.param == "float32" else torch.bfloat16
+    index, _ = j_read_index(path)
+    js = JSearcher(index, x, dtype=jdt, row_tile=TILE, cluster_sorted=True)
+    ts = DeviceIvfSearcher.from_parquet(path, dtype=tdt, row_tile=TILE,
+                                        cluster_sorted=True, device="cpu")
+    assert ts._ref() is None if tdt == torch.float32 else ts._ref() is not None
+    return js, ts, q
+
+
+@pytest.mark.parametrize("jmode,tmode", [("xla", "auto"), ("stream", "stream"), ("xla", "xla")])
+def test_exact_matches_jax(searchers, jmode, tmode):
+    js, ts, q = searchers
+    assert_match(ts.exact(q, K, tmode), js.exact(q, K, jmode), q)
+
+
+@pytest.mark.parametrize(
+    "jmode,tmode",
+    [("gather", "auto"), ("stream", "stream"), ("pallas", "pallas"), ("gather", "gather")],
+)
+def test_search_matches_jax(searchers, jmode, tmode):
+    js, ts, q = searchers
+    assert_match(ts.search(q, K, NPROBE, tmode), js.search(q, K, NPROBE, jmode), q)
+
+
+def test_port_modes_agree_exactly(searchers):
+    _, ts, q = searchers
+    ref = ts.exact(q, K, "xla")
+    for mode in ("auto", "stream"):
+        got = ts.exact(q, K, mode)
+        assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+    ref = ts.search(q, K, NPROBE, "gather")
+    for mode in ("auto", "stream", "pallas"):
+        got = ts.search(q, K, NPROBE, mode)
+        assert torch.equal(got[1], ref[1]), mode
+        torch.testing.assert_close(got[0], ref[0], rtol=0, atol=0)
+
+
+def test_more_k_than_candidates(searchers):
+    """k beyond the probed rows (and beyond a kernel's 128, so ``auto``
+    takes gather): -1 ids and +inf distances, as in JAX."""
+    js, ts, q = searchers
+    got_d, got_i = ts.search(q, 300, 1)
+    want_d, want_i = js.search(q, 300, 1, "gather")
+    np.testing.assert_array_equal((got_i.numpy() < 0).sum(1), (np.asarray(want_i) < 0).sum(1))
+    assert np.isinf(got_d.numpy()[got_i.numpy() < 0]).all()
+
+
+@pytest.mark.parametrize("mode", ["approx", "masked", "binscan", "cert"])
+def test_unported_modes_raise(searchers, mode):
+    _, ts, q = searchers
+    with pytest.raises(pqvector_tpu_torch.ValidationError, match="not ported"):
+        ts.search(q, K, NPROBE, mode)
+    with pytest.raises(pqvector_tpu_torch.ValidationError):
+        ts.exact(q, K, mode if mode != "masked" else "pallas")
+
+
+def test_auto_routes_unsorted_layout_to_gather(indexed):
+    path, x, q = indexed
+    index, _ = t_read_index(path)
+    ts = DeviceIvfSearcher(index, x, row_tile=TILE)
+    sorted_ts = DeviceIvfSearcher(index, x, row_tile=TILE, cluster_sorted=True)
+    assert not ts._row_cluster_sorted and sorted_ts._row_cluster_sorted
+    # Ties order on resident row ids, which the sorted layout renumbers, so
+    # ids tied with the k-th distance may differ between the two layouts.
+    assert_match(ts.search(q, K, NPROBE), sorted_ts.search(q, K, NPROBE), q)
+    with pytest.raises(pqvector_tpu_torch.ValidationError, match="K6"):
+        ts.search(q, K, NPROBE, "pallas")
+
+
+def test_cosine_metric_end_to_end(tmp_path):
+    path = tmp_path / "cos.parquet"
+    x, q = _grid_file(path, seed=4)
+    pqvector_tpu_torch.IndexBuilder(path, "embedding").n_clusters(KC).metric("cosine").build_inplace()
+    ts = DeviceIvfSearcher.from_parquet(path, row_tile=TILE, cluster_sorted=True)
+    index, _ = j_read_index(path)
+    js = JSearcher(index, x, row_tile=TILE, metric="cosine", cluster_sorted=True)
+    assert_match(ts.search(q, K, NPROBE), js.search(q, K, NPROBE, "gather"), q / 100.0)
