@@ -9,18 +9,35 @@ package. Phases, in order; any failure exits non-zero and prints no result:
 1. Environment: the card, torch, nvcc; TF32 off; build the kernels
    (``csrc/*.cu``, compiled at first use) and time the build.
 2. Each kernel (K1 assign, K2 stream exact, K3 stream masked, K4 masked
-   local) against its plain torch version on the card: small awkward shapes
-   (ties, pad rows, fewer rows than k, k = 1 and 128, f32 and bf16) must
-   agree exactly; at the main path's shapes the ids must agree except where
-   the two picks tie within the f32 tolerance, and both are timed with CUDA
-   events (median of 10).
+   local, K5 exact per-tile, K6 masked per-tile, K7 binned scan, K8 binned
+   scan over selected tiles) against its plain torch version on the card:
+   small awkward shapes (ties, pad rows, fewer rows than k, k = 1 and 128,
+   k near the bin count, f32, bf16 and int8, expand 1/2/4, fewer selected
+   slots than tiles) must agree exactly; at the main path's shapes the ids
+   must agree except where the two picks tie within the f32 tolerance (the
+   int8 key tables exactly), and both are timed with CUDA events (median
+   of 10).
 3. The main path at the bench's default configuration: a seeded 1M x 128
    Parquet file, ``IndexBuilder(...).n_clusters(1024).build_inplace()`` on
    the card, exact truth from K2 on an f32 searcher, and an nprobe sweep of
    IVF ``search`` (K4) on a bf16 searcher with an f32 re-score copy until
    recall@10 >= 0.95; K3 must return K4's ids; exact k = 100 through K2
    must match the plain scan; search QPS at B = 256.
-4. Coverage: every kernel was launched during phase 3.
+4. Coverage: K1-K4 were launched during phase 3.
+5. Slice 2's path on the same file and index: a bf16 searcher in file
+   order (f32 re-score copy) serves ``search(..., "pallas")`` through K6 in
+   an nprobe sweep to recall@10 >= 0.95, ``exact(..., "pallas")`` through
+   K5 (ids equal to K2's), ``binscan`` through K7 (recall >= 0.95) and
+   ``binscan8``; the cluster-sorted bf16 searcher calibrates and serves
+   ``bincompact`` through K8 (recall >= 0.95) and ``bincompact8``. QPS at
+   B = 256, coverage, and K6 against ``gather`` at B = 1 .. 256 for the
+   ``auto`` route. K5-K8 must all have been launched.
+6. The DEEP-shaped rung: 10M x 96 rows (1024 modes, seed 77) generated in
+   memory, IVF-4096 built on the card (K1), f32 truth from K2 for the first
+   256 queries of the seed-7 draw, then ``bincompact`` (calibrated, sorted
+   bf16 layout) and ``binscan`` (file-order bf16 layout) at B = 256 and
+   4096: recall, QPS and coverage; K6 against ``gather`` at B = 1, 16 and
+   256 for the ``auto`` route.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -50,7 +67,17 @@ KERNELS = {
            "pqvector_tpu/kernels/stream_topk.py:325"),
     "K4": ("masked_local_topk", "pqvector_tpu_torch/csrc/scan_topk.cu",
            "pqvector_tpu/kernels/scan_topk.py:234"),
+    "K5": ("exact_topk", "pqvector_tpu_torch/csrc/scan_topk.cu",
+           "pqvector_tpu/kernels/scan_topk.py:188"),
+    "K6": ("masked_topk", "pqvector_tpu_torch/csrc/scan_topk.cu",
+           "pqvector_tpu/kernels/scan_topk.py:294"),
+    "K7": ("binned_scan", "pqvector_tpu_torch/csrc/binscan.cu",
+           "pqvector_tpu/kernels/binscan.py:242"),
+    "K8": ("binned_scan_select", "pqvector_tpu_torch/csrc/binscan.cu",
+           "pqvector_tpu/kernels/binscan.py:402"),
 }
+DEEP_ROWS, DEEP_DIM, DEEP_CLUSTERS = 10_000_000, 96, 4096
+DEVICE = "cuda"
 
 
 def log(msg: str) -> None:
@@ -155,7 +182,7 @@ def grid_layout(n, d, kc, tile, seed):
 
 
 def phase2_small(torch, st, sc, ka):
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     rng = np.random.default_rng(0)
     base = rng.integers(-4, 5, (23, 40)).astype(np.float32)
     cent = torch.from_numpy(np.concatenate([base, base, base])).to(dev)  # ties
@@ -194,6 +221,441 @@ def phase2_small(torch, st, sc, ka):
     log(f"phase 2a K2/K3/K4: {cases} cases (k=1..128, n<k, pad rows, f32/bf16): exact")
 
 
+def grid_rows(n, d, tile, seed):
+    """Rows on a 1/4 grid with many ties, padded to a multiple of ``tile``
+    (+3e38 norms on pad rows), and 13 queries near them."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(-8, 9, (17, d)).astype(np.float32) / 4
+    x = base[rng.integers(0, 17, n)] + rng.integers(-2, 3, (n, d)).astype(np.float32) / 4
+    n_pad = -(-(n + 1) // tile) * tile
+    emb = np.zeros((n_pad, d), np.float32)
+    emb[:n] = x
+    sq = np.full(n_pad, 3.0e38, np.float32)
+    sq[:n] = (x * x).sum(1)
+    q = x[rng.integers(0, n, 13)] + rng.integers(-1, 2, (13, d)).astype(np.float32) / 4
+    return emb, sq, q
+
+
+def phase2_small_slice2(torch, st, sc, bs, quantize):
+    """K5-K8 against their plain versions at small awkward shapes: exact."""
+    dev = torch.device(DEVICE)
+    cases = 0
+    for n, tile, k in ((5000, 256, 1), (5000, 256, 128), (5, 256, 9), (700, 64, 10)):
+        cent_np, emb, sq, lcl, tc, q = grid_layout(n, 72, 20, tile, seed=n + k + 1)
+        rc = tc[np.arange(emb.shape[0]) // tile, lcl]  # row -> cluster, 20 on pad rows
+        perm = np.random.default_rng(k).permutation(n)  # K6 runs on file order
+        emb[:n], sq[:n], rc[:n] = emb[perm], sq[perm], rc[perm]
+        for dt in (torch.float32, torch.bfloat16):
+            E = torch.from_numpy(emb).to(dev).to(dt)
+            S = torch.from_numpy(sq).to(dev)
+            RC = torch.from_numpy(rc).to(dev)
+            C = torch.from_numpy(cent_np).to(dev)
+            Q = torch.from_numpy(q).to(dev)
+            qf = Q.to(dt)
+            mask = st._probe_mask(Q, C, (C * C).sum(1), 3, 20, 128)
+            pairs = (
+                ("K5", sc.exact_scan(qf, E, S, k, tile), sc.exact_scan_plain(qf, E, S, k, tile)),
+                ("K6", sc.masked_scan(qf, E, S, RC, mask, k, tile),
+                 sc.masked_scan_plain(qf, E, S, RC, mask, k, tile)),
+            )
+            torch.cuda.synchronize()
+            for name, g, w in pairs:
+                check(torch.equal(g[1], w[1]) and torch.equal(g[0], w[0]),
+                      f"{name} small n={n} k={k} {dt}: differs from plain")
+                cases += 1
+    log(f"phase 2a K5/K6: {cases} cases (k=1..128, n<k, pad rows, f32/bf16, file order): exact")
+    cases = 0
+    # (n, d, tile, expand, dtype, slots selected or None, k)
+    for n, d, tile, expand, dt, n_sel, k in (
+        (5000, 72, 256, 1, "f32", None, 10),
+        (5000, 72, 256, 2, "bf16", None, 10),
+        (5000, 72, 128, 4, "int8", None, 1),
+        (100, 40, 128, 1, "f32", None, 120),  # n < k, k near the 128 bins
+        (6000, 64, 256, 1, "bf16", 5, 16),
+        (6000, 33, 512, 2, "int8", 9, 5),  # d % 4 != 0
+        (3000, 200, 256, 1, "int8", None, 7),  # two int8 staging steps
+        (3000, 200, 256, 2, "f32", 7, 7),
+    ):
+        emb, sq, q = grid_rows(n, d, tile, seed=n + d + tile)
+        E32 = torch.from_numpy(emb).to(dev)
+        S = torch.from_numpy(sq).to(dev)
+        Q = torch.from_numpy(q).to(dev)
+        scale = None
+        if dt == "int8":
+            E, scale = quantize(E32)
+        else:
+            E = E32.to(torch.bfloat16 if dt == "bf16" else torch.float32)
+        nt = emb.shape[0] // tile
+        if n_sel is None:
+            got = bs.binned_scan_keys(Q, E, S, tile, expand, scale)
+            want = bs.binned_scan_keys_plain(Q, E, S, tile, expand, scale)
+            d2, ids = bs.binned_scan(Q, E, S, k, tile, expand, scale, E32)
+        else:
+            sel = torch.from_numpy(
+                np.random.default_rng(n_sel).permutation(nt)[:n_sel].astype(np.int32)
+            ).to(dev)
+            got = bs.binned_scan_select_keys(Q, E, S, sel, tile, expand, scale)
+            want = bs.binned_scan_select_keys_plain(Q, E, S, sel, tile, expand, scale)
+            d2, ids = bs.binned_scan_select(Q, E, S, sel, k, tile, expand, scale, E32)
+        torch.cuda.synchronize()
+        name = "K7" if n_sel is None else "K8"
+        check(torch.equal(got, want),
+              f"{name} small n={n} d={d} tile={tile} expand={expand} {dt}: "
+              f"{int((got != want).sum())} keys differ from plain")
+        check(bool((got != 2**31 - 1).all()), f"{name} small: a bin was never touched")
+        check(d2.shape == (13, k) and ids.shape == (13, k), f"{name} small: bad shape")
+        cases += 1
+    log(f"phase 2a K7/K8: {cases} cases (f32/bf16/int8, expand 1/2/4, k near the "
+        "bins, n < k, fewer selected slots than tiles, d % 4 != 0): key tables exact")
+
+
+def compare_keys(got, want, tol, code_bits):
+    """Two key tables over the same candidates: every bin's value (the key
+    with its ``code_bits`` provenance bits cleared) within ``tol`` plus two
+    steps of the value's truncation of the other's. Where the kernel and
+    cuBLAS sum the products in other orders, a value may round across a
+    truncation step, and a bin may keep another of two near-tied rows.
+    Returns (max |value difference|, bins whose keys differ)."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    hi = ~np.int32((1 << code_bits) - 1)
+    gv = (g & hi).view(np.float32).astype(np.float64)
+    wv = (w & hi).view(np.float32).astype(np.float64)
+    real = wv < 1e38
+    check(np.array_equal(real, gv < 1e38), "key tables: pad-only bins differ")
+    diff = np.abs(gv - wv)[real]
+    bound = tol + 2.0 ** (code_bits - 22) * np.maximum(np.abs(gv), np.abs(wv))[real]
+    check(bool((diff <= bound).all()),
+          f"key values differ beyond the tolerance (max {float(diff.max())})")
+    return float(diff.max()), int((g != w).sum())
+
+
+def compare_tables(got, want, q64, x_sq, code_bits):
+    """``compare_keys`` at compare_topk's f32 tolerance."""
+    tol = 1e-5 * (float((q64 ** 2).sum(1).max()) + float(x_sq[x_sq < 1e38].max()))
+    return compare_keys(got, want, tol, code_bits)
+
+
+def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16, q,
+                   q16, tile, results):
+    """K6, K7 and K8 at the main path's shapes against their plain versions,
+    timed: K6 and K7 on the bf16 layout in file order, K8 on the sorted one."""
+    dev = q.device
+    fo16 = pqt.DeviceIvfSearcher(index_a, emb_np, dtype=torch.bfloat16,
+                                 row_tile=ROW_TILE, device=dev)
+    qf16 = q.to(torch.bfloat16)
+    nprobe_2b = 8
+    kc_pad = -(-(N_CLUSTERS + 1) // 128) * 128
+    mask = st._probe_mask(q, fo16.centroids, fo16.c_sq, nprobe_2b,
+                          fo16._max_probe_bucket(nprobe_2b), kc_pad)
+    xf, sqf = stored_f64(fo16.emb), fo16._pallas_emb_sq().cpu().numpy().astype(np.float64)
+    m_args = (qf16, fo16.emb, fo16._pallas_emb_sq(), fo16.row_cluster, mask, K, tile)
+    err, swaps = compare_topk(sc._final_merge(*sc.masked_scan(*m_args), K),
+                              sc._final_merge(*sc.masked_scan_plain(*m_args), K),
+                              q16, xf, sqf)
+    results["K6"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: sc.masked_scan(*m_args)),
+        "plain_ms": time_ms(lambda: sc.masked_scan_plain(*m_args)),
+    }
+    log(f"phase 2b K6 bf16 file order, nprobe={nprobe_2b}: {swaps} near-tie swaps "
+        f"after the merge, max err {err:.3g}; kernel {results['K6']['ms']:.3f} ms, "
+        f"plain {results['K6']['plain_ms']:.3f} ms")
+    del xf
+
+    q64 = q.double().cpu().numpy()
+    sq64 = fo16._pallas_emb_sq().cpu().numpy().astype(np.float64)
+    t7 = fo16._binscan_tile()
+    e7 = fo16._binscan_expand(t7)
+    nt = fo16.emb.shape[0] // t7
+    cb = bs.provenance_bits(nt, t7)
+    k_args = (q, fo16.emb, fo16._pallas_emb_sq(), t7, e7)
+    err, swaps = compare_tables(bs.binned_scan_keys(*k_args),
+                                bs.binned_scan_keys_plain(*k_args), q64, sq64, cb)
+    results["K7"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: bs.binned_scan_keys(*k_args)),
+        "plain_ms": time_ms(lambda: bs.binned_scan_keys_plain(*k_args)),
+    }
+    log(f"phase 2b K7 bf16 file order, tile={t7}, expand={e7}, {cb} provenance bits: "
+        f"{swaps} of {e7 * t7 * BATCH} bins hold another near-tied row, max value err "
+        f"{err:.3g}; kernel {results['K7']['ms']:.3f} ms, plain "
+        f"{results['K7']['plain_ms']:.3f} ms")
+    e8, sc8 = fo16._xbin8_arrays()
+    t8 = fo16._binscan_tile(esize=1)
+    i8_args = (q, e8, fo16._pallas_emb_sq(), t8, fo16._binscan_expand(t8, esize=1), sc8)
+    check(torch.equal(bs.binned_scan_keys(*i8_args), bs.binned_scan_keys_plain(*i8_args)),
+          "K7 int8: key table differs from plain")
+    ms8 = time_ms(lambda: bs.binned_scan_keys(*i8_args))
+    plain8 = time_ms(lambda: bs.binned_scan_keys_plain(*i8_args))
+    results["K7"]["int8_ms"], results["K7"]["int8_plain_ms"] = ms8, plain8
+    log(f"phase 2b K7 int8, tile={t8}: key table identical to plain; kernel "
+        f"{ms8:.3f} ms, plain {plain8:.3f} ms")
+    del fo16, e8, sc8
+
+    ctile, cap = s16.calibrate_bincompact(q, nprobe_2b, K)
+    check(ctile > 0, "bincompact ineligible at the main shape")
+    tlo, thi, span = s16._compact_tile_ranges(ctile)
+    n_pad = s16.emb.shape[0]
+    sel = compact_select(q, s16.centroids, s16.c_sq, s16.row_cluster, nprobe_2b,
+                         s16._compact_probe_bucket(nprobe_2b), ctile, cap, tlo, thi,
+                         span, n_pad)
+    cb = bs.provenance_bits(cap, ctile)
+    s_args = (q, s16.emb, s16._pallas_emb_sq(), sel, ctile,
+              s16._binscan_expand(ctile, cap=cap))
+    sq64 = s16._pallas_emb_sq().cpu().numpy().astype(np.float64)
+    err, swaps = compare_tables(bs.binned_scan_select_keys(*s_args),
+                                bs.binned_scan_select_keys_plain(*s_args), q64, sq64, cb)
+    results["K8"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: bs.binned_scan_select_keys(*s_args)),
+        "plain_ms": time_ms(lambda: bs.binned_scan_select_keys_plain(*s_args)),
+    }
+    log(f"phase 2b K8 bf16 sorted, nprobe={nprobe_2b}, tile={ctile}, cap={cap} of "
+        f"{n_pad // ctile} tiles: {swaps} bins hold another near-tied row, max value "
+        f"err {err:.3g}; kernel {results['K8']['ms']:.3f} ms, plain "
+        f"{results['K8']['plain_ms']:.3f} ms")
+    e8, sc8 = s16._xbin8_arrays()
+    i8_args = (q, e8, s16._pallas_emb_sq(), sel, ctile,
+               s16._binscan_expand(ctile, cap=cap, esize=1), sc8)
+    check(torch.equal(bs.binned_scan_select_keys(*i8_args),
+                      bs.binned_scan_select_keys_plain(*i8_args)),
+          "K8 int8: key table differs from plain")
+    ms8 = time_ms(lambda: bs.binned_scan_select_keys(*i8_args))
+    plain8 = time_ms(lambda: bs.binned_scan_select_keys_plain(*i8_args))
+    results["K8"]["int8_ms"], results["K8"]["int8_plain_ms"] = ms8, plain8
+    log(f"phase 2b K8 int8: key table identical to plain; kernel {ms8:.3f} ms, "
+        f"plain {plain8:.3f} ms")
+    s16._emb_i8 = s16._emb_i8_scale = None
+
+
+def near_tie_check(got, want, q32, x_sq, what):
+    """Two refined (sqrt distance, id) results: every slot's d² within the
+    f32 tolerance of the other's; ids may differ only there. -> swaps."""
+    gd, wd = got[0].double().cpu().numpy() ** 2, want[0].double().cpu().numpy() ** 2
+    tol = 1e-5 * ((q32 * q32).sum(1) + float(x_sq[x_sq < 1e38].max()))
+    fin = np.isfinite(wd)
+    check(np.array_equal(fin, np.isfinite(gd)), f"{what}: empty slots differ")
+    check(bool((np.abs(np.where(fin, gd - wd, 0.0)) <= tol[:, None]).all()),
+          f"{what}: distances differ beyond near-ties")
+    return int((got[1] != want[1]).sum())
+
+
+def phase5(torch, pqt, _build, bench, path, q, queries, truth_np, sorted16, nprobe4, card):
+    """Slice 2's path: K5 and K6 and K7 on the bf16 layout in file order,
+    K8 on the sorted one, through the searcher's entry points."""
+    t0 = time.perf_counter()
+    fo = pqt.DeviceIvfSearcher.from_parquet(path, dtype=torch.bfloat16,
+                                            row_tile=ROW_TILE, device=q.device)
+    check(not fo._row_cluster_sorted, "from_parquet did not keep the file order")
+    log(f"phase 5 bf16 searcher in file order from {os.path.basename(path)}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    q32 = queries.astype(np.float64)
+    x_sq = fo._pallas_emb_sq().cpu().numpy().astype(np.float64)
+    out = {}
+    _build.reset_launches()
+    nprobe6, nprobe = None, 1
+    while nprobe <= N_CLUSTERS:
+        before = _build.LAUNCHES["K6"]
+        d6, i6 = fo.search(q, K, nprobe, "pallas")
+        check(_build.LAUNCHES["K6"] == before + 1, "search(pallas) did not take K6")
+        r6 = bench.recall_at_k(truth_np, i6.cpu().numpy())
+        log(f"phase 5 search pallas (K6, file order) nprobe={nprobe}: recall@{K} {r6:.4f}")
+        if r6 >= RECALL_TARGET:
+            nprobe6 = nprobe
+            break
+        nprobe *= 2
+    check(nprobe6 is not None, f"K6 recall never reached {RECALL_TARGET}")
+    same = int((sorted16.search(q, K, nprobe6, "pallas")[1] == i6).sum())
+    out["pallas"] = {"nprobe": nprobe6, "recall_at_10": r6}
+    log(f"phase 5 K6 on file order and K4 on the sorted layout at nprobe={nprobe6}: "
+        f"{same} of {i6.numel()} ids equal (exact bf16 ties go to the lower resident "
+        "id, and the layouts number rows differently)")
+
+    before = _build.LAUNCHES["K5"]
+    d5, i5 = fo.exact(q, K, "pallas")
+    check(_build.LAUNCHES["K5"] == before + 1, "exact(pallas) did not take K5")
+    swaps = near_tie_check((d5, i5), fo.exact(q, K, "stream"), q32, x_sq, "K5 vs K2")
+    out["exact_pallas"] = {"recall_at_10": bench.recall_at_k(truth_np, i5.cpu().numpy()),
+                           "swaps_vs_K2": swaps}
+    log(f"phase 5 exact pallas (K5) vs stream (K2), bf16: {swaps} near-tie swaps; "
+        f"recall@{K} against the f32 truth {out['exact_pallas']['recall_at_10']:.4f}")
+
+    for mode in ("binscan", "binscan8"):
+        before = _build.LAUNCHES["K7"]
+        d7, i7 = fo.search(q, K, 1, mode)
+        check(_build.LAUNCHES["K7"] == before + 1, f"search({mode}) did not take K7")
+        check(bool(torch.isfinite(d7).all()), f"{mode} returned empty slots")
+        r7 = bench.recall_at_k(truth_np, i7.cpu().numpy())
+        ex = fo.exact(q, K, mode)
+        check(torch.equal(ex[1], i7), f"exact({mode}) and search({mode}) differ")
+        out[mode] = {"recall_at_10": r7}
+        log(f"phase 5 {mode} (K7, file order, tile={fo._binscan_tile(1 if mode[-1] == '8' else None)}): "
+            f"recall@{K} {r7:.4f}")
+    check(out["binscan"]["recall_at_10"] >= RECALL_TARGET,
+          f"binscan recall {out['binscan']['recall_at_10']:.4f} < {RECALL_TARGET}")
+
+    nprobe8 = nprobe4
+    while True:
+        ctile, cap = sorted16.calibrate_bincompact(queries, nprobe8, K)
+        check(ctile > 0, f"bincompact ineligible at nprobe={nprobe8}")
+        before = _build.LAUNCHES["K8"]
+        d8, i8 = sorted16.search(q, K, nprobe8, "bincompact")
+        check(_build.LAUNCHES["K8"] == before + 1, "search(bincompact) did not take K8")
+        r8 = bench.recall_at_k(truth_np, i8.cpu().numpy())
+        cov = cap / (sorted16.emb.shape[0] // ctile)
+        log(f"phase 5 bincompact (K8, sorted) nprobe={nprobe8}: tile={ctile}, cap={cap}, "
+            f"coverage {cov:.3f}, recall@{K} {r8:.4f}")
+        if r8 >= RECALL_TARGET or nprobe8 >= 4 * nprobe4:
+            break
+        nprobe8 *= 2
+    check(r8 >= RECALL_TARGET, f"bincompact recall {r8:.4f} < {RECALL_TARGET}")
+    out["bincompact"] = {"nprobe": nprobe8, "recall_at_10": r8, "coverage": cov}
+    d88, i88 = sorted16.search(q, K, nprobe8, "bincompact8")
+    out["bincompact8"] = {"nprobe": nprobe8,
+                          "recall_at_10": bench.recall_at_k(truth_np, i88.cpu().numpy())}
+    log(f"phase 5 bincompact8 (K8 int8) nprobe={nprobe8}: recall@{K} "
+        f"{out['bincompact8']['recall_at_10']:.4f}")
+    out["launches"] = dict(_build.LAUNCHES)
+    for name in ("K5", "K6", "K7", "K8"):
+        check(out["launches"][name] > 0, f"{name} was not launched on slice 2's path")
+    log(f"phase 5 launches on slice 2's path: {out['launches']}")
+
+    timed = (
+        ("pallas", lambda: fo.search(q, K, nprobe6, "pallas")),
+        ("gather", lambda: fo.search(q, K, nprobe6, "gather")),
+        ("exact_pallas", lambda: fo.exact(q, K, "pallas")),
+        ("binscan", lambda: fo.search(q, K, 1, "binscan")),
+        ("binscan8", lambda: fo.search(q, K, 1, "binscan8")),
+        ("bincompact", lambda: sorted16.search(q, K, nprobe8, "bincompact")),
+        ("bincompact8", lambda: sorted16.search(q, K, nprobe8, "bincompact8")),
+    )
+    for mode, fn in timed:
+        ms = time_ms(fn)
+        out.setdefault(mode, {}).update({"ms": ms, "qps": BATCH / (ms / 1000.0)})
+        log(f"phase 5 {mode} B={BATCH}: {ms:.3f} ms/batch, {BATCH / (ms / 1000.0):.0f} QPS")
+    out["auto_file_order"] = auto_route_table(fo, q, nprobe6, (1, 4, 16, 64, 256), 10,
+                                              "phase 5")
+    log(f"phase 5 on {card}")
+    del fo
+    torch.cuda.empty_cache()
+    return out
+
+
+def auto_route_table(s, q, nprobe, batches, reps, phase):
+    """K6 against ``gather`` on a layout in file order at each batch size,
+    and the route ``auto`` takes there: it must take the faster one unless
+    the two are within 1.5x of each other."""
+    out = []
+    lmax = int(s.clusters.shape[1])
+    for b in batches:
+        qb = q[:b].contiguous()
+        t6 = time_ms(lambda: s.search(qb, K, nprobe, "pallas"), reps=reps)
+        tg = time_ms(lambda: s.search(qb, K, nprobe, "gather"), reps=reps)
+        pick = s._unsorted_auto(b, nprobe)
+        faster = "pallas" if t6 <= tg else "gather"
+        check(pick == faster or max(t6, tg) <= 1.5 * min(t6, tg),
+              f"{phase} B={b}: auto takes {pick}, but {faster} is faster "
+              f"(K6 {t6:.3f} ms, gather {tg:.3f} ms)")
+        out.append({"B": b, "K6_ms": t6, "gather_ms": tg,
+                    "cand_over_n": b * nprobe * lmax / s.n, "auto": pick})
+        log(f"{phase} file order B={b} nprobe={nprobe}: K6 {t6:.3f} ms, gather "
+            f"{tg:.3f} ms, B*nprobe*lmax/n = {out[-1]['cand_over_n']:.4f}, auto takes "
+            f"{pick}")
+    return out
+
+
+def phase6(torch, pqt, _build, bench, Embeddings, dev):
+    """The DEEP-shaped rung: 10M x 96, IVF-4096, bincompact and binscan."""
+    import gc
+
+    from pqvector_tpu_torch.kernels.binscan import provenance_bits
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(77)  # pqvector_tpu/bench/datasets.py:63-70
+    modes = rng.uniform(-1.0, 1.0, (1024, DEEP_DIM)).astype(np.float32)
+    which = rng.integers(0, 1024, DEEP_ROWS)
+    emb = modes[which] + 0.15 * rng.standard_normal((DEEP_ROWS, DEEP_DIM)).astype(np.float32)
+    del which
+    log(f"phase 6 generated {DEEP_ROWS} x {DEEP_DIM} in {time.perf_counter() - t_phase:.1f} s")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    index = pqt.build_ivf_index(Embeddings(emb, DEEP_DIM),
+                                pqt.IvfBuildConfig(n_clusters=DEEP_CLUSTERS), device=dev)
+    torch.cuda.synchronize()
+    out = {"rows": DEEP_ROWS, "dim": DEEP_DIM, "build_s": time.perf_counter() - t0}
+    log(f"phase 6 IVF-{DEEP_CLUSTERS} built on the card in {out['build_s']:.2f} s")
+    rng = np.random.default_rng(7)  # the prep's draw (scripts/deep10m_prep.py)
+    q_all = emb[rng.integers(0, DEEP_ROWS, 4096)] + 0.05 * rng.standard_normal(
+        (4096, DEEP_DIM)).astype(np.float32)
+    q_dev = torch.from_numpy(q_all).to(dev)
+    q256 = q_dev[:256].contiguous()
+    t0 = time.perf_counter()
+    truth_s = pqt.DeviceIvfSearcher(index, emb, row_tile=ROW_TILE, device=dev)
+    _, tids = truth_s.exact(q256, K)
+    truth = tids.cpu().numpy()
+    check(truth.shape == (256, K) and (truth >= 0).all(), "deep truth has empty slots")
+    del truth_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 6 f32 truth (K2) for 256 queries, searcher included: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    s = pqt.DeviceIvfSearcher(index, emb, dtype=torch.bfloat16, row_tile=ROW_TILE,
+                              cluster_sorted=True, device=dev)
+    res = None
+    for nprobe in (4, 6, 8, 12, 16, 24, 32):
+        ctile, cap = s.calibrate_bincompact(q_all[:256], nprobe, K)
+        check(ctile > 0, f"deep bincompact ineligible at nprobe={nprobe}")
+        _, ids = s.search(q256, K, nprobe, "bincompact")
+        r = bench.recall_at_k(truth, ids.cpu().numpy())
+        cov = cap / (s.emb.shape[0] // ctile)
+        log(f"phase 6 bincompact nprobe={nprobe}: tile={ctile}, cap={cap}, coverage "
+            f"{cov:.3f}, recall@{K} {r:.4f}")
+        res = {"nprobe": nprobe, "recall_at_10": r, "coverage_b256": cov}
+        if r >= RECALL_TARGET:
+            break
+    ms = time_ms(lambda: s.search(q256, K, res["nprobe"], "bincompact"), reps=5)
+    res["qps_b256"] = 256 / (ms / 1000.0)
+    ctile, cap = s.calibrate_bincompact(q_all, res["nprobe"], K)
+    check(ctile > 0, "deep bincompact ineligible at B=4096")
+    res["coverage_b4096"] = cap / (s.emb.shape[0] // ctile)
+    ms4 = time_ms(lambda: s.search(q_dev, K, res["nprobe"], "bincompact"), reps=5)
+    res["qps_b4096"] = 4096 / (ms4 / 1000.0)
+    out["bincompact"] = res
+    log(f"phase 6 bincompact nprobe={res['nprobe']}: B=256 {ms:.2f} ms "
+        f"({res['qps_b256']:.0f} QPS), B=4096 {ms4:.2f} ms ({res['qps_b4096']:.0f} QPS, "
+        f"coverage {res['coverage_b4096']:.3f})")
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    s = pqt.DeviceIvfSearcher(index, emb, dtype=torch.bfloat16, row_tile=ROW_TILE,
+                              device=dev)
+    t7 = s._binscan_tile()
+    _, ids = s.search(q256, K, 1, "binscan")
+    r = bench.recall_at_k(truth, ids.cpu().numpy())
+    ms = time_ms(lambda: s.search(q256, K, 1, "binscan"), reps=5)
+    ms4 = time_ms(lambda: s.search(q_dev, K, 1, "binscan"), reps=5)
+    out["binscan"] = {"recall_at_10": r, "tile": t7, "expand": s._binscan_expand(t7),
+                      "provenance_bits": provenance_bits(s.emb.shape[0] // t7, t7),
+                      "qps_b256": 256 / (ms / 1000.0), "qps_b4096": 4096 / (ms4 / 1000.0)}
+    log(f"phase 6 binscan (file order, tile={t7}, expand={out['binscan']['expand']}, "
+        f"{out['binscan']['provenance_bits']} provenance bits): recall@{K} {r:.4f}; "
+        f"B=256 {ms:.2f} ms ({out['binscan']['qps_b256']:.0f} QPS), B=4096 {ms4:.2f} ms "
+        f"({out['binscan']['qps_b4096']:.0f} QPS)")
+    out["launches"] = dict(_build.LAUNCHES)
+    for name in ("K1", "K2", "K7", "K8"):
+        check(out["launches"][name] > 0, f"{name} was not launched on the deep rung")
+    out["auto_file_order"] = auto_route_table(s, q_dev, out["bincompact"]["nprobe"],
+                                              (1, 16, 256), 5, "phase 6")
+    del s, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 6 launches {out['launches']}; {out['seconds']:.1f} s")
+    return out
+
+
 # --------------------------------------------------------------------------
 
 
@@ -227,11 +689,13 @@ def main() -> None:
     from pqvector_tpu_torch.io.embed import read_index_from_parquet
     from pqvector_tpu_torch.io.reader import read_embedding_column
     from pqvector_tpu_torch.kernels import assign as ka
+    from pqvector_tpu_torch.kernels import binscan as bs
     from pqvector_tpu_torch.kernels import scan_topk as sc
     from pqvector_tpu_torch.kernels import stream_topk as st
+    from pqvector_tpu_torch.query.device import _compact_select, _quantize_rows_i8
     from pqvector_tpu_torch.types import Embeddings
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     data_dir = os.path.join(ROOT, "data", "chip_smoke")
     shutil.rmtree(data_dir, ignore_errors=True)
     os.makedirs(data_dir)
@@ -248,6 +712,7 @@ def main() -> None:
 
     # ---- phase 2 ---------------------------------------------------------
     phase2_small(torch, st, sc, ka)
+    phase2_small_slice2(torch, st, sc, bs, _quantize_rows_i8)
     results: dict[str, dict] = {}
     t0 = time.perf_counter()
     config = pqt.IvfBuildConfig(n_clusters=N_CLUSTERS)
@@ -296,6 +761,18 @@ def main() -> None:
     log(f"phase 2b K2 f32 1M x 128, B={BATCH}, k={K}, tile={tile}: {swaps} near-tie "
         f"swaps, max err {err:.3g}; kernel {results['K2']['ms']:.3f} ms, "
         f"plain {results['K2']['plain_ms']:.3f} ms")
+    e_args = (q, s32.emb, s32._pallas_emb_sq(), K, tile)
+    err, swaps = compare_topk(sc._final_merge(*sc.exact_scan(*e_args), K),
+                              sc._final_merge(*sc.exact_scan_plain(*e_args), K),
+                              q32, x32, sq32)
+    results["K5"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: sc.exact_scan(*e_args)),
+        "plain_ms": time_ms(lambda: sc.exact_scan_plain(*e_args)),
+    }
+    log(f"phase 2b K5 f32 1M x 128, B={BATCH}, k={K}, tile={tile}: {swaps} near-tie "
+        f"swaps after the merge, max err {err:.3g}; kernel {results['K5']['ms']:.3f} ms, "
+        f"plain {results['K5']['plain_ms']:.3f} ms")
     del x32
 
     nprobe_2b = 8
@@ -331,7 +808,10 @@ def main() -> None:
     log(f"phase 2b K4 bf16 nprobe={nprobe_2b}, nt={lmask.shape[0]}, cmax={cmax}: "
         f"{swaps} near-tie swaps after the merge, max err {err:.3g}; kernel "
         f"{results['K4']['ms']:.3f} ms, plain {results['K4']['plain_ms']:.3f} ms")
-    del s32, s16, x16, g4, w4, lmask
+    del g4, w4, lmask
+    phase2b_slice2(torch, pqt, sc, st, bs, _compact_select, index_a, emb_np, s16, q,
+                   q16, tile, results)
+    del s32, s16, x16
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path -----------------------------------------
@@ -403,9 +883,18 @@ def main() -> None:
     launches = dict(_build.LAUNCHES)
 
     # ---- phase 4 ---------------------------------------------------------
-    for name in KERNELS:
+    for name in ("K1", "K2", "K3", "K4"):
         check(launches[name] > 0, f"{name} was not launched on the main path")
     log(f"phase 4 launches on the main path: {launches}")
+
+    # ---- phases 5 and 6 ----------------------------------------------------
+    main5 = phase5(torch, pqt, _build, bench, path, q, queries, truth_np,
+                   searcher, chosen, card)
+    for name in ("K5", "K6", "K7", "K8"):
+        launches[name] = main5["launches"][name]
+    del truth_s, searcher
+    torch.cuda.empty_cache()
+    main6 = phase6(torch, pqt, _build, bench, Embeddings, dev)
 
     kernels = []
     for name, (fn, source, replaces) in KERNELS.items():
@@ -418,6 +907,8 @@ def main() -> None:
     log("main path: " + json.dumps({"build_s": build_s, "nprobe": chosen,
                                     "recall_at_10": recall, "search_ms": search_ms,
                                     "qps": qps}))
+    log("slice 2 path: " + json.dumps(main5))
+    log("deep rung: " + json.dumps(main6))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

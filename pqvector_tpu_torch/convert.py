@@ -41,10 +41,11 @@ def searcher_state_from_reference(
 
     ``arrays`` maps a JAX searcher's attribute names (``emb``, ``emb_sq``,
     ``_emb_ref``, ``centroids``, ``c_sq``, ``clusters``, ``row_cluster``,
-    ``_gid``) and its tile tables (``local_cluster``, ``tile_clusters``) to
-    numpy arrays, or to None where the JAX searcher holds none. Cluster ids
-    that the JAX package ships as f32 (``local_cluster``, a Mosaic
-    workaround) become int32."""
+    ``_gid``, and the int8 modes' ``_emb_i8`` codes and ``_emb_i8_scale``)
+    and its tile tables (``local_cluster``, ``tile_clusters``) to numpy
+    arrays, or to None where the JAX searcher holds none. Cluster ids that
+    the JAX package ships as f32 (``local_cluster``, a Mosaic workaround)
+    become int32; int8 codes stay int8."""
     out: dict[str, torch.Tensor | None] = {}
     for name, a in arrays.items():
         if a is None:

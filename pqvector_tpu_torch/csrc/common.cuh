@@ -1,4 +1,4 @@
-// Shared device code of the top-k scan kernels (K2, K3, K4) for sm_90a.
+// Shared device code of the top-k scan kernels (K2-K6) for sm_90a.
 //
 // One block owns kQB queries and walks a set of row ranges. For each chunk
 // of kRC rows it scores every (query, row) pair in IEEE fp32 FMA (bf16
@@ -96,15 +96,16 @@ __device__ __forceinline__ void warp_offer(float* ld, int* li, int k, float cd,
 }
 
 // How a scan block decides that a (query, row) pair is probed.
-enum ScanMode { kExact = 0, kMaskTable = 1, kLocalMask = 2 };
+enum ScanMode { kExact = 0, kMaskTable = 1, kLocalMask = 2, kRowMask = 3 };
 
 struct ScanArgs {
   const void* q;         // [B, d] in the storage dtype
   const void* emb;       // [n_pad, d]
   const float* emb_sq;   // [n_pad], +3e38 on pad rows
   const int* lcl;        // [n_pad] row's slot in its tile's cluster table
+  const int* rcl;        // [n_pad] row's cluster id, kc on pad rows (kRowMask)
   const int* tc;         // [nt, cmax] cluster ids per tile (kMaskTable)
-  const float* mask;     // [B, kc_pad] probe mask (kMaskTable)
+  const float* mask;     // [B, kc_pad] probe mask (kMaskTable, kRowMask)
   const float* lmask;    // [nt, B, cmax] mask gathered per tile (kLocalMask)
   const int* sched;      // [nt + 1] n_active, then active tiles (kMaskTable)
   float* out_d;          // [units, B, k]
@@ -141,6 +142,18 @@ __device__ void scan_rows(const ScanArgs& a, ScanSmem& s, int q0, int row_begin,
   const int lane = t & 31;
   const int w = t >> 5;
   for (int r0 = row_begin; r0 < row_end; r0 += kRC) {
+    if (MODE == kRowMask) {
+      // On a layout in file order a chunk's rows span many clusters; skip a
+      // chunk that none of the block's queries probes (common at small B).
+      int any = 0;
+      for (int e = t; e < kQB * kRC; e += kThreads) {
+        const int b = q0 + e / kRC, row = r0 + e % kRC;
+        if (b < a.B && row < row_end &&
+            a.mask[(size_t)b * a.kc_pad + a.rcl[row]] > 0.5f)
+          any = 1;
+      }
+      if (!__syncthreads_or(any)) continue;
+    }
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     for (int d0 = 0; d0 < a.d; d0 += kDK) {
       for (int e = t; e < kRC * kDK; e += kThreads) {
@@ -172,7 +185,8 @@ __device__ void scan_rows(const ScanArgs& a, ScanSmem& s, int q0, int row_begin,
     const bool row_ok = row < row_end;
     const float sq = row_ok ? a.emb_sq[row] : kPosInf;
     int slot = 0;
-    if (MODE != kExact && row_ok) slot = a.lcl[row];
+    if ((MODE == kMaskTable || MODE == kLocalMask) && row_ok) slot = a.lcl[row];
+    if (MODE == kRowMask && row_ok) slot = a.rcl[row];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int qq = 4 * g + j;
@@ -186,6 +200,8 @@ __device__ void scan_rows(const ScanArgs& a, ScanSmem& s, int q0, int row_begin,
       } else if (MODE == kLocalMask) {
         if (!(a.lmask[((size_t)tile_idx * a.B + b) * a.cmax + slot] > 0.5f))
           v = kPosInf;
+      } else if (MODE == kRowMask) {
+        if (!(a.mask[(size_t)b * a.kc_pad + slot] > 0.5f)) v = kPosInf;
       }
       s.part[qq][r] = v;
     }

@@ -13,7 +13,9 @@ Counterpart of ``pqvector_tpu/index/kmeans.py``, with the same semantics
   would not, so a build is deterministic per seed;
 * k-means++ seeding on a <=50k sub-sample draws its random numbers from a
   seeded host generator (numpy), not from ``jax.random``: the seeds are
-  reproducible per seed but differ from the JAX package's.
+  reproducible per seed but differ from the JAX package's. Its cumulative
+  sums run in a fixed order (``_prefix_sums``) for the same reason as the
+  update.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..kernels.assign import assign_clusters, assign_rows
 _INIT_SAMPLE_CAP = 50_000  # pq-vector src/ivf/index.rs:332
 _TRAIN_SAMPLE_CAP = 100_000  # pq-vector src/ivf/index.rs:173
 _TRAIN_SAMPLE_FRACTION = 20  # 5% == n/20, pq-vector src/ivf/index.rs:172
+_SCAN_ROW = 1024  # elements per row of _prefix_sums' two-level scan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +65,23 @@ def sample_indices_host(seed: int, n: int, m: int) -> np.ndarray:
     return rng.choice(n, size=m, replace=False).astype(np.int64)
 
 
+def _prefix_sums(v: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of a 1-D float tensor, summed in an order that
+    does not depend on the device's schedule. On CUDA, ``torch.cumsum`` of
+    a 1-D float tensor is a single-pass scan whose look-back adds the
+    partials of earlier blocks in an order set by timing, so its last bits
+    vary between runs, and a k-means++ draw near a boundary picks another
+    row. Here each row of 1024 is scanned on its own (a 2-D cumsum gives a
+    row to one block; at least two rows, so torch takes that path), and the
+    totals of the rows before come from a lower-triangular matmul."""
+    m = v.shape[0]
+    rows = max(2, -(-m // _SCAN_ROW))
+    part = torch.nn.functional.pad(v, (0, rows * _SCAN_ROW - m))
+    part = part.view(rows, _SCAN_ROW).cumsum(dim=1)
+    lower = torch.ones((rows, rows), dtype=v.dtype, device=v.device).tril(-1)
+    return (part + (lower @ part[:, -1])[:, None]).reshape(-1)[:m]
+
+
 def _kmeans_pp_init(sample: torch.Tensor, seed: int, n_clusters: int) -> torch.Tensor:
     """k-means++ seeding (pq-vector src/ivf/index.rs:332-390) on ``sample``'s
     device.
@@ -87,7 +107,7 @@ def _kmeans_pp_init(sample: torch.Tensor, seed: int, n_clusters: int) -> torch.T
     min_d = (s_norm + (c * c).sum() - 2.0 * (sample @ c)).clamp_min(0.0)
     for i in range(1, k):
         total = min_d.sum()
-        cumsum = torch.cumsum(min_d, dim=0)
+        cumsum = _prefix_sums(min_d)
         threshold = (u[i] * total).reshape(1)
         weighted = torch.searchsorted(cumsum, threshold, side="left").clamp_max(m - 1)
         idx = torch.where(total > 0, weighted, uniform_idx[i : i + 1])

@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels (``csrc/*.cu``).
 
-At first CUDA use, ``nvcc`` compiles every source under ``csrc/`` into one
-shared library with a plain C interface under ``pqvector_tpu_torch/_build/``
-and ``ctypes`` loads it. The library's name carries a hash of the sources
+At first CUDA use, ``nvcc`` compiles every source under ``csrc/`` (one
+process per source, all at once) and links the objects into one shared
+library with a plain C interface under ``pqvector_tpu_torch/_build/``;
+``ctypes`` loads it. The library's name carries a hash of the sources
 and flags, so an edited source builds anew. Nothing here runs at import:
 the CPU tests import every module and have no ``nvcc``.
 
@@ -25,12 +26,13 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 #: Launches per kernel (K1 assign, K2 stream exact, K3 stream masked,
-#: K4 masked local) since the last ``reset_launches``.
-LAUNCHES: dict[str, int] = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+#: K4 masked local, K5 exact per-tile, K6 masked per-tile, K7 binned scan,
+#: K8 binned scan over selected tiles) since the last ``reset_launches``.
+LAUNCHES: dict[str, int] = {f"K{i}": 0 for i in range(1, 9)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +41,10 @@ _SIGNATURES = {
     "pqv_stream_exact_topk": [_P, _P, _P] + [_I] * 7 + [_P] * 5,
     "pqv_stream_masked_topk": [_P] * 7 + [_I] * 9 + [_P] * 5,
     "pqv_masked_local_topk": [_P] * 5 + [_I] * 7 + [_P] * 3,
+    "pqv_exact_topk": [_P] * 3 + [_I] * 6 + [_P] * 3,
+    "pqv_masked_topk": [_P] * 5 + [_I] * 7 + [_P] * 3,
+    "pqv_binned_scan": [_P] * 6 + [_I] * 9 + [_P] * 2,
+    "pqv_binned_scan_select": [_P] * 7 + [_I] * 9 + [_P] * 2,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -88,13 +94,22 @@ def load() -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
+            for src, obj in zip(sources, objs)
+        ]
+        outs = [p.communicate() for p in procs]
+        _check_nvcc([(p.returncode, o, e) for p, (o, e) in zip(procs, outs)])
+        _check_nvcc([_run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                           *map(str, objs)])])
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, out)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
@@ -104,6 +119,17 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def _run(cmd: list[str]) -> tuple[int, str, str]:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def _check_nvcc(results) -> None:
+    for rc, out, err in results:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{out}\n{err}")
 
 
 def check(rc: int, name: str) -> None:

@@ -1,12 +1,15 @@
-"""K4: masked IVF scan with a per-tile local mask, plus the shared merge and
-re-score steps.
+"""K4, K5 and K6: per-tile top-k scans, plus the shared merge and re-score
+steps.
 
 Counterpart of ``pqvector_tpu/kernels/scan_topk.py``: ``_refine``,
-``_final_merge`` and ``pallas_masked_local_topk`` (K4). The per-tile scan is
-the hand-written kernel ``csrc/scan_topk.cu`` on CUDA tensors and
-``masked_local_scan_plain`` on CPU tensors. The probe mask, the ``lmask``
-gather, the cross-tile merge and the f32 re-score are plain torch, as they
-are XLA code outside the Pallas call in the JAX package.
+``_final_merge``, ``pallas_masked_local_topk`` (K4, cluster-sorted layouts
+with a per-tile local mask), ``pallas_exact_topk`` (K5) and
+``pallas_masked_topk`` (K6, any layout, a global probe mask looked up
+through each row's cluster id). The per-tile scans are the hand-written
+kernels of ``csrc/scan_topk.cu`` on CUDA tensors and the ``*_plain``
+functions on CPU tensors. The probe mask, the ``lmask`` gather, the
+cross-tile merge and the f32 re-score are plain torch, as they are XLA code
+outside the Pallas calls in the JAX package.
 
 Every selection orders on (distance, id): ties go to the lower row id, since
 ``torch.topk`` promises no order among ties.
@@ -81,8 +84,9 @@ def check_cuda_operands(**tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def masked_local_scan_plain(qf, emb, emb_sq, local_cluster, lmask, k, tile):
-    """Per-tile masked top-k in plain torch -> ([nt, B, k] f32, i32)."""
+def _tile_topk_plain(qf, emb, emb_sq, k, tile, probed=None):
+    """Per-tile top-k in plain torch -> ([nt, B, k] f32, i32). ``probed(lo,
+    hi, g)`` gives the [g, B, tile] bool probe test of rows lo .. hi."""
     n_pad = emb.shape[0]
     b = qf.shape[0]
     nt = n_pad // tile
@@ -94,9 +98,8 @@ def masked_local_scan_plain(qf, emb, emb_sq, local_cluster, lmask, k, tile):
         lo, hi = t0 * tile, (t0 + g) * tile
         part = partial_scores(qf, emb[lo:hi], emb_sq[lo:hi])  # [B, g*tile]
         part = part.view(b, g, tile).transpose(0, 1)  # [g, B, tile]
-        slots = local_cluster[lo:hi].view(g, 1, tile).expand(g, b, tile).long()
-        probed = lmask[t0 : t0 + g].gather(2, slots) > 0.5
-        part = torch.where(probed, part, POS_INF)
+        if probed is not None:
+            part = torch.where(probed(lo, hi, g), part, POS_INF)
         ids = torch.arange(lo, hi, dtype=torch.int32, device=emb.device)
         ids = ids.view(g, 1, tile).expand(g, b, tile)
         best_d, best_i = empty_lists((g, b), k, emb.device)
@@ -106,26 +109,16 @@ def masked_local_scan_plain(qf, emb, emb_sq, local_cluster, lmask, k, tile):
     return out_d, out_i
 
 
-def _masked_local_cuda(qf, emb, emb_sq, local_cluster, lmask, k, tile):
-    check_cuda_operands(
-        q=qf, emb=emb, emb_sq=emb_sq, local_cluster=local_cluster, lmask=lmask
-    )
-    lib = _build.load()
-    n_pad, d = emb.shape
+def masked_local_scan_plain(qf, emb, emb_sq, local_cluster, lmask, k, tile):
+    """Per-tile masked top-k in plain torch -> ([nt, B, k] f32, i32)."""
     b = qf.shape[0]
-    nt = n_pad // tile
-    cmax = lmask.shape[2]
-    out_d = torch.empty((nt, b, k), dtype=torch.float32, device=emb.device)
-    out_i = torch.empty((nt, b, k), dtype=torch.int32, device=emb.device)
-    rc = lib.pqv_masked_local_topk(
-        qf.data_ptr(), emb.data_ptr(), emb_sq.data_ptr(),
-        local_cluster.data_ptr(), lmask.data_ptr(),
-        b, d, n_pad, k, tile, cmax, int(emb.dtype == torch.bfloat16),
-        out_d.data_ptr(), out_i.data_ptr(), _build.stream_ptr(),
-    )
-    _build.check(rc, "pqv_masked_local_topk")
-    _build.LAUNCHES["K4"] += 1
-    return out_d, out_i
+
+    def probed(lo, hi, g):
+        slots = local_cluster[lo:hi].view(g, 1, tile).expand(g, b, tile).long()
+        t0 = lo // tile
+        return lmask[t0 : t0 + g].gather(2, slots) > 0.5
+
+    return _tile_topk_plain(qf, emb, emb_sq, k, tile, probed)
 
 
 def masked_local_scan(qf, emb, emb_sq, local_cluster, lmask, k: int, tile: int):
@@ -142,7 +135,79 @@ def masked_local_scan(qf, emb, emb_sq, local_cluster, lmask, k: int, tile: int):
         raise TypeError("lmask must be float32 [nt, B, cmax]")
     if emb.device.type == "cpu":
         return masked_local_scan_plain(qf, emb, emb_sq, local_cluster, lmask, k, tile)
-    return _masked_local_cuda(qf, emb, emb_sq, local_cluster, lmask, k, tile)
+    check_cuda_operands(
+        q=qf, emb=emb, emb_sq=emb_sq, local_cluster=local_cluster, lmask=lmask
+    )
+    return _launch_tile_topk(
+        "K4", "pqv_masked_local_topk", qf, emb, emb_sq, k, tile,
+        ptrs=(local_cluster, lmask), ints=(lmask.shape[2],),
+    )
+
+
+def exact_scan_plain(qf, emb, emb_sq, k, tile):
+    """K5 in plain torch: every tile's top-k -> ([nt, B, k] f32, i32)."""
+    return _tile_topk_plain(qf, emb, emb_sq, k, tile)
+
+
+def _launch_tile_topk(name, fn, qf, emb, emb_sq, k, tile, ptrs=(), ints=()):
+    """Launch a per-tile scan kernel (K4, K5, K6) -> ([nt, B, k], [nt, B, k]).
+    Their C entry points take (q, emb, emb_sq, *ptrs, B, d, n_pad, k, tile,
+    *ints, is_bf16, out_d, out_i, stream)."""
+    lib = _build.load()
+    n_pad, d = emb.shape
+    b = qf.shape[0]
+    nt = n_pad // tile
+    out_d = torch.empty((nt, b, k), dtype=torch.float32, device=emb.device)
+    out_i = torch.empty((nt, b, k), dtype=torch.int32, device=emb.device)
+    rc = getattr(lib, fn)(
+        qf.data_ptr(), emb.data_ptr(), emb_sq.data_ptr(),
+        *(t.data_ptr() for t in ptrs), b, d, n_pad, k, tile, *ints,
+        int(emb.dtype == torch.bfloat16), out_d.data_ptr(), out_i.data_ptr(),
+        _build.stream_ptr(),
+    )
+    _build.check(rc, fn)
+    _build.LAUNCHES[name] += 1
+    return out_d, out_i
+
+
+def exact_scan(qf, emb, emb_sq, k: int, tile: int):
+    """K5's scan: each tile's exact top-k -> ([nt, B, k] f32 partial d²,
+    [nt, B, k] i32), empty slots (+3e38, -1). Operands as for
+    ``masked_local_scan``."""
+    check_scan_args(qf, emb, emb_sq, k, tile)
+    if emb.device.type == "cpu":
+        return exact_scan_plain(qf, emb, emb_sq, k, tile)
+    check_cuda_operands(q=qf, emb=emb, emb_sq=emb_sq)
+    return _launch_tile_topk("K5", "pqv_exact_topk", qf, emb, emb_sq, k, tile)
+
+
+def masked_scan_plain(qf, emb, emb_sq, row_cluster, mask, k, tile):
+    """K6 in plain torch: each tile's top-k of the rows whose cluster the
+    query probes -> ([nt, B, k] f32, i32)."""
+
+    def probed(lo, hi, g):
+        cl = row_cluster[lo:hi].long()
+        return (mask[:, cl] > 0.5).view(-1, g, tile).transpose(0, 1)
+
+    return _tile_topk_plain(qf, emb, emb_sq, k, tile, probed)
+
+
+def masked_scan(qf, emb, emb_sq, row_cluster, mask, k: int, tile: int):
+    """K6's scan: per-tile top-k under a global probe mask -> ([nt, B, k],
+    [nt, B, k]). ``row_cluster`` [n_pad] int32 holds each row's cluster, kc
+    on pad rows; ``mask`` [B, kc_pad] f32 with kc_pad > kc, slot kc unset."""
+    check_scan_args(qf, emb, emb_sq, k, tile)
+    if row_cluster.dtype != torch.int32 or row_cluster.shape != (emb.shape[0],):
+        raise TypeError("row_cluster must be int32 [n_pad]")
+    if mask.dtype != torch.float32 or mask.dim() != 2 or mask.shape[0] != qf.shape[0]:
+        raise TypeError("mask must be float32 [B, kc_pad]")
+    if emb.device.type == "cpu":
+        return masked_scan_plain(qf, emb, emb_sq, row_cluster, mask, k, tile)
+    check_cuda_operands(q=qf, emb=emb, emb_sq=emb_sq, row_cluster=row_cluster, mask=mask)
+    return _launch_tile_topk(
+        "K6", "pqv_masked_topk", qf, emb, emb_sq, k, tile,
+        ptrs=(row_cluster, mask), ints=(mask.shape[1],),
+    )
 
 
 def _refine(q, emb, best_d, best_i, out_k=None):
@@ -178,6 +243,31 @@ def masked_local_topk(
     lmask = mask[:, tile_clusters.long()].permute(1, 0, 2).contiguous()
     tile_d, tile_i = masked_local_scan(
         q.to(emb.dtype), emb, emb_sq, local_cluster, lmask, k, tile
+    )
+    best_d, best_i = _final_merge(tile_d, tile_i, k)
+    return _refine(q, emb if emb_ref is None else emb_ref, best_d, best_i)
+
+
+def exact_topk(q, emb, emb_sq, k: int, tile: int, emb_ref=None):
+    """Exact top-k (``pallas_exact_topk``): K5 -> cross-tile merge ->
+    re-score against ``emb_ref`` when given."""
+    tile_d, tile_i = exact_scan(q.to(emb.dtype), emb, emb_sq, k, tile)
+    best_d, best_i = _final_merge(tile_d, tile_i, k)
+    return _refine(q, emb if emb_ref is None else emb_ref, best_d, best_i)
+
+
+def masked_topk(
+    q, centroids, c_sq, row_cluster, emb, emb_sq, nprobe: int, k: int,
+    max_probe: int, tile: int, emb_ref=None,
+):
+    """IVF top-k on any layout (``pallas_masked_topk``): probe mask -> K6
+    -> cross-tile merge -> re-score."""
+    from .stream_topk import _probe_mask
+
+    kc_pad = -(-(centroids.shape[0] + 1) // 128) * 128
+    mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe, kc_pad)
+    tile_d, tile_i = masked_scan(
+        q.to(emb.dtype), emb, emb_sq, row_cluster, mask, k, tile
     )
     best_d, best_i = _final_merge(tile_d, tile_i, k)
     return _refine(q, emb if emb_ref is None else emb_ref, best_d, best_i)

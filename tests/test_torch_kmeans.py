@@ -72,6 +72,25 @@ def test_kmeans_pp_init_is_seeded_and_picks_sample_rows():
     assert all(bool((x == row).all(dim=1).any()) for row in a)
 
 
+@pytest.mark.parametrize("m", [1, 1000, 1024, 1025, 50_000])
+def test_prefix_sums_match_float64_cumsum(m):
+    v = torch.from_numpy(np.random.default_rng(m).uniform(0.0, 4.0, m).astype(np.float32))
+    got = tkm._prefix_sums(v)
+    want = np.cumsum(v.numpy().astype(np.float64))
+    assert got.shape == (m,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_prefix_sums_are_bitwise_stable_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (sm_90a)")
+    v = torch.rand(50_000, generator=torch.Generator().manual_seed(0)).cuda()
+    first = tkm._prefix_sums(v)
+    for _ in range(50):
+        assert torch.equal(tkm._prefix_sums(v), first)
+
+
 def _same_partition(a, b):
     """True when assignments a and b differ only by a relabelling."""
     pairs = set(zip(a.tolist(), b.tolist()))

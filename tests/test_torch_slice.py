@@ -3,10 +3,11 @@
 A small Parquet file is indexed in place by each package; both read either
 file. ``DeviceIvfSearcher(..., cluster_sorted=True)`` of each package then
 serves the same index and rows, and every ported mode is compared with the
-JAX package's: exact ``auto``/``stream``, search
-``auto``/``stream``/``pallas``/``gather``, at f32 and at bf16 with the f32
-re-score. The rows lie on a 1/4 grid with |x| <= 4, so bf16 stores them
-exactly and bf16 selection can be held to the same ids (data whose
+JAX package's: exact ``auto``/``stream``/``pallas``/``binscan``/``binscan8``,
+search ``auto``/``stream``/``pallas``/``gather``/``binscan``/``binscan8``/
+``bincompact``/``bincompact8``, at f32 and at bf16 with the f32 re-score,
+and the layout in file order through K6. The rows lie on a 1/4 grid with
+|x| <= 4, so bf16 stores them exactly and bf16 selection can be held to the same ids (data whose
 neighbours lie closer than bf16's 2^-8 would select differently; that is
 what the re-score copy is for). Many distances tie there. The comparison is
 under the (distance, id) order, d² at rtol 1e-5 and atol 1e-5 * |q|^2; ids
@@ -14,6 +15,8 @@ tied with the k-th distance may differ, because the JAX stream kernels and
 gather path do not always keep the lower id at the boundary. Among
 themselves the port's modes must agree exactly.
 """
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -104,6 +107,18 @@ def test_search_matches_jax(searchers, jmode, tmode):
     assert_match(ts.search(q, K, NPROBE, tmode), js.search(q, K, NPROBE, jmode), q)
 
 
+@pytest.mark.parametrize(
+    "call,mode",
+    [("exact", "pallas"), ("exact", "binscan"), ("exact", "binscan8"),
+     ("search", "binscan"), ("search", "binscan8"), ("search", "bincompact"),
+     ("search", "bincompact8")],
+)
+def test_slice2_modes_match_jax(searchers, call, mode):
+    js, ts, q = searchers
+    args = (q, K) if call == "exact" else (q, K, NPROBE)
+    assert_match(getattr(ts, call)(*args, mode), getattr(js, call)(*args, mode), q)
+
+
 def test_port_modes_agree_exactly(searchers):
     _, ts, q = searchers
     ref = ts.exact(q, K, "xla")
@@ -127,16 +142,19 @@ def test_more_k_than_candidates(searchers):
     assert np.isinf(got_d.numpy()[got_i.numpy() < 0]).all()
 
 
-@pytest.mark.parametrize("mode", ["approx", "masked", "binscan", "cert"])
+@pytest.mark.parametrize("mode", ["approx", "masked", "compact", "cert"])
 def test_unported_modes_raise(searchers, mode):
     _, ts, q = searchers
     with pytest.raises(pqvector_tpu_torch.ValidationError, match="not ported"):
         ts.search(q, K, NPROBE, mode)
     with pytest.raises(pqvector_tpu_torch.ValidationError):
-        ts.exact(q, K, mode if mode != "masked" else "pallas")
+        ts.exact(q, K, mode)
 
 
 def test_auto_routes_unsorted_layout_to_gather(indexed):
+    """On a layout in file order ``auto`` takes K6 (``pallas``) or
+    ``gather`` by the rule measured on the card, and ``gather`` for k > 128;
+    ``pallas`` there runs K6 and agrees with the JAX searcher's."""
     path, x, q = indexed
     index, _ = t_read_index(path)
     ts = DeviceIvfSearcher(index, x, row_tile=TILE)
@@ -145,8 +163,36 @@ def test_auto_routes_unsorted_layout_to_gather(indexed):
     # Ties order on resident row ids, which the sorted layout renumbers, so
     # ids tied with the k-th distance may differ between the two layouts.
     assert_match(ts.search(q, K, NPROBE), sorted_ts.search(q, K, NPROBE), q)
-    with pytest.raises(pqvector_tpu_torch.ValidationError, match="K6"):
-        ts.search(q, K, NPROBE, "pallas")
+    picked = ts._unsorted_auto(q.shape[0], NPROBE)
+    assert picked in ("pallas", "gather")
+    got = ts.search(q, K, NPROBE)
+    want = ts.search(q, K, NPROBE, picked)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    got = ts.search(q, 300, NPROBE)
+    want = ts.search(q, 300, NPROBE, "gather")
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    js = JSearcher(j_read_index(path)[0], x, row_tile=TILE)
+    assert_match(ts.search(q, K, NPROBE, "pallas"), js.search(q, K, NPROBE, "pallas"), q)
+
+
+@pytest.mark.parametrize(
+    "n_pad,d,lmax,nprobe,batch,want",
+    [
+        # K6 against gather on the H100 (PERF.md): the bench's 1M x 128
+        # IVF-1024 file at nprobe 8, where K6 won at every batch size ...
+        (1_003_520, 128, 4039, 8, 1, "pallas"),
+        (1_003_520, 128, 4039, 8, 64, "pallas"),
+        (1_003_520, 128, 4039, 8, 256, "pallas"),
+        # ... and the 10M x 96 IVF-4096 rung at nprobe 4, where gather won
+        # 4x at B = 256 and K6 at B = 1.
+        (10_002_432, 96, 9948, 4, 1, "pallas"),
+        (10_002_432, 96, 9948, 4, 256, "gather"),
+    ],
+)
+def test_unsorted_auto_follows_the_card_measurements(n_pad, d, lmax, nprobe, batch, want):
+    layout = SimpleNamespace(emb=torch.empty((n_pad, 0)), dim=d,
+                             clusters=torch.empty((1, lmax)))
+    assert DeviceIvfSearcher._unsorted_auto(layout, batch, nprobe) == want
 
 
 def test_cosine_metric_end_to_end(tmp_path):
