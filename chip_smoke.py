@@ -10,13 +10,18 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    (``csrc/*.cu``, compiled at first use) and time the build.
 2. Each kernel (K1 assign, K2 stream exact, K3 stream masked, K4 masked
    local, K5 exact per-tile, K6 masked per-tile, K7 binned scan, K8 binned
-   scan over selected tiles) against its plain torch version on the card:
-   small awkward shapes (ties, pad rows, fewer rows than k, k = 1 and 128,
-   k near the bin count, f32, bf16 and int8, expand 1/2/4, fewer selected
-   slots than tiles) must agree exactly; at the main path's shapes the ids
-   must agree except where the two picks tie within the f32 tolerance (the
-   int8 key tables exactly), and both are timed with CUDA events (median
-   of 10).
+   scan over selected tiles, K9 tile min, K10 tile gather, K11 tile gather
+   by bulk copies) against its plain torch version on the card: small
+   awkward shapes (ties, pad rows, fewer rows than k, k = 1 and 128, k near
+   the bin count, f32, bf16 and int8, expand 1/2/4, fewer selected slots
+   than tiles, tiles of 2 to 512 rows, all-pad tiles, repeated and
+   unordered selections) must agree exactly; at the main path's shapes the
+   ids must agree except where the two picks tie within the f32 tolerance
+   (the int8 key tables exactly, K9 within the certificate's envelope, the
+   gathers bit for bit), and both are timed with CUDA events (median of
+   10), beside one PyTorch call or two-call chain that computes the same
+   function where there is one, and the bound: the least time the card
+   could take for the call's bytes and operations.
 3. The main path at the bench's default configuration: a seeded 1M x 128
    Parquet file, ``IndexBuilder(...).n_clusters(1024).build_inplace()`` on
    the card, exact truth from K2 on an f32 searcher, and an nprobe sweep of
@@ -35,9 +40,21 @@ package. Phases, in order; any failure exits non-zero and prints no result:
 6. The DEEP-shaped rung: 10M x 96 rows (1024 modes, seed 77) generated in
    memory, IVF-4096 built on the card (K1), f32 truth from K2 for the first
    256 queries of the seed-7 draw, then ``bincompact`` (calibrated, sorted
-   bf16 layout) and ``binscan`` (file-order bf16 layout) at B = 256 and
-   4096: recall, QPS and coverage; K6 against ``gather`` at B = 1, 16 and
-   256 for the ``auto`` route.
+   bf16 layout) and ``binscan`` (file-order bf16 layout) at B = 256:
+   recall, QPS and coverage; K6 against ``gather`` at B = 1, 16 and 256 for
+   the ``auto`` route.
+7. Slice 3's path on the 1M file (f32 truth searcher and sorted bf16
+   searcher with its f32 copy): ``exact(mode="cert")`` through K9 for pass 1
+   ``highest`` and ``storage`` must equal the K2 truth (ids tied at equal
+   distance may swap), certified or through the K2 fallback, which one run
+   with ``cert_fetch_tiles = 1`` forces; ``search`` modes ``compact`` (K10),
+   ``scan``, ``approx`` and ``masked``: recall against the limits, ms per
+   batch and QPS through ``search_loop``/``exact_loop``; a torch.profiler
+   breakdown of ``cert`` and ``compact``. 7b, inside phase 6 on the 10M
+   rung's sorted searcher: ``compact`` at nprobe 4 (cap, coverage, recall,
+   ms), K10 and K11 on that selection (bit-equal to the plain gather and to
+   each other, timed beside ``index_select``), and ``cert`` equal to the K2
+   truth.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -75,7 +92,14 @@ KERNELS = {
            "pqvector_tpu/kernels/binscan.py:242"),
     "K8": ("binned_scan_select", "pqvector_tpu_torch/csrc/binscan.cu",
            "pqvector_tpu/kernels/binscan.py:402"),
+    "K9": ("tile_min", "pqvector_tpu_torch/csrc/tilemin.cu",
+           "pqvector_tpu/kernels/tilemin.py:90"),
+    "K10": ("tile_gather", "pqvector_tpu_torch/csrc/compact.cu",
+            "pqvector_tpu/kernels/compact.py:133"),
+    "K11": ("tile_gather_dma", "pqvector_tpu_torch/csrc/compact.cu",
+            "pqvector_tpu/kernels/compact.py:76"),
 }
+_BUILD = None  # pqvector_tpu_torch.kernels._build, once main has imported it
 DEEP_ROWS, DEEP_DIM, DEEP_CLUSTERS = 10_000_000, 96, 4096
 DEVICE = "cuda"
 
@@ -335,6 +359,21 @@ def compare_tables(got, want, q64, x_sq, code_bits):
     return compare_keys(got, want, tol, code_bits)
 
 
+def binned_library_ms(torch, q, emb, bins):
+    """The two-call chain a user would write for a binned minimum: a bf16
+    product, then ``scatter_reduce(amin)`` of its columns into ``bins``
+    (row r -> bin r % bins); values only, no norms and no packed keys."""
+    q2 = (-2.0 * q).to(emb.dtype)
+    idx = (torch.arange(emb.shape[0], device=q.device) % bins)[None, :].expand(
+        q.shape[0], -1).contiguous()
+
+    def chain():
+        table = torch.full((q.shape[0], bins), torch.inf, dtype=emb.dtype, device=q.device)
+        return table.scatter_reduce_(1, idx, q2 @ emb.T, "amin")
+
+    return time_ms(chain)
+
+
 def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16, q,
                    q16, tile, results):
     """K6, K7 and K8 at the main path's shapes against their plain versions,
@@ -360,6 +399,9 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
     log(f"phase 2b K6 bf16 file order, nprobe={nprobe_2b}: {swaps} near-tie swaps "
         f"after the merge, max err {err:.3g}; kernel {results['K6']['ms']:.3f} ms, "
         f"plain {results['K6']['plain_ms']:.3f} ms")
+    n_pad = fo16.emb.shape[0]
+    results["K6"].update(bound_of(nbytes_of(*m_args[:5]) + (n_pad // tile) * BATCH * K * 8,
+                                  2.0 * BATCH * n_pad * DIM, "bf16"), library_ms=None)
     del xf
 
     q64 = q.double().cpu().numpy()
@@ -380,6 +422,14 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
         f"{swaps} of {e7 * t7 * BATCH} bins hold another near-tied row, max value err "
         f"{err:.3g}; kernel {results['K7']['ms']:.3f} ms, plain "
         f"{results['K7']['plain_ms']:.3f} ms")
+    results["K7"].update(
+        bound_of(nbytes_of(q, fo16.emb, fo16._pallas_emb_sq()) + e7 * t7 * BATCH * 4,
+                 2.0 * BATCH * n_pad * DIM, "bf16"),
+        library_ms=binned_library_ms(torch, q, fo16.emb, e7 * t7))
+    log(f"phase 2b K6/K7: bound {results['K6']['bound_ms']:.3f} / "
+        f"{results['K7']['bound_ms']:.3f} ms ({results['K6']['bound_by']} / "
+        f"{results['K7']['bound_by']}); mm + scatter_reduce(amin) "
+        f"{results['K7']['library_ms']:.3f} ms")
     e8, sc8 = fo16._xbin8_arrays()
     t8 = fo16._binscan_tile(esize=1)
     i8_args = (q, e8, fo16._pallas_emb_sq(), t8, fo16._binscan_expand(t8, esize=1), sc8)
@@ -414,6 +464,17 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
         f"{n_pad // ctile} tiles: {swaps} bins hold another near-tied row, max value "
         f"err {err:.3g}; kernel {results['K8']['ms']:.3f} ms, plain "
         f"{results['K8']['plain_ms']:.3f} ms")
+    rows8 = cap * ctile
+    gathered = s16.emb.view(-1, ctile, DIM)[sel.long()].reshape(rows8, DIM)
+    e_sel = s16._binscan_expand(ctile, cap=cap)
+    results["K8"].update(
+        bound_of(rows8 * (DIM * 2 + 4) + cap * 4 + nbytes_of(q)
+                 + e_sel * ctile * BATCH * 4, 2.0 * BATCH * rows8 * DIM, "bf16"),
+        library_ms=binned_library_ms(torch, q, gathered, e_sel * ctile))
+    log(f"phase 2b K8: bound {results['K8']['bound_ms']:.3f} ms "
+        f"({results['K8']['bound_by']}); mm + scatter_reduce(amin) over the gathered "
+        f"rows {results['K8']['library_ms']:.3f} ms")
+    del gathered
     e8, sc8 = s16._xbin8_arrays()
     i8_args = (q, e8, s16._pallas_emb_sq(), sel, ctile,
                s16._binscan_expand(ctile, cap=cap, esize=1), sc8)
@@ -564,7 +625,7 @@ def auto_route_table(s, q, nprobe, batches, reps, phase):
     return out
 
 
-def phase6(torch, pqt, _build, bench, Embeddings, dev):
+def phase6(torch, pqt, _build, bench, Embeddings, dev, cp, compact_select):
     """The DEEP-shaped rung: 10M x 96, IVF-4096, bincompact and binscan."""
     import gc
 
@@ -591,8 +652,8 @@ def phase6(torch, pqt, _build, bench, Embeddings, dev):
     q256 = q_dev[:256].contiguous()
     t0 = time.perf_counter()
     truth_s = pqt.DeviceIvfSearcher(index, emb, row_tile=ROW_TILE, device=dev)
-    _, tids = truth_s.exact(q256, K)
-    truth = tids.cpu().numpy()
+    truth_pair = truth_s.exact(q256, K)
+    truth = truth_pair[1].cpu().numpy()
     check(truth.shape == (256, K) and (truth >= 0).all(), "deep truth has empty slots")
     del truth_s
     gc.collect()
@@ -616,15 +677,10 @@ def phase6(torch, pqt, _build, bench, Embeddings, dev):
             break
     ms = time_ms(lambda: s.search(q256, K, res["nprobe"], "bincompact"), reps=5)
     res["qps_b256"] = 256 / (ms / 1000.0)
-    ctile, cap = s.calibrate_bincompact(q_all, res["nprobe"], K)
-    check(ctile > 0, "deep bincompact ineligible at B=4096")
-    res["coverage_b4096"] = cap / (s.emb.shape[0] // ctile)
-    ms4 = time_ms(lambda: s.search(q_dev, K, res["nprobe"], "bincompact"), reps=5)
-    res["qps_b4096"] = 4096 / (ms4 / 1000.0)
     out["bincompact"] = res
     log(f"phase 6 bincompact nprobe={res['nprobe']}: B=256 {ms:.2f} ms "
-        f"({res['qps_b256']:.0f} QPS), B=4096 {ms4:.2f} ms ({res['qps_b4096']:.0f} QPS, "
-        f"coverage {res['coverage_b4096']:.3f})")
+        f"({res['qps_b256']:.0f} QPS)")
+    out["slice3"] = phase7b(torch, bench, cp, compact_select, s, q256, truth_pair)
     del s
     gc.collect()
     torch.cuda.empty_cache()
@@ -635,16 +691,14 @@ def phase6(torch, pqt, _build, bench, Embeddings, dev):
     _, ids = s.search(q256, K, 1, "binscan")
     r = bench.recall_at_k(truth, ids.cpu().numpy())
     ms = time_ms(lambda: s.search(q256, K, 1, "binscan"), reps=5)
-    ms4 = time_ms(lambda: s.search(q_dev, K, 1, "binscan"), reps=5)
     out["binscan"] = {"recall_at_10": r, "tile": t7, "expand": s._binscan_expand(t7),
                       "provenance_bits": provenance_bits(s.emb.shape[0] // t7, t7),
-                      "qps_b256": 256 / (ms / 1000.0), "qps_b4096": 4096 / (ms4 / 1000.0)}
+                      "qps_b256": 256 / (ms / 1000.0)}
     log(f"phase 6 binscan (file order, tile={t7}, expand={out['binscan']['expand']}, "
         f"{out['binscan']['provenance_bits']} provenance bits): recall@{K} {r:.4f}; "
-        f"B=256 {ms:.2f} ms ({out['binscan']['qps_b256']:.0f} QPS), B=4096 {ms4:.2f} ms "
-        f"({out['binscan']['qps_b4096']:.0f} QPS)")
+        f"B=256 {ms:.2f} ms ({out['binscan']['qps_b256']:.0f} QPS)")
     out["launches"] = dict(_build.LAUNCHES)
-    for name in ("K1", "K2", "K7", "K8"):
+    for name in ("K1", "K2", "K7", "K8", "K9", "K10", "K11"):
         check(out["launches"][name] > 0, f"{name} was not launched on the deep rung")
     out["auto_file_order"] = auto_route_table(s, q_dev, out["bincompact"]["nprobe"],
                                               (1, 16, 256), 5, "phase 6")
@@ -653,6 +707,364 @@ def phase6(torch, pqt, _build, bench, Embeddings, dev):
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 6 launches {out['launches']}; {out['seconds']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# Bounds: the least time the card could take, from the H100's published peaks
+
+PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}  # operations / s
+PEAK_BYTES = 3.35e12  # bytes / s
+
+
+def bound_of(nbytes: float, ops: float, kind: str) -> dict:
+    """``bound_ms`` and ``bound_by`` for a call that must move ``nbytes``
+    (inputs read once, outputs written once) and do ``ops`` operations of
+    ``kind`` on the H100's published peaks."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# --------------------------------------------------------------------------
+# Slice 3: K9 tile min, K10 tile gather, K11 tile gather by bulk copies
+
+
+def phase2_small_slice3(torch, tm, cp):
+    """K9-K11 against their plain versions at small awkward shapes: exact.
+    K9's rows and queries lie on a 1/4 grid, so every product and sum is
+    exact in f32 and in bf16 and the order of the sums cannot show."""
+    dev = torch.device(DEVICE)
+    cases = 0
+    for tile in (2, 8, 64, 128, 512):
+        for d, b in ((3, 1), (40, 5), (96, 16), (128, 33)):
+            for dt in (torch.float32, torch.bfloat16):
+                for pad in (float("inf"), 3.0e38):
+                    n = 5 * tile + tile // 2 + 1  # a partly padded tile ...
+                    emb, sq, q = grid_rows(n, d, tile, seed=tile + d + b)
+                    emb = np.concatenate([emb, np.zeros((tile, d), np.float32)])
+                    sq = np.concatenate([sq, np.full(tile, 3.0e38, np.float32)])
+                    sq[sq > 1e38] = pad  # ... and one that is all pad rows
+                    E = torch.from_numpy(emb).to(dev).to(dt)
+                    S = torch.from_numpy(sq).to(dev)
+                    Q = torch.from_numpy(q[:b]).to(dev)
+                    got = tm.tile_min(Q, E, S, tile)
+                    want = tm.tile_min_plain(Q, E, S, tile)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want),
+                          f"K9 small tile={tile} d={d} B={b} {dt} pad={pad}: "
+                          f"max err {float((got - want).abs().nan_to_num(0).max())}")
+                    check(bool((got[:, -1] == pad).all()),
+                          "K9 small: the all-pad tile did not return its sentinel")
+                    cases += 1
+    log(f"phase 2a K9: {cases} cases (tile 2..512, d 3..128, B 1..33, f32/bf16, "
+        "+inf and +3e38 pads, an all-pad tile): max abs err 0 against the plain "
+        "version (grid data: every sum exact)")
+    cases = dma = 0
+    rng = np.random.default_rng(5)
+    for ctile, d in ((512, 96), (128, 3), (4, 96), (2, 3), (64, 128), (1, 5)):
+        nt = 37
+        for dt in (torch.float32, torch.bfloat16):
+            E = torch.from_numpy(rng.standard_normal((nt * ctile, d)).astype(np.float32))
+            E = E.to(dev).to(dt)
+            S = torch.from_numpy(rng.standard_normal(nt * ctile).astype(np.float32)).to(dev)
+            sels = (
+                np.array([nt - 1]),  # cap = 1
+                np.arange(nt),  # cap = nt
+                rng.permutation(nt)[:11],  # out of order
+                np.array([3, 3, 0, 36, 3, 0]),  # repeats
+            )
+            for sel_np in sels:
+                sel = torch.from_numpy(sel_np.astype(np.int32)).to(dev)
+                want = cp.tile_gather_plain(E, S, sel, ctile)
+                before = _BUILD.LAUNCHES["K11"]
+                for name, fn in (("K10", cp.tile_gather), ("K11", cp.tile_gather_dma)):
+                    got = fn(E, S, sel, ctile)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                          f"{name} small ctile={ctile} d={d} {dt} cap={sel.numel()}: "
+                          "differs from plain")
+                    cases += 1
+                took = _BUILD.LAUNCHES["K11"] - before
+                check(took == int(cp.dma_eligible(E, S, ctile)),
+                      f"K11 small ctile={ctile} d={d}: launch rule broken")
+                dma += took
+    log(f"phase 2a K10/K11: {cases} cases (cap 1 and nt, repeats, out of order, "
+        f"d 3..128, ctile 1..512, f32/bf16): bit-equal; {dma} went through K11's "
+        "bulk copies, the rest (tiles of no multiple of 16 bytes) through K10")
+
+
+def tile_min_envelope(q, emb_sq, d):
+    """The certificate's own slack: max(d, 128) 2^-21 (|q|^2 + max |x|^2)."""
+    fin = emb_sq[emb_sq < 1e38]  # neither +inf nor the +3e38 sentinel
+    return float(max(d, 128) * 2.0**-21 * ((q * q).sum(1).max() + fin.max()))
+
+
+def phase2b_slice3(torch, tm, cp, compact_select, s32, s16, q, results):
+    """K9 on the 1M x 128 f32 and bf16 arrays and K10/K11 at ``compact``'s
+    shapes, against the plain versions and one library chain, timed."""
+    n_pad, d = s32.emb.shape
+    b = q.shape[0]
+    tile = 128
+    for name, s, kind in (("f32", s32, "fp32"), ("bf16", s16, "bf16")):
+        args = (q, s.emb, s.emb_sq, tile)
+        got, want = tm.tile_min(*args), tm.tile_min_plain(*args)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        check(torch.equal(fin, torch.isfinite(got)), f"K9 {name}: pad tiles differ")
+        err = float((got - want)[fin].abs().max())
+        tol = tile_min_envelope(q, s.emb_sq, d)
+        check(err <= tol, f"K9 {name}: max err {err} over the envelope {tol}")
+        q2 = (-2.0 * q).to(s.emb.dtype)
+        e3 = s.emb.view(n_pad // tile, tile, d)
+        sq3 = s.emb_sq.view(1, n_pad // tile, tile)
+
+        def library(q2=q2, e3=e3, sq3=sq3):
+            return (torch.einsum("bd,gtd->bgt", q2, e3) + sq3).amin(dim=2)
+
+        res = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: tm.tile_min(*args)),
+            "plain_ms": time_ms(lambda: tm.tile_min_plain(*args)),
+            "library_ms": time_ms(library),
+        }
+        res.update(bound_of(nbytes_of(q, s.emb, s.emb_sq) + b * (n_pad // tile) * 4,
+                            2.0 * b * n_pad * d, kind))
+        log(f"phase 2b K9 {name} 1M x {d}, B={b}, tile={tile}: max err {err:.3g} "
+            f"(envelope {tol:.3g}); kernel {res['ms']:.3f} ms, plain "
+            f"{res['plain_ms']:.3f} ms, einsum + amin {res['library_ms']:.3f} ms, "
+            f"bound {res['bound_ms']:.3f} ms ({res['bound_by']})")
+        if name == "f32":
+            results["K9"] = res
+        else:
+            results["K9"].update({f"bf16_{key}": v for key, v in res.items()})
+
+    nprobe = 8
+    ctile, cap, _ = s16._compact_params(b, nprobe, K)
+    tlo, thi, span = s16._compact_tile_ranges(ctile)
+    sel = compact_select(q, s16.centroids, s16.c_sq, s16.row_cluster, nprobe,
+                         s16._compact_probe_bucket(nprobe), ctile, cap, tlo, thi, span,
+                         int(s16.emb.shape[0]))
+    gather_check(torch, cp, s16.emb, s16.emb_sq, sel, ctile, results,
+                 f"phase 2b 1M x {d} bf16, nprobe={nprobe}")
+
+
+def gather_check(torch, cp, emb, emb_sq, sel, ctile, results, what):
+    """K10 and K11 on one selection: bit-equal to the plain version and to
+    each other, timed beside ``index_select``."""
+    want = cp.tile_gather_plain(emb, emb_sq, sel, ctile)
+    check(cp.dma_eligible(emb, emb_sq, ctile), f"{what}: K11 does not take this shape")
+    nt = emb.shape[0] // ctile
+    e3, s3, idx = emb.view(nt, -1), emb_sq.view(nt, ctile), sel.long()
+
+    def library():
+        return e3.index_select(0, idx), s3.index_select(0, idx)
+
+    moved = 2.0 * (nbytes_of(want[0], want[1])) + sel.numel() * 4
+    for name, fn in (("K10", cp.tile_gather), ("K11", cp.tile_gather_dma)):
+        before = _BUILD.LAUNCHES[name]
+        got = fn(emb, emb_sq, sel, ctile)
+        torch.cuda.synchronize()
+        check(_BUILD.LAUNCHES[name] == before + 1, f"{what}: {name} was not launched")
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{what}: {name} differs from the plain gather")
+        res = {
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: fn(emb, emb_sq, sel, ctile)),
+            "plain_ms": time_ms(lambda: cp.tile_gather_plain(emb, emb_sq, sel, ctile)),
+            "library_ms": time_ms(library),
+        }
+        res.update(bound_of(moved, 0.0, "fp32"))
+        res["path_launches"] = 1  # the checked call above; the timed ones do not count
+        results[name] = res
+        log(f"{what} {name}: cap={sel.numel()} of {nt} tiles of {ctile} rows, "
+            f"{moved / 2e6:.1f} MB copied, bit-equal; kernel {res['ms']:.3f} ms "
+            f"({moved / res['ms'] / 1e9:.2f} TB/s read + write), plain "
+            f"{res['plain_ms']:.3f} ms, index_select {res['library_ms']:.3f} ms, "
+            f"bound {res['bound_ms']:.3f} ms")
+
+
+def ids_equal_or_tied(got, want, what):
+    """Two exact results: distances equal to 1e-5 relative, and ids equal
+    except where two rows tie at that distance. -> swapped ids."""
+    gd, wd = got[0].double().cpu().numpy(), want[0].double().cpu().numpy()
+    gi, wi = got[1].cpu().numpy(), want[1].cpu().numpy()
+    check(np.allclose(gd, wd, rtol=1e-5, atol=1e-6), f"{what}: distances differ")
+    rows, cols = np.nonzero(gi != wi)
+    for r, c in zip(rows, cols):
+        check(gi[r, c] in wi[r] or np.isclose(gd[r, c], wd[r, c], rtol=1e-6),
+              f"{what}: query {r} slot {c}: ids {gi[r, c]} vs {wi[r, c]} are no tie")
+    return int(rows.size)
+
+
+def profile_modes(torch, calls, reps=10):
+    """torch.profiler over ``reps`` batches of each call -> {name: {wall_ms,
+    device_ms, idle_share, top}}: device_ms sums the kernels' own time per
+    batch, idle = 1 - device / wall, top the three largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [(e.key, getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0)) / 1e3 / reps)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels.sort(key=lambda kv: -kv[1])
+        dev_ms = sum(ms for _, ms in kernels)
+        out[name] = {"wall_ms": wall, "device_ms": dev_ms,
+                     "idle_share": 1.0 - dev_ms / wall if dev_ms else None,
+                     "top": [(key[:60], round(ms, 3)) for key, ms in kernels[:3]]}
+        log(f"profile {name}: wall {wall:.3f} ms/batch, kernels {dev_ms:.3f} ms, idle "
+            f"{out[name]['idle_share']}, top {out[name]['top']}")
+    return out
+
+
+def phase7(torch, bench, truth_s, sorted16, q, truth, nprobe, card):
+    """Slice 3 on the 1M file: ``cert`` on the f32 truth searcher and on the
+    sorted bf16 searcher (f32 copy), the forced fallback, and the ``compact``,
+    ``scan``, ``approx`` and ``masked`` searches, through the loops."""
+    out = {}
+    _BUILD.reset_launches()
+    runs = ((truth_s, "highest", "f32"), (sorted16, "highest", "bf16+f32 copy"),
+            (sorted16, "storage", "bf16+f32 copy"))
+    for s, p1, what in runs:
+        s.cert_pass1 = p1
+        frac, margins = s.cert_probe(q, K)
+        k9, k2 = _BUILD.LAUNCHES["K9"], _BUILD.LAUNCHES["K2"]
+        got = s.exact(q, K, "cert")
+        check(_BUILD.LAUNCHES["K9"] == k9 + 1, "exact(cert) did not take K9")
+        fell = _BUILD.LAUNCHES["K2"] - k2
+        check(fell == int(frac < 1.0), f"cert {what} {p1}: certified {frac} but "
+              f"{fell} fallback runs")
+        swaps = ids_equal_or_tied(got, truth, f"cert {what} pass1={p1}")
+        also = s.search(q, K, 1, "cert")
+        check(torch.equal(also[1], got[1]), "search(cert) and exact(cert) differ")
+        ms = time_ms(lambda: s.exact_loop(q, K, reps=10, mode="cert"), reps=3) / 10
+        out[f"cert_{what.split('+')[0]}_{p1}"] = {
+            "certified": frac, "fallback": bool(fell), "swaps": swaps, "ms": ms,
+            "qps": BATCH / (ms / 1e3), "min_margin": float(np.nanmin(margins))}
+        log(f"phase 7 exact(cert) {what}, pass1={p1}, tile={s._cert_tile_checked(K)}: "
+            f"certified {frac:.4f} (least margin {np.nanmin(margins):.4g}), "
+            f"{'K2 fallback ran' if fell else 'no fallback'}; equal to the K2 truth "
+            f"({swaps} tied ids swapped); {ms:.3f} ms/batch, {BATCH / (ms / 1e3):.0f} QPS")
+        s.cert_pass1 = "highest"
+    truth_s.cert_fetch_tiles = 1
+    frac, _ = truth_s.cert_probe(q, K)
+    k2 = _BUILD.LAUNCHES["K2"]
+    got = truth_s.exact(q, K, "cert")
+    check(_BUILD.LAUNCHES["K2"] == k2 + 1, "cert with one fetched tile did not fall back")
+    swaps = ids_equal_or_tied(got, truth, "cert forced fallback")
+    truth_s.cert_fetch_tiles = 0
+    out["cert_forced_fallback"] = {"certified": frac, "swaps": swaps}
+    log(f"phase 7 exact(cert) with cert_fetch_tiles=1: certified {frac:.4f}, fell back "
+        "to K2, equal to the truth")
+    ms2 = time_ms(lambda: truth_s.exact_loop(q, K, reps=10, mode="stream"), reps=3) / 10
+    out["exact_stream_ms"] = ms2
+    log(f"phase 7 exact(stream) K2, f32, same loop: {ms2:.3f} ms/batch")
+
+    truth_np = truth[1].cpu().numpy()
+    for s, what in ((truth_s, "f32"), (sorted16, "bf16")):
+        ref = s.search(q, K, nprobe, "pallas")
+        r_ref = bench.recall_at_k(truth_np, ref[1].cpu().numpy())
+        for mode in ("compact", "scan", "approx", "masked"):
+            k10 = _BUILD.LAUNCHES["K10"]
+            got = s.search(q, K, nprobe, mode)
+            if mode == "compact":
+                check(_BUILD.LAUNCHES["K10"] == k10 + 1, "search(compact) did not take K10")
+            r = bench.recall_at_k(truth_np, got[1].cpu().numpy())
+            same = int((got[1] == ref[1]).sum())
+            reps = 3 if mode == "masked" else 10
+            ms = time_ms(lambda: s.search_loop(q, K, nprobe, reps=reps, mode=mode),
+                         reps=2) / reps
+            out[f"{mode}_{what}"] = {"recall_at_10": r, "ms": ms,
+                                     "qps": BATCH / (ms / 1e3)}
+            log(f"phase 7 search({mode}) {what} nprobe={nprobe}: recall@{K} {r:.4f} "
+                f"(pallas {r_ref:.4f}), {same} of {got[1].numel()} ids equal to "
+                f"pallas's; {ms:.3f} ms/batch, {BATCH / (ms / 1e3):.0f} QPS")
+            if mode == "scan":
+                check(r >= RECALL_TARGET, f"scan recall {r:.4f} < {RECALL_TARGET}")
+            elif mode == "masked" and what == "f32":
+                ids_equal_or_tied(got, ref, "masked vs pallas, f32")
+            else:
+                check(r >= r_ref - 0.002, f"{mode} {what} recall {r:.4f} under "
+                      f"pallas's {r_ref:.4f}")
+    ctile, cap, chunk = sorted16._compact_params(BATCH, nprobe, K)
+    out["compact_params"] = {"ctile": ctile, "cap": cap, "chunk": chunk,
+                             "coverage": sorted16.compact_coverage(BATCH, nprobe, K)}
+    log(f"phase 7 compact at B={BATCH} x nprobe={nprobe}: ctile={ctile}, cap={cap}, "
+        f"coverage {out['compact_params']['coverage']:.3f}")
+    out["launches"] = dict(_BUILD.LAUNCHES)
+    for name in ("K2", "K9", "K10"):
+        check(out["launches"][name] > 0, f"{name} was not launched on slice 3's path")
+    log(f"phase 7 launches on slice 3's path: {out['launches']}")
+    out["profile"] = profile_modes(torch, (
+        ("exact(cert) f32", lambda: truth_s.exact(q, K, "cert")),
+        ("search(compact) bf16", lambda: sorted16.search(q, K, nprobe, "compact")),
+    ))
+    log(f"phase 7 on {card}")
+    return out
+
+
+def phase7b(torch, bench, cp, compact_select, s, q256, truth):
+    """Slice 3 on the 10M x 96 rung: ``compact`` at nprobe 4 on the sorted
+    bf16 searcher (K10 and K11 on its selection), and ``cert`` against the
+    K2 truth."""
+    out = {}
+    truth_ids = truth[1].cpu().numpy()
+    nprobe = 4
+    ctile, cap, chunk = s._compact_params(256, nprobe, K)
+    nt = s.emb.shape[0] // ctile
+    k10 = _BUILD.LAUNCHES["K10"]
+    _, ids = s.search(q256, K, nprobe, "compact")
+    check(_BUILD.LAUNCHES["K10"] == k10 + 1, "deep search(compact) did not take K10")
+    r = bench.recall_at_k(truth_ids, ids.cpu().numpy())
+    ms = time_ms(lambda: s.search_loop(q256, K, nprobe, reps=5, mode="compact"),
+                 reps=2) / 5
+    out["compact"] = {"nprobe": nprobe, "ctile": ctile, "cap": cap, "chunk": chunk,
+                      "coverage": cap / nt, "recall_at_10": r, "ms": ms,
+                      "qps": 256 / (ms / 1e3)}
+    log(f"phase 7b compact nprobe={nprobe}: ctile={ctile}, cap={cap} of {nt} tiles "
+        f"(coverage {cap / nt:.3f}), recall@{K} {r:.4f}, {ms:.2f} ms/batch, "
+        f"{256 / (ms / 1e3):.0f} QPS")
+    tlo, thi, span = s._compact_tile_ranges(ctile)
+    sel = compact_select(q256, s.centroids, s.c_sq, s.row_cluster, nprobe,
+                         s._compact_probe_bucket(nprobe), ctile, cap, tlo, thi, span,
+                         int(s.emb.shape[0]))
+    deep = {}
+    gather_check(torch, cp, s.emb, s.emb_sq, sel, ctile, deep,
+                 f"phase 7b 10M x {DEEP_DIM} bf16, nprobe={nprobe}")
+    out["gather"] = deep
+    for p1 in ("highest", "storage"):
+        s.cert_pass1 = p1
+        frac, margins = s.cert_probe(q256, K)
+        k9, k2 = _BUILD.LAUNCHES["K9"], _BUILD.LAUNCHES["K2"]
+        got = s.exact(q256, K, "cert")
+        check(_BUILD.LAUNCHES["K9"] == k9 + 1, "deep exact(cert) did not take K9")
+        fell = _BUILD.LAUNCHES["K2"] - k2
+        diff = ids_equal_or_tied(got, truth, f"deep cert pass1={p1}")
+        ms = time_ms(lambda: s.exact(q256, K, "cert"), reps=3)
+        out[f"cert_{p1}"] = {"certified": frac, "fallback": bool(fell),
+                             "swaps": diff, "ms": ms}
+        log(f"phase 7b exact(cert) sorted bf16 + f32 copy, pass1={p1}: certified "
+            f"{frac:.4f}, {'K2 fallback ran' if fell else 'no fallback'}; equal to the "
+            f"K2 truth ({diff} tied ids swapped); {ms:.2f} ms/batch")
+    s.cert_pass1 = "highest"
     return out
 
 
@@ -669,6 +1081,9 @@ def main() -> None:
     except ImportError as exc:
         fail(f"the port is not importable here: {exc}")
     import bench  # numpy-only at import; its dataset and recall helpers
+
+    global _BUILD
+    _BUILD = _build
 
     # ---- phase 1 ---------------------------------------------------------
     check(torch.cuda.is_available(), "no CUDA device")
@@ -690,8 +1105,10 @@ def main() -> None:
     from pqvector_tpu_torch.io.reader import read_embedding_column
     from pqvector_tpu_torch.kernels import assign as ka
     from pqvector_tpu_torch.kernels import binscan as bs
+    from pqvector_tpu_torch.kernels import compact as cp
     from pqvector_tpu_torch.kernels import scan_topk as sc
     from pqvector_tpu_torch.kernels import stream_topk as st
+    from pqvector_tpu_torch.kernels import tilemin as tm
     from pqvector_tpu_torch.query.device import _compact_select, _quantize_rows_i8
     from pqvector_tpu_torch.types import Embeddings
 
@@ -713,6 +1130,7 @@ def main() -> None:
     # ---- phase 2 ---------------------------------------------------------
     phase2_small(torch, st, sc, ka)
     phase2_small_slice2(torch, st, sc, bs, _quantize_rows_i8)
+    phase2_small_slice3(torch, tm, cp)
     results: dict[str, dict] = {}
     t0 = time.perf_counter()
     config = pqt.IvfBuildConfig(n_clusters=N_CLUSTERS)
@@ -740,7 +1158,15 @@ def main() -> None:
     }
     log(f"phase 2b K1 1M x 128, k=1024: {diff.size} near-tie rows differ; "
         f"kernel {results['K1']['ms']:.3f} ms, plain {results['K1']['plain_ms']:.3f} ms")
-    del xt, got, want
+    cn32 = (ct * ct).sum(1)
+    results["K1"].update(
+        bound_of(nbytes_of(xt, ct) + ROWS * 4, 2.0 * ROWS * N_CLUSTERS * DIM, "fp32"),
+        library_ms=time_ms(lambda: torch.argmin(cn32[None, :] - 2.0 * (xt @ ct.T), dim=1),
+                           reps=5),
+    )
+    log(f"phase 2b K1: bound {results['K1']['bound_ms']:.3f} ms "
+        f"({results['K1']['bound_by']}), mm + argmin {results['K1']['library_ms']:.3f} ms")
+    del xt, got, want, cn32
 
     s32 = pqt.DeviceIvfSearcher(index_a, emb_np, row_tile=ROW_TILE,
                                 cluster_sorted=True, device=dev)
@@ -774,6 +1200,18 @@ def main() -> None:
         f"swaps after the merge, max err {err:.3g}; kernel {results['K5']['ms']:.3f} ms, "
         f"plain {results['K5']['plain_ms']:.3f} ms")
     del x32
+    n_pad = s32.emb.shape[0]
+    sq_f = s32._pallas_emb_sq()
+    lib_topk = time_ms(lambda: torch.topk(sq_f[None, :] - 2.0 * (q @ s32.emb.T), K,
+                                          dim=1, largest=False))
+    scan_bytes = nbytes_of(q, s32.emb, sq_f)
+    results["K2"].update(bound_of(scan_bytes + BATCH * K * 8,
+                                  2.0 * BATCH * n_pad * DIM, "fp32"), library_ms=lib_topk)
+    results["K5"].update(bound_of(scan_bytes + (n_pad // tile) * BATCH * K * 8,
+                                  2.0 * BATCH * n_pad * DIM, "fp32"), library_ms=lib_topk)
+    log(f"phase 2b K2/K5: bound {results['K2']['bound_ms']:.3f} / "
+        f"{results['K5']['bound_ms']:.3f} ms ({results['K2']['bound_by']}), mm + topk "
+        f"{lib_topk:.3f} ms")
 
     nprobe_2b = 8
     lcl, tc, cmax = s16._tile_cluster_table(tile)
@@ -808,9 +1246,22 @@ def main() -> None:
     log(f"phase 2b K4 bf16 nprobe={nprobe_2b}, nt={lmask.shape[0]}, cmax={cmax}: "
         f"{swaps} near-tie swaps after the merge, max err {err:.3g}; kernel "
         f"{results['K4']['ms']:.3f} ms, plain {results['K4']['plain_ms']:.3f} ms")
+    # K3 and K4 score the tiles that some query of the batch probes
+    rows_act = int(sched[0]) * tile
+    act_bytes = rows_act * (DIM * 2 + 4 + 4) + nbytes_of(qf16)
+    results["K3"].update(bound_of(act_bytes + nbytes_of(mask, tc, sched) + BATCH * K * 8,
+                                  2.0 * BATCH * rows_act * DIM, "bf16"), library_ms=None)
+    results["K4"].update(
+        bound_of(act_bytes + nbytes_of(lmask) + lmask.shape[0] * BATCH * K * 8,
+                 2.0 * BATCH * rows_act * DIM, "bf16"), library_ms=None)
+    log(f"phase 2b K3/K4: {int(sched[0])} of {lmask.shape[0]} tiles active; bound "
+        f"{results['K3']['bound_ms']:.3f} / {results['K4']['bound_ms']:.3f} ms "
+        f"({results['K3']['bound_by']} / {results['K4']['bound_by']}); no one-call "
+        "library form")
     del g4, w4, lmask
     phase2b_slice2(torch, pqt, sc, st, bs, _compact_select, index_a, emb_np, s16, q,
                    q16, tile, results)
+    phase2b_slice3(torch, tm, cp, _compact_select, s32, s16, q, results)
     del s32, s16, x16
     torch.cuda.empty_cache()
 
@@ -892,22 +1343,28 @@ def main() -> None:
                    searcher, chosen, card)
     for name in ("K5", "K6", "K7", "K8"):
         launches[name] = main5["launches"][name]
+    main7 = phase7(torch, bench, truth_s, searcher, q, (truth_d, truth_ids), chosen,
+                   card)
+    for name in ("K9", "K10"):
+        launches[name] = main7["launches"][name]
     del truth_s, searcher
     torch.cuda.empty_cache()
-    main6 = phase6(torch, pqt, _build, bench, Embeddings, dev)
+    main6 = phase6(torch, pqt, _build, bench, Embeddings, dev, cp, _compact_select)
+    launches["K11"] = main6["slice3"]["gather"]["K11"]["path_launches"]
 
     kernels = []
     for name, (fn, source, replaces) in KERNELS.items():
         kernels.append({
             "name": f"{name} {fn}", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": results[name]["max_abs_err"],
-            "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
+            **{key: results[name][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     log("main path: " + json.dumps({"build_s": build_s, "nprobe": chosen,
                                     "recall_at_10": recall, "search_ms": search_ms,
                                     "qps": qps}))
     log("slice 2 path: " + json.dumps(main5))
+    log("slice 3 path: " + json.dumps(main7))
     log("deep rung: " + json.dumps(main6))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -22,6 +22,7 @@ from .index.ivf import IvfIndex
 from .index.metrics import normalize_rows
 from .io.embed import append_index_inplace, has_pq_vector_index
 from .io.reader import read_embedding_column
+from ._device import resolve_device
 from .types import EmbeddingColumn, Embeddings
 
 
@@ -32,11 +33,11 @@ class IndexBuilder:
         self,
         source: str | os.PathLike,
         embedding_column: str,
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,
     ):
         self._source = os.fspath(source)
         self._embedding_column = EmbeddingColumn(embedding_column)
-        self._device = torch.device(device)
+        self._device = resolve_device(device)
         self._n_clusters: int | None = None
         self._max_iters = 20
         self._seed = 42

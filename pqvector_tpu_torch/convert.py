@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .index.ivf import IvfIndex
 
 
@@ -35,7 +36,8 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def searcher_state_from_reference(
-    arrays: dict[str, np.ndarray | None], device: str | torch.device = "cpu"
+    arrays: dict[str, np.ndarray | None],
+    device: str | torch.device | None = None,
 ) -> dict[str, torch.Tensor | None]:
     """Tensors on ``device`` from a JAX searcher's arrays.
 
@@ -46,6 +48,7 @@ def searcher_state_from_reference(
     arrays, or to None where the JAX searcher holds none. Cluster ids that
     the JAX package ships as f32 (``local_cluster``, a Mosaic workaround)
     become int32; int8 codes stay int8."""
+    device = resolve_device(device)
     out: dict[str, torch.Tensor | None] = {}
     for name, a in arrays.items():
         if a is None:
@@ -56,3 +59,23 @@ def searcher_state_from_reference(
             t = t.to(torch.int32)
         out[name] = t
     return out
+
+
+#: Serving knobs that both packages' searchers carry under one name.
+SEARCHER_KNOBS = (
+    "approx_recall_target", "approx_score_dtype", "scan_overfetch",
+    "tilescan_tile", "cert_fetch_tiles", "cert_pass1", "cert_pass2",
+    "compact_slack",
+)
+
+
+def copy_searcher_knobs(reference, searcher) -> None:
+    """Set ``searcher``'s serving knobs (``SEARCHER_KNOBS``) to those of a
+    JAX searcher, so that both compute the same thing. ``reference`` is any
+    object with those attributes; its ``approx_score_dtype`` (a numpy-style
+    float32 or bfloat16 type) becomes the torch dtype of that name."""
+    for name in SEARCHER_KNOBS:
+        value = getattr(reference, name)
+        if name == "approx_score_dtype":
+            value = getattr(torch, np.dtype(value).name)
+        setattr(searcher, name, value)

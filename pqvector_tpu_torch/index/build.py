@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..errors import ValidationError
 from ..types import Embeddings
 from .ivf import IvfIndex
@@ -73,9 +74,10 @@ def resolve_transfer_dtype(config: IvfBuildConfig) -> str:
 def build_ivf_index(
     embeddings: Embeddings,
     config: IvfBuildConfig | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> IvfIndex:
     """Train and assign on ``device``; the result is deterministic per seed."""
+    device = resolve_device(device)
     config = config or IvfBuildConfig()
     n = embeddings.row_count
     if n == 0:

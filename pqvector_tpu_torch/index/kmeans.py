@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..errors import ValidationError
 from ..kernels.assign import assign_clusters, assign_rows
 
@@ -158,11 +159,11 @@ def _lloyd(
 def k_means(
     x: np.ndarray | torch.Tensor,
     params: KMeansParams,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Train k-means on ``device``; returns (centroids [k, d] f32,
     assignments [n] i32) as numpy arrays."""
-    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=resolve_device(device))
     n = x.shape[0]
     k = params.n_clusters
     if k <= 0:

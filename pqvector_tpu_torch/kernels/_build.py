@@ -31,11 +31,13 @@ NVCC_FLAGS = [
 
 #: Launches per kernel (K1 assign, K2 stream exact, K3 stream masked,
 #: K4 masked local, K5 exact per-tile, K6 masked per-tile, K7 binned scan,
-#: K8 binned scan over selected tiles) since the last ``reset_launches``.
-LAUNCHES: dict[str, int] = {f"K{i}": 0 for i in range(1, 9)}
+#: K8 binned scan over selected tiles, K9 tile min, K10 tile gather, K11 tile
+#: gather by bulk copies) since the last ``reset_launches``.
+LAUNCHES: dict[str, int] = {f"K{i}": 0 for i in range(1, 12)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "pqv_assign": [_P, _P, _P, _I, _I, _I, _P, _P],
     "pqv_stream_exact_topk": [_P, _P, _P] + [_I] * 7 + [_P] * 5,
@@ -45,6 +47,9 @@ _SIGNATURES = {
     "pqv_masked_topk": [_P] * 5 + [_I] * 7 + [_P] * 3,
     "pqv_binned_scan": [_P] * 6 + [_I] * 9 + [_P] * 2,
     "pqv_binned_scan_select": [_P] * 7 + [_I] * 9 + [_P] * 2,
+    "pqv_tile_min": [_P] * 3 + [_I] * 6 + [_P] * 2,
+    "pqv_tile_gather": [_P] * 5 + [_I, _L, _L, _I, _I, _P],
+    "pqv_tile_gather_dma": [_P] * 5 + [_I, _L, _L, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

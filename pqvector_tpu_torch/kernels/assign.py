@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from . import _build
 
 #: Rows per block of the plain version: bounds its [block, k] score matrix.
@@ -68,10 +69,11 @@ def assign_rows(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 def assign_clusters(
     x: np.ndarray | torch.Tensor,
     centroids: np.ndarray | torch.Tensor,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> np.ndarray:
     """Host-friendly form: any row count in, numpy ids out (the counterpart
     of ``assign_clusters_pallas``)."""
+    device = resolve_device(device)
     xt = torch.as_tensor(x, dtype=torch.float32, device=device)
     ct = torch.as_tensor(centroids, dtype=torch.float32, device=device)
     return assign_rows(xt, ct).cpu().numpy()

@@ -9,18 +9,34 @@ batches; every public call returns (sqrt distances [B, k], original row ids
 [B, k]) as tensors on the device, with id -1 and distance +inf in slots
 beyond the candidate count.
 
-Modes ported so far:
+Modes:
 
 * exact: ``stream`` (K2), ``pallas`` (K5), ``xla`` (the JAX package's XLA
   scan, here in plain torch), ``binscan`` (K7), ``binscan8`` (K7 on int8
-  codes) and ``auto``;
+  codes), ``cert`` (the certified-exact two-pass scan: K9 tile minima, the
+  best tiles gathered whole, a completeness certificate, and K2 as the
+  fallback), ``approx`` (a chunked full scan with over-fetch and f32
+  re-score) and ``auto``;
 * search: ``pallas`` (K4 on cluster-sorted layouts while its local mask
   fits, K6 otherwise), ``stream`` (K3), ``gather`` (the JAX package's fused
-  probe chain, in plain torch), the nprobe-free full scans ``binscan`` and
-  ``binscan8`` (K7), the probed-union scans ``bincompact`` and
+  probe chain, in plain torch), ``masked`` (its masked full scan, in plain
+  torch), ``approx`` (the masked scan with over-fetch extraction), the
+  nprobe-free full scans ``scan``, ``cert``, ``binscan`` and ``binscan8``
+  (K7), the probed-union modes ``compact`` (K10 gathers the active tiles,
+  then the over-fetch extraction runs over that block), ``bincompact`` and
   ``bincompact8`` (K8), and ``auto``.
 
-Every other mode of the JAX package raises ``ValidationError``.
+``exact_loop`` and ``search_loop`` repeat a call ``reps`` times. The JAX
+package's ``xbin``, ``xbin8``, ``tilescan`` and ``autoscan`` are not ported
+and raise ``ValidationError``.
+
+The JAX package extracts candidates in ``scan``, ``approx`` and ``compact``
+with ``lax.approx_min_k``, an XLA operation that runs on the TPU's
+PartialReduce hardware (and as an exact top-k on every other backend). The
+card has no such unit, so here the extraction is an exact top-k by (value,
+column): its selection recall is 1.0, which meets any ``recall_target``.
+The over-fetch rule, the chunk scaffold and the f32 re-score are the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -30,6 +46,7 @@ import os
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..errors import ValidationError
 from ..index.ivf import IvfIndex
 from ..io.embed import read_index_from_parquet, read_index_metric
@@ -51,16 +68,18 @@ from ..kernels.scan_topk import (
     masked_topk,
     select_lex,
 )
-from ..kernels.stream_topk import stream_exact_topk, stream_masked_topk
+from ..kernels.compact import tile_gather
+from ..kernels.stream_topk import _probe_mask, stream_exact_topk, stream_masked_topk
+from ..kernels.tilemin import tile_min
 
-#: Modes of the JAX package that this package does not run yet.
-_EXACT_NOT_PORTED = frozenset(
-    {"approx", "xbin", "xbin8", "tilescan", "cert", "autoscan"}
-)
-_SEARCH_NOT_PORTED = frozenset(
-    {"masked", "approx", "compact", "scan", "xbin", "xbin8", "tilescan",
-     "cert", "autoscan"}
-)
+#: Modes of the JAX package that this package does not run.
+_NOT_PORTED = frozenset({"xbin", "xbin8", "tilescan", "autoscan"})
+#: One-shot candidate-scoring budget of ``cert``: the [B, m, tile, d] gather
+#: of pass 2 stays one call while under this many bytes; beyond it the
+#: scoring walks the selected tiles with a running top-k merge.
+_CERT_FUSE_BUDGET = 2 << 30
+#: Cap on the [B, chunk] f32 score block of the over-fetch modes.
+_APPROX_BLOCK_CAP = 1 << 30
 #: The scan kernels' tile: the rows one block owns and the unit of the
 #: per-tile cluster tables. The kernels stream 64-row chunks through a
 #: fixed 41 KB of shared memory whatever the tile (csrc/common.cuh), so the
@@ -178,6 +197,301 @@ def _ivf_topk_impl(q, centroids, c_sq, clusters, emb, emb_sq, k: int, nprobe: in
     return _refine(q, emb if emb_ref is None else emb_ref, best_d, best_i, k)
 
 
+def select_cols(d: torch.Tensor, k: int):
+    """The ``k`` smallest entries of each row of ``d`` [B, n] in ascending
+    (value, column) order -> (values [B, k], columns [B, k] int32).
+
+    ``torch.topk`` gives the k-th value; what lies below it is in, and of
+    the entries equal to it the lowest columns fill the rest. So the result
+    is that of a stable sort of every row, at the cost of a few passes."""
+    b, n = d.shape
+    k = min(k, n)
+    thr = torch.topk(d, k, dim=1, largest=False).values[:, -1:]
+    below = d < thr
+    need = k - below.sum(dim=1, keepdim=True)
+    at = d == thr
+    take = below | (at & (at.cumsum(dim=1, dtype=torch.int32) <= need))
+    cols = take.nonzero()[:, 1].view(b, k)  # ascending within a row
+    vals = d.gather(1, cols)
+    order = torch.argsort(vals, dim=1, stable=True)
+    return vals.gather(1, order), cols.gather(1, order).to(torch.int32)
+
+
+def _topk_min_wide(keys: torch.Tensor, m: int, chunk: int = 65536):
+    """Ascending top-m of a value table, ties to the lower column, taken in
+    blocks of at most ``chunk`` columns and merged -> (values [B, m],
+    columns [B, m] int32). The blocks bound the selection's temporaries on
+    a wide table (78k tiles at 10M rows)."""
+    nt = keys.shape[1]
+    m = min(m, nt)
+    if nt <= chunk:
+        return select_cols(keys, m)
+    parts_v, parts_i = [], []
+    for s in range(0, nt, chunk):
+        v, i = select_cols(keys[:, s : s + chunk], m)
+        parts_v.append(v)
+        parts_i.append(i + s)
+    return select_lex(torch.cat(parts_v, dim=1), torch.cat(parts_i, dim=1), m)
+
+
+def _exact_cert_impl(
+    q, emb, emb_sq, k: int, tile: int, fallback, m_tiles: int = 0, emb_ref=None,
+    pass1_high: bool = False, pass1_storage: bool = False,
+    diagnostic: bool = False, pass2_form: str = "auto",
+):
+    """Certified-exact full scan: tile-min lower bounds (K9), whole-tile
+    refine, and a completeness certificate with an exact fallback.
+
+    1. Pass 1 folds every ``tile``-row group of ``|x|^2 - 2 q.x`` to its
+       minimum (K9), at reference precision (``emb_ref`` when held) or, with
+       ``pass1_storage``, over the storage array. Each value bounds every
+       row of its tile from below, up to arithmetic slack.
+    2. The m best tiles per query (m = ``m_tiles`` or max(2k, 16)) are
+       gathered whole, scored in direct-difference f32 and the winners
+       re-scored.
+    3. With T the (m+1)-th best tile minimum, no row of an unexamined tile
+       beats T by more than the slack E = c (|q|^2 + max|x|^2), c =
+       max(d, 128) 2^-21, plus 2^-13 for ``pass1_high`` and 2^-8 for a
+       reduced-precision pass 1. If every query's k-th distance is at most
+       T - E the result is the exact top-k. Otherwise ``fallback()`` runs
+       the whole batch through the exact path. The branch reads one flag on
+       the host (one synchronisation).
+
+    ``pass1_high`` asks the TPU for a cheaper f32 product. The card's pass 1
+    is IEEE fp32 FMA either way, at least as accurate as either setting, so
+    the envelope holds; the wider slack is kept so that both packages
+    certify the same queries. ``diagnostic`` returns (d2, ids, certified
+    [B], margin [B]) and never falls back."""
+    b, d = q.shape
+    ref = emb_ref if emb_ref is not None else emb
+    n_pad = ref.shape[0]
+    nt = n_pad // tile
+    m = min(m_tiles if m_tiles else max(2 * k, 16), nt)
+
+    p1_src = emb if pass1_storage else ref
+    binvals = tile_min(q, p1_src, emb_sq, tile, high=pass1_high)
+    qsq = (q * q).sum(dim=1)
+    vals, tidx = _topk_min_wide(binvals, m + 1 if m < nt else m)
+    if m < nt:
+        t_val = vals[:, m] + qsq  # the fold leaves out the rank-neutral |q|^2
+        tidx = tidx[:, :m]
+
+    kf = min(2 * k, m * tile) if emb_ref is not None else min(k, m * tile)
+    ref3 = ref.view(nt, tile, d)
+    sq3 = emb_sq.view(nt, tile)
+    offs = torch.arange(tile, dtype=torch.int32, device=q.device)
+
+    def tile_scores(tcol):  # [B, mm] tile ids -> rows, scores [B, mm * tile]
+        mm = tcol.shape[1]
+        cand = ref3[tcol.long()].float()  # [B, mm, tile, d], whole tiles
+        diff = cand - q[:, None, None, :]
+        part = (diff * diff).sum(dim=-1).reshape(b, mm * tile)
+        x2 = sq3[tcol.long()].reshape(b, mm * tile)
+        rows = (tcol[:, :, None] * tile + offs[None, None, :]).reshape(b, mm * tile)
+        # pad rows of a partly padded tile are zeros and would score |q|^2
+        return rows, torch.where(torch.isinf(x2), torch.inf, part)
+
+    fused = b * m * tile * (d + 1) * 4 <= _CERT_FUSE_BUDGET
+    if pass2_form != "auto":
+        fused = pass2_form == "fused"
+    if fused:
+        rows, part = tile_scores(tidx)
+        best_d, best_i = select_lex(part, rows, kf)
+    else:
+        best_d = torch.full((b, kf), torch.inf, device=q.device)
+        best_i = torch.full((b, kf), -1, dtype=torch.int32, device=q.device)
+        for j in range(m):
+            rows, part = tile_scores(tidx[:, j : j + 1])
+            best_d, best_i = select_lex(
+                torch.cat([best_d, part], dim=1), torch.cat([best_i, rows], dim=1), kf
+            )
+    if kf < k:  # k exceeds the candidate width (tiny arrays)
+        best_d = torch.cat(
+            [best_d, torch.full((b, k - kf), torch.inf, device=q.device)], dim=1
+        )
+        best_i = torch.cat(
+            [best_i, torch.full((b, k - kf), -1, dtype=torch.int32, device=q.device)],
+            dim=1,
+        )
+    d2, ids = _refine(q, ref, best_d, best_i, k)
+    if m >= nt:  # every tile examined: complete by construction
+        if diagnostic:
+            return (d2, ids, torch.ones(b, dtype=torch.bool, device=q.device),
+                    torch.full((b,), torch.inf, device=q.device))
+        return d2, ids
+
+    max_sq = torch.where(torch.isfinite(emb_sq), emb_sq, 0.0).max()
+    c_mm = max(d, 128) * 2.0**-21
+    if pass1_high:
+        c_mm += 2.0**-13
+    if p1_src.dtype != torch.float32:
+        c_mm += 2.0**-8  # covers |2 q.(x_f32 - x_stored)|
+    margin = (t_val - c_mm * (qsq + max_sq)) - d2[:, k - 1]
+    if diagnostic:
+        return d2, ids, margin >= 0, margin
+    if bool((margin >= 0).all()):
+        return d2, ids
+    return fallback()
+
+
+def _approx_min_k_clamped(partial: torch.Tensor, k: int, recall_target: float):
+    """The ``k`` smallest scores of each row and their columns, ascending by
+    (value, column); a ``k`` beyond the width pads with (+inf, 0).
+
+    The JAX package calls ``lax.approx_min_k`` here, whose ``recall_target``
+    is the expected share of the true minima it returns. This selection is
+    exact: its recall is 1.0, which meets every target, so the argument is
+    accepted and not used."""
+    del recall_target
+    b, width = partial.shape
+    vals, idx = select_cols(partial.float(), min(k, width))
+    if idx.shape[1] < k:
+        pad = k - idx.shape[1]
+        vals = torch.cat([vals, torch.full((b, pad), torch.inf, device=vals.device)], dim=1)
+        idx = torch.cat([idx, torch.zeros((b, pad), dtype=idx.dtype, device=idx.device)],
+                        dim=1)
+    return vals, idx
+
+
+def _approx_scan(q, emb, chunk_topk, operands, k: int, chunk: int, out_k=None):
+    """Chunked-scan scaffold of the over-fetch modes: ``chunk_topk(slices...,
+    base)`` runs on every ``chunk`` rows of the per-row ``operands`` (and on
+    the tail), the chunks' winners are merged by (score, id) and the best
+    ``k`` re-scored against ``emb``."""
+    n_pad = operands[0].shape[0]
+    if n_pad <= chunk:
+        best_d, best_i = chunk_topk(*operands, 0)
+        return _refine(q, emb, best_d, best_i, out_k)
+    parts_d, parts_i = [], []
+    for lo in range(0, n_pad, chunk):
+        cd, ci = chunk_topk(*(op[lo : lo + chunk] for op in operands), lo)
+        parts_d.append(cd)
+        parts_i.append(ci)
+    all_d = torch.cat(parts_d, dim=1)
+    best_d, best_i = select_lex(all_d, torch.cat(parts_i, dim=1), min(k, all_d.shape[1]))
+    return _refine(q, emb, best_d, best_i, out_k)
+
+
+def _fetch_width(k: int, overfetch: int) -> int:
+    """Candidates fetched per chunk: ``overfetch`` when set, else
+    max(4k, 64) for k <= 32 and 2k beyond."""
+    if overfetch:
+        return max(k, overfetch)
+    return max(4 * k, 64) if k <= 32 else 2 * k
+
+
+def _chunk_scores(qf, x, x2, score_dtype):
+    """``|x|^2 - 2 q.x`` of a chunk in ``score_dtype``. The product is a
+    plain matrix product outside any kernel, as in the JAX package: storage
+    operands widened to f32 (bf16 products are then exact), f32 sums."""
+    scores = (qf.float() @ x.float().T).to(score_dtype)
+    return (x2[None, :] - 2.0 * scores.float()).to(score_dtype)
+
+
+def _exact_approx_topk_impl(
+    q, emb, emb_sq, k: int, chunk: int, recall_target: float,
+    score_dtype=torch.float32, overfetch: int = 0, emb_ref=None,
+):
+    """Full scan with over-fetch extraction: every chunk yields its
+    ``_fetch_width`` best rows, the merged winners are re-scored in f32
+    and the best ``k`` returned. ``score_dtype=bfloat16`` rounds the
+    selection scores to bf16 (winners are still re-scored in f32)."""
+    qf = q.to(emb.dtype)
+    k_fetch = _fetch_width(k, overfetch)
+
+    def chunk_topk(x, x2, base):
+        partial = _chunk_scores(qf, x, x2, score_dtype)
+        vals, idx = _approx_min_k_clamped(partial, k_fetch, recall_target)
+        return vals, base + idx
+
+    return _approx_scan(
+        q, emb if emb_ref is None else emb_ref, chunk_topk, (emb, emb_sq),
+        k_fetch, chunk, out_k=k,
+    )
+
+
+def _ivf_approx_masked_impl(
+    q, centroids, c_sq, row_cluster, emb, emb_sq, nprobe: int, k: int,
+    max_probe: int, chunk: int, recall_target: float,
+    score_dtype=torch.float32, overfetch: int = 0, emb_ref=None,
+):
+    """Masked IVF scan with over-fetch extraction: ``_exact_approx_topk_impl``
+    with the rows of unprobed clusters set to +inf."""
+    qf = q.to(emb.dtype)
+    # [B, kc + 1]: the extra slot takes the pad rows' cluster id, never set
+    mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe,
+                       centroids.shape[0] + 1) > 0.5
+    k_fetch = _fetch_width(k, overfetch)
+
+    def chunk_topk(x, x2, cl, base):
+        partial = _chunk_scores(qf, x, x2, score_dtype)
+        partial = torch.where(mask[:, cl.long()], partial, torch.inf)
+        vals, idx = _approx_min_k_clamped(partial, k_fetch, recall_target)
+        return vals, base + idx
+
+    return _approx_scan(
+        q, emb if emb_ref is None else emb_ref, chunk_topk,
+        (emb, emb_sq, row_cluster), k_fetch, chunk, out_k=k,
+    )
+
+
+def _ivf_compact_approx_impl(
+    q, centroids, c_sq, row_cluster, emb, emb_sq, nprobe: int, k: int,
+    max_probe: int, ctile: int, cap_tiles: int, chunk: int, recall_target: float,
+    score_dtype=torch.float32, tile_lo=None, tile_hi=None,
+    max_cluster_tiles: int = 0, emb_ref=None,
+):
+    """IVF by probed-union tile compaction: select the batch's active tiles
+    (``_compact_select``), gather them into one block (K10), run the
+    over-fetch extraction over that block, map the local ids back through
+    ``sel`` and re-score against ``emb_ref`` when held. Candidates are the
+    union of the batch's probed clusters plus the rows sharing a tile with
+    them, capped at ``cap_tiles`` tiles (the least-probed are dropped)."""
+    sel = _compact_select(
+        q, centroids, c_sq, row_cluster, nprobe, max_probe, ctile, cap_tiles,
+        tile_lo, tile_hi, max_cluster_tiles, emb.shape[0],
+    )
+    emb_c, sq_c = tile_gather(emb, emb_sq, sel, ctile)
+    kf = k if emb_ref is None else 2 * k
+    d2, lids = _exact_approx_topk_impl(
+        q, emb_c, sq_c, kf, chunk=chunk, recall_target=recall_target,
+        score_dtype=score_dtype,
+    )
+    gids = sel[(lids // ctile).long()] * ctile + lids % ctile
+    ids = torch.where(lids >= 0, gids, -1)
+    if emb_ref is None:
+        return d2, ids
+    return _refine(q, emb_ref, d2, ids, k)
+
+
+def _ivf_masked_scan_impl(
+    q, centroids, c_sq, row_cluster, emb, emb_sq, nprobe: int, k: int,
+    max_probe: int, tile: int, emb_ref=None,
+):
+    """IVF top-k as a masked full scan in plain torch: every row tile is
+    scored once for the whole batch, rows of unprobed clusters are set to
+    +inf, and a running [B, kf] list is merged by (distance, id)."""
+    b = q.shape[0]
+    n_pad = emb.shape[0]
+    kf = k if emb_ref is None else min(2 * k, n_pad)
+    # [B, kc + 1]: the extra slot takes the pad rows' cluster id, never set
+    mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe,
+                       centroids.shape[0] + 1) > 0.5
+    qf = q.to(emb.dtype).float()
+    best_d = torch.full((b, kf), torch.inf, device=q.device)
+    best_i = torch.full((b, kf), -1, dtype=torch.int32, device=q.device)
+    for lo in range(0, n_pad, tile):
+        part = emb_sq[None, lo : lo + tile] - 2.0 * (qf @ emb[lo : lo + tile].float().T)
+        part = torch.where(mask[:, row_cluster[lo : lo + tile].long()], part, torch.inf)
+        ids = torch.arange(lo, lo + tile, dtype=torch.int32, device=q.device)
+        best_d, best_i = select_lex(
+            torch.cat([best_d, part], dim=1),
+            torch.cat([best_i, ids[None, :].expand(b, -1)], dim=1),
+            kf,
+        )
+    return _refine(q, emb if emb_ref is None else emb_ref, best_d, best_i, k)
+
+
 class DeviceIvfSearcher:
     """Device-resident searcher over one embedding matrix + its IVF index."""
 
@@ -194,7 +508,7 @@ class DeviceIvfSearcher:
         metric: str = "l2",
         cluster_sorted: bool = False,
         rescore_dtype="auto",
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,
     ):
         """``dtype``: storage, float32 or bfloat16. ``rescore_dtype``:
         "auto" keeps a full f32 copy beside bf16 storage, against which the
@@ -206,7 +520,7 @@ class DeviceIvfSearcher:
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValidationError(f"Unsupported storage dtype {dtype}")
         self.metric = metric
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         embeddings = np.asarray(embeddings, dtype=np.float32)
         if metric == "cosine":
             from ..index.metrics import normalize_rows
@@ -236,6 +550,26 @@ class DeviceIvfSearcher:
         self.n = n
         self.dim = d
         self.row_tile = row_tile
+        # Selection recall asked of the over-fetch modes ("scan", "approx",
+        # "compact"). The selection here is exact, so any target is met
+        # (see _approx_min_k_clamped); kept so both packages take one knob.
+        self.approx_recall_target = 0.99
+        # Their selection-score dtype: bfloat16 rounds the scores (winners
+        # are re-scored in f32 either way).
+        self.approx_score_dtype = torch.float32
+        # Their fetch width per chunk (0 = max(4k, 64) for k <= 32, else 2k).
+        self.scan_overfetch = 0
+        # mode="cert": rows per tile (0 = 128, shrunk while k exceeds the
+        # tile count), tiles gathered whole per query (0 = max(2k, 16)),
+        # pass-1 precision ("highest", "high": both IEEE fp32 on the card,
+        # "high" keeps the JAX package's wider slack; "storage": pass 1 over
+        # the bf16 storage, slack + 2^-8) and pass-2 form ("auto", "fused",
+        # "scan"). Results are exact for every setting; the knobs move how
+        # often the exact fallback runs.
+        self.tilescan_tile = 0
+        self.cert_fetch_tiles = 0
+        self.cert_pass1 = "highest"
+        self.cert_pass2 = "auto"
 
         n_pad = _round_up(n + 1, row_tile)  # +1 sentinel row
         emb = np.zeros((n_pad, d), dtype=np.float32)
@@ -290,7 +624,7 @@ class DeviceIvfSearcher:
         row_tile: int = 2048,
         rescore_dtype="auto",
         cluster_sorted: bool = False,
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,
     ) -> "DeviceIvfSearcher":
         """Resident searcher from an indexed Parquet file."""
         index, column = read_index_from_parquet(path)
@@ -613,6 +947,141 @@ class DeviceIvfSearcher:
         except ValueError as exc:
             raise ValidationError(str(exc)) from exc
 
+    # -- certified-exact scan (cert) ---------------------------------------
+
+    def _cert_pass1_mode(self) -> tuple[bool, bool]:
+        """The ``cert_pass1`` knob as (pass1_high, pass1_storage)."""
+        if self.cert_pass1 not in ("highest", "high", "storage"):
+            raise ValidationError(
+                f"cert_pass1 must be 'highest', 'high' or 'storage', "
+                f"got {self.cert_pass1!r}"
+            )
+        return self.cert_pass1 == "high", self.cert_pass1 == "storage"
+
+    def _cert_tile_checked(self, k: int) -> int:
+        """Rows per tile of ``cert``: ``tilescan_tile``, or 128 shrunk while
+        k exceeds the tile count. A cluster-sorted layout is fine: the
+        selected tiles are gathered whole, so neighbours that share a tile
+        all become candidates."""
+        n_pad = int(self.emb.shape[0])
+        t = int(self.tilescan_tile)
+        if not t:
+            t = min(n_pad & -n_pad, 128)
+            while t > 2 and k > n_pad // t:
+                t //= 2
+        if t < 2 or n_pad % t or (t & (t - 1)):
+            raise ValidationError(
+                f"cert tile={t} invalid for n_pad={n_pad}: must be a "
+                "power of two >= 2 dividing the padded row count"
+            )
+        return t
+
+    def can_cert(self, k: int = 10) -> bool:
+        """Whether the certified-exact scan takes this array and k."""
+        try:
+            self._cert_tile_checked(k)
+        except ValidationError:
+            return False
+        return True
+
+    def _exact_fallback(self, q, k: int):
+        """The exact path ``cert`` falls back to: K2 while k fits a kernel's
+        list, the plain scan beyond. It scans the f32 reference where one
+        is held, so a refused certificate still returns the f32-exact
+        top-k (the JAX package re-runs at storage precision with a 2k
+        shortlist, which is exact only up to bf16 selection)."""
+        src = self._ref_or_emb()
+        if k <= MAX_K:
+            return stream_exact_topk(
+                q, src, self._pallas_emb_sq(), k, tile=self._scan_tile()
+            )
+        return _exact_topk_impl(q, src, self.emb_sq, k, self.row_tile)
+
+    def _cert(self, q, k: int, diagnostic: bool = False):
+        p1h, p1s = self._cert_pass1_mode()
+        if self.cert_pass2 not in ("auto", "fused", "scan"):
+            raise ValidationError(
+                f"cert_pass2 must be 'auto', 'fused' or 'scan', got {self.cert_pass2!r}"
+            )
+        return _exact_cert_impl(
+            q, self.emb, self.emb_sq, k, tile=self._cert_tile_checked(k),
+            fallback=lambda: self._exact_fallback(q, k),
+            m_tiles=self.cert_fetch_tiles, emb_ref=self._ref(),
+            pass1_high=p1h, pass1_storage=p1s, diagnostic=diagnostic,
+            pass2_form=self.cert_pass2,
+        )
+
+    def cert_probe(self, queries, k: int = 10):
+        """Certificate diagnosis for the current cert knobs: the cert
+        pipeline without its fallback -> (certified fraction, margins [B] as
+        numpy). A margin >= 0 means the query's certificate holds; the
+        margins say how much room, in squared-distance units, the data's
+        tile-min gaps leave over the arithmetic slack."""
+        q = self._check_queries(queries)
+        _, _, okq, margin = self._cert(q, k, diagnostic=True)
+        return float(okq.float().mean()), margin.cpu().numpy()
+
+    # -- over-fetch modes (scan, approx, compact) --------------------------
+
+    def _approx_chunk(self, batch: int) -> int:
+        """Rows per score chunk of the over-fetch modes: 64 row tiles,
+        lowered in steps of a row tile until the [B, chunk] f32 score block
+        stays within 1 GiB. The card has no fused extraction that would
+        keep the block out of device memory, so the chunk is always
+        bounded; the selection is exact, so the chunking changes no
+        result."""
+        chunk = min(int(self.emb.shape[0]), 64 * self.row_tile)
+        while chunk > self.row_tile and batch * chunk * 4 > _APPROX_BLOCK_CAP:
+            chunk -= self.row_tile
+        return chunk
+
+    def _compact_params(self, batch: int, nprobe: int, k: int) -> tuple[int, int, int]:
+        """(ctile, cap_tiles, chunk) of ``compact``. ctile: the largest
+        power of two up to 512 dividing ``row_tile``. cap: the expected
+        distinct probed clusters (birthday bound over batch * nprobe draws)
+        x tiles per cluster x ``compact_slack``, clamped to the tile count.
+        chunk: the compacted block (64k rows at k > 32, as in the JAX
+        package), bounded like ``_approx_chunk``."""
+        ctile = self.row_tile
+        for cand in (512, 256, 128, 64, 32, 16, 8, 4, 2, 1):
+            if self.row_tile % cand == 0:
+                ctile = cand
+                break
+        nt = int(self.emb.shape[0]) // ctile
+        kc = max(self.index.n_clusters, 1)
+        expected = kc * (1.0 - (1.0 - 1.0 / kc) ** (batch * nprobe))
+        tiles_per = (self.n / kc) / ctile + 1.0
+        cap = int(min(nt, -(-expected * tiles_per * self.compact_slack // 1)))
+        cap = max(cap, 1)
+        rows_c = cap * ctile
+        chunk = min(rows_c, 65536) if k > 32 else rows_c
+        bound = max(ctile, _APPROX_BLOCK_CAP // (4 * batch) // ctile * ctile)
+        return ctile, cap, min(chunk, bound)
+
+    def compact_coverage(self, batch: int, nprobe: int, k: int = 10) -> float:
+        """Fraction of the row tiles ``compact`` gathers (cap / nt)."""
+        ctile, cap, _ = self._compact_params(batch, nprobe, k)
+        return cap / max(int(self.emb.shape[0]) // ctile, 1)
+
+    def _compact(self, q, k: int, nprobe: int):
+        ctile, cap, chunk = self._compact_params(q.shape[0], nprobe, k)
+        tlo, thi, span = self._compact_tile_ranges(ctile)
+        return _ivf_compact_approx_impl(
+            q, self.centroids, self.c_sq, self.row_cluster, self.emb, self.emb_sq,
+            nprobe, k, max_probe=self._compact_probe_bucket(nprobe), ctile=ctile,
+            cap_tiles=cap, chunk=chunk, recall_target=self.approx_recall_target,
+            score_dtype=self.approx_score_dtype, tile_lo=tlo, tile_hi=thi,
+            max_cluster_tiles=span, emb_ref=self._ref(),
+        )
+
+    def _scan(self, q, k: int):
+        return _exact_approx_topk_impl(
+            q, self.emb, self.emb_sq, k, chunk=self._approx_chunk(q.shape[0]),
+            recall_target=self.approx_recall_target,
+            score_dtype=self.approx_score_dtype, overfetch=self.scan_overfetch,
+            emb_ref=self._ref(),
+        )
+
     def _map_ids(self, d2, ids):
         invalid = torch.isinf(d2) | (ids >= self.n) | (ids < 0)
         if self._gid_dev is not None:
@@ -631,7 +1100,9 @@ class DeviceIvfSearcher:
         its cost grows with the inserts and not with k. ``pallas`` takes K5
         (per-tile lists, then a cross-tile merge); ``binscan``/``binscan8``
         the binned-min scan K7, whose selection misses only on cross-tile
-        bin collisions."""
+        bin collisions. ``cert`` is the certified-exact two-pass scan (K9,
+        see ``_exact_cert_impl``), exact like ``stream``; ``approx`` the
+        chunked scan with over-fetch and f32 re-score."""
         q = self._check_queries(queries)
         if k <= 0:
             raise ValidationError("k must be > 0")
@@ -651,8 +1122,12 @@ class DeviceIvfSearcher:
             )
         elif mode in ("binscan", "binscan8"):
             d2, ids = self._binscan(q, k, int8=mode == "binscan8")
-        elif mode in _EXACT_NOT_PORTED:
-            raise ValidationError(f"exact mode '{mode}' is not ported yet")
+        elif mode == "cert":
+            d2, ids = self._cert(q, k)
+        elif mode == "approx":
+            d2, ids = self._scan(q, k)
+        elif mode in _NOT_PORTED:
+            raise ValidationError(f"exact mode '{mode}' is not ported")
         else:
             raise ValidationError(f"Unknown exact mode '{mode}'")
         return d2.sqrt(), self._map_ids(d2, ids)
@@ -680,7 +1155,11 @@ class DeviceIvfSearcher:
         ``gather``. ``pallas`` runs K4 where its local mask fits and K6
         (global probe mask, any layout) otherwise. ``binscan``/``binscan8``
         ignore nprobe and scan every row (K7); ``bincompact``/``bincompact8``
-        scan the batch's probed-union tiles, capped (K8)."""
+        scan the batch's probed-union tiles, capped (K8). ``masked`` is the
+        masked full scan in plain torch and ``approx`` the same scan with
+        over-fetch extraction; ``compact`` gathers the probed-union tiles
+        (K10) and extracts over that block; ``scan`` and ``cert`` ignore
+        nprobe: the over-fetch full scan and the certified-exact scan (K9)."""
         q = self._check_queries(queries)
         if k <= 0:
             raise ValidationError("k must be > 0")
@@ -728,8 +1207,49 @@ class DeviceIvfSearcher:
             d2, ids = self._binscan(q, k, int8=mode == "binscan8")
         elif mode in ("bincompact", "bincompact8"):
             d2, ids = self._bincompact(q, k, nprobe, int8=mode == "bincompact8")
-        elif mode in _SEARCH_NOT_PORTED:
-            raise ValidationError(f"search mode '{mode}' is not ported yet")
+        elif mode == "masked":
+            d2, ids = _ivf_masked_scan_impl(
+                q, self.centroids, self.c_sq, self.row_cluster, self.emb,
+                self.emb_sq, nprobe, k, max_probe=self._max_probe_bucket(nprobe),
+                tile=self.row_tile, emb_ref=self._ref(),
+            )
+        elif mode == "approx":
+            d2, ids = _ivf_approx_masked_impl(
+                q, self.centroids, self.c_sq, self.row_cluster, self.emb,
+                self.emb_sq, nprobe, k, max_probe=self._max_probe_bucket(nprobe),
+                chunk=self._approx_chunk(q.shape[0]),
+                recall_target=self.approx_recall_target,
+                score_dtype=self.approx_score_dtype,
+                overfetch=self.scan_overfetch, emb_ref=self._ref(),
+            )
+        elif mode == "compact":
+            d2, ids = self._compact(q, k, nprobe)
+        elif mode == "scan":
+            d2, ids = self._scan(q, k)
+        elif mode == "cert":
+            d2, ids = self._cert(q, k)
+        elif mode in _NOT_PORTED:
+            raise ValidationError(f"search mode '{mode}' is not ported")
         else:
             raise ValidationError(f"Unknown search mode '{mode}'")
         return d2.sqrt(), self._map_ids(d2, ids)
+
+    def search_loop(self, queries, k: int, nprobe: int, reps: int = 16,
+                    mode: str = "auto"):
+        """``reps`` IVF searches of the same batch, one after the other on
+        the current stream -> the last repetition's result. The JAX package
+        chains the repetitions inside one dispatch to hide its dispatch
+        latency; here each is a plain call."""
+        if reps <= 0:
+            raise ValidationError("reps must be > 0")
+        for _ in range(reps):
+            out = self.search(queries, k, nprobe, mode)
+        return out
+
+    def exact_loop(self, queries, k: int, reps: int = 16, mode: str = "auto"):
+        """``reps`` exact scans of the same batch -> the last one's result."""
+        if reps <= 0:
+            raise ValidationError("reps must be > 0")
+        for _ in range(reps):
+            out = self.exact(queries, k, mode)
+        return out

@@ -32,7 +32,7 @@ def _blobs(n, d, k, seed):
 def test_plain_matches_pallas(n, d, k):
     x, c = _blobs(n, d, k, seed=n + k)
     want = assign_clusters_pallas(x, c, tile=128, interpret=True)
-    got = assign_clusters(x, c)
+    got = assign_clusters(x, c, device="cpu")
     np.testing.assert_array_equal(got, want)
     assert got.dtype == np.int32
 
@@ -46,7 +46,7 @@ def test_ties_go_to_lowest_centroid():
     # Small integers: every score is exact in f32, so the ties are exact.
     x = base[rng.integers(0, 6, 200)] + rng.integers(-1, 2, (200, 8)).astype(np.float32)
     want = assign_clusters_pallas(x, c, tile=128, interpret=True)
-    got = assign_clusters(x, c)
+    got = assign_clusters(x, c, device="cpu")
     np.testing.assert_array_equal(got, want)
     assert got.max() < 6
 

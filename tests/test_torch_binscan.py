@@ -63,7 +63,7 @@ def _operands(x, tile, dtype):
     else:
         arrays = {"emb": np.asarray(jnp.asarray(e, getattr(jnp, dtype))), "_emb_ref": None}
     arrays["emb_sq"] = sq
-    t = searcher_state_from_reference(arrays)
+    t = searcher_state_from_reference(arrays, device="cpu")
     j = {"emb": jnp.asarray(arrays["emb"]), "emb_sq": jnp.asarray(sq),
          "scale": None if scale is None else jnp.asarray(scale),
          "emb_ref": None if ref is None else jnp.asarray(ref)}
@@ -291,7 +291,8 @@ def _searchers(n, d, kc, seed, row_tile, sorted_, modes_scale=None):
     js = JSearcher(index, x, row_tile=row_tile, cluster_sorted=sorted_)
     tindex = index_from_reference(np.asarray(index.centroids), index.list_offsets,
                                   index.row_ids)
-    ts = DeviceIvfSearcher(tindex, x, row_tile=row_tile, cluster_sorted=sorted_)
+    ts = DeviceIvfSearcher(tindex, x, row_tile=row_tile, cluster_sorted=sorted_,
+                           device="cpu")
     return js, ts, q
 
 
@@ -388,13 +389,14 @@ def test_convert_carries_int8_state():
     e8, sc = js._xbin8_arrays()
     t = searcher_state_from_reference(
         {"_emb_i8": np.asarray(e8), "_emb_i8_scale": np.asarray(sc),
-         "row_cluster": np.asarray(js.row_cluster)}
+         "row_cluster": np.asarray(js.row_cluster)},
+        device="cpu",
     )
     assert t["_emb_i8"].dtype == torch.int8 and t["_emb_i8_scale"].dtype == torch.float32
     assert t["row_cluster"].dtype == torch.int32
     ts = DeviceIvfSearcher(index_from_reference(np.asarray(js.index.centroids),
                                                 js.index.list_offsets, js.index.row_ids),
-                           x, row_tile=128)
+                           x, row_tile=128, device="cpu")
     pe8, psc = ts._xbin8_arrays()
     assert torch.equal(pe8, t["_emb_i8"]) and torch.equal(psc, t["_emb_i8_scale"])
     assert torch.equal(ts.row_cluster, t["row_cluster"])

@@ -80,7 +80,7 @@ def test_append_inplace_gives_identical_bytes(tmp_path, metric):
 def test_port_built_file_reads_back_in_jax_package(tmp_path):
     path = tmp_path / "t.parquet"
     x = _write_parquet(path)
-    index = pqvector_tpu_torch.IndexBuilder(path, "vec").n_clusters(6).build_inplace()
+    index = pqvector_tpu_torch.IndexBuilder(path, "vec", device="cpu").n_clusters(6).build_inplace()
     assert jembed.has_pq_vector_index(path)
     got, col = jembed.read_index_from_parquet(path)
     assert str(col) == "vec"

@@ -102,7 +102,8 @@ def test_build_partition_matches_jax_up_to_relabelling(n, k):
     """n=40k trains on the 5% sample both packages draw alike."""
     x = _blobs(n, 16, k, seed=k, spread=0.02)
     want = jbuild.build_ivf_index(JEmbeddings(x, 16), jbuild.IvfBuildConfig(n_clusters=k))
-    got = tbuild.build_ivf_index(Embeddings(x, 16), tbuild.IvfBuildConfig(n_clusters=k))
+    got = tbuild.build_ivf_index(Embeddings(x, 16), tbuild.IvfBuildConfig(n_clusters=k),
+                                 device="cpu")
 
     def assign(idx):
         out = np.empty(idx.total_rows, np.int64)
@@ -116,8 +117,8 @@ def test_build_partition_matches_jax_up_to_relabelling(n, k):
 def test_build_is_deterministic_per_seed():
     x = _blobs(5000, 16, 10, seed=5, spread=0.2)
     cfg = tbuild.IvfBuildConfig(n_clusters=10, seed=3)
-    a = tbuild.build_ivf_index(Embeddings(x, 16), cfg).to_bytes()
-    b = tbuild.build_ivf_index(Embeddings(x, 16), cfg).to_bytes()
+    a = tbuild.build_ivf_index(Embeddings(x, 16), cfg, device="cpu").to_bytes()
+    b = tbuild.build_ivf_index(Embeddings(x, 16), cfg, device="cpu").to_bytes()
     assert a == b
 
 
@@ -126,7 +127,8 @@ def test_tunnel_wires_are_not_ported(wire):
     x = _blobs(100, 4, 2, seed=1)
     with pytest.raises(ValidationError, match="not ported"):
         tbuild.build_ivf_index(
-            Embeddings(x, 4), tbuild.IvfBuildConfig(n_clusters=2, transfer_dtype=wire)
+            Embeddings(x, 4), tbuild.IvfBuildConfig(n_clusters=2, transfer_dtype=wire),
+            device="cpu",
         )
 
 

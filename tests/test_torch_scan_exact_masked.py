@@ -48,7 +48,7 @@ def _layout(x, cent, dtype):
         "c_sq": np.asarray(js.c_sq),
         "row_cluster": np.asarray(js.row_cluster),
     }
-    return js, arrays, searcher_state_from_reference(arrays)
+    return js, arrays, searcher_state_from_reference(arrays, device="cpu")
 
 
 def _canon(d, i):
@@ -185,7 +185,8 @@ def test_searcher_pallas_modes_match_jax(dtype):
     index = index_from_reference(
         np.asarray(js.index.centroids), js.index.list_offsets, js.index.row_ids
     )
-    ts = DeviceIvfSearcher(index, x, dtype=getattr(torch, dtype), row_tile=TILE)
+    ts = DeviceIvfSearcher(index, x, dtype=getattr(torch, dtype), row_tile=TILE,
+                           device="cpu")
     assert not ts._row_cluster_sorted and not ts._use_local_mask(TILE, 8)
     assert_topk_match(tuple(map(_np, ts.exact(q, 10, "pallas"))),
                       tuple(map(_np, js.exact(q, 10, "pallas"))), q, squared=False)

@@ -50,7 +50,7 @@ def _layout(x, cent, dtype):
         "local_cluster": np.asarray(lcl),
         "tile_clusters": np.asarray(tc),
     }
-    return arrays, searcher_state_from_reference(arrays)
+    return arrays, searcher_state_from_reference(arrays, device="cpu")
 
 
 def _canon(d, i):

@@ -3,9 +3,11 @@
 A small Parquet file is indexed in place by each package; both read either
 file. ``DeviceIvfSearcher(..., cluster_sorted=True)`` of each package then
 serves the same index and rows, and every ported mode is compared with the
-JAX package's: exact ``auto``/``stream``/``pallas``/``binscan``/``binscan8``,
-search ``auto``/``stream``/``pallas``/``gather``/``binscan``/``binscan8``/
-``bincompact``/``bincompact8``, at f32 and at bf16 with the f32 re-score,
+JAX package's: exact ``auto``/``stream``/``pallas``/``binscan``/``binscan8``/
+``cert``/``approx``, search ``auto``/``stream``/``pallas``/``gather``/
+``binscan``/``binscan8``/``bincompact``/``bincompact8``/``cert``/``scan``/
+``approx``/``masked``/``compact`` and the loops, at f32 and at bf16 with the
+f32 re-score,
 and the layout in file order through K6. The rows lie on a 1/4 grid with
 |x| <= 4, so bf16 stores them exactly and bf16 selection can be held to the same ids (data whose
 neighbours lie closer than bf16's 2^-8 would select differently; that is
@@ -30,6 +32,7 @@ import pqvector_tpu_torch
 from pqvector_tpu.io.embed import read_index_from_parquet as j_read_index
 from pqvector_tpu.query.device import DeviceIvfSearcher as JSearcher
 from pqvector_tpu_torch import DeviceIvfSearcher
+from pqvector_tpu_torch.convert import copy_searcher_knobs
 from pqvector_tpu_torch.io.embed import read_index_from_parquet as t_read_index
 
 N, D, KC, K, NPROBE, TILE = 3000, 16, 12, 10, 3, 256
@@ -50,8 +53,11 @@ def indexed(request, tmp_path_factory):
     """A grid file indexed in place by the port or by the JAX package."""
     path = tmp_path_factory.mktemp(request.param) / "slice.parquet"
     x, q = _grid_file(path, seed=11)
-    pkg = pqvector_tpu_torch if request.param == "port" else pqvector_tpu
-    built = pkg.IndexBuilder(path, "embedding").n_clusters(KC).build_inplace()
+    if request.param == "port":
+        builder = pqvector_tpu_torch.IndexBuilder(path, "embedding", device="cpu")
+    else:
+        builder = pqvector_tpu.IndexBuilder(path, "embedding")
+    built = builder.n_clusters(KC).build_inplace()
     assert pqvector_tpu_torch.has_pq_vector_index(path)
     assert pqvector_tpu.io.embed.has_pq_vector_index(path)
     assert t_read_index(path)[0].to_bytes() == built.to_bytes()
@@ -142,7 +148,7 @@ def test_more_k_than_candidates(searchers):
     assert np.isinf(got_d.numpy()[got_i.numpy() < 0]).all()
 
 
-@pytest.mark.parametrize("mode", ["approx", "masked", "compact", "cert"])
+@pytest.mark.parametrize("mode", ["xbin", "xbin8", "tilescan", "autoscan"])
 def test_unported_modes_raise(searchers, mode):
     _, ts, q = searchers
     with pytest.raises(pqvector_tpu_torch.ValidationError, match="not ported"):
@@ -151,14 +157,44 @@ def test_unported_modes_raise(searchers, mode):
         ts.exact(q, K, mode)
 
 
+@pytest.mark.parametrize(
+    "call,mode",
+    [("exact", "cert"), ("exact", "approx"), ("search", "cert"), ("search", "scan"),
+     ("search", "approx"), ("search", "masked"), ("search", "compact")],
+)
+def test_slice3_modes_match_jax(searchers, call, mode):
+    """A file indexed by either package, served by both in every mode of
+    slice 3, through the single calls and through the loops."""
+    js, ts, q = searchers
+    copy_searcher_knobs(js, ts)
+    args = (q, K) if call == "exact" else (q, K, NPROBE)
+    want = getattr(js, call)(*args, mode)
+    assert_match(getattr(ts, call)(*args, mode), want, q)
+    assert_match(getattr(ts, call + "_loop")(*args, reps=2, mode=mode), want, q)
+
+
+@pytest.mark.parametrize("pass1", ["highest", "high", "storage"])
+def test_cert_is_exact_on_the_file(searchers, pass1):
+    """cert equals the exact scan whatever its pass-1 precision and whether
+    or not the certificate holds (one fetched tile forces the fallback)."""
+    _, ts, q = searchers
+    ref = ts.exact(q, K, "xla")
+    ts.cert_pass1 = pass1
+    for fetch in (0, 1):
+        ts.cert_fetch_tiles = fetch
+        assert_match(ts.exact(q, K, "cert"), ref, q)
+    ts.cert_pass1, ts.cert_fetch_tiles = "highest", 0
+
+
 def test_auto_routes_unsorted_layout_to_gather(indexed):
     """On a layout in file order ``auto`` takes K6 (``pallas``) or
     ``gather`` by the rule measured on the card, and ``gather`` for k > 128;
     ``pallas`` there runs K6 and agrees with the JAX searcher's."""
     path, x, q = indexed
     index, _ = t_read_index(path)
-    ts = DeviceIvfSearcher(index, x, row_tile=TILE)
-    sorted_ts = DeviceIvfSearcher(index, x, row_tile=TILE, cluster_sorted=True)
+    ts = DeviceIvfSearcher(index, x, row_tile=TILE, device="cpu")
+    sorted_ts = DeviceIvfSearcher(index, x, row_tile=TILE, cluster_sorted=True,
+                                 device="cpu")
     assert not ts._row_cluster_sorted and sorted_ts._row_cluster_sorted
     # Ties order on resident row ids, which the sorted layout renumbers, so
     # ids tied with the k-th distance may differ between the two layouts.
@@ -198,8 +234,10 @@ def test_unsorted_auto_follows_the_card_measurements(n_pad, d, lmax, nprobe, bat
 def test_cosine_metric_end_to_end(tmp_path):
     path = tmp_path / "cos.parquet"
     x, q = _grid_file(path, seed=4)
-    pqvector_tpu_torch.IndexBuilder(path, "embedding").n_clusters(KC).metric("cosine").build_inplace()
-    ts = DeviceIvfSearcher.from_parquet(path, row_tile=TILE, cluster_sorted=True)
+    pqvector_tpu_torch.IndexBuilder(path, "embedding", device="cpu").n_clusters(KC).metric(
+        "cosine").build_inplace()
+    ts = DeviceIvfSearcher.from_parquet(path, row_tile=TILE, cluster_sorted=True,
+                                        device="cpu")
     index, _ = j_read_index(path)
     js = JSearcher(index, x, row_tile=TILE, metric="cosine", cluster_sorted=True)
     assert_match(ts.search(q, K, NPROBE), js.search(q, K, NPROBE, "gather"), q / 100.0)

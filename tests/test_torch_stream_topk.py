@@ -54,7 +54,7 @@ def _layout(x, cent, dtype):
         "local_cluster": np.asarray(lcl),
         "tile_clusters": np.asarray(tc),
     }
-    return js, arrays, searcher_state_from_reference(arrays)
+    return js, arrays, searcher_state_from_reference(arrays, device="cpu")
 
 
 def _canon(d, i):
