@@ -14,14 +14,17 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    by bulk copies) against its plain torch version on the card: small
    awkward shapes (ties, pad rows, fewer rows than k, k = 1 and 128, k near
    the bin count, f32, bf16 and int8, expand 1/2/4, fewer selected slots
-   than tiles, tiles of 2 to 512 rows, all-pad tiles, repeated and
-   unordered selections) must agree exactly; at the main path's shapes the
+   than tiles, tiles of 2 to 2048 rows, all-pad tiles, repeated and
+   unordered selections; for K9 and K5 also what their 128 x 128 score tile
+   makes awkward: B = 129 and 257, d = 8, 96, 100, 136 on both back ends,
+   k = 128 at 128 queries) must agree exactly; at the main path's shapes the
    ids must agree except where the two picks tie within the f32 tolerance
    (the int8 key tables exactly, K9 within the certificate's envelope, the
    gathers bit for bit), and both are timed with CUDA events (median of
    10), beside one PyTorch call or two-call chain that computes the same
    function where there is one, and the bound: the least time the card
-   could take for the call's bytes and operations.
+   could take for the call's bytes and operations. K9 and K5 are timed on
+   the f32 and on the bf16 array.
 3. The main path at the bench's default configuration: a seeded 1M x 128
    Parquet file, ``IndexBuilder(...).n_clusters(1024).build_inplace()`` on
    the card, exact truth from K2 on an f32 searcher, and an nprobe sweep of
@@ -32,7 +35,8 @@ package. Phases, in order; any failure exits non-zero and prints no result:
 5. Slice 2's path on the same file and index: a bf16 searcher in file
    order (f32 re-score copy) serves ``search(..., "pallas")`` through K6 in
    an nprobe sweep to recall@10 >= 0.95, ``exact(..., "pallas")`` through
-   K5 (ids equal to K2's), ``binscan`` through K7 (recall >= 0.95) and
+   K5 (rows that differ from K2's pick tie at the storage precision),
+   ``binscan`` through K7 (recall >= 0.95) and
    ``binscan8``; the cluster-sorted bf16 searcher calibrates and serves
    ``bincompact`` through K8 (recall >= 0.95) and ``bincompact8``. QPS at
    B = 256, coverage, and K6 against ``gather`` at B = 1 .. 256 for the
@@ -53,8 +57,9 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    breakdown of ``cert`` and ``compact``. 7b, inside phase 6 on the 10M
    rung's sorted searcher: ``compact`` at nprobe 4 (cap, coverage, recall,
    ms), K10 and K11 on that selection (bit-equal to the plain gather and to
-   each other, timed beside ``index_select``), and ``cert`` equal to the K2
-   truth.
+   each other, timed beside ``index_select``), ``cert`` equal to the K2
+   truth, and K9 and K5 timed at that rung's shapes (K9 within the
+   certificate's envelope of its plain version, K5's merge equal to K2's).
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -245,9 +250,9 @@ def phase2_small(torch, st, sc, ka):
     log(f"phase 2a K2/K3/K4: {cases} cases (k=1..128, n<k, pad rows, f32/bf16): exact")
 
 
-def grid_rows(n, d, tile, seed):
+def grid_rows(n, d, tile, seed, nq=13):
     """Rows on a 1/4 grid with many ties, padded to a multiple of ``tile``
-    (+3e38 norms on pad rows), and 13 queries near them."""
+    (+3e38 norms on pad rows), and ``nq`` queries near them."""
     rng = np.random.default_rng(seed)
     base = rng.integers(-8, 9, (17, d)).astype(np.float32) / 4
     x = base[rng.integers(0, 17, n)] + rng.integers(-2, 3, (n, d)).astype(np.float32) / 4
@@ -256,7 +261,7 @@ def grid_rows(n, d, tile, seed):
     emb[:n] = x
     sq = np.full(n_pad, 3.0e38, np.float32)
     sq[:n] = (x * x).sum(1)
-    q = x[rng.integers(0, n, 13)] + rng.integers(-1, 2, (13, d)).astype(np.float32) / 4
+    q = x[rng.integers(0, n, nq)] + rng.integers(-1, 2, (nq, d)).astype(np.float32) / 4
     return emb, sq, q
 
 
@@ -489,19 +494,39 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
     s16._emb_i8 = s16._emb_i8_scale = None
 
 
-def near_tie_check(got, want, q32, x_sq, what):
-    """Two refined (sqrt distance, id) results: every slot's d² within the
-    f32 tolerance of the other's; ids may differ only there. -> swaps."""
-    gd, wd = got[0].double().cpu().numpy() ** 2, want[0].double().cpu().numpy() ** 2
-    tol = 1e-5 * ((q32 * q32).sum(1) + float(x_sq[x_sq < 1e38].max()))
-    fin = np.isfinite(wd)
-    check(np.array_equal(fin, np.isfinite(gd)), f"{what}: empty slots differ")
-    check(bool((np.abs(np.where(fin, gd - wd, 0.0)) <= tol[:, None]).all()),
-          f"{what}: distances differ beyond near-ties")
-    return int((got[1] != want[1]).sum())
+def selection_ties(torch, got, want, q, emb, emb_sq, what):
+    """Two re-scored top-k results selected over the same bf16 storage by
+    kernels that add the exact products in other orders (wgmma, fp32 FMA):
+    rows both picked carry the same distance, and rows only one picked tie
+    with the other's at the storage precision (their scores |x|^2 - 2 q.x
+    over the stored values, in float64, within 1e-5 (|q|^2 + max |x|^2)).
+    -> rows that differ."""
+    gd, gi = got[0].double(), got[1].long()
+    wd, wi = want[0].double(), want[1].long()
+    both = (gi[:, :, None] == wi[:, None, :])  # [B, k, k]
+    pair = both.nonzero()
+    check(bool((gd[pair[:, 0], pair[:, 1]] == wd[pair[:, 0], pair[:, 2]]).all()),
+          f"{what}: a row both picked has two distances")
+    qs = q.to(emb.dtype).double()
+    tol = 1e-5 * ((qs * qs).sum(1) + float(emb_sq[emb_sq < 1e38].max()))
+
+    def scores(ids):  # [B, k] -> stored-precision scores
+        rows = emb[ids.clamp_min(0)].double()
+        return emb_sq[ids.clamp_min(0)].double() - 2.0 * (rows * qs[:, None, :]).sum(-1)
+
+    only_g, only_w = ~both.any(2), ~both.any(1)
+    check(torch.equal(only_g.sum(1), only_w.sum(1)), f"{what}: empty slots differ")
+    sg = torch.where(only_g, scores(gi), torch.nan)
+    sw = torch.where(only_w, scores(wi), torch.nan)
+    spread = torch.fmax(sg.nan_to_num(-torch.inf).amax(1), sw.nan_to_num(-torch.inf).amax(1)) \
+        - torch.fmin(sg.nan_to_num(torch.inf).amin(1), sw.nan_to_num(torch.inf).amin(1))
+    spread = torch.where(only_g.any(1), spread, 0.0)
+    check(bool((spread <= tol).all()),
+          f"{what}: rows only one kernel picked are no tie (spread {float(spread.max())})")
+    return int(only_g.sum())
 
 
-def phase5(torch, pqt, _build, bench, path, q, queries, truth_np, sorted16, nprobe4, card):
+def phase5(torch, pqt, _build, ds, path, q, queries, truth_np, sorted16, nprobe4, card):
     """Slice 2's path: K5 and K6 and K7 on the bf16 layout in file order,
     K8 on the sorted one, through the searcher's entry points."""
     t0 = time.perf_counter()
@@ -519,7 +544,7 @@ def phase5(torch, pqt, _build, bench, path, q, queries, truth_np, sorted16, npro
         before = _build.LAUNCHES["K6"]
         d6, i6 = fo.search(q, K, nprobe, "pallas")
         check(_build.LAUNCHES["K6"] == before + 1, "search(pallas) did not take K6")
-        r6 = bench.recall_at_k(truth_np, i6.cpu().numpy())
+        r6 = ds.recall_at_k(truth_np, i6.cpu().numpy())
         log(f"phase 5 search pallas (K6, file order) nprobe={nprobe}: recall@{K} {r6:.4f}")
         if r6 >= RECALL_TARGET:
             nprobe6 = nprobe
@@ -535,18 +560,20 @@ def phase5(torch, pqt, _build, bench, path, q, queries, truth_np, sorted16, npro
     before = _build.LAUNCHES["K5"]
     d5, i5 = fo.exact(q, K, "pallas")
     check(_build.LAUNCHES["K5"] == before + 1, "exact(pallas) did not take K5")
-    swaps = near_tie_check((d5, i5), fo.exact(q, K, "stream"), q32, x_sq, "K5 vs K2")
-    out["exact_pallas"] = {"recall_at_10": bench.recall_at_k(truth_np, i5.cpu().numpy()),
+    swaps = selection_ties(torch, (d5, i5), fo.exact(q, K, "stream"), q, fo.emb,
+                           fo._pallas_emb_sq(), "K5 vs K2")
+    out["exact_pallas"] = {"recall_at_10": ds.recall_at_k(truth_np, i5.cpu().numpy()),
                            "swaps_vs_K2": swaps}
-    log(f"phase 5 exact pallas (K5) vs stream (K2), bf16: {swaps} near-tie swaps; "
-        f"recall@{K} against the f32 truth {out['exact_pallas']['recall_at_10']:.4f}")
+    log(f"phase 5 exact pallas (K5, wgmma) vs stream (K2, fp32 FMA), bf16: {swaps} rows "
+        f"differ, each tied at the storage precision; recall@{K} against the f32 truth "
+        f"{out['exact_pallas']['recall_at_10']:.4f}")
 
     for mode in ("binscan", "binscan8"):
         before = _build.LAUNCHES["K7"]
         d7, i7 = fo.search(q, K, 1, mode)
         check(_build.LAUNCHES["K7"] == before + 1, f"search({mode}) did not take K7")
         check(bool(torch.isfinite(d7).all()), f"{mode} returned empty slots")
-        r7 = bench.recall_at_k(truth_np, i7.cpu().numpy())
+        r7 = ds.recall_at_k(truth_np, i7.cpu().numpy())
         ex = fo.exact(q, K, mode)
         check(torch.equal(ex[1], i7), f"exact({mode}) and search({mode}) differ")
         out[mode] = {"recall_at_10": r7}
@@ -562,7 +589,7 @@ def phase5(torch, pqt, _build, bench, path, q, queries, truth_np, sorted16, npro
         before = _build.LAUNCHES["K8"]
         d8, i8 = sorted16.search(q, K, nprobe8, "bincompact")
         check(_build.LAUNCHES["K8"] == before + 1, "search(bincompact) did not take K8")
-        r8 = bench.recall_at_k(truth_np, i8.cpu().numpy())
+        r8 = ds.recall_at_k(truth_np, i8.cpu().numpy())
         cov = cap / (sorted16.emb.shape[0] // ctile)
         log(f"phase 5 bincompact (K8, sorted) nprobe={nprobe8}: tile={ctile}, cap={cap}, "
             f"coverage {cov:.3f}, recall@{K} {r8:.4f}")
@@ -573,7 +600,7 @@ def phase5(torch, pqt, _build, bench, path, q, queries, truth_np, sorted16, npro
     out["bincompact"] = {"nprobe": nprobe8, "recall_at_10": r8, "coverage": cov}
     d88, i88 = sorted16.search(q, K, nprobe8, "bincompact8")
     out["bincompact8"] = {"nprobe": nprobe8,
-                          "recall_at_10": bench.recall_at_k(truth_np, i88.cpu().numpy())}
+                          "recall_at_10": ds.recall_at_k(truth_np, i88.cpu().numpy())}
     log(f"phase 5 bincompact8 (K8 int8) nprobe={nprobe8}: recall@{K} "
         f"{out['bincompact8']['recall_at_10']:.4f}")
     out["launches"] = dict(_build.LAUNCHES)
@@ -625,18 +652,14 @@ def auto_route_table(s, q, nprobe, batches, reps, phase):
     return out
 
 
-def phase6(torch, pqt, _build, bench, Embeddings, dev, cp, compact_select):
+def phase6(torch, pqt, _build, ds, Embeddings, dev, cp, compact_select, tm, sc, st):
     """The DEEP-shaped rung: 10M x 96, IVF-4096, bincompact and binscan."""
     import gc
 
     from pqvector_tpu_torch.kernels.binscan import provenance_bits
 
     t_phase = time.perf_counter()
-    rng = np.random.default_rng(77)  # pqvector_tpu/bench/datasets.py:63-70
-    modes = rng.uniform(-1.0, 1.0, (1024, DEEP_DIM)).astype(np.float32)
-    which = rng.integers(0, 1024, DEEP_ROWS)
-    emb = modes[which] + 0.15 * rng.standard_normal((DEEP_ROWS, DEEP_DIM)).astype(np.float32)
-    del which
+    emb = ds.synthetic_embeddings(DEEP_ROWS, DEEP_DIM, seed=77, n_modes=1024)
     log(f"phase 6 generated {DEEP_ROWS} x {DEEP_DIM} in {time.perf_counter() - t_phase:.1f} s")
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -668,7 +691,7 @@ def phase6(torch, pqt, _build, bench, Embeddings, dev, cp, compact_select):
         ctile, cap = s.calibrate_bincompact(q_all[:256], nprobe, K)
         check(ctile > 0, f"deep bincompact ineligible at nprobe={nprobe}")
         _, ids = s.search(q256, K, nprobe, "bincompact")
-        r = bench.recall_at_k(truth, ids.cpu().numpy())
+        r = ds.recall_at_k(truth, ids.cpu().numpy())
         cov = cap / (s.emb.shape[0] // ctile)
         log(f"phase 6 bincompact nprobe={nprobe}: tile={ctile}, cap={cap}, coverage "
             f"{cov:.3f}, recall@{K} {r:.4f}")
@@ -680,7 +703,8 @@ def phase6(torch, pqt, _build, bench, Embeddings, dev, cp, compact_select):
     out["bincompact"] = res
     log(f"phase 6 bincompact nprobe={res['nprobe']}: B=256 {ms:.2f} ms "
         f"({res['qps_b256']:.0f} QPS)")
-    out["slice3"] = phase7b(torch, bench, cp, compact_select, s, q256, truth_pair)
+    out["slice3"] = phase7b(torch, ds, cp, compact_select, s, q256, truth_pair)
+    out["score_tile"] = deep_score_tile(torch, tm, sc, st, s, q256)
     del s
     gc.collect()
     torch.cuda.empty_cache()
@@ -689,7 +713,7 @@ def phase6(torch, pqt, _build, bench, Embeddings, dev, cp, compact_select):
                               device=dev)
     t7 = s._binscan_tile()
     _, ids = s.search(q256, K, 1, "binscan")
-    r = bench.recall_at_k(truth, ids.cpu().numpy())
+    r = ds.recall_at_k(truth, ids.cpu().numpy())
     ms = time_ms(lambda: s.search(q256, K, 1, "binscan"), reps=5)
     out["binscan"] = {"recall_at_10": r, "tile": t7, "expand": s._binscan_expand(t7),
                       "provenance_bits": provenance_bits(s.emb.shape[0] // t7, t7),
@@ -735,36 +759,90 @@ def nbytes_of(*tensors) -> int:
 # Slice 3: K9 tile min, K10 tile gather, K11 tile gather by bulk copies
 
 
-def phase2_small_slice3(torch, tm, cp):
-    """K9-K11 against their plain versions at small awkward shapes: exact.
-    K9's rows and queries lie on a 1/4 grid, so every product and sum is
-    exact in f32 and in bf16 and the order of the sums cannot show."""
+def tile_min_cases(torch, tm, tiles, shapes, n_of):
+    """K9 against its plain version on 1/4-grid rows and queries, where every
+    product and sum is exact in f32 and in bf16 and the order of the sums
+    cannot show: a partly padded tile, then one that is all pad rows, with
+    +inf and +3e38 pads. -> (cases, cases that took the wgmma back end)."""
+    from pqvector_tpu_torch.kernels.score_tile import pick_backend
+
     dev = torch.device(DEVICE)
-    cases = 0
-    for tile in (2, 8, 64, 128, 512):
-        for d, b in ((3, 1), (40, 5), (96, 16), (128, 33)):
+    cases = mma = 0
+    for tile in tiles:
+        for d, b in shapes:
             for dt in (torch.float32, torch.bfloat16):
                 for pad in (float("inf"), 3.0e38):
-                    n = 5 * tile + tile // 2 + 1  # a partly padded tile ...
-                    emb, sq, q = grid_rows(n, d, tile, seed=tile + d + b)
+                    n = n_of(tile)
+                    emb, sq, q = grid_rows(n, d, tile, seed=tile + d + b, nq=b)
                     emb = np.concatenate([emb, np.zeros((tile, d), np.float32)])
                     sq = np.concatenate([sq, np.full(tile, 3.0e38, np.float32)])
-                    sq[sq > 1e38] = pad  # ... and one that is all pad rows
+                    sq[sq > 1e38] = pad
                     E = torch.from_numpy(emb).to(dev).to(dt)
                     S = torch.from_numpy(sq).to(dev)
-                    Q = torch.from_numpy(q[:b]).to(dev)
+                    Q = torch.from_numpy(q).to(dev)
                     got = tm.tile_min(Q, E, S, tile)
                     want = tm.tile_min_plain(Q, E, S, tile)
                     torch.cuda.synchronize()
                     check(torch.equal(got, want),
                           f"K9 small tile={tile} d={d} B={b} {dt} pad={pad}: "
-                          f"max err {float((got - want).abs().nan_to_num(0).max())}")
+                          f"{int((got != want).sum())} of {got.numel()} differ, max err "
+                          f"{float((got - want).abs().nan_to_num(0).max())}")
                     check(bool((got[:, -1] == pad).all()),
                           "K9 small: the all-pad tile did not return its sentinel")
                     cases += 1
+                    mma += pick_backend(dt, d, E.data_ptr()) == "wgmma"
+    return cases, mma
+
+
+def phase2_small_k9(torch, tm):
+    cases, mma = tile_min_cases(
+        torch, tm, (2, 8, 64, 128, 512), ((3, 1), (40, 5), (96, 16), (128, 33)),
+        lambda tile: 5 * tile + tile // 2 + 1)
     log(f"phase 2a K9: {cases} cases (tile 2..512, d 3..128, B 1..33, f32/bf16, "
         "+inf and +3e38 pads, an all-pad tile): max abs err 0 against the plain "
-        "version (grid data: every sum exact)")
+        f"version (grid data: every sum exact); {mma} on wgmma")
+
+
+def phase2_score_tile(torch, tm, sc):
+    """The shapes the 128 x 128 score tile makes awkward, K9 and K5 against
+    their plain versions, exact: batches one past a block's queries, widths
+    that end inside a stage (8, 96, 100, 136; in bf16 the first, second and
+    fourth take wgmma and 100 the fp32 patch), tiles of 4 rows and of 8 and
+    16 chunks, k = 128 at 128 queries, a tile that is no power of two."""
+    from pqvector_tpu_torch.kernels.score_tile import pick_backend
+
+    cases, mma = tile_min_cases(
+        torch, tm, (2, 4, 16, 128, 1024, 2048),
+        ((8, 129), (96, 257), (100, 37), (136, 129), (72, 64)),
+        lambda tile: 2 * tile + tile // 2 + 1)
+    log(f"phase 2a K9, score tile: {cases} cases (tile 2..2048, d 8/72/96/100/136, "
+        f"B 37..257): max abs err 0 against the plain version; {mma} on wgmma")
+    dev = torch.device(DEVICE)
+    cases = mma = 0
+    for n, tile, k, d, b in ((5000, 256, 128, 72, 128), (3000, 1024, 10, 96, 129),
+                             (3000, 1024, 10, 100, 257), (700, 64, 10, 8, 37),
+                             (5, 256, 9, 136, 5), (2000, 192, 7, 40, 13),
+                             (9000, 1024, 128, 128, 130), (4000, 512, 1, 3, 1)):
+        emb, sq, q = grid_rows(n, d, tile, seed=n + tile + k, nq=b)
+        for dt in (torch.float32, torch.bfloat16):
+            E = torch.from_numpy(emb).to(dev).to(dt)
+            S = torch.from_numpy(sq).to(dev)
+            qf = torch.from_numpy(q).to(dev).to(dt)
+            g, w = sc.exact_scan(qf, E, S, k, tile), sc.exact_scan_plain(qf, E, S, k, tile)
+            torch.cuda.synchronize()
+            check(torch.equal(g[1], w[1]) and torch.equal(g[0], w[0]),
+                  f"K5 small n={n} tile={tile} k={k} d={d} B={b} {dt}: "
+                  f"{int((g[1] != w[1]).sum())} ids differ from plain")
+            cases += 1
+            mma += pick_backend(dt, d, E.data_ptr(), qf.data_ptr()) == "wgmma"
+    log(f"phase 2a K5, score tile: {cases} cases (k 1..128, B 1..257, d 3..136, tile "
+        f"64..1024 and 192, n < k, f32/bf16): ids and distances equal to the plain "
+        f"version; {mma} on wgmma")
+
+
+def phase2_small_gather(torch, cp):
+    """K10 and K11 against the plain gather at small awkward shapes: bit-equal."""
+    dev = torch.device(DEVICE)
     cases = dma = 0
     rng = np.random.default_rng(5)
     for ctile, d in ((512, 96), (128, 3), (4, 96), (2, 3), (64, 128), (1, 5)):
@@ -889,6 +967,57 @@ def gather_check(torch, cp, emb, emb_sq, sel, ctile, results, what):
             f"bound {res['bound_ms']:.3f} ms")
 
 
+def deep_score_tile(torch, tm, sc, st, s, q):
+    """K9 and K5 at the 10M x 96 rung's shapes, on the sorted searcher's f32
+    copy and on its bf16 storage: K9 against its plain version within the
+    certificate's envelope, K5's merged result against K2's on the same array
+    (equal, or tied within the f32 tolerance), both timed."""
+    out = {}
+    n_pad, d = s.emb.shape
+    b = q.shape[0]
+    tile9, tile5 = s._cert_tile_checked(K), s._scan_tile()
+    sq5 = s._pallas_emb_sq()
+    tol5 = 1e-5 * float((q * q).sum(1).max() + sq5[sq5 < 1e38].max())
+    for name, emb, kind in (("f32", s._ref(), "fp32"), ("bf16", s.emb, "bf16")):
+        args = (q, emb, s.emb_sq, tile9)
+        got, want = tm.tile_min(*args), tm.tile_min_plain(*args)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        check(torch.equal(fin, torch.isfinite(got)), f"deep K9 {name}: pad tiles differ")
+        err9 = float((got - want)[fin].abs().max())
+        check(err9 <= tile_min_envelope(q, s.emb_sq, d), f"deep K9 {name}: max err {err9}")
+        del got, want
+        q2 = (-2.0 * q).to(emb.dtype)
+        e3, sq3 = emb.view(n_pad // tile9, tile9, d), s.emb_sq.view(1, -1, tile9)
+        res = {"K9_max_abs_err": err9,
+               "K9_ms": time_ms(lambda: tm.tile_min(*args), reps=5),
+               "K9_library_ms": time_ms(
+                   lambda: (torch.einsum("bd,gtd->bgt", q2, e3) + sq3).amin(dim=2), reps=3)}
+        res["K9_bound_ms"] = bound_of(nbytes_of(q, emb, s.emb_sq) + b * (n_pad // tile9) * 4,
+                                      2.0 * b * n_pad * d, kind)["bound_ms"]
+        qf = q.to(emb.dtype)
+        g = sc._final_merge(*sc.exact_scan(qf, emb, sq5, K, tile5), K)
+        w = st.stream_exact_scan(qf, emb, sq5, K, tile5)
+        torch.cuda.synchronize()
+        err5 = float((g[0] - w[0]).abs().max())
+        check(err5 <= tol5, f"deep K5 {name}: distances differ from K2's by {err5}")
+        res.update({"K5_max_abs_err_vs_K2": err5, "K5_ids_differ": int((g[1] != w[1]).sum()),
+                    "K5_ms": time_ms(lambda: sc.exact_scan(qf, emb, sq5, K, tile5), reps=5),
+                    "K2_ms": time_ms(lambda: st.stream_exact_scan(qf, emb, sq5, K, tile5),
+                                     reps=3)})
+        res["K5_bound_ms"] = bound_of(
+            nbytes_of(qf, emb, sq5) + (n_pad // tile5) * b * K * 8, 2.0 * b * n_pad * d,
+            kind)["bound_ms"]
+        out[name] = res
+        log(f"phase 7b K9 {name} 10M x {d}, B={b}, tile={tile9}: max err {err9:.3g}; kernel "
+            f"{res['K9_ms']:.3f} ms, einsum + amin {res['K9_library_ms']:.3f} ms, bound "
+            f"{res['K9_bound_ms']:.3f} ms. K5 {name} tile={tile5}, k={K}: "
+            f"{res['K5_ids_differ']} ids differ from K2's (near-ties), max err {err5:.3g}; "
+            f"kernel {res['K5_ms']:.3f} ms, K2 {res['K2_ms']:.3f} ms, bound "
+            f"{res['K5_bound_ms']:.3f} ms")
+    return out
+
+
 def ids_equal_or_tied(got, want, what):
     """Two exact results: distances equal to 1e-5 relative, and ids equal
     except where two rows tie at that distance. -> swapped ids."""
@@ -935,7 +1064,7 @@ def profile_modes(torch, calls, reps=10):
     return out
 
 
-def phase7(torch, bench, truth_s, sorted16, q, truth, nprobe, card):
+def phase7(torch, ds, truth_s, sorted16, q, truth, nprobe, card):
     """Slice 3 on the 1M file: ``cert`` on the f32 truth searcher and on the
     sorted bf16 searcher (f32 copy), the forced fallback, and the ``compact``,
     ``scan``, ``approx`` and ``masked`` searches, through the loops."""
@@ -981,13 +1110,13 @@ def phase7(torch, bench, truth_s, sorted16, q, truth, nprobe, card):
     truth_np = truth[1].cpu().numpy()
     for s, what in ((truth_s, "f32"), (sorted16, "bf16")):
         ref = s.search(q, K, nprobe, "pallas")
-        r_ref = bench.recall_at_k(truth_np, ref[1].cpu().numpy())
+        r_ref = ds.recall_at_k(truth_np, ref[1].cpu().numpy())
         for mode in ("compact", "scan", "approx", "masked"):
             k10 = _BUILD.LAUNCHES["K10"]
             got = s.search(q, K, nprobe, mode)
             if mode == "compact":
                 check(_BUILD.LAUNCHES["K10"] == k10 + 1, "search(compact) did not take K10")
-            r = bench.recall_at_k(truth_np, got[1].cpu().numpy())
+            r = ds.recall_at_k(truth_np, got[1].cpu().numpy())
             same = int((got[1] == ref[1]).sum())
             reps = 3 if mode == "masked" else 10
             ms = time_ms(lambda: s.search_loop(q, K, nprobe, reps=reps, mode=mode),
@@ -1021,7 +1150,7 @@ def phase7(torch, bench, truth_s, sorted16, q, truth, nprobe, card):
     return out
 
 
-def phase7b(torch, bench, cp, compact_select, s, q256, truth):
+def phase7b(torch, ds, cp, compact_select, s, q256, truth):
     """Slice 3 on the 10M x 96 rung: ``compact`` at nprobe 4 on the sorted
     bf16 searcher (K10 and K11 on its selection), and ``cert`` against the
     K2 truth."""
@@ -1033,7 +1162,7 @@ def phase7b(torch, bench, cp, compact_select, s, q256, truth):
     k10 = _BUILD.LAUNCHES["K10"]
     _, ids = s.search(q256, K, nprobe, "compact")
     check(_BUILD.LAUNCHES["K10"] == k10 + 1, "deep search(compact) did not take K10")
-    r = bench.recall_at_k(truth_ids, ids.cpu().numpy())
+    r = ds.recall_at_k(truth_ids, ids.cpu().numpy())
     ms = time_ms(lambda: s.search_loop(q256, K, nprobe, reps=5, mode="compact"),
                  reps=2) / 5
     out["compact"] = {"nprobe": nprobe, "ctile": ctile, "cap": cap, "chunk": chunk,
@@ -1077,11 +1206,10 @@ def main() -> None:
         import torch
 
         import pqvector_tpu_torch as pqt
+        from pqvector_tpu_torch import datasets as ds
         from pqvector_tpu_torch.kernels import _build
     except ImportError as exc:
         fail(f"the port is not importable here: {exc}")
-    import bench  # numpy-only at import; its dataset and recall helpers
-
     global _BUILD
     _BUILD = _build
 
@@ -1118,7 +1246,7 @@ def main() -> None:
     os.makedirs(data_dir)
     path = os.path.join(data_dir, f"bench_{ROWS}x{DIM}.parquet")
     t0 = time.perf_counter()
-    bench.generate_dataset(path, ROWS, DIM)
+    ds.generate_dataset(path, ROWS, DIM)
     log(f"setup: wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB) "
         f"in {time.perf_counter() - t0:.1f} s")
     emb_np = read_embedding_column(path, "embedding").data
@@ -1130,7 +1258,9 @@ def main() -> None:
     # ---- phase 2 ---------------------------------------------------------
     phase2_small(torch, st, sc, ka)
     phase2_small_slice2(torch, st, sc, bs, _quantize_rows_i8)
-    phase2_small_slice3(torch, tm, cp)
+    phase2_small_k9(torch, tm)
+    phase2_score_tile(torch, tm, sc)
+    phase2_small_gather(torch, cp)
     results: dict[str, dict] = {}
     t0 = time.perf_counter()
     config = pqt.IvfBuildConfig(n_clusters=N_CLUSTERS)
@@ -1259,6 +1389,25 @@ def main() -> None:
         f"({results['K3']['bound_by']} / {results['K4']['bound_by']}); no one-call "
         "library form")
     del g4, w4, lmask
+    b_args = (qf16, s16.emb, s16._pallas_emb_sq(), K, tile)
+    err, swaps = compare_topk(sc._final_merge(*sc.exact_scan(*b_args), K),
+                              sc._final_merge(*sc.exact_scan_plain(*b_args), K),
+                              q16, x16, sq16)
+    sq_h = s16._pallas_emb_sq()
+    res16 = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: sc.exact_scan(*b_args)),
+        "plain_ms": time_ms(lambda: sc.exact_scan_plain(*b_args)),
+        "library_ms": time_ms(lambda: torch.topk(
+            sq_h[None, :] - 2.0 * (qf16 @ s16.emb.T).float(), K, dim=1, largest=False)),
+    }
+    res16.update(bound_of(nbytes_of(qf16, s16.emb, sq_h) + (n_pad // tile) * BATCH * K * 8,
+                          2.0 * BATCH * n_pad * DIM, "bf16"))
+    results["K5"].update({f"bf16_{key}": v for key, v in res16.items()})
+    log(f"phase 2b K5 bf16 (wgmma) 1M x 128, B={BATCH}, k={K}, tile={tile}: {swaps} "
+        f"near-tie swaps after the merge, max err {err:.3g}; kernel {res16['ms']:.3f} ms, "
+        f"plain {res16['plain_ms']:.3f} ms, bf16 mm + topk {res16['library_ms']:.3f} ms, "
+        f"bound {res16['bound_ms']:.3f} ms ({res16['bound_by']})")
     phase2b_slice2(torch, pqt, sc, st, bs, _compact_select, index_a, emb_np, s16, q,
                    q16, tile, results)
     phase2b_slice3(torch, tm, cp, _compact_select, s32, s16, q, results)
@@ -1302,7 +1451,7 @@ def main() -> None:
         before = _build.LAUNCHES["K4"]
         d, ids = searcher.search(q, K, nprobe, "auto")
         check(_build.LAUNCHES["K4"] == before + 1, "search(auto) did not take K4")
-        recall = bench.recall_at_k(truth_np, ids.cpu().numpy())
+        recall = ds.recall_at_k(truth_np, ids.cpu().numpy())
         log(f"phase 3 search auto (K4) nprobe={nprobe}: recall@{K} {recall:.4f}")
         if recall >= RECALL_TARGET:
             chosen = nprobe
@@ -1339,17 +1488,17 @@ def main() -> None:
     log(f"phase 4 launches on the main path: {launches}")
 
     # ---- phases 5 and 6 ----------------------------------------------------
-    main5 = phase5(torch, pqt, _build, bench, path, q, queries, truth_np,
+    main5 = phase5(torch, pqt, _build, ds, path, q, queries, truth_np,
                    searcher, chosen, card)
     for name in ("K5", "K6", "K7", "K8"):
         launches[name] = main5["launches"][name]
-    main7 = phase7(torch, bench, truth_s, searcher, q, (truth_d, truth_ids), chosen,
+    main7 = phase7(torch, ds, truth_s, searcher, q, (truth_d, truth_ids), chosen,
                    card)
     for name in ("K9", "K10"):
         launches[name] = main7["launches"][name]
     del truth_s, searcher
     torch.cuda.empty_cache()
-    main6 = phase6(torch, pqt, _build, bench, Embeddings, dev, cp, _compact_select)
+    main6 = phase6(torch, pqt, _build, ds, Embeddings, dev, cp, _compact_select, tm, sc, st)
     launches["K11"] = main6["slice3"]["gather"]["K11"]["path_launches"]
 
     kernels = []
@@ -1359,6 +1508,7 @@ def main() -> None:
             "replaces": replaces, "launches": launches[name],
             **{key: results[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{key: v for key, v in results[name].items() if key.startswith("bf16_")},
         })
     log("main path: " + json.dumps({"build_s": build_s, "nprobe": chosen,
                                     "recall_at_10": recall, "search_ms": search_ms,

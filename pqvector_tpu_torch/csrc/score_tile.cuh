@@ -1,0 +1,341 @@
+// The score tile of K9 (tile min) and K5 (exact per-tile top-k) for sm_90a.
+//
+// A block of 256 threads owns up to 128 queries and walks a range of rows in
+// chunks of 128. The 128 x 128 dot products q.x of one chunk live in
+// registers and never reach device memory; an epilogue (a fold to per-tile
+// minima, or per-query top-k lists) consumes them chunk by chunk. Slices of
+// both operands arrive in a ring of shared-memory stages filled by cp.async,
+// so the copies of the next slices overlap the arithmetic of this one and
+// one __syncthreads() per slice is all the walk needs.
+//
+// Two back ends compute the sums, chosen by the caller from the shapes alone:
+//
+// FmaTile, IEEE fp32 on the CUDA cores. A thread keeps an 8 rows x 8 queries
+//   patch (8 x 4 for a batch of at most 64). A stage holds 16 dimensions of
+//   the 128 rows and of the queries, transposed ([dimension][row]), so a
+//   thread reads its 8 rows and its 8 queries of one dimension with two
+//   16-byte loads each: 4 loads feed 64 FMAs. The transposition costs
+//   nothing: f32 storage is copied by 4-byte cp.async, each element straight
+//   to its transposed place (a row stride of 132 floats keeps those writes
+//   and the 16-byte reads free of bank conflicts), which also takes any row
+//   alignment (d = 3). bf16 storage that the tensor cores cannot take is
+//   widened in registers on the way in. Every sum adds its products in
+//   ascending dimension order with __fmaf_rn, from a zero start.
+//
+// MmaTile, bf16 x bf16 with fp32 accumulation on the tensor cores. Each of
+//   the two warpgroups runs wgmma.mma_async m64n128k16 with its 64 queries
+//   as M and the chunk's 128 rows as N, both operands K-major in shared
+//   memory under the 128-byte swizzle: a stage holds 64 dimensions (128
+//   bytes) of 128 queries and 128 rows, written by 16-byte cp.async with the
+//   XOR applied to the destination. Dimensions past d and rows past the end
+//   are zero-filled by the copy (src-size 0), so d = 96 or 8 need no second
+//   code path. It needs 16-byte aligned rows: d % 8 == 0. The products are
+//   exact; only the order of the fp32 additions is the hardware's.
+//
+// With queries as M a thread of the warpgroup holds two queries and, of the
+// chunk's rows, 16 groups of 2 consecutive ones, a group's neighbours in the
+// 3 other lanes of its quad: a tile's rows sit in one thread and 4 lanes.
+// The fp32 patch holds 2 groups of 4 consecutive rows, neighbours in 16
+// lanes. Both back ends describe their registers by the same few constants
+// (kGroups, kRun, kXor, kSpan) and accessors, and the epilogues are written
+// against those.
+#pragma once
+
+#include "common.cuh"
+
+namespace pqv {
+
+constexpr int kTR = 128;  // rows of a chunk
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous copies of 4 or 16 bytes; with ok false nothing is read and
+// the destination is zero-filled.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// What a walk scores: queries [B, d] against rows [.., d], one storage type.
+template <typename T>
+struct TileOperands {
+  const T* q;
+  const T* emb;
+  int B, d;
+};
+
+// ------------------------------------------------------------ fp32, FMA
+
+// Stage `ROWS` rows x 16 dimensions of `src` transposed: dst[dim][row], row
+// stride STRIDE floats. Warp w, lane l copies dimension (l >> 2) + 8 (w & 1)
+// of rows (l & 3) + 4 (w >> 1) + 16 i: a warp reads 4 rows x 32 bytes and
+// writes 32 distinct banks.
+template <typename T, int ROWS, int STRIDE>
+__device__ __forceinline__ void stage_transposed(float* dst, const T* src, int row0,
+                                                 int row_limit, int d0, int d) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int dim = (lane >> 2) + 8 * (w & 1);
+  const int rb = (lane & 3) + 4 * (w >> 1);
+  const bool dim_ok = d0 + dim < d;
+  const T* p = src + (size_t)(row0 + rb) * d + d0 + dim;
+  float* o = dst + dim * STRIDE + rb;
+  if constexpr (sizeof(T) == 4) {
+    const uint32_t o32 = smem_u32(o);
+#pragma unroll
+    for (int i = 0; i < ROWS / 16; ++i) {
+      const bool ok = dim_ok && row0 + rb + 16 * i < row_limit;
+      cp_async4(o32 + 64 * i, ok ? p + (size_t)16 * i * d : src, ok);
+    }
+  } else {
+    float v[ROWS / 16];
+#pragma unroll
+    for (int i = 0; i < ROWS / 16; ++i) {
+      const bool ok = dim_ok && row0 + rb + 16 * i < row_limit;
+      v[i] = ok ? to_f32(p[(size_t)16 * i * d]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < ROWS / 16; ++i) o[16 * i] = v[i];
+  }
+}
+
+// NQ queries per thread: the block owns 16 NQ queries (NQ is 8 or 4).
+template <typename T, int NQ>
+struct FmaTile {
+  using Storage = T;
+  static constexpr int kQueries = 16 * NQ;
+  static constexpr int kDims = 16;          // dimensions per stage
+  static constexpr int kXS = kTR + 4;       // floats per staged dimension
+  static constexpr int kQS = kQueries + 4;
+  static constexpr int kStageBytes = kDims * (kXS + kQS) * 4;
+  // Register layout: kGroups groups of kRun consecutive rows per thread; the
+  // rows between a group's runs are in the lanes at XOR distance 1, 2, ...,
+  // 2^(kXor-1) (row_lane() numbers them), which together span kSpan rows.
+  static constexpr int kPerThread = NQ;  // queries per thread
+  static constexpr int kGroups = 2, kRun = 4, kXor = 4, kSpan = 64;
+
+  float acc[8][NQ];
+  int tx, ty;
+
+  __device__ __forceinline__ FmaTile() : tx(threadIdx.x & 15), ty(threadIdx.x >> 4) {}
+  __device__ __forceinline__ int query(int jq) const {
+    return jq < 4 ? 4 * ty + jq : 60 + 4 * ty + jq;
+  }
+  __device__ __forceinline__ int row_base(int g) const { return 64 * g + 4 * tx; }
+  __device__ __forceinline__ int row_lane() const { return tx; }
+  static __device__ __forceinline__ int half_of(int g) { return g; }
+  __device__ __forceinline__ float value(int g, int l, int jq) const {
+    return acc[4 * g + l][jq];
+  }
+
+  __device__ __forceinline__ void load(char* stage, const TileOperands<T>& op, int q0,
+                                       int r0, int row_end, int d0) const {
+    float* s = reinterpret_cast<float*>(stage);
+    stage_transposed<T, kTR, kXS>(s, op.emb, r0, row_end, d0, op.d);
+    stage_transposed<T, kQueries, kQS>(s + kDims * kXS, op.q, q0, op.B, d0, op.d);
+  }
+  __device__ __forceinline__ void arrived() const {}
+
+  // acc += the stage's 16 dimensions, ascending; `first` starts from zero.
+  __device__ __forceinline__ void mma(const char* stage, bool first, int) {
+    if (first) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) acc[i][j] = 0.f;
+    }
+    const float* xs = reinterpret_cast<const float*>(stage) + 4 * tx;
+    const float* qs = reinterpret_cast<const float*>(stage) + kDims * kXS + 4 * ty;
+#pragma unroll
+    for (int kk = 0; kk < kDims; ++kk) {
+      const float4 xa = *reinterpret_cast<const float4*>(xs + kk * kXS);
+      const float4 xb = *reinterpret_cast<const float4*>(xs + kk * kXS + 64);
+      const float4 qa = *reinterpret_cast<const float4*>(qs + kk * kQS);
+      const float xr[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+      float qr[NQ] = {qa.x, qa.y, qa.z, qa.w};
+      if constexpr (NQ == 8) {
+        const float4 qb = *reinterpret_cast<const float4*>(qs + kk * kQS + 64);
+        qr[4] = qb.x, qr[5] = qb.y, qr[6] = qb.z, qr[7] = qb.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) acc[i][j] = __fmaf_rn(xr[i], qr[j], acc[i][j]);
+    }
+  }
+};
+
+// ------------------------------------------------------------ bf16, wgmma
+
+// The shared-memory matrix descriptor of a K-major tile under the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// d (+)= A[64 x 16] B[128 x 16]^T, bf16 operands from shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// Stage 128 rows x 64 dimensions (128 bytes) of bf16 `src` under the 128-byte
+// swizzle: the 16-byte piece c of row r goes to r * 128 + ((c ^ (r & 7)) << 4).
+__device__ __forceinline__ void stage_swizzled(uint32_t dst, const __nv_bfloat16* src,
+                                               int row0, int row_limit, int d0, int d) {
+  const int c = threadIdx.x & 7;
+  const int rb = threadIdx.x >> 3;
+  const bool col_ok = d0 + 8 * c < d;
+  const __nv_bfloat16* p = src + (size_t)(row0 + rb) * d + d0 + 8 * c;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = rb + 32 * i;  // r & 7 == rb & 7
+    const bool ok = col_ok && row0 + r < row_limit;
+    cp_async16(dst + r * 128 + ((c ^ (rb & 7)) << 4), ok ? p + (size_t)32 * i * d : src,
+               ok);
+  }
+}
+
+struct MmaTile {
+  using Storage = __nv_bfloat16;
+  static constexpr int kQueries = 128;
+  static constexpr int kDims = 64;
+  static constexpr int kStageBytes = 2 * 128 * 128;  // queries, then rows
+  static constexpr int kPerThread = 2;
+  static constexpr int kGroups = 16, kRun = 2, kXor = 2, kSpan = 8;
+
+  float acc[64];
+  int lane, wq;  // wq: first query of the thread's two (the other is wq + 8)
+
+  __device__ __forceinline__ MmaTile()
+      : lane(threadIdx.x & 31), wq(16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2)) {}
+  __device__ __forceinline__ int query(int jq) const { return wq + 8 * jq; }
+  __device__ __forceinline__ int row_base(int g) const { return 8 * g + 2 * (lane & 3); }
+  __device__ __forceinline__ int row_lane() const { return lane & 3; }
+  static __device__ __forceinline__ int half_of(int g) { return g / 8; }
+  __device__ __forceinline__ float value(int g, int l, int jq) const {
+    return acc[4 * g + 2 * jq + l];
+  }
+
+  __device__ __forceinline__ void load(char* stage, const TileOperands<Storage>& op,
+                                       int q0, int r0, int row_end, int d0) const {
+    const uint32_t s = smem_u32(stage);
+    stage_swizzled(s, op.q, q0, op.B, d0, op.d);
+    stage_swizzled(s + 128 * 128, op.emb, r0, row_end, d0, op.d);
+  }
+  // The copies wrote through the generic proxy; wgmma reads through the
+  // asynchronous one.
+  __device__ __forceinline__ void arrived() const {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+
+  // acc (+)= the stage's dimensions, 16 per instruction; `left` = d - d0.
+  __device__ __forceinline__ void mma(const char* stage, bool first, int left) {
+    const uint32_t s = smem_u32(stage);
+    const uint64_t a = wgmma_desc(s + (threadIdx.x >> 7) * (64 * 128));
+    const uint64_t b = wgmma_desc(s + 128 * 128);
+    const int steps = left >= kDims ? kDims / 16 : (left + 15) / 16;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    for (int ks = 0; ks < steps; ++ks)  // 32 bytes along K: 2 in the address field
+      wgmma_m64n128k16(acc, a + 2 * ks, b + 2 * ks, !(first && ks == 0));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+  }
+};
+
+// ------------------------------------------------------------ the walk
+
+// Score rows [row_begin, row_end) against queries q0 .. q0 + kQueries - 1 in
+// chunks of kTR rows through a ring of STAGES stages at `ring`. The epilogue
+// sees `epi.begin(r0, slot)` before a chunk's first slice (at least one
+// __syncthreads() follows before `chunk`) and `epi.chunk(tile, r0, slot)`
+// once its sums are complete; slot alternates 0, 1.
+template <int STAGES, class Tile, class Epilogue>
+__device__ __forceinline__ void walk_rows(Tile& tile,
+                                          const TileOperands<typename Tile::Storage>& op,
+                                          int q0, int row_begin, int row_end, char* ring,
+                                          Epilogue& epi) {
+  const int nk = (op.d + Tile::kDims - 1) / Tile::kDims;
+  const int nchunks = (row_end - row_begin + kTR - 1) / kTR;
+  int lc = 0, lk = 0, lslot = 0;  // next slice to load, and its stage
+  auto fetch = [&]() {
+    if (lc < nchunks) {
+      tile.load(ring + lslot * Tile::kStageBytes, op, q0, row_begin + lc * kTR, row_end,
+                lk * Tile::kDims);
+      if (++lk == nk) {
+        lk = 0;
+        ++lc;
+      }
+    }
+    cp_async_commit();
+    lslot = lslot + 1 == STAGES ? 0 : lslot + 1;
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch();
+  int slot = 0;
+  for (int c = 0; c < nchunks; ++c) {
+    const int r0 = row_begin + c * kTR;
+    epi.begin(r0, c & 1);
+    for (int kb = 0; kb < nk; ++kb) {
+      cp_async_wait<STAGES - 2>();
+      tile.arrived();
+      __syncthreads();  // the slice is visible; the stage read last is free
+      fetch();
+      tile.mma(ring + slot * Tile::kStageBytes, kb == 0, op.d - kb * Tile::kDims);
+      slot = slot + 1 == STAGES ? 0 : slot + 1;
+    }
+    epi.chunk(tile, r0, c & 1);
+  }
+  cp_async_wait<0>();
+}
+
+// Dynamic shared memory is aligned by hand: the swizzle wants 1024 bytes.
+__device__ __forceinline__ char* align_ring(char* dyn) {
+  const uint32_t a = smem_u32(dyn);
+  return dyn + ((1024u - (a & 1023u)) & 1023u);
+}
+
+}  // namespace pqv

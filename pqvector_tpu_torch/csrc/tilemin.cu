@@ -6,170 +6,162 @@
 //
 // The TPU kernel scores a [bt, ct * tile] block on the matrix unit and folds
 // each tile's lane group to its minimum before the block leaves fast
-// memory. Here a block of 256 threads owns 128 queries (64 for a small
-// batch) and a run of rows. It streams 64-row chunks of the rows, 32
-// dimensions at a time, through shared memory; each thread keeps a patch of
-// 4 rows x 8 (or 4) queries of sums in registers; and the chunk's scores go
-// to shared memory only to be folded: a segmented warp-shuffle minimum
-// gives each (query, tile) its value, carried in a register across chunks
-// where a tile is longer than a chunk. The [B, n_pad] score block never
-// exists in device memory. Tiles are independent, so no state crosses
-// blocks: no atomics, no merge launch.
+// memory. Here a block owns up to 128 queries and a run of rows and walks
+// them with the score tile of score_tile.cuh: the sums of a 128-row chunk
+// stay in registers and are folded there. A thread first takes the minimum
+// over its own rows of a tile, then __shfl_xor joins the lanes that hold the
+// tile's other rows, and for a tile longer than a chunk one shared-memory word
+// per query carries the minimum from chunk to chunk. No score reaches shared
+// or device memory. Tiles are independent, so no state crosses blocks: no atomics, no
+// merge launch. The query groups of one run are neighbours in the grid, so
+// the second group finds the rows in L2.
 //
 // The score is the TPU kernel's: q2 = (-2 q) rounded to the storage dtype
-// by the caller, dot(q2, x) accumulated in fp32 in ascending dimension
-// order with __fmaf_rn, then + |x|^2 with __fadd_rn. bf16 operands are
-// widened to fp32, so their products are exact. A pad row is all zeros, so
-// its score is its norm: +3e38 or +inf, never NaN, and a tile of pad rows
-// only returns that sentinel.
+// by the caller, dot(q2, x) accumulated in fp32, then + |x|^2 with
+// __fadd_rn. A pad row is all zeros, so its score is its norm: +3e38 or
+// +inf, never NaN (0 x inf is never formed: the norm is added after the
+// dot), and a tile of pad rows only returns that sentinel.
 //
-// What bounds it on the H100: fp32 FMA on the CUDA cores, 2 B n_pad d
-// operations against 67 TFLOP/s. Rows and queries are staged with a row
-// stride of 36 floats, so a thread reads four dimensions of a row or a
-// query with one 16-byte load free of bank conflicts: 12 loads feed 128
-// FMAs (a first design with a 4 x 4 patch and scalar row loads, 5 loads for
-// 16 FMAs, was slower). Shared-memory loads still bound it: a 16-byte load
-// occupies the load unit for four cycles even where lanes share an
-// address, so four warps' 12 loads take 192 cycles against 128 for their
-// FMAs. An 8 x 8 patch or a tensor-core tile is the way on. The rows are
-// read once for every 128 queries. No tensor cores (the f32 score must be
-// IEEE fp32), no TMA yet.
-#include "common.cuh"
+// What bounds it on the H100. f32 storage: the fp32 FMAs of the CUDA cores,
+// 2 B n_pad d operations against 67 TFLOP/s; the f32 score must be IEEE
+// fp32, so no tensor core takes it. The 8 x 8 register patch feeds 64 FMAs
+// from 4 shared-memory loads, and the cp.async ring keeps the next slices
+// in flight while the FMAs run. At 16 words loaded per 64 FMAs the
+// shared-memory pipe (32 words a clock) is as busy as the FMA pipe (128 a
+// clock), so the kernel runs at about half the FMA peak, the rate of the
+// library's own fp32 product on this card; a larger patch is the way on.
+// bf16 storage: bytes, 2 n_pad d against 3.35 TB/s, once the products run on
+// the tensor cores (wgmma), as they do where d % 8 == 0; other widths widen
+// into the fp32 patch. There the queries' slice is fetched again from L2 for
+// every chunk, as many bytes as the rows themselves.
+#include "score_tile.cuh"
 
 namespace pqv {
 
-constexpr int kTDK = 32;           // dimensions staged per step
-constexpr int kTStride = kTDK + 4; // floats per staged row: 16-byte aligned,
-                                   // and 36 r mod 32 spreads rows over banks
+template <class Tile>
+struct MinFold {
+  const float* emb_sq;
+  float* out;
+  float* sqs;    // shared, [2][kTR]: the norms of this chunk and the next
+  float* carry;  // shared, [kQueries]: a long tile's minimum so far; only the
+                 // thread with row_lane() == 0 touches its queries' slots
+  int B, q0, row_end, tile, nt;
 
-// NQ queries per thread: the block owns 16 * NQ queries.
-template <typename T, int NQ>
-__global__ void __launch_bounds__(kThreads, 2)
-    tile_min_kernel(const T* __restrict__ q2, const T* __restrict__ emb,
-                    const float* __restrict__ emb_sq, float* __restrict__ out,
-                    int B, int d, int n_pad, int tile, int run) {
-  constexpr int TQ = 16 * NQ;
-  constexpr int kStage = (kRC + TQ) * kTStride;  // staged rows, then queries
-  constexpr int kPart = TQ * (kRC + 1);          // the chunk's scores
-  __shared__ __align__(16) float smem[kStage > kPart ? kStage : kPart];
-  float(*xs)[kTStride] = reinterpret_cast<float(*)[kTStride]>(smem);
-  float(*qs)[kTStride] =
-      reinterpret_cast<float(*)[kTStride]>(smem + kRC * kTStride);
-  // the scores overlay the staging area once the sums are done
-  float(*part)[kRC + 1] = reinterpret_cast<float(*)[kRC + 1]>(smem);
-
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int w = t >> 5;
-  const int rl = t & 15;  // rows rl, rl + 16, rl + 32, rl + 48 of the chunk
-  const int g = t >> 4;   // queries NQ g .. NQ g + NQ - 1 of the block
-  const int q0 = blockIdx.y * TQ;
-  const int nt = n_pad / tile;
-  const int row_begin = blockIdx.x * run;
-  const int row_end = min(row_begin + run, n_pad);
-  const float inf = __int_as_float(0x7f800000);
-  // Warp w folds queries w, w + 8, ...; a tile longer than a chunk carries
-  // its minimum here from chunk to chunk (only that warp's lane 0 touches
-  // a query's slot).
-  __shared__ float carry[TQ];
-  for (int e = t; e < TQ; e += kThreads) carry[e] = inf;
-  const int seg = tile < 32 ? tile : 32;  // lanes that share one tile
-
-  for (int r0 = row_begin; r0 < row_end; r0 += kRC) {
-    float acc[4][NQ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) acc[i][j] = 0.f;
-    for (int d0 = 0; d0 < d; d0 += kTDK) {
-      for (int e = t; e < kRC * kTDK; e += kThreads) {
-        const int rr = e / kTDK, cc = e % kTDK;
-        const int row = r0 + rr, col = d0 + cc;
-        xs[rr][cc] = (row < row_end && col < d)
-                         ? to_f32(emb[(size_t)row * d + col])
-                         : 0.f;
-      }
-      for (int e = t; e < TQ * kTDK; e += kThreads) {
-        const int qq = e / kTDK, cc = e % kTDK;
-        const int b = q0 + qq, col = d0 + cc;
-        qs[qq][cc] = (b < B && col < d) ? to_f32(q2[(size_t)b * d + col]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int c4 = 0; c4 < kTDK; c4 += 4) {
-        float4 xv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          xv[i] = *reinterpret_cast<const float4*>(&xs[rl + 16 * i][c4]);
-#pragma unroll
-        for (int j = 0; j < NQ; ++j) {
-          const float4 qv = *reinterpret_cast<const float4*>(&qs[NQ * g + j][c4]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float a = acc[i][j];
-            a = __fmaf_rn(xv[i].x, qv.x, a);
-            a = __fmaf_rn(xv[i].y, qv.y, a);
-            a = __fmaf_rn(xv[i].z, qv.z, a);
-            a = __fmaf_rn(xv[i].w, qv.w, a);
-            acc[i][j] = a;
-          }
-        }
-      }
-      __syncthreads();  // also frees the staging area for the scores
+  __device__ __forceinline__ void begin(int r0, int slot) {
+    if (threadIdx.x < kTR) {
+      const int row = r0 + threadIdx.x;
+      sqs[slot * kTR + threadIdx.x] =
+          row < row_end ? emb_sq[row] : __int_as_float(0x7f800000);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + rl + 16 * i;
-      const bool ok = row < row_end;
-      const float sq = ok ? emb_sq[row] : inf;
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-        part[NQ * g + j][rl + 16 * i] = ok ? __fadd_rn(acc[i][j], sq) : inf;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < TQ / kWarps; ++i) {
-      const int qq = w + kWarps * i;
-      const int b = q0 + qq;
-      if (b >= B) continue;  // uniform across the warp
-#pragma unroll
-      for (int c0 = 0; c0 < kRC; c0 += 32) {
-        float v = part[qq][c0 + lane];
-        for (int off = seg >> 1; off > 0; off >>= 1)
-          v = fminf(v, __shfl_xor_sync(kFull, v, off));
-        const int row = r0 + c0 + lane;
-        if (tile <= 32) {
-          if (lane % tile == 0 && row < row_end)
-            out[(size_t)b * nt + row / tile] = v;
-        } else if (lane == 0) {
-          v = fminf(carry[qq], v);
-          if ((r0 + c0 + 32) % tile == 0) {  // the tile ends with this half-chunk
-            out[(size_t)b * nt + (r0 + c0) / tile] = v;
-            v = inf;
-          }
-          carry[qq] = v;
-        }
-      }
-    }
-    __syncthreads();  // the scores are the staging area of the next chunk
   }
+
+  __device__ __forceinline__ void store(int jq, const Tile& t, int row, float v) {
+    const int b = q0 + t.query(jq);
+    if (b < B && row < row_end) out[(size_t)b * nt + row / tile] = v;
+  }
+
+  __device__ __forceinline__ void chunk(const Tile& t, int r0, int slot) {
+    constexpr int G = Tile::kGroups, L = Tile::kRun, NQ = Tile::kPerThread;
+    const float inf = __int_as_float(0x7f800000);
+    const float* sq = sqs + slot * kTR;
+    const int gpt = tile / Tile::kSpan;  // groups of a tile longer than a span
+    float run[NQ];
+#pragma unroll
+    for (int jq = 0; jq < NQ; ++jq) run[jq] = inf;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float s[L];
+#pragma unroll
+      for (int l = 0; l < L; ++l) s[l] = sq[t.row_base(g) + l];
+#pragma unroll
+      for (int jq = 0; jq < NQ; ++jq) {
+        float v[L];
+#pragma unroll
+        for (int l = 0; l < L; ++l) v[l] = __fadd_rn(t.value(g, l, jq), s[l]);
+        if (tile < L) {  // tiles of 2 rows in a run of 4
+#pragma unroll
+          for (int p = 0; p < L / 2; ++p)
+            store(jq, t, r0 + t.row_base(g) + 2 * p, fminf(v[2 * p], v[2 * p + 1]));
+          continue;
+        }
+        float m = v[0];
+#pragma unroll
+        for (int l = 1; l < L; ++l) m = fminf(m, v[l]);
+        if (tile <= Tile::kSpan) {  // the tile's other rows are in lanes
+#pragma unroll
+          for (int x = 0; x < Tile::kXor; ++x)
+            if ((L << x) < tile) m = fminf(m, __shfl_xor_sync(kFull, m, 1 << x));
+          if (t.row_lane() % (tile / L) == 0) store(jq, t, r0 + t.row_base(g), m);
+          continue;
+        }
+        run[jq] = fminf(run[jq], m);
+        const bool last = tile >= kTR ? g == G - 1 : ((g + 1) & (gpt - 1)) == 0;
+        if (!last) continue;
+        m = run[jq];
+        run[jq] = inf;
+#pragma unroll
+        for (int x = 0; x < Tile::kXor; ++x)
+          m = fminf(m, __shfl_xor_sync(kFull, m, 1 << x));
+        if (t.row_lane() != 0) continue;
+        if (tile < kTR) {
+          store(jq, t, r0 + Tile::kSpan * (g + 1 - gpt), m);
+        } else {  // carry across the chunks of a long tile
+          m = fminf(carry[t.query(jq)], m);
+          if ((r0 + kTR) % tile == 0) {
+            store(jq, t, r0, m);
+            m = inf;
+          }
+          carry[t.query(jq)] = m;
+        }
+      }
+    }
+  }
+};
+
+template <class Tile, int STAGES>
+__global__ void __launch_bounds__(kThreads, 2)
+    tile_min_kernel(TileOperands<typename Tile::Storage> op,
+                    const float* __restrict__ emb_sq, float* __restrict__ out,
+                    int n_pad, int tile, int run, int nqb) {
+  extern __shared__ char dyn[];
+  char* ring = align_ring(dyn);
+  Tile t;
+  MinFold<Tile> epi;
+  epi.emb_sq = emb_sq;
+  epi.out = out;
+  epi.sqs = reinterpret_cast<float*>(ring + STAGES * Tile::kStageBytes);
+  epi.B = op.B;
+  epi.q0 = (blockIdx.x % nqb) * Tile::kQueries;
+  const int row_begin = (blockIdx.x / nqb) * run;
+  epi.row_end = min(row_begin + run, n_pad);
+  epi.tile = tile;
+  epi.nt = n_pad / tile;
+  epi.carry = epi.sqs + 2 * kTR;
+  if (threadIdx.x < Tile::kQueries)  // a barrier of the walk precedes its use
+    epi.carry[threadIdx.x] = __int_as_float(0x7f800000);
+  walk_rows<STAGES>(t, op, epi.q0, row_begin, epi.row_end, ring, epi);
 }
 
-template <typename T>
-int launch_tile_min(const void* q2, const void* emb, const float* emb_sq,
-                    float* out, int B, int d, int n_pad, int tile, int run,
-                    cudaStream_t st) {
-  const T* q = static_cast<const T*>(q2);
-  const T* e = static_cast<const T*>(emb);
-  if (B > 64) {
-    dim3 grid(ceil_div(n_pad, run), ceil_div(B, 128));
-    tile_min_kernel<T, 8><<<grid, kThreads, 0, st>>>(q, e, emb_sq, out, B, d,
-                                                     n_pad, tile, run);
-  } else {
-    dim3 grid(ceil_div(n_pad, run), 1);
-    tile_min_kernel<T, 4><<<grid, kThreads, 0, st>>>(q, e, emb_sq, out, B, d,
-                                                     n_pad, tile, run);
-  }
+constexpr int kMinStages = 3;
+
+template <class Tile>
+constexpr int tile_min_smem() {
+  return 1024 + kMinStages * Tile::kStageBytes + (2 * kTR + 128) * 4;
+}
+
+template <class Tile>
+int launch_tile_min(const void* q2, const void* emb, const float* emb_sq, float* out,
+                    int B, int d, int n_pad, int tile, int run, cudaStream_t st) {
+  using T = typename Tile::Storage;
+  TileOperands<T> op = {static_cast<const T*>(q2), static_cast<const T*>(emb), B, d};
+  auto kernel = tile_min_kernel<Tile, kMinStages>;
+  constexpr int smem = tile_min_smem<Tile>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nqb = ceil_div(B, Tile::kQueries);
+  kernel<<<ceil_div(n_pad, run) * nqb, kThreads, smem, st>>>(op, emb_sq, out, n_pad, tile,
+                                                              run, nqb);
   return (int)cudaGetLastError();
 }
 
@@ -178,14 +170,37 @@ int launch_tile_min(const void* q2, const void* emb, const float* emb_sq,
 // q2 [B, d] = (-2 q) in emb's dtype, emb [n_pad, d] (bf16 when is_bf16),
 // emb_sq [n_pad] f32; out [B, n_pad / tile] f32. tile is a power of two that
 // divides n_pad; run, the rows one block owns, is a multiple of
-// max(tile, 64).
+// max(tile, 128). wgmma picks the tensor-core back end: bf16, d % 8 == 0 and
+// both arrays 16-byte aligned.
 extern "C" int pqv_tile_min(const void* q2, const void* emb, const float* emb_sq,
                             int B, int d, int n_pad, int tile, int run,
-                            int is_bf16, float* out, void* stream) {
+                            int is_bf16, int wgmma, float* out, void* stream) {
+  using namespace pqv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return pqv::launch_tile_min<__nv_bfloat16>(q2, emb, emb_sq, out, B, d, n_pad,
-                                               tile, run, st);
-  return pqv::launch_tile_min<float>(q2, emb, emb_sq, out, B, d, n_pad, tile, run,
-                                     st);
+  if (run % kTR || run % tile) return (int)cudaErrorInvalidValue;
+  if (wgmma) {
+    if (!is_bf16 || d % 8 || ((uintptr_t)q2 | (uintptr_t)emb) % 16)
+      return (int)cudaErrorInvalidValue;
+    return launch_tile_min<MmaTile>(q2, emb, emb_sq, out, B, d, n_pad, tile, run, st);
+  }
+  if (is_bf16) {
+    if (B > 64)
+      return launch_tile_min<FmaTile<__nv_bfloat16, 8>>(q2, emb, emb_sq, out, B, d,
+                                                        n_pad, tile, run, st);
+    return launch_tile_min<FmaTile<__nv_bfloat16, 4>>(q2, emb, emb_sq, out, B, d, n_pad,
+                                                      tile, run, st);
+  }
+  if (B > 64)
+    return launch_tile_min<FmaTile<float, 8>>(q2, emb, emb_sq, out, B, d, n_pad, tile,
+                                              run, st);
+  return launch_tile_min<FmaTile<float, 4>>(q2, emb, emb_sq, out, B, d, n_pad, tile, run,
+                                            st);
+}
+
+// Dynamic shared memory of K9's launch, for the wrapper's own reckoning.
+extern "C" int pqv_tile_min_smem(int wgmma, int block_queries) {
+  using namespace pqv;
+  if (wgmma) return tile_min_smem<MmaTile>();
+  return block_queries > 64 ? tile_min_smem<FmaTile<float, 8>>()
+                            : tile_min_smem<FmaTile<float, 4>>();
 }

@@ -19,11 +19,11 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, score_tile
 
 POS_INF = 3.0e38  # pad and masked rows, as in the kernels
 MAX_K = 128  # largest k a kernel's top-k list holds
-QUERY_BLOCK = 16  # queries per kernel block (kQB in csrc/common.cuh)
+QUERY_BLOCK = 16  # queries per block of K2-K4 and K6 (kQB in csrc/common.cuh)
 
 
 def select_lex(d: torch.Tensor, ids: torch.Tensor, k: int):
@@ -149,10 +149,10 @@ def exact_scan_plain(qf, emb, emb_sq, k, tile):
     return _tile_topk_plain(qf, emb, emb_sq, k, tile)
 
 
-def _launch_tile_topk(name, fn, qf, emb, emb_sq, k, tile, ptrs=(), ints=()):
+def _launch_tile_topk(name, fn, qf, emb, emb_sq, k, tile, ptrs=(), ints=(), flags=()):
     """Launch a per-tile scan kernel (K4, K5, K6) -> ([nt, B, k], [nt, B, k]).
     Their C entry points take (q, emb, emb_sq, *ptrs, B, d, n_pad, k, tile,
-    *ints, is_bf16, out_d, out_i, stream)."""
+    *ints, is_bf16, *flags, out_d, out_i, stream)."""
     lib = _build.load()
     n_pad, d = emb.shape
     b = qf.shape[0]
@@ -162,7 +162,7 @@ def _launch_tile_topk(name, fn, qf, emb, emb_sq, k, tile, ptrs=(), ints=()):
     rc = getattr(lib, fn)(
         qf.data_ptr(), emb.data_ptr(), emb_sq.data_ptr(),
         *(t.data_ptr() for t in ptrs), b, d, n_pad, k, tile, *ints,
-        int(emb.dtype == torch.bfloat16), out_d.data_ptr(), out_i.data_ptr(),
+        int(emb.dtype == torch.bfloat16), *flags, out_d.data_ptr(), out_i.data_ptr(),
         _build.stream_ptr(),
     )
     _build.check(rc, fn)
@@ -173,12 +173,20 @@ def _launch_tile_topk(name, fn, qf, emb, emb_sq, k, tile, ptrs=(), ints=()):
 def exact_scan(qf, emb, emb_sq, k: int, tile: int):
     """K5's scan: each tile's exact top-k -> ([nt, B, k] f32 partial d²,
     [nt, B, k] i32), empty slots (+3e38, -1). Operands as for
-    ``masked_local_scan``."""
+    ``masked_local_scan``. The kernel runs on the score tile of
+    ``csrc/score_tile.cuh``: fp32 FMA for f32 storage, wgmma for bf16 storage
+    with ``d % 8 == 0`` (``score_tile.pick_backend``)."""
     check_scan_args(qf, emb, emb_sq, k, tile)
     if emb.device.type == "cpu":
         return exact_scan_plain(qf, emb, emb_sq, k, tile)
     check_cuda_operands(q=qf, emb=emb, emb_sq=emb_sq)
-    return _launch_tile_topk("K5", "pqv_exact_topk", qf, emb, emb_sq, k, tile)
+    backend = score_tile.pick_backend(
+        emb.dtype, emb.shape[1], qf.data_ptr(), emb.data_ptr()
+    )
+    return _launch_tile_topk(
+        "K5", "pqv_exact_topk", qf, emb, emb_sq, k, tile,
+        flags=(int(backend == "wgmma"),),
+    )
 
 
 def masked_scan_plain(qf, emb, emb_sq, row_cluster, mask, k, tile):

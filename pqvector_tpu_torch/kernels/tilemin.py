@@ -4,7 +4,9 @@ Counterpart of ``pqvector_tpu/kernels/tilemin.py`` (``pallas_tile_min``),
 pass 1 of the certified-exact scan: the minimum over every contiguous
 ``tile``-row group, without the [B, n_pad] score block ever reaching device
 memory. On CUDA tensors ``tile_min`` launches the hand-written kernel
-(``csrc/tilemin.cu``); on CPU tensors it runs ``tile_min_plain``.
+(``csrc/tilemin.cu``, on the score tile of ``csrc/score_tile.cuh``: fp32 FMA
+for f32 storage, wgmma for bf16 storage with ``d % 8 == 0``, by
+``score_tile.pick_backend``); on CPU tensors it runs ``tile_min_plain``.
 
 The score is the TPU kernel's: ``q2 = (-2 q)`` rounded to ``emb``'s dtype,
 ``dot(q2, x)`` accumulated in f32, then ``+ |x|^2``. Add ``|q|^2`` per query
@@ -16,12 +18,12 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, score_tile
 from .scan_topk import check_cuda_operands
 
 #: Rows per step of the plain version: bounds its [B, rows] score block.
 _PLAIN_ROWS = 65536
-#: Rows one block of the kernel owns (a multiple of its 64-row chunk), unless
+#: Rows one block of the kernel owns (a multiple of its 128-row chunk), unless
 #: the tile is longer.
 _RUN_ROWS = 1024
 
@@ -77,10 +79,11 @@ def tile_min(q, emb, emb_sq, tile: int, high: bool = False) -> torch.Tensor:
     n_pad, d = emb.shape
     b = q.shape[0]
     out = torch.empty((b, n_pad // tile), dtype=torch.float32, device=emb.device)
+    backend = score_tile.pick_backend(emb.dtype, d, q2.data_ptr(), emb.data_ptr())
     rc = lib.pqv_tile_min(
         q2.data_ptr(), emb.data_ptr(), emb_sq.data_ptr(), b, d, n_pad, tile,
-        max(tile, _RUN_ROWS), int(emb.dtype == torch.bfloat16), out.data_ptr(),
-        _build.stream_ptr(),
+        max(tile, _RUN_ROWS), int(emb.dtype == torch.bfloat16),
+        int(backend == "wgmma"), out.data_ptr(), _build.stream_ptr(),
     )
     _build.check(rc, "pqv_tile_min")
     _build.LAUNCHES["K9"] += 1

@@ -1,0 +1,136 @@
+"""Quick check and timing of the score-tile kernels (K9 tile min, K5 exact
+per-tile top-k) of the PyTorch port on one Hopper GPU.
+
+    python3 scripts/torch_score_tile_check.py [--rows 1000000] [--no-ptxas]
+        [--time-only] [--package-root DIR]
+
+Needs a card, nvcc and the repo root as the working directory. It
+1. compiles ``csrc/tilemin.cu`` and ``csrc/scan_topk.cu`` once more with
+   ``-Xptxas -v`` and prints registers, spills and shared memory of the
+   score-tile kernels;
+2. holds the C sources' shared-memory sizes to ``kernels/score_tile.py``;
+3. runs both kernels against their plain versions on 1/4-grid data (every
+   sum exact, so the results must be equal) over awkward shapes, on both
+   back ends;
+4. times them at ``--rows`` x 128, B = 256 (f32 and bf16) beside one PyTorch
+   chain for the same function, with CUDA events (median of 10).
+
+A short first call after touching the CUDA sources; ``chip_smoke.py`` is the
+full run. ``--time-only`` skips steps 2 and 3. ``--package-root DIR`` takes
+``pqvector_tpu_torch`` from another checkout (say, an earlier commit unpacked
+with ``git archive`` under ``build/``), to time two versions of the kernels
+in one call on one card; use it with ``--time-only --no-ptxas``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def ptxas_report(_build) -> None:
+    for name in ("tilemin.cu", "scan_topk.cu"):
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+               os.devnull, str(_build.CSRC / name)]
+        out = subprocess.run(cmd, capture_output=True, text=True)
+        if out.returncode:
+            raise SystemExit(f"nvcc failed on {name}:\n{out.stdout}\n{out.stderr}")
+        lines = out.stderr.splitlines()
+        for i, line in enumerate(lines):
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m and re.search(r"tile_min_kernel|exact_topk_kernel", m.group(1)):
+                tile = re.search(r"(FmaTile\w+?EE|MmaTile)", m.group(1))
+                used = " ".join(l.strip() for l in lines[i + 1 : i + 4])
+                used = used.replace("ptxas info    : ", "")
+                print(f"ptxas {name} {tile.group(1) if tile else m.group(1)}: {used}")
+
+
+def check_shared_memory(lib) -> None:
+    from pqvector_tpu_torch.kernels import score_tile
+
+    for backend, nq in (("fma", 64), ("fma", 128), ("wgmma", 128)):
+        flag = int(backend == "wgmma")
+        got = lib.pqv_tile_min_smem(flag, nq)
+        assert got == score_tile.smem_bytes("K9", backend, nq), (backend, nq, got)
+        for k in (1, 10, 128):
+            got = lib.pqv_exact_topk_smem(flag, nq, k)
+            assert got == score_tile.smem_bytes("K5", backend, nq, k), (backend, nq, k)
+            assert got <= score_tile.SMEM_LIMIT
+    print("shared-memory sizes agree with kernels/score_tile.py")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--no-ptxas", action="store_true")
+    ap.add_argument("--time-only", action="store_true")
+    ap.add_argument("--package-root", default=None)
+    args = ap.parse_args()
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
+
+    import torch
+
+    import chip_smoke as cs
+    from pqvector_tpu_torch.kernels import _build
+    from pqvector_tpu_torch.kernels import scan_topk as sc
+    from pqvector_tpu_torch.kernels import tilemin as tm
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.card_line(), "| torch", torch.__version__, "CUDA", torch.version.cuda)
+    lib = _build.load()
+    print(f"nvcc build {_build.build_seconds:.2f} s of {_build.CSRC}")
+    if not args.no_ptxas:
+        ptxas_report(_build)
+    if not args.time_only:
+        check_shared_memory(lib)
+        cs.phase2_small_k9(torch, tm)
+        cs.phase2_score_tile(torch, tm, sc)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    n, d, b, k = args.rows, 128, 256, 10
+    n_pad = -(-n // 4096) * 4096
+    x = torch.zeros((n_pad, d), device=dev)
+    x[:n] = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+    sq = torch.full((n_pad,), 3.0e38, device=dev)
+    sq[:n] = (x[:n] * x[:n]).sum(1)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    for name, emb in (("f32", x), ("bf16", x.to(torch.bfloat16))):
+        got, want = tm.tile_min(q, emb, sq, 128), tm.tile_min_plain(q, emb, sq, 128)
+        fin = want < 1e38
+        assert torch.equal(fin, got < 1e38)
+        err = float((got - want)[fin].abs().max())
+        ms = cs.time_ms(lambda: tm.tile_min(q, emb, sq, 128))
+        q2 = (-2.0 * q).to(emb.dtype)
+        e3, s3 = emb.view(n_pad // 128, 128, d), sq.view(1, n_pad // 128, 128)
+        lib_ms = cs.time_ms(lambda: (torch.einsum("bd,gtd->bgt", q2, e3) + s3).amin(dim=2))
+        ms1 = cs.time_ms(lambda: tm.tile_min(q[:1], emb, sq, 128))
+        print(f"K9 {name} {n} x {d} B={b} tile 128: max err {err:.3g}, kernel {ms:.3f} ms "
+              f"(B=1: {ms1:.3f} ms), einsum + amin {lib_ms:.3f} ms")
+        qf = q.to(emb.dtype)
+        g = sc._final_merge(*sc.exact_scan(qf, emb, sq, k, 1024), k)
+        w = sc._final_merge(*sc.exact_scan_plain(qf, emb, sq, k, 1024), k)
+        err, swaps = cs.compare_topk(g, w, cs.stored_f64(qf), cs.stored_f64(emb),
+                                     sq.cpu().numpy().astype(np.float64))
+        ms = cs.time_ms(lambda: sc.exact_scan(qf, emb, sq, k, 1024))
+        ms128 = cs.time_ms(lambda: sc.exact_scan(qf, emb, sq, 128, 1024), reps=3)
+        lib_ms = cs.time_ms(lambda: torch.topk(sq[None, :] - 2.0 * (qf @ emb.T).float(), k,
+                                               dim=1, largest=False))
+        print(f"K5 {name} tile 1024 k={k}: {swaps} near-tie swaps, max err {err:.3g}, "
+              f"kernel {ms:.3f} ms (k=128: {ms128:.3f} ms), mm + topk {lib_ms:.3f} ms")
+    print("ok")
+
+
+if __name__ == "__main__":
+    main()
