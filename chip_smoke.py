@@ -17,14 +17,16 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    than tiles, tiles of 2 to 2048 rows, all-pad tiles, repeated and
    unordered selections; for K9 and K5 also what their 128 x 128 score tile
    makes awkward: B = 129 and 257, d = 8, 96, 100, 136 on both back ends,
-   k = 128 at 128 queries) must agree exactly; at the main path's shapes the
+   k = 128 at 128 queries; for K1 and K2, which run on the same tile, d = 3
+   and 100, 1 to 4096 centroids, B = 1 to 4096 and four splits of the rows)
+   must agree exactly; at the main path's shapes the
    ids must agree except where the two picks tie within the f32 tolerance
    (the int8 key tables exactly, K9 within the certificate's envelope, the
    gathers bit for bit), and both are timed with CUDA events (median of
    10), beside one PyTorch call or two-call chain that computes the same
    function where there is one, and the bound: the least time the card
-   could take for the call's bytes and operations. K9 and K5 are timed on
-   the f32 and on the bf16 array.
+   could take for the call's bytes and operations. K9, K5 and K2 are timed
+   on the f32 and on the bf16 array, K2 also at k = 100.
 3. The main path at the bench's default configuration: a seeded 1M x 128
    Parquet file, ``IndexBuilder(...).n_clusters(1024).build_inplace()`` on
    the card, exact truth from K2 on an f32 searcher, and an nprobe sweep of
@@ -58,8 +60,9 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    rung's sorted searcher: ``compact`` at nprobe 4 (cap, coverage, recall,
    ms), K10 and K11 on that selection (bit-equal to the plain gather and to
    each other, timed beside ``index_select``), ``cert`` equal to the K2
-   truth, and K9 and K5 timed at that rung's shapes (K9 within the
-   certificate's envelope of its plain version, K5's merge equal to K2's).
+   truth, and K9, K5, K2 and K1 timed at that rung's shapes (K9 within the
+   certificate's envelope of its plain version, K5's merge equal to K2's, K1
+   against 4096 centroids equal to its plain version up to near-ties).
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -67,6 +70,7 @@ The last lines are the kernels' JSON, the card's name and power limit, and
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
@@ -496,7 +500,7 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
 
 def selection_ties(torch, got, want, q, emb, emb_sq, what):
     """Two re-scored top-k results selected over the same bf16 storage by
-    kernels that add the exact products in other orders (wgmma, fp32 FMA):
+    kernels that may add the exact products in other orders (wgmma, fp32 FMA):
     rows both picked carry the same distance, and rows only one picked tie
     with the other's at the storage precision (their scores |x|^2 - 2 q.x
     over the stored values, in float64, within 1e-5 (|q|^2 + max |x|^2)).
@@ -564,7 +568,7 @@ def phase5(torch, pqt, _build, ds, path, q, queries, truth_np, sorted16, nprobe4
                            fo._pallas_emb_sq(), "K5 vs K2")
     out["exact_pallas"] = {"recall_at_10": ds.recall_at_k(truth_np, i5.cpu().numpy()),
                            "swaps_vs_K2": swaps}
-    log(f"phase 5 exact pallas (K5, wgmma) vs stream (K2, fp32 FMA), bf16: {swaps} rows "
+    log(f"phase 5 exact pallas (K5) vs stream (K2), both on wgmma over bf16: {swaps} rows "
         f"differ, each tied at the storage precision; recall@{K} against the f32 truth "
         f"{out['exact_pallas']['recall_at_10']:.4f}")
 
@@ -652,7 +656,7 @@ def auto_route_table(s, q, nprobe, batches, reps, phase):
     return out
 
 
-def phase6(torch, pqt, _build, ds, Embeddings, dev, cp, compact_select, tm, sc, st):
+def phase6(torch, pqt, _build, ds, Embeddings, dev, cp, compact_select, tm, sc, st, ka):
     """The DEEP-shaped rung: 10M x 96, IVF-4096, bincompact and binscan."""
     import gc
 
@@ -705,6 +709,7 @@ def phase6(torch, pqt, _build, ds, Embeddings, dev, cp, compact_select, tm, sc, 
         f"({res['qps_b256']:.0f} QPS)")
     out["slice3"] = phase7b(torch, ds, cp, compact_select, s, q256, truth_pair)
     out["score_tile"] = deep_score_tile(torch, tm, sc, st, s, q256)
+    out["assign"] = deep_assign(torch, ka, s)
     del s
     gc.collect()
     torch.cuda.empty_cache()
@@ -840,6 +845,60 @@ def phase2_score_tile(torch, tm, sc):
         f"version; {mma} on wgmma")
 
 
+def phase2_small_k1_k2(torch, ka, st):
+    """K1 and K2 on the score tile against their plain versions on 1/4-grid
+    data (every score exact, many ties), equal bit for bit: for K1 widths
+    that end inside a stage, 1 to 4096 centroids, row counts around a block's
+    128 and tripled centroids (ties go to the lowest index); for K2 both back
+    ends, k = 1 and 128, B = 1 to 4096, n < k, a last tile that is partly
+    pad, and the same result whatever the split of the rows."""
+    from pqvector_tpu_torch.kernels.score_tile import pick_backend
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(11)
+    cases = 0
+    for n, d, kc in ((5, 3, 3), (300, 100, 37), (129, 8, 1), (1000, 16, 4096),
+                     (64, 72, 130), (257, 128, 128), (1, 5, 2), (1001, 40, 69)):
+        base = rng.integers(-8, 9, (-(-kc // 3), d)).astype(np.float32) / 4
+        cent = torch.from_numpy(np.concatenate([base, base, base])[:kc]).to(dev)
+        x = torch.from_numpy(
+            base[rng.integers(0, base.shape[0], n)]
+            + rng.integers(-2, 3, (n, d)).astype(np.float32) / 4).to(dev)
+        got, want = ka.assign_rows(x, cent), ka.assign_rows_plain(x, cent)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"K1 small n={n} d={d} k={kc}: {int((got != want).sum())} ids differ")
+        check(int(got.max()) < base.shape[0], f"K1 small n={n} d={d} k={kc}: a tie did "
+              "not go to the lowest index")
+        cases += 1
+    log(f"phase 2a K1, score tile: {cases} cases (n 1..1001, d 3..128, 1..4096 "
+        "centroids, each centroid repeated): ids equal to the plain version")
+    cases = mma = 0
+    for n, tile, k, d, b in ((5000, 256, 128, 72, 128), (3000, 1024, 10, 96, 65),
+                             (3000, 1024, 10, 100, 256), (700, 64, 10, 8, 13),
+                             (5, 256, 9, 136, 1), (2000, 192, 7, 40, 64),
+                             (9000, 1024, 128, 128, 130), (4000, 512, 1, 3, 1),
+                             (1500, 128, 10, 16, 4096)):
+        emb, sq, q = grid_rows(n, d, tile, seed=n + tile + k + 1, nq=b)
+        for dt in (torch.float32, torch.bfloat16):
+            E = torch.from_numpy(emb).to(dev).to(dt)
+            S = torch.from_numpy(sq).to(dev)
+            qf = torch.from_numpy(q).to(dev).to(dt)
+            w = st.stream_exact_scan_plain(qf, E, S, k)
+            for units in (None, 1, 3, 1000):
+                g = (st.stream_exact_scan(qf, E, S, k, tile) if units is None
+                     else st._stream_exact_cuda(qf, E, S, k, units=units))
+                torch.cuda.synchronize()
+                check(torch.equal(g[1], w[1]) and torch.equal(g[0], w[0]),
+                      f"K2 small n={n} k={k} d={d} B={b} {dt} units={units}: "
+                      f"{int((g[1] != w[1]).sum())} ids differ from plain")
+                cases += 1
+            mma += pick_backend(dt, d, E.data_ptr(), qf.data_ptr()) == "wgmma"
+    log(f"phase 2a K2, score tile: {cases} cases (k 1..128, B 1..4096, d 3..136, n < k, "
+        f"f32/bf16, 4 splits of the rows each): ids and distances equal to the plain "
+        f"version; {mma} of {cases // 4} arrays on wgmma")
+
+
 def phase2_small_gather(torch, cp):
     """K10 and K11 against the plain gather at small awkward shapes: bit-equal."""
     dev = torch.device(DEVICE)
@@ -965,6 +1024,72 @@ def gather_check(torch, cp, emb, emb_sq, sel, ctile, results, what):
             f"({moved / res['ms'] / 1e9:.2f} TB/s read + write), plain "
             f"{res['plain_ms']:.3f} ms, index_select {res['library_ms']:.3f} ms, "
             f"bound {res['bound_ms']:.3f} ms")
+
+
+def k2_timed(torch, st, qf, emb, sq, k, tile, kind, stored):
+    """K2 at one of the main path's shapes: held to its plain version (ids
+    equal except near-ties within the f32 tolerance; ``stored`` is the
+    float64 (queries, rows, norms) that judges them), then timed beside the
+    plain version and the ``mm`` + ``topk`` chain, with the bound."""
+    args = (qf, emb, sq, k)
+    err, swaps = compare_topk(st.stream_exact_scan(*args, tile),
+                              st.stream_exact_scan_plain(*args), *stored)
+    res = {
+        "max_abs_err": err,
+        "swaps": swaps,
+        "ms": time_ms(lambda: st.stream_exact_scan(*args, tile)),
+        "plain_ms": time_ms(lambda: st.stream_exact_scan_plain(*args), reps=3),
+        "library_ms": time_ms(lambda: torch.topk(
+            sq[None, :] - 2.0 * (qf @ emb.T).float(), k, dim=1, largest=False)),
+    }
+    res.update(bound_of(nbytes_of(qf, emb, sq) + qf.shape[0] * k * 8,
+                        2.0 * qf.shape[0] * emb.shape[0] * emb.shape[1], kind))
+    log(f"phase 2b K2 {emb.dtype} 1M x {emb.shape[1]}, B={qf.shape[0]}, k={k}: {swaps} "
+        f"near-tie swaps, max err {err:.3g}; kernel {res['ms']:.3f} ms, plain "
+        f"{res['plain_ms']:.3f} ms, mm + topk {res['library_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.3f} ms ({res['bound_by']})")
+    return res
+
+
+def assign_near_ties(torch, x, c, got, want, what):
+    """Rows where K1 and its plain version differ must be near-ties: the two
+    centroids' float64 scores within 1e-5 (|x|^2 + max |c|^2). -> (rows that
+    differ, the largest score gap among them)."""
+    rows = torch.nonzero(got != want).flatten()
+    if rows.numel() == 0:
+        return 0, 0.0
+    xr, c64 = x[rows].double(), c.double()
+    cn = (c64 * c64).sum(1)
+
+    def score(ids):
+        return cn[ids.long()] - 2.0 * (xr * c64[ids.long()]).sum(1)
+
+    gap = (score(got[rows]) - score(want[rows])).abs()
+    tol = 1e-5 * ((xr * xr).sum(1) + cn.max())
+    check(bool((gap <= tol).all()), f"{what}: a differing row is no tie")
+    return int(rows.numel()), float(gap.max())
+
+
+def deep_assign(torch, ka, s):
+    """K1 at the 10M x 96 rung's shapes (the sorted searcher's f32 copy
+    against its 4096 centroids): held to the plain version, timed. The
+    ``mm`` + ``argmin`` chain would need a 164 GB score matrix here, so the
+    blocked plain version is the only other form."""
+    x, c = s._ref(), s.centroids
+    got, want = ka.assign_rows(x, c), ka.assign_rows_plain(x, c)
+    torch.cuda.synchronize()
+    differ, gap = assign_near_ties(torch, x, c, got, want, "deep K1")
+    del got, want
+    res = {"differ": differ, "max_abs_err": gap,
+           "ms": time_ms(lambda: ka.assign_rows(x, c), reps=3),
+           "plain_ms": time_ms(lambda: ka.assign_rows_plain(x, c), reps=1)}
+    res.update(bound_of(nbytes_of(x, c) + x.shape[0] * 4,
+                        2.0 * x.shape[0] * c.shape[0] * x.shape[1], "fp32"))
+    log(f"phase 7b K1 {x.shape[0]} x {x.shape[1]}, {c.shape[0]} centroids: {differ} "
+        f"near-tie rows differ from plain; kernel {res['ms']:.3f} ms, plain (blocks of "
+        f"8192 rows) {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
+        f"({res['bound_by']})")
+    return res
 
 
 def deep_score_tile(torch, tm, sc, st, s, q):
@@ -1144,6 +1269,7 @@ def phase7(torch, ds, truth_s, sorted16, q, truth, nprobe, card):
     log(f"phase 7 launches on slice 3's path: {out['launches']}")
     out["profile"] = profile_modes(torch, (
         ("exact(cert) f32", lambda: truth_s.exact(q, K, "cert")),
+        ("exact(auto) f32", lambda: truth_s.exact(q, K)),
         ("search(compact) bf16", lambda: sorted16.search(q, K, nprobe, "compact")),
     ))
     log(f"phase 7 on {card}")
@@ -1260,6 +1386,7 @@ def main() -> None:
     phase2_small_slice2(torch, st, sc, bs, _quantize_rows_i8)
     phase2_small_k9(torch, tm)
     phase2_score_tile(torch, tm, sc)
+    phase2_small_k1_k2(torch, ka, st)
     phase2_small_gather(torch, cp)
     results: dict[str, dict] = {}
     t0 = time.perf_counter()
@@ -1306,17 +1433,11 @@ def main() -> None:
     q = torch.from_numpy(queries).to(dev)
     x32, sq32 = stored_f64(s32.emb), s32._pallas_emb_sq().cpu().numpy().astype(np.float64)
     q32 = queries.astype(np.float64)
-    args = (q, s32.emb, s32._pallas_emb_sq(), K)
-    err, swaps = compare_topk(st.stream_exact_scan(*args, tile),
-                              st.stream_exact_scan_plain(*args), q32, x32, sq32)
-    results["K2"] = {
-        "max_abs_err": err,
-        "ms": time_ms(lambda: st.stream_exact_scan(*args, tile)),
-        "plain_ms": time_ms(lambda: st.stream_exact_scan_plain(*args)),
-    }
-    log(f"phase 2b K2 f32 1M x 128, B={BATCH}, k={K}, tile={tile}: {swaps} near-tie "
-        f"swaps, max err {err:.3g}; kernel {results['K2']['ms']:.3f} ms, "
-        f"plain {results['K2']['plain_ms']:.3f} ms")
+    results["K2"] = k2_timed(torch, st, q, s32.emb, s32._pallas_emb_sq(), K, tile, "fp32",
+                             (q32, x32, sq32))
+    results["K2"].update({f"k100_{key}": v for key, v in k2_timed(
+        torch, st, q, s32.emb, s32._pallas_emb_sq(), 100, tile, "fp32",
+        (q32, x32, sq32)).items()})
     e_args = (q, s32.emb, s32._pallas_emb_sq(), K, tile)
     err, swaps = compare_topk(sc._final_merge(*sc.exact_scan(*e_args), K),
                               sc._final_merge(*sc.exact_scan_plain(*e_args), K),
@@ -1332,16 +1453,12 @@ def main() -> None:
     del x32
     n_pad = s32.emb.shape[0]
     sq_f = s32._pallas_emb_sq()
-    lib_topk = time_ms(lambda: torch.topk(sq_f[None, :] - 2.0 * (q @ s32.emb.T), K,
-                                          dim=1, largest=False))
+    lib_topk = results["K2"]["library_ms"]  # the same chain on the same inputs
     scan_bytes = nbytes_of(q, s32.emb, sq_f)
-    results["K2"].update(bound_of(scan_bytes + BATCH * K * 8,
-                                  2.0 * BATCH * n_pad * DIM, "fp32"), library_ms=lib_topk)
     results["K5"].update(bound_of(scan_bytes + (n_pad // tile) * BATCH * K * 8,
                                   2.0 * BATCH * n_pad * DIM, "fp32"), library_ms=lib_topk)
-    log(f"phase 2b K2/K5: bound {results['K2']['bound_ms']:.3f} / "
-        f"{results['K5']['bound_ms']:.3f} ms ({results['K2']['bound_by']}), mm + topk "
-        f"{lib_topk:.3f} ms")
+    log(f"phase 2b K5: bound {results['K5']['bound_ms']:.3f} ms "
+        f"({results['K5']['bound_by']}), mm + topk {lib_topk:.3f} ms")
 
     nprobe_2b = 8
     lcl, tc, cmax = s16._tile_cluster_table(tile)
@@ -1408,6 +1525,10 @@ def main() -> None:
         f"near-tie swaps after the merge, max err {err:.3g}; kernel {res16['ms']:.3f} ms, "
         f"plain {res16['plain_ms']:.3f} ms, bf16 mm + topk {res16['library_ms']:.3f} ms, "
         f"bound {res16['bound_ms']:.3f} ms ({res16['bound_by']})")
+    for kk, label in ((K, "bf16"), (100, "bf16_k100")):
+        results["K2"].update({f"{label}_{key}": v for key, v in k2_timed(
+            torch, st, qf16, s16.emb, s16._pallas_emb_sq(), kk, tile, "bf16",
+            (q16, x16, sq16)).items()})
     phase2b_slice2(torch, pqt, sc, st, bs, _compact_select, index_a, emb_np, s16, q,
                    q16, tile, results)
     phase2b_slice3(torch, tm, cp, _compact_select, s32, s16, q, results)
@@ -1429,7 +1550,8 @@ def main() -> None:
     check(index.to_bytes() == index_a.to_bytes(),
           "two builds with one seed gave different index bytes")
     log("phase 3 index in the footer, file readable by pyarrow; two builds "
-        "with seed 42 gave identical index bytes")
+        "with seed 42 gave identical index bytes, SHA-256 "
+        + hashlib.sha256(index.to_bytes()).hexdigest()[:16])
     emb = read_embedding_column(path, column).data
     check(np.array_equal(emb, emb_np), "embedding column changed")
 
@@ -1498,7 +1620,8 @@ def main() -> None:
         launches[name] = main7["launches"][name]
     del truth_s, searcher
     torch.cuda.empty_cache()
-    main6 = phase6(torch, pqt, _build, ds, Embeddings, dev, cp, _compact_select, tm, sc, st)
+    main6 = phase6(torch, pqt, _build, ds, Embeddings, dev, cp, _compact_select, tm, sc, st,
+                   ka)
     launches["K11"] = main6["slice3"]["gather"]["K11"]["path_launches"]
 
     kernels = []
@@ -1508,7 +1631,8 @@ def main() -> None:
             "replaces": replaces, "launches": launches[name],
             **{key: results[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            **{key: v for key, v in results[name].items() if key.startswith("bf16_")},
+            **{key: v for key, v in results[name].items()
+               if key.startswith(("bf16_", "k100_"))},
         })
     log("main path: " + json.dumps({"build_s": build_s, "nprobe": chosen,
                                     "recall_at_10": recall, "search_ms": search_ms,

@@ -4,92 +4,143 @@
 // On the H100 it is the hot loop of the build: every Lloyd step on the
 // training sample and the final pass over all rows.
 //
-// Threads own rows: a block of 128 threads takes 128 rows. Centroids are
-// staged through shared memory 64 at a time, and both the rows and the
-// centroids 32 dimensions at a time; each thread keeps 64 fp32 scores in
-// registers, then folds them into its running argmin with a strict <, so
-// ties keep the lowest centroid index, as jnp.argmin does. Scores are IEEE
-// fp32 FMA; nothing rounds through TF32.
+// It runs on the score tile of score_tile.cuh with the data rows on the
+// tile's query side: a block of 256 threads owns 128 rows of x and walks
+// the centroids in chunks of 128, c_norm in the place of the rows' norms.
+// The 128 x 128 sums of a chunk live in registers (an 8 centroids x 8 rows
+// patch per thread, fed by 4 shared-memory loads per 64 FMAs from the
+// cp.async ring); the epilogue keeps, per thread and owned row of x, a
+// running (score, centroid) over the thread's 8 centroids of every chunk,
+// and folds the 16 lanes that share the row once at the end with
+// __shfl_xor, ordering on (score, id). A thread meets its centroids in
+// ascending order and takes a new one only on a strict <, so ties keep the
+// lowest centroid index, as jnp.argmin does. A block writes its 128 ids
+// and nothing else: no score reaches shared or device memory, and no
+// second launch merges anything. x is staged once per chunk (k / 128
+// times, from L2 after the first); the centroids (512 KB at 1024 x 128)
+// stay L2-resident. Centroids past k are masked by index; rows past n are
+// zero-filled and never written.
 //
-// What bounds it on the H100: the FMA issue rate of the CUDA cores (the
-// product is n*k*d FMAs, 134 G at 1M x 1024 x 128), plus re-reading the
-// rows once per 64 centroids (k/64 passes over x, served mostly from L2).
-// No tensor cores yet: a wgmma score tile with the argmin in its epilogue
-// is the later, fast form.
-#include <cuda_runtime.h>
+// Scores are IEEE fp32: every sum adds its products in ascending dimension
+// order with __fmaf_rn from zero, then __fmaf_rn(-2, sum, |c|^2), bit for
+// bit what a sequential fmaf loop gives. Nothing rounds through TF32.
+//
+// What bounds it on the H100: the fp32 FMAs of the CUDA cores, 2 n k d
+// operations against 67 TFLOP/s. At 16 words loaded per 64 FMAs the
+// shared-memory pipe is as busy as the FMA pipe, so the loop runs at about
+// half that peak, the rate of the library's own fp32 product on this card.
 #include <math.h>
 
-namespace {
+#include "score_tile.cuh"
 
-constexpr int kRows = 128;  // rows per block, one per thread
-constexpr int kCC = 64;     // centroids per staged chunk
-constexpr int kDK = 32;     // dimensions per staged chunk
+namespace pqv {
 
-__global__ void __launch_bounds__(kRows)
-    assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                  const float* __restrict__ c_norm, int n, int d, int k,
-                  int* __restrict__ out) {
-  __shared__ float xs[kDK][kRows + 1];
-  __shared__ __align__(16) float cs[kDK][kCC];
-  const int t = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-  float best = INFINITY;
-  int best_i = 0;
-  for (int c0 = 0; c0 < k; c0 += kCC) {
-    float acc[kCC];
-#pragma unroll
-    for (int j = 0; j < kCC; ++j) acc[j] = 0.f;
-    for (int d0 = 0; d0 < d; d0 += kDK) {
-      for (int e = t; e < kRows * kDK; e += kRows) {
-        const int rr = e / kDK, cc = e % kDK;
-        const int row = row0 + rr, col = d0 + cc;
-        xs[cc][rr] = (row < n && col < d) ? x[(size_t)row * d + col] : 0.f;
-      }
-      for (int e = t; e < kCC * kDK; e += kRows) {
-        const int cj = e / kDK, cc = e % kDK;
-        const int ci = c0 + cj, col = d0 + cc;
-        cs[cc][cj] = (ci < k && col < d) ? c[(size_t)ci * d + col] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int cc = 0; cc < kDK; ++cc) {
-        const float xv = xs[cc][t];
-        const float4* cv = reinterpret_cast<const float4*>(cs[cc]);
-#pragma unroll
-        for (int j = 0; j < kCC / 4; ++j) {
-          const float4 v = cv[j];
-          acc[4 * j + 0] = fmaf(xv, v.x, acc[4 * j + 0]);
-          acc[4 * j + 1] = fmaf(xv, v.y, acc[4 * j + 1]);
-          acc[4 * j + 2] = fmaf(xv, v.z, acc[4 * j + 2]);
-          acc[4 * j + 3] = fmaf(xv, v.w, acc[4 * j + 3]);
-        }
-      }
-      __syncthreads();
+template <class Tile>
+struct ArgminFold {
+  const float* c_norm;
+  float* norms;  // shared, [2][kTR]: |c|^2 of this chunk and the next
+  int k;
+  float best[Tile::kPerThread];
+  int best_i[Tile::kPerThread];
+
+  __device__ __forceinline__ void begin(int r0, int slot) {
+    if (threadIdx.x < kTR) {
+      const int c = r0 + threadIdx.x;
+      norms[slot * kTR + threadIdx.x] = c < k ? c_norm[c] : INFINITY;
     }
+  }
+
+  __device__ __forceinline__ void chunk(const Tile& t, int r0, int slot) {
+    const float* cn = norms + slot * kTR;
 #pragma unroll
-    for (int j = 0; j < kCC; ++j) {
-      const int ci = c0 + j;
-      if (ci < k) {
-        const float v = c_norm[ci] - 2.f * acc[j];
-        if (v < best) {
-          best = v;
-          best_i = ci;
+    for (int g = 0; g < Tile::kGroups; ++g) {
+#pragma unroll
+      for (int l = 0; l < Tile::kRun; ++l) {
+        const int r = t.row_base(g) + l;
+        const int ci = r0 + r;
+        const float s = cn[r];
+        if (ci < k) {
+#pragma unroll
+          for (int jq = 0; jq < Tile::kPerThread; ++jq) {
+            const float v = __fmaf_rn(-2.f, t.value(g, l, jq), s);
+            if (v < best[jq]) {
+              best[jq] = v;
+              best_i[jq] = ci;
+            }
+          }
         }
       }
     }
   }
-  if (row0 + t < n) out[row0 + t] = best_i;
+
+  // Join the lanes that hold a row's other centroids and write the ids.
+  __device__ __forceinline__ void write(const Tile& t, int q0, int n, int* out) {
+#pragma unroll
+    for (int jq = 0; jq < Tile::kPerThread; ++jq) {
+      float b = best[jq];
+      int bi = best_i[jq];
+#pragma unroll
+      for (int x = 0; x < Tile::kXor; ++x) {
+        const float ob = __shfl_xor_sync(kFull, b, 1 << x);
+        const int oi = __shfl_xor_sync(kFull, bi, 1 << x);
+        const bool take = (ob < b) | ((ob == b) & (oi < bi));
+        b = take ? ob : b;
+        bi = take ? oi : bi;
+      }
+      const int row = q0 + t.query(jq);
+      if (t.row_lane() == 0 && row < n) out[row] = bi;
+    }
+  }
+};
+
+constexpr int kAssignStages = 3;
+
+template <class Tile>
+constexpr int assign_smem() {
+  return 1024 + kAssignStages * Tile::kStageBytes + 2 * kTR * 4;
 }
 
-}  // namespace
+template <class Tile>
+__global__ void __launch_bounds__(kThreads, 2)
+    assign_kernel(TileOperands<float> op, const float* __restrict__ c_norm, int k,
+                  int* __restrict__ out) {
+  extern __shared__ char dyn[];
+  char* ring = align_ring(dyn);
+  Tile t;
+  ArgminFold<Tile> epi;
+  epi.c_norm = c_norm;
+  epi.norms = reinterpret_cast<float*>(ring + kAssignStages * Tile::kStageBytes);
+  epi.k = k;
+#pragma unroll
+  for (int jq = 0; jq < Tile::kPerThread; ++jq) {
+    epi.best[jq] = INFINITY;
+    epi.best_i[jq] = 0;
+  }
+  const int q0 = blockIdx.x * Tile::kQueries;
+  walk_rows<kAssignStages>(t, op, q0, 0, k, ring, epi);
+  epi.write(t, q0, op.B, out);
+}
+
+using AssignTile = FmaTile<float, 8>;
+
+}  // namespace pqv
 
 // x [n, d] f32, c [k, d] f32, c_norm [k] f32 -> out [n] int32.
 extern "C" int pqv_assign(const float* x, const float* c, const float* c_norm,
                           int n, int d, int k, int* out, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + kRows - 1) / kRows;
-    assign_kernel<<<blocks, kRows, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, c, c_norm, n, d, k, out);
-  }
+  using namespace pqv;
+  if (n <= 0) return 0;
+  if (k < 1) return (int)cudaErrorInvalidValue;
+  TileOperands<float> op = {x, c, n, d};
+  auto kernel = assign_kernel<AssignTile>;
+  constexpr int smem = assign_smem<AssignTile>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<ceil_div(n, AssignTile::kQueries), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(op, c_norm, k, out);
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory of K1's launch, for the wrapper's own reckoning.
+extern "C" int pqv_assign_smem() { return pqv::assign_smem<pqv::AssignTile>(); }

@@ -1,4 +1,8 @@
-// Shared device code of the top-k scan kernels (K2-K6) for sm_90a.
+// Shared device code of the top-k scan kernels for sm_90a: constants, the
+// (distance, id) order and the warp-level sorted lists that every kernel's
+// merge uses, and scan_rows, the CUDA-core scan block that K3 (stream
+// masked), K4 (masked local) and K6 (masked per-tile) still run. K1, K2, K5
+// and K9 run on the score tile of score_tile.cuh instead.
 //
 // One block owns kQB queries and walks a set of row ranges. For each chunk
 // of kRC rows it scores every (query, row) pair in IEEE fp32 FMA (bf16

@@ -18,12 +18,12 @@
 // 128-row chunk stay in registers; the chunk's scores |x|^2 - 2 q.x go to
 // shared memory 64 rows at a time, and there one thread per query marks the
 // scores that beat its list's largest entry, which it keeps in registers,
-// and puts each survivor in that entry's place (TopkLists below). The lists
-// live in dynamic shared memory sized by the call's k, entry-major
-// ([k][query]) so that 32 queries' threads touch 32 banks; they are
-// unordered until the tile is done and are then ranked under the
-// (distance, id) order, so the result is what a stable sort gives whatever
-// order the rows came in. What bounds it on the H100: f32 storage, the fp32
+// and puts each survivor in that entry's place (TopkLists in topk_lists.cuh,
+// which K2 shares). The lists live in dynamic shared memory sized by the
+// call's k, entry-major ([k][query]) so that 32 queries' threads touch 32
+// banks; they are unordered until the tile is done and are then ranked under
+// the (distance, id) order, so the result is what a stable sort gives
+// whatever order the rows came in. What bounds it on the H100: f32 storage, the fp32
 // FMAs (2 B n_pad d against 67 TFLOP/s), fed at 4 shared loads per 64 FMAs,
 // which keeps the shared-memory pipe as busy as the FMA pipe; bf16 storage
 // (wgmma), the list work, about k (1 + ln(tile / k)) replacements per query
@@ -44,7 +44,7 @@
 // On a layout in file order a tile holds rows of most clusters, so K6
 // cannot skip tiles as K4 does; it skips a 64-row chunk that none of its 16
 // queries probes, which pays at small batches.
-#include "score_tile.cuh"
+#include "topk_lists.cuh"
 
 namespace pqv {
 
@@ -94,151 +94,21 @@ int launch_tile_topk(const ScanArgs& a, int is_bf16, void* stream) {
 
 // ---------------------------------------------------------------- K5
 
-constexpr int kDumpStride = 65;  // floats per query of the 64-row score dump
-
-// K5's epilogue: per-query lists [k][queries] in shared memory. Thread t <
-// NQB owns query t's list. The list is unordered while the tile is walked:
-// the thread keeps the list's largest entry (under the (distance, id) order)
-// and its slot in registers, a row that beats it takes that slot, and one
-// pass over the k entries (independent loads) finds the new largest. While
-// the list is still filling no pass is needed. The lists are ranked once, by
-// the whole block, when the tile is done.
-template <class Tile>
-struct TopkLists {
-  static constexpr int NQB = Tile::kQueries;
-  const float* emb_sq;
-  float* ld;    // shared, [k][NQB]
-  int* li;      // shared, [k][NQB]
-  float* dump;  // shared, [NQB][kDumpStride]
-  float* sqs;   // shared, [2][kTR]
-  int k, row_end;
-  float kd;  // the largest entry of this thread's list once it is full,
-  int ki;    // (+3e38, -1) before
-  int kpos, cnt;
-
-  __device__ __forceinline__ void begin(int r0, int slot) {
-    if (threadIdx.x < kTR) {
-      const int row = r0 + threadIdx.x;
-      sqs[slot * kTR + threadIdx.x] = row < row_end ? emb_sq[row] : kPosInf;
-    }
-  }
-
-  // Offer rows id0 .. id0 + 63 to query qq's list. The rows that beat the
-  // list's largest entry as it stands are marked first, in one pass without
-  // branches; only those are looked at again, so a warp's 32 queries run as
-  // many steps as the one with the most survivors, not as their sum.
-  __device__ __forceinline__ void drain(int qq, int id0) {
-    const float* col = dump + qq * kDumpStride;
-    unsigned long long mask = 0;
-#pragma unroll 8
-    for (int c = 0; c < 64; ++c) {
-      const float v = col[c];
-      mask |= (unsigned long long)((v < kd) | ((v == kd) & (id0 + c < ki))) << c;
-    }
-    while (mask) {
-      const int c = __ffsll((long long)mask) - 1;
-      mask &= mask - 1;
-      const float v = col[c];
-      const int id = id0 + c;
-      if (!lex_less(v, id, kd, ki)) continue;
-      const int slot = cnt < k ? cnt : kpos;
-      ld[slot * NQB + qq] = v;
-      li[slot * NQB + qq] = id;
-      if (cnt < k && ++cnt < k) continue;  // still filling: (+3e38, -1) stands
-      kd = ld[qq];
-      ki = li[qq];
-      kpos = 0;
-      for (int j = 1; j < k; ++j) {
-        const float d = ld[j * NQB + qq];
-        const int i = li[j * NQB + qq];
-        const bool up = (kd < d) | ((kd == d) & (ki < i));  // no branches
-        kd = up ? d : kd;
-        ki = up ? i : ki;
-        kpos = up ? j : kpos;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void chunk(const Tile& t, int r0, int slot) {
-    const float* sq = sqs + slot * kTR;
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      if (r0 + 64 * p >= row_end) break;  // uniform
-#pragma unroll
-      for (int g = 0; g < Tile::kGroups; ++g) {
-        if (Tile::half_of(g) != p) continue;
-#pragma unroll
-        for (int l = 0; l < Tile::kRun; ++l) {
-          const int r = t.row_base(g) + l;
-          const float s = sq[r];
-#pragma unroll
-          for (int jq = 0; jq < Tile::kPerThread; ++jq)
-            dump[t.query(jq) * kDumpStride + r - 64 * p] =
-                __fmaf_rn(-2.f, t.value(g, l, jq), s);
-        }
-      }
-      __syncthreads();
-      if (threadIdx.x < NQB) drain(threadIdx.x, r0 + 64 * p);
-      __syncthreads();
-    }
-  }
-
-  // Write the lists to out[unit, q0 .., :k], each entry at its rank under the
-  // (distance, id) order; equal entries (empty slots) keep their slot order.
-  __device__ __forceinline__ void write(float* out_d, int* out_i, int unit, int q0,
-                                        int B) const {
-    for (int e = threadIdx.x; e < NQB * k; e += kThreads) {
-      const int qq = e % NQB, j = e / NQB;
-      if (q0 + qq >= B) continue;
-      const float d = ld[e];
-      const int i = li[e];
-      int rank = 0;
-      for (int o = 0; o < k; ++o) {
-        const float od = ld[o * NQB + qq];
-        const int oi = li[o * NQB + qq];
-        rank += (od < d) | ((od == d) & ((oi < i) | ((oi == i) & (o < j))));
-      }
-      const size_t at = ((size_t)unit * B + q0 + qq) * k + rank;
-      out_d[at] = d;
-      out_i[at] = i;
-    }
-  }
-};
-
 template <class Tile, int STAGES>
 __global__ void __launch_bounds__(kThreads, 2)
     exact_topk_kernel(TileOperands<typename Tile::Storage> op,
                       const float* __restrict__ emb_sq, float* __restrict__ out_d,
                       int* __restrict__ out_i, int k, int tile, int nqb) {
-  constexpr int NQB = Tile::kQueries;
   extern __shared__ char dyn[];
   char* ring = align_ring(dyn);
   Tile t;
   TopkLists<Tile> epi;
-  epi.emb_sq = emb_sq;
-  epi.ld = reinterpret_cast<float*>(ring + STAGES * Tile::kStageBytes);
-  epi.li = reinterpret_cast<int*>(epi.ld + NQB * k);
-  epi.dump = reinterpret_cast<float*>(epi.li + NQB * k);
-  epi.sqs = epi.dump + NQB * kDumpStride;
-  epi.k = k;
-  epi.kd = kPosInf;
-  epi.ki = -1;
-  epi.kpos = epi.cnt = 0;
+  epi.attach(ring + STAGES * Tile::kStageBytes, emb_sq, k);
   const int unit = blockIdx.x / nqb;
-  const int q0 = (blockIdx.x % nqb) * NQB;
+  const int q0 = (blockIdx.x % nqb) * Tile::kQueries;
   epi.row_end = (unit + 1) * tile;
-  for (int e = threadIdx.x; e < NQB * k; e += kThreads) {
-    epi.ld[e] = kPosInf;
-    epi.li[e] = -1;
-  }
   walk_rows<STAGES>(t, op, q0, unit * tile, epi.row_end, ring, epi);
   epi.write(out_d, out_i, unit, q0, op.B);
-}
-
-template <class Tile, int STAGES>
-constexpr int exact_topk_smem(int k) {
-  return 1024 + STAGES * Tile::kStageBytes + Tile::kQueries * (8 * k + 4 * kDumpStride) +
-         2 * kTR * 4;
 }
 
 template <class Tile, int STAGES>
@@ -248,7 +118,7 @@ int launch_exact_topk(const void* q, const void* emb, const float* emb_sq, float
   using T = typename Tile::Storage;
   TileOperands<T> op = {static_cast<const T*>(q), static_cast<const T*>(emb), B, d};
   auto kernel = exact_topk_kernel<Tile, STAGES>;
-  const int smem = exact_topk_smem<Tile, STAGES>(k);
+  const int smem = topk_lists_smem<Tile, STAGES>(k);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -257,8 +127,6 @@ int launch_exact_topk(const void* q, const void* emb, const float* emb_sq, float
                                                        nqb);
   return (int)cudaGetLastError();
 }
-
-constexpr int kTopkFmaStages = 3, kTopkMmaStages = 2;
 
 }  // namespace pqv
 
@@ -295,9 +163,9 @@ extern "C" int pqv_exact_topk(const void* q, const void* emb, const float* emb_s
 // Dynamic shared memory of K5's launch, for the wrapper's own reckoning.
 extern "C" int pqv_exact_topk_smem(int wgmma, int block_queries, int k) {
   using namespace pqv;
-  if (wgmma) return exact_topk_smem<MmaTile, kTopkMmaStages>(k);
-  return block_queries > 64 ? exact_topk_smem<FmaTile<float, 8>, kTopkFmaStages>(k)
-                            : exact_topk_smem<FmaTile<float, 4>, kTopkFmaStages>(k);
+  if (wgmma) return topk_lists_smem<MmaTile, kTopkMmaStages>(k);
+  return block_queries > 64 ? topk_lists_smem<FmaTile<float, 8>, kTopkFmaStages>(k)
+                            : topk_lists_smem<FmaTile<float, 4>, kTopkFmaStages>(k);
 }
 
 // K6: adds row_cluster [n_pad] int32 (kc on pad rows) and the probe mask

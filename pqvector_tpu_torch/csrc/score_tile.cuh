@@ -1,9 +1,11 @@
-// The score tile of K9 (tile min) and K5 (exact per-tile top-k) for sm_90a.
+// The score tile of K9 (tile min), K5 (exact per-tile top-k), K2 (streaming
+// exact top-k) and K1 (nearest-centroid assign) for sm_90a.
 //
 // A block of 256 threads owns up to 128 queries and walks a range of rows in
 // chunks of 128. The 128 x 128 dot products q.x of one chunk live in
 // registers and never reach device memory; an epilogue (a fold to per-tile
-// minima, or per-query top-k lists) consumes them chunk by chunk. Slices of
+// minima, per-query top-k lists, or a running argmin with K1's data rows as
+// the queries and its centroids as the rows) consumes them chunk by chunk. Slices of
 // both operands arrive in a ring of shared-memory stages filled by cp.async,
 // so the copies of the next slices overlap the arithmetic of this one and
 // one __syncthreads() per slice is all the walk needs.

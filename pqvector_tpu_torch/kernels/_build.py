@@ -40,7 +40,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "pqv_assign": [_P, _P, _P, _I, _I, _I, _P, _P],
-    "pqv_stream_exact_topk": [_P, _P, _P] + [_I] * 7 + [_P] * 5,
+    "pqv_assign_smem": [],
+    "pqv_stream_exact_topk": [_P, _P, _P] + [_I] * 7 + [_P] * 6,
+    "pqv_stream_exact_topk_smem": [_I] * 3,
     "pqv_stream_masked_topk": [_P] * 7 + [_I] * 9 + [_P] * 5,
     "pqv_masked_local_topk": [_P] * 5 + [_I] * 7 + [_P] * 3,
     "pqv_exact_topk": [_P] * 3 + [_I] * 7 + [_P] * 3,

@@ -2,8 +2,10 @@
 
 Counterpart of ``pqvector_tpu/kernels/assign.py`` (``pallas_assign``). On
 CUDA tensors ``assign_rows`` launches the hand-written kernel
-(``csrc/assign.cu``); on CPU tensors it runs ``assign_rows_plain``, the same
-function in plain torch. Ties keep the lowest centroid index, as
+(``csrc/assign.cu``, on the score tile of ``csrc/score_tile.cuh``: a block
+owns 128 rows of ``x`` and walks the centroids in IEEE fp32 FMA, keeping a
+running argmin in registers); on CPU tensors it runs ``assign_rows_plain``,
+the same function in plain torch. Ties keep the lowest centroid index, as
 ``jnp.argmin`` does.
 """
 

@@ -23,7 +23,7 @@ from . import _build, score_tile
 
 POS_INF = 3.0e38  # pad and masked rows, as in the kernels
 MAX_K = 128  # largest k a kernel's top-k list holds
-QUERY_BLOCK = 16  # queries per block of K2-K4 and K6 (kQB in csrc/common.cuh)
+QUERY_BLOCK = 16  # queries per block of K3, K4 and K6 (kQB in csrc/common.cuh)
 
 
 def select_lex(d: torch.Tensor, ids: torch.Tensor, k: int):

@@ -10,14 +10,20 @@ in the JAX package.
 
 The kernels split the rows over ``units`` blocks per query group and merge
 their partial lists in a second launch; the result does not depend on the
-split, because every list orders on (distance, id).
+split, because every list orders on (distance, id). K2 runs on the score
+tile of ``csrc/score_tile.cuh`` (blocks of up to 128 queries, fp32 FMA or
+wgmma by ``score_tile.pick_backend``); its blocks also share one gate per
+query in device memory, the smallest k-th entry any full list has reached,
+so rows that can be in no global top-k are dropped everywhere: the partial
+lists then depend on timing, the merged result does not. K3 runs on
+``csrc/common.cuh``'s scan block (16 queries a block).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, score_tile
 from .scan_topk import (
     MAX_K,
     POS_INF,
@@ -33,14 +39,33 @@ from .scan_topk import (
 
 #: Rows per step of the plain scans: bounds their [B, rows] score block.
 _PLAIN_ROWS = 65536
-#: Blocks a kernel launch aims for: about 8 per SM of the H100's 132, so the
+#: Blocks a K3 launch aims for: about 8 per SM of the H100's 132, so the
 #: splits fill the card even when few query groups exist.
 _TARGET_BLOCKS = 1024
 
 
-def scan_units(nt: int, batch: int) -> int:
-    """How many row splits K2 and K3 use: enough blocks to fill the card,
-    never more than the tiles."""
+def scan_units(chunks: int, batch: int, queries: int = 128, wave: int = 264) -> int:
+    """How many row runs K2 splits ``chunks`` 128-row chunks into for a batch
+    served by blocks of ``queries`` queries: about one wave of blocks
+    (``score_tile.wave_blocks``: 264 where two blocks fit an SM's shared
+    memory, 132 at large k where one does), so at B = 1 .. 128 and small k
+    there are 264 runs and at B = 256 half as many. More runs than a wave
+    only add list fills and partial lists to merge. Never more runs than
+    chunks, and none empty (the runs are ``ceil(chunks / units)`` chunks)."""
+    groups = -(-batch // queries)
+    want = max(1, min(chunks, -(-wave // groups)))
+    return -(-chunks // -(-chunks // want))
+
+
+def run_rows(n_pad: int, units: int) -> int:
+    """Rows of one of ``units`` runs over ``n_pad`` rows: a multiple of 128."""
+    chunks = -(-n_pad // score_tile.CHUNK_ROWS)
+    return -(-chunks // max(1, min(units, chunks))) * score_tile.CHUNK_ROWS
+
+
+def masked_scan_units(nt: int, batch: int) -> int:
+    """How many row splits K3 uses: enough blocks of 16 queries to fill the
+    card, never more than the tiles."""
     groups = -(-batch // QUERY_BLOCK)
     return max(1, min(nt, max(8, _TARGET_BLOCKS // groups)))
 
@@ -58,22 +83,34 @@ def stream_exact_scan_plain(qf, emb, emb_sq, k):
     return best_d, best_i
 
 
-def _stream_exact_cuda(qf, emb, emb_sq, k, tile):
+def _stream_exact_cuda(qf, emb, emb_sq, k, units=None):
+    """Launch K2. ``units`` overrides ``scan_units``' split of the rows (the
+    result does not depend on it)."""
     check_cuda_operands(q=qf, emb=emb, emb_sq=emb_sq)
     lib = _build.load()
     n_pad, d = emb.shape
     b = qf.shape[0]
-    units = scan_units(n_pad // tile, b)
+    backend = score_tile.pick_backend(emb.dtype, d, qf.data_ptr(), emb.data_ptr())
+    if units is None:
+        queries = score_tile.block_queries(b, backend)
+        smem = score_tile.smem_bytes("K2", backend, queries, k)
+        units = scan_units(
+            -(-n_pad // score_tile.CHUNK_ROWS), b, queries, score_tile.wave_blocks(smem)
+        )
+    run = run_rows(n_pad, units)
+    units = -(-n_pad // run)
     dev = emb.device
     part_d = torch.empty((units, b, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((units, b, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    gate = torch.empty((b,), dtype=torch.int32, device=dev)  # the kernel sets it
     rc = lib.pqv_stream_exact_topk(
         qf.data_ptr(), emb.data_ptr(), emb_sq.data_ptr(),
-        b, d, n_pad, k, tile, units, int(emb.dtype == torch.bfloat16),
-        part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-        _build.stream_ptr(),
+        b, d, n_pad, k, run, int(emb.dtype == torch.bfloat16),
+        int(backend == "wgmma"),
+        part_d.data_ptr(), part_i.data_ptr(), gate.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), _build.stream_ptr(),
     )
     _build.check(rc, "pqv_stream_exact_topk")
     _build.LAUNCHES["K2"] += 1
@@ -85,11 +122,14 @@ def stream_exact_scan(qf, emb, emb_sq, k: int, tile: int):
 
     ``qf`` [B, d] in the storage dtype, ``emb`` [n_pad, d] f32 or bf16,
     ``emb_sq`` [n_pad] f32 with +3e38 on pad rows. Empty slots are
-    (+3e38, -1)."""
+    (+3e38, -1). The kernel runs on the score tile of ``csrc/score_tile.cuh``:
+    fp32 FMA for f32 storage, wgmma for bf16 storage with ``d % 8 == 0``
+    (``score_tile.pick_backend``); its blocks own runs of rows, not tiles, so
+    ``tile`` only has to divide ``n_pad``."""
     check_scan_args(qf, emb, emb_sq, k, tile)
     if emb.device.type == "cpu":
         return stream_exact_scan_plain(qf, emb, emb_sq, k)
-    return _stream_exact_cuda(qf, emb, emb_sq, k, tile)
+    return _stream_exact_cuda(qf, emb, emb_sq, k)
 
 
 def stream_exact_topk(q, emb, emb_sq, k: int, tile: int, emb_ref=None):
@@ -158,7 +198,7 @@ def _stream_masked_cuda(qf, emb, emb_sq, local_cluster, tile_clusters, mask,
     lib = _build.load()
     n_pad, d = emb.shape
     b = qf.shape[0]
-    units = scan_units(n_pad // tile, b)
+    units = masked_scan_units(n_pad // tile, b)
     dev = emb.device
     part_d = torch.empty((units, b, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((units, b, k), dtype=torch.int32, device=dev)

@@ -1,30 +1,43 @@
 """Quick check and timing of the score-tile kernels (K9 tile min, K5 exact
-per-tile top-k) of the PyTorch port on one Hopper GPU.
+per-tile top-k, K2 streaming exact top-k, K1 nearest-centroid assign) of the
+PyTorch port on one Hopper GPU.
 
     python3 scripts/torch_score_tile_check.py [--rows 1000000] [--no-ptxas]
-        [--time-only] [--package-root DIR]
+        [--time-only] [--package-root DIR] [--digest-file FILE] [--modes M]
 
 Needs a card, nvcc and the repo root as the working directory. It
-1. compiles ``csrc/tilemin.cu`` and ``csrc/scan_topk.cu`` once more with
-   ``-Xptxas -v`` and prints registers, spills and shared memory of the
-   score-tile kernels;
+1. compiles the four sources once more with ``-Xptxas -v`` and prints
+   registers, spills and shared memory of the score-tile kernels;
 2. holds the C sources' shared-memory sizes to ``kernels/score_tile.py``;
-3. runs both kernels against their plain versions on 1/4-grid data (every
+3. runs the kernels against their plain versions on 1/4-grid data (every
    sum exact, so the results must be equal) over awkward shapes, on both
-   back ends;
-4. times them at ``--rows`` x 128, B = 256 (f32 and bf16) beside one PyTorch
-   chain for the same function, with CUDA events (median of 10).
+   back ends, K2 also over several splits of the rows;
+4. times them at ``--rows`` x 128 (K9, K5 and K2 at B = 256 in f32 and bf16,
+   K2 at k = 1, 10, 100 and 128 and at B = 1; K1 against 1024 centroids)
+   beside one PyTorch chain for the same function, with CUDA events (median
+   of 10), builds IVF-1024 over ``--rows`` x 128 seeded mixture rows (K1 in
+   every Lloyd step) and prints a SHA-256 of K1's ids, of K2's f32 distances
+   and ids and of the index bytes.
 
 A short first call after touching the CUDA sources; ``chip_smoke.py`` is the
 full run. ``--time-only`` skips steps 2 and 3. ``--package-root DIR`` takes
 ``pqvector_tpu_torch`` from another checkout (say, an earlier commit unpacked
 with ``git archive`` under ``build/``), to time two versions of the kernels
 in one call on one card; use it with ``--time-only --no-ptxas``.
+``--modes M`` draws the rows from M Gaussian modes and stores them mode by
+mode, as a cluster-sorted searcher holds them (the default, 0, is one
+standard normal cloud in random order): near rows then arrive in bursts and
+the top-k lists take more replacements.
+``--digest-file FILE`` writes the digests to FILE, or, where FILE exists,
+fails unless they equal the ones in it: run parent, change, change, parent
+with one file and the f32 outputs of K1 and K2 are held bit for bit.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import os
 import re
 import subprocess
@@ -37,7 +50,7 @@ sys.path.insert(0, ROOT)
 
 
 def ptxas_report(_build) -> None:
-    for name in ("tilemin.cu", "scan_topk.cu"):
+    for name in ("tilemin.cu", "scan_topk.cu", "stream_topk.cu", "assign.cu"):
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
                os.devnull, str(_build.CSRC / name)]
         out = subprocess.run(cmd, capture_output=True, text=True)
@@ -46,7 +59,7 @@ def ptxas_report(_build) -> None:
         lines = out.stderr.splitlines()
         for i, line in enumerate(lines):
             m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m and re.search(r"tile_min_kernel|exact_topk_kernel", m.group(1)):
+            if m and re.search(r"tile_min_kernel|exact_topk_kernel|stream_exact_kernel|assign_kernel", m.group(1)):
                 tile = re.search(r"(FmaTile\w+?EE|MmaTile)", m.group(1))
                 used = " ".join(l.strip() for l in lines[i + 1 : i + 4])
                 used = used.replace("ptxas info    : ", "")
@@ -64,6 +77,9 @@ def check_shared_memory(lib) -> None:
             got = lib.pqv_exact_topk_smem(flag, nq, k)
             assert got == score_tile.smem_bytes("K5", backend, nq, k), (backend, nq, k)
             assert got <= score_tile.SMEM_LIMIT
+            got = lib.pqv_stream_exact_topk_smem(flag, nq, k)
+            assert got == score_tile.smem_bytes("K2", backend, nq, k), (backend, nq, k)
+    assert lib.pqv_assign_smem() == score_tile.smem_bytes("K1", "fma", 128)
     print("shared-memory sizes agree with kernels/score_tile.py")
 
 
@@ -73,6 +89,8 @@ def main() -> None:
     ap.add_argument("--no-ptxas", action="store_true")
     ap.add_argument("--time-only", action="store_true")
     ap.add_argument("--package-root", default=None)
+    ap.add_argument("--digest-file", default=None)
+    ap.add_argument("--modes", type=int, default=0)
     args = ap.parse_args()
     if args.package_root:
         sys.path.insert(0, os.path.abspath(args.package_root))
@@ -81,7 +99,9 @@ def main() -> None:
 
     import chip_smoke as cs
     from pqvector_tpu_torch.kernels import _build
+    from pqvector_tpu_torch.kernels import assign as ka
     from pqvector_tpu_torch.kernels import scan_topk as sc
+    from pqvector_tpu_torch.kernels import stream_topk as st
     from pqvector_tpu_torch.kernels import tilemin as tm
 
     if not torch.cuda.is_available():
@@ -96,6 +116,7 @@ def main() -> None:
         check_shared_memory(lib)
         cs.phase2_small_k9(torch, tm)
         cs.phase2_score_tile(torch, tm, sc)
+        cs.phase2_small_k1_k2(torch, ka, st)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
@@ -103,9 +124,16 @@ def main() -> None:
     n_pad = -(-n // 4096) * 4096
     x = torch.zeros((n_pad, d), device=dev)
     x[:n] = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    if args.modes:
+        centres = torch.from_numpy(
+            rng.standard_normal((args.modes, d)).astype(np.float32)).to(dev)
+        label = torch.from_numpy(np.sort(rng.integers(0, args.modes, n))).to(dev)
+        x[:n] = centres[label] + 0.3 * x[:n]
+        q = x[torch.from_numpy(rng.integers(0, n, b)).to(dev)] + 0.05 * q
     sq = torch.full((n_pad,), 3.0e38, device=dev)
     sq[:n] = (x[:n] * x[:n]).sum(1)
-    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    digests = {}
     for name, emb in (("f32", x), ("bf16", x.to(torch.bfloat16))):
         got, want = tm.tile_min(q, emb, sq, 128), tm.tile_min_plain(q, emb, sq, 128)
         fin = want < 1e38
@@ -129,7 +157,57 @@ def main() -> None:
                                                dim=1, largest=False))
         print(f"K5 {name} tile 1024 k={k}: {swaps} near-tie swaps, max err {err:.3g}, "
               f"kernel {ms:.3f} ms (k=128: {ms128:.3f} ms), mm + topk {lib_ms:.3f} ms")
+        for kk in (1, 10, 100, 128):
+            g = st.stream_exact_scan(qf, emb, sq, kk, 4096)
+            w = st.stream_exact_scan_plain(qf, emb, sq, kk)
+            err, swaps = cs.compare_topk(g, w, cs.stored_f64(qf), cs.stored_f64(emb),
+                                         sq.cpu().numpy().astype(np.float64))
+            if name == "f32":
+                digests[f"K2 f32 k={kk}"] = digest(*g)
+            ms = cs.time_ms(lambda: st.stream_exact_scan(qf, emb, sq, kk, 4096))
+            ms1 = cs.time_ms(lambda: st.stream_exact_scan(qf[:1], emb, sq, kk, 4096))
+            print(f"K2 {name} k={kk}: {swaps} near-tie swaps against plain, max err "
+                  f"{err:.3g}, kernel {ms:.3f} ms (B=1: {ms1:.3f} ms)")
+    cent = x[:1024].contiguous()
+    got = ka.assign_rows(x[:n], cent)
+    want = ka.assign_rows_plain(x[:n], cent)
+    digests["K1 f32"] = digest(got)
+    cn = (cent * cent).sum(1)
+    ms = cs.time_ms(lambda: ka.assign_rows(x[:n], cent))
+    lib_ms = cs.time_ms(lambda: torch.argmin(cn[None, :] - 2.0 * (x[:n] @ cent.T), dim=1),
+                        reps=5)
+    print(f"K1 {n} x {d}, 1024 centroids: {int((got != want).sum())} ids differ from "
+          f"plain, kernel {ms:.3f} ms, mm + argmin {lib_ms:.3f} ms")
+    import pqvector_tpu_torch as pqt
+    from pqvector_tpu_torch import datasets as ds
+    from pqvector_tpu_torch.types import Embeddings
+
+    rows = ds.synthetic_embeddings(n, d)
+    index = pqt.build_ivf_index(Embeddings(rows, d), pqt.IvfBuildConfig(n_clusters=1024),
+                                device=dev)
+    digests["index bytes, IVF-1024, seed 42"] = hashlib.sha256(index.to_bytes()).hexdigest()[:16]
+    for key, value in digests.items():
+        print(f"digest {key}: {value}")
+    if args.digest_file and os.path.exists(args.digest_file):
+        with open(args.digest_file) as f:
+            want = json.load(f)
+        bad = [key for key in digests if want.get(key) != digests[key]]
+        if bad:
+            raise SystemExit(f"outputs differ from {args.digest_file}: {bad}")
+        print(f"digests equal to {args.digest_file}")
+    elif args.digest_file:
+        os.makedirs(os.path.dirname(os.path.abspath(args.digest_file)), exist_ok=True)
+        with open(args.digest_file, "w") as f:
+            json.dump(digests, f)
     print("ok")
+
+
+def digest(*tensors) -> str:
+    """SHA-256 over the bytes of device tensors."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 if __name__ == "__main__":

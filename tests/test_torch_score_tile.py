@@ -1,6 +1,7 @@
-"""The score tile shared by K9 and K5 (``csrc/score_tile.cuh``,
+"""The score tile shared by K9, K5, K2 and K1 (``csrc/score_tile.cuh``,
 ``kernels/score_tile.py``): the rule on shapes that picks the back end, the
-launch geometry and the dynamic shared memory as Python functions; the
+launch geometry and the dynamic shared memory as Python functions (for K2
+also the split of the rows into runs, ``stream_topk.scan_units``); the
 wrappers on CPU tensors against the JAX package's ``pallas_tile_min`` and
 ``pallas_exact_topk`` in interpret mode at the shapes the 128 x 128 tile
 makes awkward; and, on the card, the kernels against their plain versions
@@ -23,6 +24,7 @@ from pqvector_tpu.kernels import scan_topk as jsc
 from pqvector_tpu.kernels.tilemin import pallas_tile_min
 from pqvector_tpu_torch.kernels import _build, score_tile
 from pqvector_tpu_torch.kernels import scan_topk as tsc
+from pqvector_tpu_torch.kernels import stream_topk as tst
 from pqvector_tpu_torch.kernels.tilemin import tile_min, tile_min_plain
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -81,26 +83,130 @@ def test_stage_sizes_mirror_the_sources():
     assert score_tile.stage_bytes("fma", 128) == 16 * (132 + 132) * 4
     assert score_tile.stage_bytes("fma", 64) == 16 * (132 + 68) * 4
     assert score_tile.stages("K9", "wgmma") == score_tile.stages("K5", "fma") == 3
-    assert score_tile.stages("K5", "wgmma") == 2
+    assert score_tile.stages("K5", "wgmma") == score_tile.stages("K2", "wgmma") == 2
+    assert score_tile.stages("K2", "fma") == score_tile.stages("K1", "fma") == 3
     src = (_build.CSRC / "score_tile.cuh").read_text()
     assert "kStageBytes = 2 * 128 * 128" in src and "kXS = kTR + 4" in src
-    assert f"kDumpStride = {score_tile.DUMP_STRIDE}" in (_build.CSRC / "scan_topk.cu").read_text()
+    lists = (_build.CSRC / "topk_lists.cuh").read_text()
+    assert f"kDumpStride = {score_tile.DUMP_STRIDE}" in lists
+    assert "kTopkFmaStages = 3, kTopkMmaStages = 2" in lists
+    assert "kAssignStages = 3" in (_build.CSRC / "assign.cu").read_text()
 
 
 @pytest.mark.parametrize("backend,queries", [("fma", 64), ("fma", 128), ("wgmma", 128)])
 def test_shared_memory_fits_for_every_k(backend, queries):
     """The size depends on k and the back end only: a stage holds a fixed
     number of dimensions, so every d the searcher accepts takes the same."""
-    sizes = [score_tile.smem_bytes("K5", backend, queries, k) for k in range(1, 129)]
-    assert sizes == sorted(sizes) and max(sizes) <= score_tile.SMEM_LIMIT
+    for kernel in ("K5", "K2"):
+        sizes = [score_tile.smem_bytes(kernel, backend, queries, k) for k in range(1, 129)]
+        assert sizes == sorted(sizes) and max(sizes) <= score_tile.SMEM_LIMIT
+        assert score_tile.smem_bytes(kernel, backend, queries, 10) <= 113_000  # two at k = 10
     assert score_tile.smem_bytes("K9", backend, queries) <= 101_376  # two blocks per SM
-    assert score_tile.smem_bytes("K5", backend, queries, 10) <= 113_000  # two at k = 10
 
 
 def test_shared_memory_at_the_corner():
     """128 queries x k = 128 lists beside two wgmma stages: 512 bytes spare."""
     assert score_tile.smem_bytes("K5", "wgmma", 128, 128) == 231_936
+    assert score_tile.smem_bytes("K2", "wgmma", 128, 128) == 231_936
     assert score_tile.SMEM_LIMIT == 232_448
+
+
+# ---------------------------------------------------------------- K2 and K1
+
+
+@pytest.mark.parametrize("k", range(1, 129))
+def test_k2_shares_k5s_shared_memory_for_every_k(k):
+    """K2's blocks hold the same ring, lists, dump and norms as K5's."""
+    for backend, queries in (("fma", 64), ("fma", 128), ("wgmma", 128)):
+        size = score_tile.smem_bytes("K2", backend, queries, k)
+        assert size == score_tile.smem_bytes("K5", backend, queries, k)
+        assert size <= score_tile.SMEM_LIMIT
+        ring = score_tile.stages("K2", backend) * score_tile.stage_bytes(backend, queries)
+        assert size == 1024 + ring + queries * (8 * k + 260) + 1024
+
+
+def test_k1_shared_memory_leaves_room_for_two_blocks():
+    assert score_tile.smem_bytes("K1", "fma", 128) == 1024 + 3 * 16896 + 1024
+    assert 2 * score_tile.smem_bytes("K1", "fma", 128) <= score_tile.SMEM_LIMIT
+
+
+@pytest.mark.parametrize(
+    "chunks,batch,queries,want",
+    [
+        (7840, 256, 128, 131),  # 1M x 128 padded to 4096: 60 chunks a run, 262 blocks
+        (7840, 1, 64, 262),  # 30 chunks a run
+        (7840, 64, 64, 262),
+        (7840, 65, 128, 262),
+        (7840, 128, 128, 262),
+        (7840, 4096, 128, 9),  # 32 query groups: 9 runs of 872 chunks
+        (7840, 40_000, 128, 1),  # more groups than a wave: every block walks all rows
+        (78144, 256, 128, 132),  # 10M rows
+        (1, 256, 128, 1),
+        (3, 1, 64, 3),  # never more runs than chunks
+        (263, 1, 64, 263),
+        (265, 1, 64, 133),  # two chunks a run
+    ],
+)
+def test_scan_units_fills_about_one_wave(chunks, batch, queries, want):
+    units = tst.scan_units(chunks, batch, queries)
+    assert units == want
+    groups = -(-batch // queries)
+    per = -(-chunks // units)
+    assert (units - 1) * per < chunks <= units * per  # no run is empty
+    if groups <= 264 and chunks >= 264:
+        assert 132 < units * groups <= 264 + groups
+
+
+@pytest.mark.parametrize(
+    "backend,queries,k,want",
+    [("fma", 128, 10, 264), ("fma", 128, 29, 264), ("fma", 128, 30, 132),
+     ("fma", 128, 128, 132), ("fma", 64, 100, 264), ("fma", 64, 114, 264),
+     ("fma", 64, 115, 132), ("wgmma", 128, 10, 264), ("wgmma", 128, 14, 264),
+     ("wgmma", 128, 15, 132), ("wgmma", 128, 100, 132)],
+)
+def test_wave_follows_the_shared_memory_of_k(backend, queries, k, want):
+    """Two blocks an SM while their lists fit its shared memory, one beyond."""
+    assert score_tile.wave_blocks(score_tile.smem_bytes("K2", backend, queries, k)) == want
+
+
+@pytest.mark.parametrize(
+    "chunks,batch,queries,wave,want",
+    [(7840, 256, 128, 132, 66), (7840, 1, 64, 132, 131), (7840, 4096, 128, 132, 5),
+     (100, 1, 64, 132, 100)],
+)
+def test_scan_units_at_large_k_fill_one_block_an_sm(chunks, batch, queries, wave, want):
+    assert tst.scan_units(chunks, batch, queries, wave) == want
+
+
+@pytest.mark.parametrize(
+    "n_pad,units,want_run",
+    [(1_003_520, 131, 7680), (1_003_520, 1, 1_003_520), (768, 1000, 128), (700, 3, 256),
+     (64, 5, 128), (4096, 32, 128), (4096, 33, 128), (4096, 31, 256)],
+)
+def test_run_rows_are_whole_chunks_that_cover_the_array(n_pad, units, want_run):
+    run = tst.run_rows(n_pad, units)
+    assert run == want_run and run % score_tile.CHUNK_ROWS == 0
+    launched = -(-n_pad // run)
+    assert launched <= max(1, units) and (launched - 1) * run < n_pad <= launched * run
+
+
+@pytest.mark.parametrize(
+    "batch,dtype,d,k,blocks",
+    [(256, F32, 128, 10, 262), (256, BF16, 128, 10, 262), (1, F32, 128, 10, 262),
+     (1, BF16, 128, 10, 262), (13, BF16, 100, 10, 262), (64, F32, 3, 10, 262),
+     (65, F32, 128, 10, 262), (4096, BF16, 96, 10, 288), (256, F32, 128, 100, 132),
+     (256, BF16, 128, 100, 132), (1, F32, 128, 100, 262), (1, F32, 128, 128, 131)],
+)
+def test_k2_launch_geometry_at_the_main_shape(batch, dtype, d, k, blocks):
+    """1M rows padded to 1,003,520: the blocks a K2 launch makes."""
+    n_pad = 1_003_520
+    backend = score_tile.pick_backend(dtype, d, 0, 0)
+    queries = score_tile.block_queries(batch, backend)
+    wave = score_tile.wave_blocks(score_tile.smem_bytes("K2", backend, queries, k))
+    units = tst.scan_units(n_pad // 128, batch, queries, wave)
+    run = tst.run_rows(n_pad, units)
+    assert -(-n_pad // run) == units
+    assert score_tile.grid_blocks(batch, backend, units) == blocks
 
 
 # ---------------------------------------------------------------- K9 vs JAX
@@ -212,6 +318,9 @@ def test_sources_and_python_agree_on_shared_memory(cuda_device):
         for k in (1, 10, 128):
             assert lib.pqv_exact_topk_smem(flag, queries, k) == score_tile.smem_bytes(
                 "K5", backend, queries, k)
+            assert lib.pqv_stream_exact_topk_smem(flag, queries, k) == score_tile.smem_bytes(
+                "K2", backend, queries, k)
+    assert lib.pqv_assign_smem() == score_tile.smem_bytes("K1", "fma", 128)
 
 
 @pytest.mark.cuda

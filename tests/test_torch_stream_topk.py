@@ -15,6 +15,15 @@ and a numpy oracle holds it to that exactly. Most data here lies on a 1/4 grid w
 that tests the tie rule, and it is why bf16 storage may be held to equal
 ids. bf16 rounds at 2^-8, and data whose neighbours lie closer than that
 could select differently, which is why searchers re-score in f32.
+
+K2 runs on the score tile of ``csrc/score_tile.cuh`` (128 queries x 128 rows
+a block, runs of rows merged in a second launch). Its awkward shapes (d = 3
+and 100, k = 1 and 128, B = 1 to 256, a last tile that is partly pad, fewer
+rows than k) go through the JAX kernel and the wrapper on the CPU here, and
+through the kernel on the card against the plain version, on both back ends
+and over several splits of the rows: grid data, so equal bit for bit. On
+continuous f32 data ids must be equal wherever neighbouring distances differ
+by more than 1e-5 relative; bf16 results are compared after the f32 re-score.
 """
 
 import jax.numpy as jnp
@@ -27,7 +36,9 @@ from pqvector_tpu.index.ivf import IvfIndex as JIvfIndex
 from pqvector_tpu.kernels import stream_topk as jst
 from pqvector_tpu.query.device import DeviceIvfSearcher as JSearcher
 from pqvector_tpu_torch.convert import searcher_state_from_reference
+from pqvector_tpu_torch.kernels import _build, score_tile
 from pqvector_tpu_torch.kernels import stream_topk as tst
+from pqvector_tpu_torch.kernels.scan_topk import select_lex
 
 TILE = 256
 
@@ -226,6 +237,115 @@ def test_convert_keeps_bf16_bits_and_int32_ids():
     np.testing.assert_array_equal(t["local_cluster"].numpy(), a["local_cluster"])
 
 
+def _padded_grid(n, d, tile, nq, seed):
+    """Rows on a 1/4 grid, padded past n to a multiple of ``tile`` with zero
+    rows whose norm is +3e38, and queries near them."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(-8, 9, (17, d)).astype(np.float32) / 4
+    x = base[rng.integers(0, 17, n)] + rng.integers(-2, 3, (n, d)).astype(np.float32) / 4
+    n_pad = -(-(n + 1) // tile) * tile
+    emb = np.zeros((n_pad, d), np.float32)
+    emb[:n] = x
+    sq = np.full(n_pad, 3.0e38, np.float32)
+    sq[:n] = (x * x).sum(1)
+    q = x[rng.integers(0, n, nq)] + rng.integers(-1, 2, (nq, d)).astype(np.float32) / 4
+    return emb, sq, q
+
+
+AWKWARD = [  # n, tile, k, d, B
+    (1500, 256, 1, 3, 1),
+    (1500, 256, 128, 100, 13),
+    (900, 128, 10, 8, 64),
+    (900, 128, 10, 96, 65),
+    (700, 64, 33, 40, 256),
+    (5, 256, 9, 136, 5),
+    (1000, 512, 128, 16, 130),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,tile,k,d,b", AWKWARD)
+def test_stream_exact_matches_jax_at_awkward_shapes(n, tile, k, d, b, dtype):
+    emb, sq, q = _padded_grid(n, d, tile, b, seed=n + k + d)
+    want = jst.pallas_stream_exact_topk(
+        jnp.asarray(q), jnp.asarray(emb, getattr(jnp, dtype)), jnp.asarray(sq), k,
+        tile=tile, interpret=True)
+    got = tst.stream_exact_topk(
+        torch.from_numpy(q), torch.from_numpy(emb).to(getattr(torch, dtype)),
+        torch.from_numpy(sq), k, tile)
+    assert_topk_match(tuple(map(_np, got)), tuple(map(_np, want)), q, boundary_ties=True)
+    assert got[0].shape == (b, k) and (got[1].numpy()[:, min(n, k):] == -1).all()
+
+
+@pytest.mark.parametrize("n,tile,k,d,b", AWKWARD)
+def test_stream_exact_scan_is_the_lex_topk_at_awkward_shapes(n, tile, k, d, b):
+    """Lower row ids win ties; pad rows never enter; n < k leaves (+3e38, -1)."""
+    emb, sq, q = _padded_grid(n, d, tile, b, seed=n + k + d + 1)
+    got_d, got_i = tst.stream_exact_scan(
+        torch.from_numpy(q), torch.from_numpy(emb), torch.from_numpy(sq), k, tile)
+    want = lex_oracle(q, emb, np.where(sq >= 1e38, np.inf, sq), k)
+    np.testing.assert_array_equal(got_i.numpy(), want)
+    empty = got_i.numpy() < 0
+    assert (got_d.numpy()[empty] == np.float32(3.0e38)).all()
+    assert empty.sum() == b * max(0, k - n)
+
+
+def _scan_in_runs(qf, emb, sq, k, units):
+    """What K2's launch computes: each run's own top-k lists, merged under
+    the (distance, id) order."""
+    run = tst.run_rows(emb.shape[0], units)
+    parts = [tst.stream_exact_scan_plain(qf, emb[lo:lo + run], sq[lo:lo + run], k)
+             for lo in range(0, emb.shape[0], run)]
+    d = torch.cat([p[0] for p in parts], dim=1)
+    i = torch.cat([torch.where(p[1] >= 0, p[1] + lo, -1)
+                   for p, lo in zip(parts, range(0, emb.shape[0], run))], dim=1)
+    return select_lex(d, i, k)
+
+
+@pytest.mark.parametrize("units", [1, 2, 3, 7, 1000])
+@pytest.mark.parametrize("n,tile,k,d,b", AWKWARD[1:5])
+def test_stream_exact_result_does_not_depend_on_the_split(n, tile, k, d, b, units):
+    emb, sq, q = _padded_grid(n, d, tile, b, seed=n + d)
+    qf, e, s = torch.from_numpy(q), torch.from_numpy(emb), torch.from_numpy(sq)
+    want = tst.stream_exact_scan(qf, e, s, k, tile)
+    got = _scan_in_runs(qf, e, s, k, units)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("d,k,b", [(3, 1, 13), (100, 16, 64), (40, 128, 65)])
+def test_stream_exact_continuous_f32_awkward(d, k, b):
+    """Continuous data: ids equal wherever the neighbouring distances differ
+    by more than 1e-5 relative (cuBLAS-free here, but the JAX kernel and
+    torch sum in other orders)."""
+    rng = np.random.default_rng(d + k)
+    n, tile = 1100, 128
+    emb = np.zeros((1152, d), np.float32)
+    emb[:n] = rng.standard_normal((n, d)).astype(np.float32)
+    sq = np.full(1152, 3.0e38, np.float32)
+    sq[:n] = (emb[:n] * emb[:n]).sum(1)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    want = jst.pallas_stream_exact_topk(
+        jnp.asarray(q), jnp.asarray(emb), jnp.asarray(sq), k, tile=tile, interpret=True)
+    got = tst.stream_exact_topk(torch.from_numpy(q), torch.from_numpy(emb),
+                                torch.from_numpy(sq), k, tile)
+    gd, gi = _canon(*map(_np, got))
+    wd, wi = _canon(*map(_np, want))
+    np.testing.assert_allclose(gd, wd, rtol=1e-5, atol=1e-5 * (q * q).sum(1).max())
+    gap = np.minimum(np.diff(wd, axis=1, prepend=-np.inf), np.diff(wd, axis=1, append=np.inf))
+    clear = gap > 1e-5 * np.abs(wd) + 1e-5
+    np.testing.assert_array_equal(np.where(clear, gi, 0), np.where(clear, wi, 0))
+    assert clear.mean() > 0.9
+
+
+def test_k2_and_k3_split_rows_by_their_own_rules():
+    """K2 fills one wave of 128-query blocks with runs of rows; K3 still
+    splits the tiles over blocks of 16 queries."""
+    assert tst.scan_units(7840, 256) == 131
+    assert tst.masked_scan_units(245, 256) == 64
+    assert tst.masked_scan_units(245, 1) == 245
+    assert tst.masked_scan_units(3, 4096) == 3
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -251,3 +371,47 @@ def test_kernels_match_plain_on_card(cuda_device, dtype):
     want = tst.stream_masked_scan_plain(*args)
     assert_topk_match(tuple(v.cpu().numpy() for v in got),
                       tuple(v.cpu().numpy() for v in want), q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,tile,k,d,b", AWKWARD + [(3000, 1024, 10, 128, 257),
+                                                     (1500, 128, 10, 16, 4096)])
+def test_stream_exact_kernel_equals_plain_on_card(cuda_device, dtype, n, tile, k, d, b):
+    """Grid data: both back ends equal the plain version bit for bit, over
+    every split of the rows."""
+    emb, sq, q = _padded_grid(n, d, tile, b, seed=n + tile + k)
+    qf = torch.from_numpy(q).to(cuda_device).to(dtype)
+    e = torch.from_numpy(emb).to(cuda_device).to(dtype)
+    s = torch.from_numpy(sq).to(cuda_device)
+    want = tst.stream_exact_scan_plain(qf, e, s, k)
+    before = _build.LAUNCHES["K2"]
+    got = tst.stream_exact_scan(qf, e, s, k, tile)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K2"] == before + 1
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    for units in (1, 3, 1000):
+        got = tst._stream_exact_cuda(qf, e, s, k, units=units)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,want", [(128, "wgmma"), (100, "fma")])
+def test_stream_exact_bf16_back_end_follows_the_rule(cuda_device, d, want):
+    emb, sq, q = _padded_grid(2000, d, 256, 37, seed=d)
+    qf = torch.from_numpy(q).to(cuda_device).to(torch.bfloat16)
+    e = torch.from_numpy(emb).to(cuda_device).to(torch.bfloat16)
+    s = torch.from_numpy(sq).to(cuda_device)
+    assert score_tile.pick_backend(e.dtype, d, qf.data_ptr(), e.data_ptr()) == want
+    got = tst.stream_exact_scan(qf, e, s, 10, 256)
+    ref = tst.stream_exact_scan_plain(qf, e, s, 10)
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+    # a contiguous view that starts off a 16-byte boundary falls to the fp32 patch
+    flat = torch.zeros(e.numel() + 8, dtype=e.dtype, device=cuda_device)
+    off = flat[1 : 1 + e.numel()].view_as(e).copy_(e)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 2
+    assert score_tile.pick_backend(off.dtype, d, qf.data_ptr(), off.data_ptr()) == "fma"
+    got = tst.stream_exact_scan(qf, off, s, 10, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
