@@ -18,21 +18,25 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    unordered selections; for K9 and K5 also what their 128 x 128 score tile
    makes awkward: B = 129 and 257, d = 8, 96, 100, 136 on both back ends,
    k = 128 at 128 queries; for K1 and K2, which run on the same tile, d = 3
-   and 100, 1 to 4096 centroids, B = 1 to 4096 and four splits of the rows)
-   must agree exactly; at the main path's shapes the
+   and 100, 1 to 4096 centroids, B = 1 to 4096 and four splits of the rows;
+   for K4 and K3 on that tile also a last tile whose last chunks are all pad
+   rows, a tile of 64 chunks, unsorted slots, 1 to 300 clusters a tile, three
+   splits of the active tiles, and their counters of scored tiles and chunks
+   equal to the skip rule's) must agree exactly; at the main path's shapes the
    ids must agree except where the two picks tie within the f32 tolerance
    (the int8 key tables exactly, K9 within the certificate's envelope, the
    gathers bit for bit), and both are timed with CUDA events (median of
    10), beside one PyTorch call or two-call chain that computes the same
    function where there is one, and the bound: the least time the card
-   could take for the call's bytes and operations. K9, K5 and K2 are timed
-   on the f32 and on the bf16 array, K2 also at k = 100.
+   could take for the call's bytes and operations. K9, K5, K4, K3 and K2
+   are timed on the f32 and on the bf16 array, K2 also at k = 100; K10 and
+   K11 also in turns with ``index_select``, 10 rounds.
 3. The main path at the bench's default configuration: a seeded 1M x 128
    Parquet file, ``IndexBuilder(...).n_clusters(1024).build_inplace()`` on
    the card, exact truth from K2 on an f32 searcher, and an nprobe sweep of
    IVF ``search`` (K4) on a bf16 searcher with an f32 re-score copy until
    recall@10 >= 0.95; K3 must return K4's ids; exact k = 100 through K2
-   must match the plain scan; search QPS at B = 256.
+   must match the plain scan; search QPS at B = 256 through K4 and K3.
 4. Coverage: K1-K4 were launched during phase 3.
 5. Slice 2's path on the same file and index: a bf16 searcher in file
    order (f32 re-score copy) serves ``search(..., "pallas")`` through K6 in
@@ -60,11 +64,14 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    rung's sorted searcher: ``compact`` at nprobe 4 (cap, coverage, recall,
    ms), K10 and K11 on that selection (bit-equal to the plain gather and to
    each other, timed beside ``index_select``), ``cert`` equal to the K2
-   truth, and K9, K5, K2 and K1 timed at that rung's shapes (K9 within the
-   certificate's envelope of its plain version, K5's merge equal to K2's, K1
-   against 4096 centroids equal to its plain version up to near-ties).
+   truth, and K9, K5, K4, K3, K2 and K1 timed at that rung's shapes (K9
+   within the certificate's envelope of its plain version, K5's merge equal
+   to K2's, K4's merge and K3 equal to each other and to K3's plain version
+   up to near-ties, K1 against 4096 centroids equal to its plain version up
+   to near-ties).
 
-The last lines are the kernels' JSON, the card's name and power limit, and
+The last lines are the tiles and chunks K4 and K3 scored of those a full
+walk scores, the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -189,12 +196,16 @@ def stored_f64(t):
 # Phase 2a: small awkward shapes, exact agreement
 
 
-def grid_layout(n, d, kc, tile, seed):
+def grid_layout(n, d, kc, tile, seed, nq=37, shuffle=False):
     """Rows on a 1/4 grid sorted by cluster, so every score is exact in f32
-    and bf16 and many distances tie; pad rows carry +3e38."""
+    and bf16 and many distances tie; pad rows carry +3e38. ``shuffle`` stores
+    the rows in random order instead: a tile then holds rows of most clusters
+    and the slots of its rows are unsorted."""
     rng = np.random.default_rng(seed)
     cent = rng.integers(-8, 9, (kc, d)).astype(np.float32) / 4
     lab = np.sort(rng.integers(0, kc, n))
+    if shuffle:
+        lab = lab[np.random.default_rng(seed + 1).permutation(n)]
     x = cent[lab] + rng.integers(-2, 3, (n, d)).astype(np.float32) / 4
     n_pad = -(-(n + 1) // tile) * tile
     emb = np.zeros((n_pad, d), np.float32)
@@ -210,7 +221,7 @@ def grid_layout(n, d, kc, tile, seed):
     for t, u in enumerate(uniques):
         tc[t, : u.size] = u
         lcl[t] = np.searchsorted(u, parts[t])
-    q = x[rng.integers(0, n, 37)] + rng.integers(-1, 2, (37, d)).astype(np.float32) / 4
+    q = x[rng.integers(0, n, nq)] + rng.integers(-1, 2, (nq, d)).astype(np.float32) / 4
     return cent, emb, sq, lcl.reshape(-1), tc, q
 
 
@@ -409,8 +420,11 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
         f"after the merge, max err {err:.3g}; kernel {results['K6']['ms']:.3f} ms, "
         f"plain {results['K6']['plain_ms']:.3f} ms")
     n_pad = fo16.emb.shape[0]
-    results["K6"].update(bound_of(nbytes_of(*m_args[:5]) + (n_pad // tile) * BATCH * K * 8,
-                                  2.0 * BATCH * n_pad * DIM, "bf16"), library_ms=None)
+    results["K6"].update(
+        bound_of(nbytes_of(*m_args[:5]) + (n_pad // tile) * BATCH * K * 8,
+                 2.0 * BATCH * n_pad * DIM, "bf16"),
+        library_ms=masked_library_ms(torch, qf16, fo16.emb, fo16._pallas_emb_sq(),
+                                     fo16.row_cluster, mask, K, reps=5))
     del xf
 
     q64 = q.double().cpu().numpy()
@@ -437,7 +451,8 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
         library_ms=binned_library_ms(torch, q, fo16.emb, e7 * t7))
     log(f"phase 2b K6/K7: bound {results['K6']['bound_ms']:.3f} / "
         f"{results['K7']['bound_ms']:.3f} ms ({results['K6']['bound_by']} / "
-        f"{results['K7']['bound_by']}); mm + scatter_reduce(amin) "
+        f"{results['K7']['bound_by']}); K6's mm + gathered mask + topk "
+        f"{results['K6']['library_ms']:.3f} ms, K7's mm + scatter_reduce(amin) "
         f"{results['K7']['library_ms']:.3f} ms")
     e8, sc8 = fo16._xbin8_arrays()
     t8 = fo16._binscan_tile(esize=1)
@@ -709,6 +724,7 @@ def phase6(torch, pqt, _build, ds, Embeddings, dev, cp, compact_select, tm, sc, 
         f"({res['qps_b256']:.0f} QPS)")
     out["slice3"] = phase7b(torch, ds, cp, compact_select, s, q256, truth_pair)
     out["score_tile"] = deep_score_tile(torch, tm, sc, st, s, q256)
+    out["masked"] = deep_masked(torch, sc, st, s, q256)
     out["assign"] = deep_assign(torch, ka, s)
     del s
     gc.collect()
@@ -899,6 +915,85 @@ def phase2_small_k1_k2(torch, ka, st):
         f"version; {mma} of {cases // 4} arrays on wgmma")
 
 
+def phase2_masked_score_tile(torch, st, sc):
+    """K4 and K3 on the score tile against their plain versions on 1/4-grid
+    data, equal bit for bit on both back ends: k = 128 at 128 queries (no
+    room for a probe table on wgmma), B = 129 and 257, widths that end inside
+    a stage, n < k, a tile shorter than a chunk, a last tile whose last
+    chunks are all pad rows, a tile of 64 chunks (two segments), rows in
+    random order (unsorted slots) with 150 and with 300 clusters a tile (a
+    table of 5 words, and one too wide for shared memory), one cluster a
+    tile; K3 over three splits of the active tiles. The kernels' counters of
+    scored tiles and chunks must equal ``scored_chunks``' wherever a probe
+    table is held. -> cases."""
+    from pqvector_tpu_torch.kernels.score_tile import CHUNK_ROWS
+
+    dev = torch.device(DEVICE)
+    cases = mma = tableless = 0
+    # (n, tile, k, d, B, clusters, shuffle)
+    for n, tile, k, d, b, kc, shuffle in (
+            (5000, 256, 128, 72, 128, 20, False), (3000, 1024, 10, 96, 129, 20, False),
+            (3000, 1024, 10, 100, 257, 7, False), (700, 64, 10, 8, 37, 20, False),
+            (5, 256, 9, 136, 5, 3, False), (2100, 1024, 10, 96, 129, 20, False),
+            (20000, 8192, 10, 16, 13, 40, False), (9000, 1024, 10, 128, 64, 150, True),
+            (9000, 1024, 100, 128, 130, 300, True), (600, 128, 5, 40, 3, 1, False),
+            (4000, 512, 1, 3, 1, 9, False)):
+        cent_np, emb, sq, lcl, tc, q = grid_layout(n, d, kc, tile, seed=n + k + d, nq=b,
+                                                   shuffle=shuffle)
+        kc_pad = -(-(kc + 1) // 128) * 128
+        for dt in (torch.float32, torch.bfloat16):
+            E = torch.from_numpy(emb).to(dev).to(dt)
+            S = torch.from_numpy(sq).to(dev)
+            L = torch.from_numpy(lcl).to(dev)
+            TC = torch.from_numpy(tc).to(dev)
+            C = torch.from_numpy(cent_np).to(dev)
+            Q = torch.from_numpy(q).to(dev)
+            qf = Q.to(dt)
+            mask = st._probe_mask(Q, C, (C * C).sum(1), min(3, kc), min(20, kc), kc_pad)
+            sched = st._tile_schedule(mask, TC)
+            lmask = mask[:, TC.long()].permute(1, 0, 2).contiguous()
+            backend, queries, words, _ = sc.masked_geometry("K4", qf, E, k, tc.shape[1])
+            want_chunks = sc.scored_chunks(lmask > 0.5, L, tile, queries)
+            if not words:  # whole tiles
+                want_chunks = want_chunks.any(2, keepdim=True).expand(
+                    -1, -1, -(-tile // CHUNK_ROWS))
+            want_stats = [int(want_chunks.any(2).sum()), int(want_chunks.sum())]
+            stats = torch.zeros(2, dtype=torch.int32, device=dev)
+            args = (qf, E, S, L, lmask, k, tile)
+            g, w = sc.masked_local_scan(*args, stats=stats), sc.masked_local_scan_plain(*args)
+            torch.cuda.synchronize()
+            what = f"small n={n} tile={tile} k={k} d={d} B={b} kc={kc} {dt}"
+            check(torch.equal(g[1], w[1]) and torch.equal(g[0], w[0]),
+                  f"K4 {what}: {int((g[1] != w[1]).sum())} ids differ from plain")
+            check(stats.tolist() == want_stats,
+                  f"K4 {what}: scored {stats.tolist()} tiles and chunks, the rule says "
+                  f"{want_stats}")
+            args = (qf, E, S, L, TC, mask, sched, k, tile)
+            w = st.stream_masked_scan_plain(*args)
+            check(torch.equal(w[1], sc._final_merge(*g, k)[1]),
+                  f"K3 {what}: the plain versions of K3 and K4 disagree")
+            for units in (None, 1, 3):
+                stats.zero_()
+                g = st._stream_masked_cuda(*args, units=units, stats=stats)
+                torch.cuda.synchronize()
+                check(torch.equal(g[1], w[1]) and torch.equal(g[0], w[0]),
+                      f"K3 {what} units={units}: {int((g[1] != w[1]).sum())} ids differ "
+                      "from plain")
+                if words:
+                    check(stats.tolist() == want_stats,
+                          f"K3 {what} units={units}: scored {stats.tolist()}, the rule "
+                          f"says {want_stats}")
+            cases += 1
+            mma += backend == "wgmma"
+            tableless += not words
+    log(f"phase 2a K4/K3, score tile: {cases} cases (k 1..128, B 1..257, d 3..136, tile "
+        f"64..8192, n < k, all-pad chunks, unsorted slots, 1..300 clusters a tile, "
+        f"f32/bf16, K3 over 3 splits each): ids and distances equal to the plain "
+        f"versions, scored tiles and chunks equal to the skip rule's; {mma} on wgmma, "
+        f"{tableless} without a probe table in shared memory")
+    return cases
+
+
 def phase2_small_gather(torch, cp):
     """K10 and K11 against the plain gather at small awkward shapes: bit-equal."""
     dev = torch.device(DEVICE)
@@ -1024,6 +1119,174 @@ def gather_check(torch, cp, emb, emb_sq, sel, ctile, results, what):
             f"({moved / res['ms'] / 1e9:.2f} TB/s read + write), plain "
             f"{res['plain_ms']:.3f} ms, index_select {res['library_ms']:.3f} ms, "
             f"bound {res['bound_ms']:.3f} ms")
+    # Whether K10 and K11 really lose to index_select: the three in turns.
+    rounds = interleaved_ms((lambda: cp.tile_gather(emb, emb_sq, sel, ctile),
+                             lambda: cp.tile_gather_dma(emb, emb_sq, sel, ctile), library))
+    for i, name in enumerate(("K10", "K11")):
+        ratio = rounds[:, i] / rounds[:, 2]
+        results[name]["vs_index_select"] = {
+            "median": float(np.median(ratio)), "min": float(ratio.min()),
+            "max": float(ratio.max())}
+    log(f"{what} K10, K11 and index_select in turns, 10 rounds of 5 calls: medians "
+        f"{np.median(rounds, axis=0).round(4).tolist()} ms; K10 / index_select median "
+        f"{results['K10']['vs_index_select']['median']:.3f} "
+        f"({results['K10']['vs_index_select']['min']:.3f}-"
+        f"{results['K10']['vs_index_select']['max']:.3f}), K11 / index_select median "
+        f"{results['K11']['vs_index_select']['median']:.3f} "
+        f"({results['K11']['vs_index_select']['min']:.3f}-"
+        f"{results['K11']['vs_index_select']['max']:.3f})")
+
+
+def interleaved_ms(fns, rounds=10, calls=5):
+    """ms per call of each of ``fns``, timed in turns: each round times
+    ``calls`` back-to-back calls of every function with CUDA events.
+    -> [rounds, len(fns)]."""
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    out = np.zeros((rounds, len(fns)))
+    for r in range(rounds):
+        for i, fn in enumerate(fns):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            out[r, i] = start.elapsed_time(end) / calls
+    return out
+
+
+def masked_library_ms(torch, qf, emb, sq, row_cluster, mask, k, reps=10):
+    """The chain a user would write for a masked top-k: one product, the probe
+    mask gathered through each row's cluster, ``topk``. It is what K3, K4
+    (before their merge) and K6 compute; the port calls it nowhere."""
+    rc = row_cluster.long()
+
+    def chain():
+        score = sq[None, :] - 2.0 * (qf @ emb.T).float()
+        score = torch.where(mask[:, rc] > 0.5, score, 3.0e38)
+        return torch.topk(score, k, dim=1, largest=False)
+
+    return time_ms(chain, reps=reps)
+
+
+def probed_work(torch, mask, row_cluster, d, esize):
+    """What a masked scan of this batch needs: -> (bytes of the rows some
+    query probes, each read once with its norm and slot; multiply-adds x 2
+    over the (query, row) pairs the queries probe)."""
+    sizes = torch.bincount(row_cluster.long(), minlength=mask.shape[1])[: mask.shape[1]]
+    rows = float(sizes[mask.amax(dim=0) > 0.5].sum())
+    pairs = float((mask.double() @ sizes.double()).sum())
+    return rows * (d * esize + 8), 2.0 * pairs * d
+
+
+def masked_timed(torch, sc, st, qf, emb, sq, lcl, tc, mask, sched, row_cluster, k, tile,
+                 kind, stored, what):
+    """K3 and K4 on one array at one batch: each held to its plain version
+    (``stored``: the float64 (queries, rows, norms) that judge near-ties),
+    K3's ids held to K4's merge, the kernels' counters of scored tiles and
+    chunks held to the skip rule's, and both timed beside the plain versions
+    and the product + gathered mask + ``topk`` chain, with their bounds.
+    With ``stored`` None (the 10M rung, where float64 copies and a [B, n]
+    score matrix do not fit the time) both are held on the card to K3's plain
+    version over the active tiles, distances within 1e-5 (|q|^2 + max
+    |x|^2), and only the kernels are timed.
+    -> {"K3": {...}, "K4": {...}, "work": {...}}."""
+    deep = stored is None
+    reps = 5 if deep else 10
+    lmask = mask[:, tc.long()].permute(1, 0, 2).contiguous()
+    nt, b = lmask.shape[0], qf.shape[0]
+    backend, queries, words, _ = sc.masked_geometry("K4", qf, emb, k, tc.shape[1])
+    chunks = sc.scored_chunks(lmask > 0.5, lcl, tile, queries)
+    work = {"backend": backend, "table_words": words, "active_tiles": int(sched[0]),
+            "tiles": nt, "block_tiles": chunks.shape[0] * chunks.shape[1],
+            "block_tiles_scored": int(chunks.any(2).sum()),
+            "block_chunks": chunks.numel(), "block_chunks_scored": int(chunks.sum())}
+    del chunks
+    a3 = (qf, emb, sq, lcl, tc, mask, sched, k, tile)
+    a4 = (qf, emb, sq, lcl, lmask, k, tile)
+    stats = torch.zeros(2, dtype=torch.int32, device=emb.device)
+    g4 = sc.masked_local_scan(*a4, stats=stats)
+    m4 = sc._final_merge(*g4, k)
+    del g4
+    got4 = stats.tolist()
+    stats.zero_()
+    g3 = st.stream_masked_scan(*a3, stats=stats)
+    torch.cuda.synchronize()
+    if words:
+        want = [work["block_tiles_scored"], work["block_chunks_scored"]]
+        check(got4 == want and stats.tolist() == want,
+              f"{what}: K4 scored {got4}, K3 {stats.tolist()} tiles and chunks; the skip "
+              f"rule says {want}")
+    check(torch.equal(g3[1], m4[1]), f"{what}: K3's ids differ from K4's merged ids")
+    w3 = st.stream_masked_scan_plain(*a3)
+    out = {"work": work}
+    for name, got, wantp in (("K3", g3, w3), ("K4", m4, w3)):
+        if name == "K4" and not deep:
+            wantp = sc._final_merge(*sc.masked_local_scan_plain(*a4), k)
+        if not deep:
+            err, swaps = compare_topk(got, wantp, *stored)
+        else:
+            fin = sq[sq < 1e38]
+            tol = 1e-5 * float((qf.float() ** 2).sum(1).max() + fin.max())
+            check(torch.equal(got[1] >= 0, wantp[1] >= 0), f"{what} {name}: empty slots differ")
+            real = wantp[1] >= 0
+            err = float((got[0] - wantp[0])[real].abs().max()) if bool(real.any()) else 0.0
+            check(err <= tol, f"{what} {name}: distances differ from plain by {err}")
+            swaps = int((got[1] != wantp[1]).sum())
+        out[name] = {"max_abs_err": err, "swaps": swaps}
+    del w3, wantp, m4, g3
+    out["K3"]["ms"] = time_ms(lambda: st.stream_masked_scan(*a3), reps=reps)
+    out["K4"]["ms"] = time_ms(lambda: sc.masked_local_scan(*a4), reps=reps)
+    lib = None
+    if not deep:
+        out["K3"]["plain_ms"] = time_ms(lambda: st.stream_masked_scan_plain(*a3))
+        out["K4"]["plain_ms"] = time_ms(lambda: sc.masked_local_scan_plain(*a4))
+        lib = masked_library_ms(torch, qf, emb, sq, row_cluster, mask, k, reps=5)
+    row_bytes, ops = probed_work(torch, mask, row_cluster, emb.shape[1], emb.element_size())
+    out["K3"].update(bound_of(row_bytes + nbytes_of(qf, mask, tc, sched) + b * k * 8, ops, kind),
+                     library_ms=lib)
+    out["K4"].update(bound_of(row_bytes + nbytes_of(qf, lmask) + nt * b * k * 8, ops, kind),
+                     library_ms=lib)
+
+    def ms(value):
+        return "not timed" if value is None else f"{value:.3f} ms"
+
+    log(f"{what}: {work['active_tiles']} of {nt} tiles active; blocks of {queries} queries on "
+        f"{backend} score {work['block_tiles_scored']} of {work['block_tiles']} (block, tile) "
+        f"pairs and {work['block_chunks_scored']} of {work['block_chunks']} (block, chunk) "
+        f"pairs. K3: {out['K3']['swaps']} near-tie swaps, max err {out['K3']['max_abs_err']:.3g}; "
+        f"kernel {out['K3']['ms']:.3f} ms, plain {ms(out['K3'].get('plain_ms'))}, bound "
+        f"{out['K3']['bound_ms']:.3f} ms ({out['K3']['bound_by']}). K4: {out['K4']['swaps']} "
+        f"near-tie swaps after the merge, max err {out['K4']['max_abs_err']:.3g}; kernel "
+        f"{out['K4']['ms']:.3f} ms, plain {ms(out['K4'].get('plain_ms'))}, bound "
+        f"{out['K4']['bound_ms']:.3f} ms ({out['K4']['bound_by']}). mm + gathered mask + topk "
+        f"{ms(lib)}; K3's ids equal K4's")
+    return out
+
+
+def deep_masked(torch, sc, st, s, q, nprobe=4):
+    """K4 and K3 at the 10M x 96 rung's shapes (tiles of 1024 rows of the
+    sorted searcher, 4096 clusters), on its f32 copy and its bf16 storage."""
+    tile = s._scan_tile()
+    lcl, tc, cmax = s._tile_cluster_table(tile)
+    kc_pad = -(-(DEEP_CLUSTERS + 1) // 128) * 128
+    mask = st._probe_mask(q, s.centroids, s.c_sq, nprobe, s._max_probe_bucket(nprobe), kc_pad)
+    sched = st._tile_schedule(mask, tc)
+    sq = s._pallas_emb_sq()
+    out = {"work": {}}
+    for name, emb, kind in (("f32", s._ref(), "fp32"), ("bf16", s.emb, "bf16")):
+        res = masked_timed(torch, sc, st, q.to(emb.dtype), emb, sq, lcl, tc, mask, sched,
+                           s.row_cluster, K, tile, kind, None,
+                           f"phase 7b K3/K4 {name} 10M x {DEEP_DIM}, nprobe={nprobe}, "
+                           f"cmax={cmax}")
+        out["work"][f"10M x {DEEP_DIM} {name}"] = res.pop("work")
+        out[name] = res
+    return out
 
 
 def k2_timed(torch, st, qf, emb, sq, k, tile, kind, stored):
@@ -1271,6 +1534,8 @@ def phase7(torch, ds, truth_s, sorted16, q, truth, nprobe, card):
         ("exact(cert) f32", lambda: truth_s.exact(q, K, "cert")),
         ("exact(auto) f32", lambda: truth_s.exact(q, K)),
         ("search(compact) bf16", lambda: sorted16.search(q, K, nprobe, "compact")),
+        ("search(auto) bf16", lambda: sorted16.search(q, K, nprobe, "auto")),
+        ("search(stream) bf16", lambda: sorted16.search(q, K, nprobe, "stream")),
     ))
     log(f"phase 7 on {card}")
     return out
@@ -1387,6 +1652,7 @@ def main() -> None:
     phase2_small_k9(torch, tm)
     phase2_score_tile(torch, tm, sc)
     phase2_small_k1_k2(torch, ka, st)
+    phase2_masked_score_tile(torch, st, sc)
     phase2_small_gather(torch, cp)
     results: dict[str, dict] = {}
     t0 = time.perf_counter()
@@ -1450,7 +1716,6 @@ def main() -> None:
     log(f"phase 2b K5 f32 1M x 128, B={BATCH}, k={K}, tile={tile}: {swaps} near-tie "
         f"swaps after the merge, max err {err:.3g}; kernel {results['K5']['ms']:.3f} ms, "
         f"plain {results['K5']['plain_ms']:.3f} ms")
-    del x32
     n_pad = s32.emb.shape[0]
     sq_f = s32._pallas_emb_sq()
     lib_topk = results["K2"]["library_ms"]  # the same chain on the same inputs
@@ -1467,45 +1732,19 @@ def main() -> None:
                           s16._max_probe_bucket(nprobe_2b),
                           -(-(N_CLUSTERS + 1) // 128) * 128)
     sched = st._tile_schedule(mask, tc)
-    lmask = mask[:, tc.long()].permute(1, 0, 2).contiguous()
     x16, sq16 = stored_f64(s16.emb), s16._pallas_emb_sq().cpu().numpy().astype(np.float64)
     q16 = stored_f64(qf16)
-    m_args = (qf16, s16.emb, s16._pallas_emb_sq(), lcl, tc, mask, sched, K, tile)
-    err, swaps = compare_topk(st.stream_masked_scan(*m_args),
-                              st.stream_masked_scan_plain(*m_args), q16, x16, sq16)
-    results["K3"] = {
-        "max_abs_err": err,
-        "ms": time_ms(lambda: st.stream_masked_scan(*m_args)),
-        "plain_ms": time_ms(lambda: st.stream_masked_scan_plain(*m_args)),
-    }
-    log(f"phase 2b K3 bf16 nprobe={nprobe_2b}: {swaps} near-tie swaps, max err "
-        f"{err:.3g}; kernel {results['K3']['ms']:.3f} ms, plain "
-        f"{results['K3']['plain_ms']:.3f} ms")
-    l_args = (qf16, s16.emb, s16._pallas_emb_sq(), lcl, lmask, K, tile)
-    g4, w4 = sc.masked_local_scan(*l_args), sc.masked_local_scan_plain(*l_args)
-    err, swaps = compare_topk(sc._final_merge(*g4, K), sc._final_merge(*w4, K),
-                              q16, x16, sq16)
-    results["K4"] = {
-        "max_abs_err": err,
-        "ms": time_ms(lambda: sc.masked_local_scan(*l_args)),
-        "plain_ms": time_ms(lambda: sc.masked_local_scan_plain(*l_args)),
-    }
-    log(f"phase 2b K4 bf16 nprobe={nprobe_2b}, nt={lmask.shape[0]}, cmax={cmax}: "
-        f"{swaps} near-tie swaps after the merge, max err {err:.3g}; kernel "
-        f"{results['K4']['ms']:.3f} ms, plain {results['K4']['plain_ms']:.3f} ms")
-    # K3 and K4 score the tiles that some query of the batch probes
-    rows_act = int(sched[0]) * tile
-    act_bytes = rows_act * (DIM * 2 + 4 + 4) + nbytes_of(qf16)
-    results["K3"].update(bound_of(act_bytes + nbytes_of(mask, tc, sched) + BATCH * K * 8,
-                                  2.0 * BATCH * rows_act * DIM, "bf16"), library_ms=None)
-    results["K4"].update(
-        bound_of(act_bytes + nbytes_of(lmask) + lmask.shape[0] * BATCH * K * 8,
-                 2.0 * BATCH * rows_act * DIM, "bf16"), library_ms=None)
-    log(f"phase 2b K3/K4: {int(sched[0])} of {lmask.shape[0]} tiles active; bound "
-        f"{results['K3']['bound_ms']:.3f} / {results['K4']['bound_ms']:.3f} ms "
-        f"({results['K3']['bound_by']} / {results['K4']['bound_by']}); no one-call "
-        "library form")
-    del g4, w4, lmask
+    masked16 = masked_timed(torch, sc, st, qf16, s16.emb, s16._pallas_emb_sq(), lcl, tc, mask,
+                            sched, s16.row_cluster, K, tile, "bf16", (q16, x16, sq16),
+                            f"phase 2b K3/K4 bf16 nprobe={nprobe_2b}, cmax={cmax}")
+    masked32 = masked_timed(torch, sc, st, q, s32.emb, s32._pallas_emb_sq(), lcl, tc, mask,
+                            sched, s32.row_cluster, K, tile, "fp32", (q32, x32, sq32),
+                            f"phase 2b K3/K4 f32 nprobe={nprobe_2b}, cmax={cmax}")
+    del x32
+    for name in ("K3", "K4"):
+        results[name] = masked16[name]
+        results[name].update({f"f32_{key}": v for key, v in masked32[name].items()})
+    masked_work = {"1M x 128 bf16": masked16["work"], "1M x 128 f32": masked32["work"]}
     b_args = (qf16, s16.emb, s16._pallas_emb_sq(), K, tile)
     err, swaps = compare_topk(sc._final_merge(*sc.exact_scan(*b_args), K),
                               sc._final_merge(*sc.exact_scan_plain(*b_args), K),
@@ -1600,8 +1839,9 @@ def main() -> None:
 
     search_ms = time_ms(lambda: searcher.search(q, K, chosen, "auto"))
     qps = BATCH / (search_ms / 1000.0)
-    log(f"phase 3 search B={BATCH} nprobe={chosen}: {search_ms:.3f} ms/batch, "
-        f"{qps:.0f} QPS on {card}")
+    stream_ms = time_ms(lambda: searcher.search(q, K, chosen, "stream"))
+    log(f"phase 3 search B={BATCH} nprobe={chosen}: auto (K4) {search_ms:.3f} ms/batch, "
+        f"{qps:.0f} QPS; stream (K3) {stream_ms:.3f} ms/batch on {card}")
     launches = dict(_build.LAUNCHES)
 
     # ---- phase 4 ---------------------------------------------------------
@@ -1632,14 +1872,16 @@ def main() -> None:
             **{key: results[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             **{key: v for key, v in results[name].items()
-               if key.startswith(("bf16_", "k100_"))},
+               if key.startswith(("bf16_", "k100_", "f32_"))},
         })
     log("main path: " + json.dumps({"build_s": build_s, "nprobe": chosen,
                                     "recall_at_10": recall, "search_ms": search_ms,
-                                    "qps": qps}))
+                                    "qps": qps, "stream_ms": stream_ms}))
     log("slice 2 path: " + json.dumps(main5))
     log("slice 3 path: " + json.dumps(main7))
     log("deep rung: " + json.dumps(main6))
+    masked_work.update(main6["masked"]["work"])
+    log("K4/K3 tiles and chunks scored of those a full walk scores: " + json.dumps(masked_work))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

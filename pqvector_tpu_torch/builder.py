@@ -6,8 +6,11 @@ setters with defaults (auto sqrt(n), 20, 42) and ``build_inplace()``, which
 appends the index to the file's footer and leaves its data pages untouched.
 The build runs on the torch ``device`` given to the constructor.
 
-Not ported yet: ``build_new`` (the property-preserving rewrite) and the
-streaming build.
+Not ported yet: ``build_new`` (the property-preserving rewrite), the
+streaming build and the setters that only they or the TPU's host link need
+(``cluster_sorted``, ``transfer_dtype``, ``assign_backend``). They exist and
+raise ``ValidationError``, so a caller written against the JAX package
+learns what is missing by name.
 """
 
 from __future__ import annotations
@@ -68,6 +71,25 @@ class IndexBuilder:
             raise ValidationError(f"Unsupported metric '{metric}'")
         self._metric = metric
         return self
+
+    # Methods of the JAX package's builder that this one does not carry out.
+    def _not_ported(self, method: str):
+        raise ValidationError(f"IndexBuilder.{method} is not ported")
+
+    def cluster_sorted(self, enabled: bool = True) -> "IndexBuilder":
+        self._not_ported("cluster_sorted")
+
+    def transfer_dtype(self, dtype: str) -> "IndexBuilder":
+        self._not_ported("transfer_dtype")
+
+    def assign_backend(self, backend: str) -> "IndexBuilder":
+        self._not_ported("assign_backend")
+
+    def streaming(self, batch_rows: int = 131072) -> "IndexBuilder":
+        self._not_ported("streaming")
+
+    def build_new(self, output: str | os.PathLike) -> IvfIndex:
+        self._not_ported("build_new")
 
     def _build_config(self) -> IvfBuildConfig:
         return IvfBuildConfig(

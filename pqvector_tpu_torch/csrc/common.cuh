@@ -1,8 +1,9 @@
 // Shared device code of the top-k scan kernels for sm_90a: constants, the
-// (distance, id) order and the warp-level sorted lists that every kernel's
-// merge uses, and scan_rows, the CUDA-core scan block that K3 (stream
-// masked), K4 (masked local) and K6 (masked per-tile) still run. K1, K2, K5
-// and K9 run on the score tile of score_tile.cuh instead.
+// (distance, id) order and the warp-level sorted lists (warp_offer) that
+// K6, K3's and K4's lists (topk_lists.cuh) and the merge of K2's and K3's
+// partial lists use, and scan_rows, the CUDA-core scan block that K6 (masked
+// per-tile, any layout) still runs. K1 to K5 and K9 score on the tile of
+// score_tile.cuh instead.
 //
 // One block owns kQB queries and walks a set of row ranges. For each chunk
 // of kRC rows it scores every (query, row) pair in IEEE fp32 FMA (bf16
@@ -99,22 +100,17 @@ __device__ __forceinline__ void warp_offer(float* ld, int* li, int k, float cd,
   }
 }
 
-// How a scan block decides that a (query, row) pair is probed.
-enum ScanMode { kExact = 0, kMaskTable = 1, kLocalMask = 2, kRowMask = 3 };
-
+// What K6's scan block takes. A (query, row) pair is probed when
+// mask[b, rcl[row]] is set.
 struct ScanArgs {
   const void* q;         // [B, d] in the storage dtype
   const void* emb;       // [n_pad, d]
   const float* emb_sq;   // [n_pad], +3e38 on pad rows
-  const int* lcl;        // [n_pad] row's slot in its tile's cluster table
-  const int* rcl;        // [n_pad] row's cluster id, kc on pad rows (kRowMask)
-  const int* tc;         // [nt, cmax] cluster ids per tile (kMaskTable)
-  const float* mask;     // [B, kc_pad] probe mask (kMaskTable, kRowMask)
-  const float* lmask;    // [nt, B, cmax] mask gathered per tile (kLocalMask)
-  const int* sched;      // [nt + 1] n_active, then active tiles (kMaskTable)
-  float* out_d;          // [units, B, k]
-  int* out_i;            // [units, B, k]
-  int B, d, n_pad, k, tile, cmax, kc_pad, units;
+  const int* rcl;        // [n_pad] row's cluster id, kc on pad rows
+  const float* mask;     // [B, kc_pad] probe mask
+  float* out_d;          // [nt, B, k]
+  int* out_i;            // [nt, B, k]
+  int B, d, n_pad, k, tile, kc_pad;
 };
 
 struct __align__(16) ScanSmem {
@@ -133,11 +129,11 @@ __device__ __forceinline__ void init_lists(float (*ld)[kMaxK], int (*li)[kMaxK],
   }
 }
 
-// Score rows [row_begin, row_end) of tile `tile_idx` against the block's
-// queries q0 .. q0 + kQB - 1 and merge them into the lists.
-template <typename T, int MODE>
+// Score rows [row_begin, row_end) against the block's queries q0 .. q0 + kQB - 1
+// and merge the probed ones into the lists.
+template <typename T>
 __device__ void scan_rows(const ScanArgs& a, ScanSmem& s, int q0, int row_begin,
-                          int row_end, int tile_idx) {
+                          int row_end) {
   const T* q = static_cast<const T*>(a.q);
   const T* emb = static_cast<const T*>(a.emb);
   const int t = threadIdx.x;
@@ -146,18 +142,15 @@ __device__ void scan_rows(const ScanArgs& a, ScanSmem& s, int q0, int row_begin,
   const int lane = t & 31;
   const int w = t >> 5;
   for (int r0 = row_begin; r0 < row_end; r0 += kRC) {
-    if (MODE == kRowMask) {
-      // On a layout in file order a chunk's rows span many clusters; skip a
-      // chunk that none of the block's queries probes (common at small B).
-      int any = 0;
-      for (int e = t; e < kQB * kRC; e += kThreads) {
-        const int b = q0 + e / kRC, row = r0 + e % kRC;
-        if (b < a.B && row < row_end &&
-            a.mask[(size_t)b * a.kc_pad + a.rcl[row]] > 0.5f)
-          any = 1;
-      }
-      if (!__syncthreads_or(any)) continue;
+    // On a layout in file order a chunk's rows span many clusters; skip a
+    // chunk that none of the block's queries probes (common at small B).
+    int any = 0;
+    for (int e = t; e < kQB * kRC; e += kThreads) {
+      const int b = q0 + e / kRC, row = r0 + e % kRC;
+      if (b < a.B && row < row_end && a.mask[(size_t)b * a.kc_pad + a.rcl[row]] > 0.5f)
+        any = 1;
     }
+    if (!__syncthreads_or(any)) continue;
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     for (int d0 = 0; d0 < a.d; d0 += kDK) {
       for (int e = t; e < kRC * kDK; e += kThreads) {
@@ -188,25 +181,14 @@ __device__ void scan_rows(const ScanArgs& a, ScanSmem& s, int q0, int row_begin,
     const int row = r0 + r;
     const bool row_ok = row < row_end;
     const float sq = row_ok ? a.emb_sq[row] : kPosInf;
-    int slot = 0;
-    if ((MODE == kMaskTable || MODE == kLocalMask) && row_ok) slot = a.lcl[row];
-    if (MODE == kRowMask && row_ok) slot = a.rcl[row];
+    const int slot = row_ok ? a.rcl[row] : 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int qq = 4 * g + j;
       const int b = q0 + qq;
       float v = sq - 2.f * acc[j];
-      if (!row_ok || b >= a.B) {
+      if (!row_ok || b >= a.B || !(a.mask[(size_t)b * a.kc_pad + slot] > 0.5f))
         v = kPosInf;
-      } else if (MODE == kMaskTable) {
-        const int c = a.tc[(size_t)tile_idx * a.cmax + slot];
-        if (!(a.mask[(size_t)b * a.kc_pad + c] > 0.5f)) v = kPosInf;
-      } else if (MODE == kLocalMask) {
-        if (!(a.lmask[((size_t)tile_idx * a.B + b) * a.cmax + slot] > 0.5f))
-          v = kPosInf;
-      } else if (MODE == kRowMask) {
-        if (!(a.mask[(size_t)b * a.kc_pad + slot] > 0.5f)) v = kPosInf;
-      }
       s.part[qq][r] = v;
     }
     __syncthreads();

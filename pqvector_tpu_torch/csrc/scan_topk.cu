@@ -11,85 +11,67 @@
 // winners [nt, B, k]; the cross-tile merge and the f32 re-score stay
 // outside, as in the JAX package.
 //
-// K5 is built on the score tile of score_tile.cuh. One block owns a tile and
-// up to 128 queries, so at B = 256 the rows are read twice, and the two
-// blocks of a tile are neighbours in the grid, so the second read finds
-// them in L2 (K4 and K6 below read them once per 16 queries). The sums of a
-// 128-row chunk stay in registers; the chunk's scores |x|^2 - 2 q.x go to
-// shared memory 64 rows at a time, and there one thread per query marks the
-// scores that beat its list's largest entry, which it keeps in registers,
-// and puts each survivor in that entry's place (TopkLists in topk_lists.cuh,
-// which K2 shares). The lists live in dynamic shared memory sized by the
-// call's k, entry-major ([k][query]) so that 32 queries' threads touch 32
-// banks; they are unordered until the tile is done and are then ranked under
-// the (distance, id) order, so the result is what a stable sort gives
-// whatever order the rows came in. What bounds it on the H100: f32 storage, the fp32
-// FMAs (2 B n_pad d against 67 TFLOP/s), fed at 4 shared loads per 64 FMAs,
-// which keeps the shared-memory pipe as busy as the FMA pipe; bf16 storage
-// (wgmma), the list work, about k (1 + ln(tile / k)) replacements per query
-// and tile because every tile's lists start empty, each a pass over k
-// entries, and at k = 128 the ranking (k^2 comparisons per query).
+// K5 and K4 are built on the score tile of score_tile.cuh. One block owns a
+// tile and up to 128 queries, so at B = 256 the rows are read twice, and the
+// two blocks of a tile are neighbours in the grid, so the second read finds
+// them in L2. The sums of a 128-row chunk stay in registers; the chunk's
+// scores |x|^2 - 2 q.x go to shared memory 64 rows at a time, and there one
+// thread per query marks the scores that beat its list's largest entry,
+// which it keeps in registers, and puts each survivor in that entry's place
+// (TopkLists in topk_lists.cuh, which K2 and K3 share). The lists live in
+// dynamic shared memory sized by the call's k, entry-major ([k][query]) so
+// that 32 queries' threads touch 32 banks; they are unordered until the tile
+// is done and are then ranked under the (distance, id) order, so the result
+// is what a stable sort gives whatever order the rows came in. What bounds
+// K5 on the H100: f32 storage, the fp32 FMAs (2 B n_pad d against 67
+// TFLOP/s), fed at 4 shared loads per 64 FMAs, which keeps the shared-memory
+// pipe as busy as the FMA pipe; bf16 storage (wgmma), the list work, about
+// k (1 + ln(tile / k)) replacements per query and tile because every tile's
+// lists start empty, each a pass over k entries, and at k = 128 the ranking
+// (k^2 comparisons per query).
 //
-// K4 and K6 run the scan block of common.cuh: block (t, qb) scores
-// tile t for queries qb*16 .. qb*16+15 and keeps a sorted top-k per query
-// in shared memory, inserting only what beats the current k-th entry; the
-// CUDA-core score loop (fp32 FMA from shared memory, one row x 4 queries a
-// thread) bounds them, and they can take the score tile as K5 did. K4 tests
-// each pair by the direct lookup lmask[t, b, lcl[row]]; a block first reads
-// its queries' slice of lmask and skips a tile that none of them probes, so
-// the work follows the union of the 16 queries' probed clusters. K6 looks
-// up mask[b, row_cluster[row]] with int32 cluster ids (the TPU kernel ships
+// K4 is K5's walk with the probe test as epilogue work and lists of its own
+// (MaskedLists in topk_lists.cuh: sorted, drained a query at a time by a
+// whole warp, because the rows a query probes are near it and many of them
+// enter its list). A query probes a few of a thousand clusters, so nearly
+// every (query, row) pair is unprobed, and the work follows the probed pairs
+// at three grains: a block whose queries probe none of its tile's slots
+// writes empty lists and is gone; of a probed tile it copies and multiplies
+// only the 128-row chunks that hold a row some query probes; and of a scored
+// chunk it dumps and drains only the queries that probe a slot of that 64-row
+// half. The block holds its queries' slice of lmask for the tile as bits in
+// shared memory. A block owns 128 queries on wgmma and 64 on the fp32 patch,
+// where the products are the time and fewer queries probe fewer chunks.
+// What bounds it on the H100 (scripts/torch_masked_epilogue_profile.py, 1M x
+// 128, B = 256, k = 10, bf16): the list work on the probed rows, half of the
+// kernel; the probe flags, sparse dumps and two barriers of each scored
+// half, a quarter; the walk itself, a quarter. In f32 the fp32 FMAs of the
+// scored chunks are three quarters.
+//
+// K6 runs the scan block of common.cuh: block (t, qb) scores tile t for
+// queries qb*16 .. qb*16+15 and keeps a sorted top-k per query in shared
+// memory, inserting only what beats the current k-th entry; the CUDA-core
+// score loop (fp32 FMA from shared memory, one row x 4 queries a thread)
+// bounds it, and it can take the score tile as K5 and K4 did. It looks up
+// mask[b, row_cluster[row]] with int32 cluster ids (the TPU kernel ships
 // them as f32 and tests them through a one-hot matmul, a Mosaic
 // workaround). Pad rows carry cluster id kc, whose mask slot is never set.
 // On a layout in file order a tile holds rows of most clusters, so K6
-// cannot skip tiles as K4 does; it skips a 64-row chunk that none of its 16
-// queries probes, which pays at small batches.
+// cannot skip tiles; it skips a 64-row chunk that none of its 16 queries
+// probes, which pays at small batches.
 #include "topk_lists.cuh"
 
 namespace pqv {
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    masked_local_kernel(ScanArgs a) {
-  __shared__ ScanSmem s;
-  __shared__ int probed;
-  const int t = blockIdx.x;
-  const int q0 = blockIdx.y * kQB;
-  init_lists(s.ld, s.li, kQB);
-  if (threadIdx.x == 0) probed = 0;
-  __syncthreads();
-  // A tile that none of the block's queries probes adds nothing: skip it.
-  for (int e = threadIdx.x; e < kQB * a.cmax; e += blockDim.x) {
-    const int b = q0 + e / a.cmax;
-    if (b < a.B && a.lmask[((size_t)t * a.B + b) * a.cmax + e % a.cmax] > 0.5f)
-      probed = 1;
-  }
-  __syncthreads();
-  if (probed) scan_rows<T, kLocalMask>(a, s, q0, t * a.tile, (t + 1) * a.tile, t);
-  write_lists(a, s, q0, t);
-}
-
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads) tile_topk_kernel(ScanArgs a) {
+__global__ void __launch_bounds__(kThreads) masked_topk_kernel(ScanArgs a) {
   __shared__ ScanSmem s;
   const int t = blockIdx.x;
   const int q0 = blockIdx.y * kQB;
   init_lists(s.ld, s.li, kQB);
   __syncthreads();
-  scan_rows<T, MODE>(a, s, q0, t * a.tile, (t + 1) * a.tile, t);
+  scan_rows<T>(a, s, q0, t * a.tile, (t + 1) * a.tile);
   write_lists(a, s, q0, t);
-}
-
-template <int MODE>
-int launch_tile_topk(const ScanArgs& a, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(a.n_pad / a.tile, ceil_div(a.B, kQB));
-  if (is_bf16) {
-    tile_topk_kernel<__nv_bfloat16, MODE><<<grid, kThreads, 0, st>>>(a);
-  } else {
-    tile_topk_kernel<float, MODE><<<grid, kThreads, 0, st>>>(a);
-  }
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- K5
@@ -125,6 +107,58 @@ int launch_exact_topk(const void* q, const void* emb, const float* emb_sq, float
   const int nqb = ceil_div(B, Tile::kQueries);
   kernel<<<(n_pad / tile) * nqb, kThreads, smem, st>>>(op, emb_sq, out_d, out_i, k, tile,
                                                        nqb);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- K4
+
+template <class Tile, int STAGES, bool TABLE>
+__global__ void __launch_bounds__(kThreads, 2)
+    masked_local_kernel(TileOperands<typename Tile::Storage> op,
+                        const float* __restrict__ emb_sq, const int* __restrict__ lcl,
+                        ProbeSource src, float* __restrict__ out_d,
+                        int* __restrict__ out_i, int k, int tile, int words, int nqb) {
+  extern __shared__ char dyn[];
+  char* ring = align_ring(dyn);
+  Tile t;
+  MaskedLists<Tile, false, TABLE> epi;
+  epi.layout(ring + STAGES * Tile::kStageBytes, emb_sq, k, words);
+  const int unit = blockIdx.x / nqb;
+  const int q0 = (blockIdx.x % nqb) * Tile::kQueries;
+  epi.lcl = lcl;
+  epi.src = src;
+  epi.q0 = q0;
+  if (!epi.load_table(unit)) {
+    // None of the block's queries probes this tile: its lists are empty.
+    const int nq = min(Tile::kQueries, op.B - q0);
+    const size_t at = ((size_t)unit * op.B + q0) * k;
+    for (int e = threadIdx.x; e < nq * k; e += kThreads) {
+      out_d[at + e] = kPosInf;
+      out_i[at + e] = -1;
+    }
+    return;
+  }
+  epi.clear();
+  walk_masked_tile<STAGES>(t, op, q0, unit, tile, ring, epi);
+  __syncthreads();  // the lists are complete, also where no chunk was scored
+  epi.write(out_d, out_i, unit, q0, op.B);
+}
+
+template <class Tile, int STAGES>
+int launch_masked_local(const void* q, const void* emb, const float* emb_sq,
+                        const int* lcl, const ProbeSource& src, float* out_d, int* out_i,
+                        int d, int n_pad, int k, int tile, int words, cudaStream_t st) {
+  using T = typename Tile::Storage;
+  TileOperands<T> op = {static_cast<const T*>(q), static_cast<const T*>(emb), src.B, d};
+  auto kernel = words > 0 ? masked_local_kernel<Tile, STAGES, true>
+                          : masked_local_kernel<Tile, STAGES, false>;
+  const int smem = masked_lists_smem<Tile, STAGES>(k, words);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nqb = ceil_div(src.B, Tile::kQueries);
+  kernel<<<(n_pad / tile) * nqb, kThreads, smem, st>>>(op, emb_sq, lcl, src, out_d, out_i,
+                                                       k, tile, words, nqb);
   return (int)cudaGetLastError();
 }
 
@@ -189,40 +223,51 @@ extern "C" int pqv_masked_topk(const void* q, const void* emb, const float* emb_
   a.k = k;
   a.tile = tile;
   a.kc_pad = kc_pad;
-  a.units = n_pad / tile;
-  return pqv::launch_tile_topk<pqv::kRowMask>(a, is_bf16, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(n_pad / tile, pqv::ceil_div(B, pqv::kQB));
+  if (is_bf16) {
+    pqv::masked_topk_kernel<__nv_bfloat16><<<grid, pqv::kThreads, 0, st>>>(a);
+  } else {
+    pqv::masked_topk_kernel<float><<<grid, pqv::kThreads, 0, st>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
 // K4: q [B, d] and emb [n_pad, d] in the storage dtype (bf16 when is_bf16);
-// lcl [n_pad] int32, lmask [nt, B, cmax] f32; out [nt, B, k].
+// lcl [n_pad] int32, lmask [nt, B, cmax] f32; out [nt, B, k]. wgmma picks the
+// tensor-core back end as for K5; words is the probe table's width in 32-bit
+// words a query, ceil(cmax / 32) up to 8, or 0 to read lmask from device
+// memory in the epilogue; stats is null or two int32 counters the launch adds
+// the (block, tile) and (block, chunk) pairs it scored to.
 extern "C" int pqv_masked_local_topk(const void* q, const void* emb,
                                      const float* emb_sq, const int* lcl,
                                      const float* lmask, int B, int d,
                                      int n_pad, int k, int tile, int cmax,
-                                     int is_bf16, float* out_d, int* out_i,
-                                     void* stream) {
-  pqv::ScanArgs a = {};
-  a.q = q;
-  a.emb = emb;
-  a.emb_sq = emb_sq;
-  a.lcl = lcl;
-  a.lmask = lmask;
-  a.out_d = out_d;
-  a.out_i = out_i;
-  a.B = B;
-  a.d = d;
-  a.n_pad = n_pad;
-  a.k = k;
-  a.tile = tile;
-  a.cmax = cmax;
-  const int nt = n_pad / tile;
-  a.units = nt;
+                                     int is_bf16, int wgmma, int words, int* stats,
+                                     float* out_d, int* out_i, void* stream) {
+  using namespace pqv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(nt, pqv::ceil_div(B, pqv::kQB));
-  if (is_bf16) {
-    pqv::masked_local_kernel<__nv_bfloat16><<<grid, pqv::kThreads, 0, st>>>(a);
-  } else {
-    pqv::masked_local_kernel<float><<<grid, pqv::kThreads, 0, st>>>(a);
-  }
-  return (int)cudaGetLastError();
+  if (k < 1 || k > kMaxK || cmax < 1 || words < 0 || words > kTableWordsMax ||
+      (words > 0 && 32 * words < cmax) ||
+      (wgmma && (!is_bf16 || d % 8 || ((uintptr_t)q | (uintptr_t)emb) % 16)))
+    return (int)cudaErrorInvalidValue;
+  const ProbeSource src = {lmask, nullptr, nullptr, B, cmax, 0, stats};
+  if (wgmma)
+    return launch_masked_local<MmaTile, kTopkMmaStages>(q, emb, emb_sq, lcl, src, out_d,
+                                                        out_i, d, n_pad, k, tile, words, st);
+  // The fp32 patch scores 64 queries a block whatever the batch: fewer
+  // queries probe fewer of a tile's chunks, and two blocks fit an SM up to k = 100.
+  if (is_bf16)
+    return launch_masked_local<FmaTile<__nv_bfloat16, 4>, kTopkFmaStages>(
+        q, emb, emb_sq, lcl, src, out_d, out_i, d, n_pad, k, tile, words, st);
+  return launch_masked_local<FmaTile<float, 4>, kTopkFmaStages>(
+      q, emb, emb_sq, lcl, src, out_d, out_i, d, n_pad, k, tile, words, st);
+}
+
+// Dynamic shared memory of K4's launch, for the wrapper's own reckoning.
+extern "C" int pqv_masked_local_topk_smem(int wgmma, int block_queries, int k, int words) {
+  using namespace pqv;
+  if (wgmma) return masked_lists_smem<MmaTile, kTopkMmaStages>(k, words);
+  return block_queries > 64 ? masked_lists_smem<FmaTile<float, 8>, kTopkFmaStages>(k, words)
+                            : masked_lists_smem<FmaTile<float, 4>, kTopkFmaStages>(k, words);
 }

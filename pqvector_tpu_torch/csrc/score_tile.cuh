@@ -1,14 +1,17 @@
-// The score tile of K9 (tile min), K5 (exact per-tile top-k), K2 (streaming
-// exact top-k) and K1 (nearest-centroid assign) for sm_90a.
+// The score tile of K9 (tile min), K5 (exact per-tile top-k), K4 (masked
+// per-tile top-k), K2 and K3 (streaming exact and masked top-k) and K1
+// (nearest-centroid assign) for sm_90a.
 //
 // A block of 256 threads owns up to 128 queries and walks a range of rows in
 // chunks of 128. The 128 x 128 dot products q.x of one chunk live in
 // registers and never reach device memory; an epilogue (a fold to per-tile
 // minima, per-query top-k lists, or a running argmin with K1's data rows as
-// the queries and its centroids as the rows) consumes them chunk by chunk. Slices of
-// both operands arrive in a ring of shared-memory stages filled by cp.async,
-// so the copies of the next slices overlap the arithmetic of this one and
-// one __syncthreads() per slice is all the walk needs.
+// the queries and its centroids as the rows) consumes them chunk by chunk; K4
+// and K3 walk only the chunks that hold a row some query of the block probes
+// (walk_chunks, MaskChunks). Slices of both operands arrive in a ring of
+// shared-memory stages filled by cp.async, so the copies of the next slices
+// overlap the arithmetic of this one and one __syncthreads() per slice is all
+// the walk needs.
 //
 // Two back ends compute the sums, chosen by the caller from the shapes alone:
 //
@@ -330,6 +333,63 @@ __device__ __forceinline__ void walk_rows(Tile& tile,
       slot = slot + 1 == STAGES ? 0 : slot + 1;
     }
     epi.chunk(tile, r0, c & 1);
+  }
+  cp_async_wait<0>();
+}
+
+// Which chunks of a range of at most 32 a walk scores: those whose bit is
+// set. `next(c)` is the first scored chunk at or after c (32 when none is).
+struct MaskChunks {
+  uint32_t mask;
+  __device__ __forceinline__ int next(int c) const {
+    const uint32_t m = c < 32 ? mask >> c : 0u;
+    return m ? c + __ffs(m) - 1 : 32;
+  }
+};
+
+// walk_rows over the chunks `chunks` picks of rows [row_begin, row_end), at
+// most 32 chunks: a chunk whose bit is clear is neither copied nor
+// multiplied (K4 and K3: no query of the block probes a row of it). The
+// epilogue's slot alternates over the scored chunks. A walk of its own, so
+// that walk_rows compiles for K9, K5, K2 and K1 as it always did. A caller
+// that walks again first makes sure, with a barrier, that every thread has
+// left this walk: the next walk's first copies land in stages this one may
+// still be reading.
+template <int STAGES, class Tile, class Epilogue>
+__device__ __forceinline__ void walk_chunks(Tile& tile,
+                                            const TileOperands<typename Tile::Storage>& op,
+                                            int q0, int row_begin, int row_end, char* ring,
+                                            Epilogue& epi, const MaskChunks& chunks) {
+  const int nk = (op.d + Tile::kDims - 1) / Tile::kDims;
+  const int nchunks = (row_end - row_begin + kTR - 1) / kTR;
+  int lc = chunks.next(0), lk = 0, lslot = 0;  // next slice to load, and its stage
+  auto fetch = [&]() {
+    if (lc < nchunks) {
+      tile.load(ring + lslot * Tile::kStageBytes, op, q0, row_begin + lc * kTR, row_end,
+                lk * Tile::kDims);
+      if (++lk == nk) {
+        lk = 0;
+        lc = chunks.next(lc + 1);
+      }
+    }
+    cp_async_commit();
+    lslot = lslot + 1 == STAGES ? 0 : lslot + 1;
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch();
+  int slot = 0, scored = 0;
+  for (int c = chunks.next(0); c < nchunks; c = chunks.next(c + 1), ++scored) {
+    const int r0 = row_begin + c * kTR;
+    epi.begin(r0, scored & 1);
+    for (int kb = 0; kb < nk; ++kb) {
+      cp_async_wait<STAGES - 2>();
+      tile.arrived();
+      __syncthreads();  // the slice is visible; the stage read last is free
+      fetch();
+      tile.mma(ring + slot * Tile::kStageBytes, kb == 0, op.d - kb * Tile::kDims);
+      slot = slot + 1 == STAGES ? 0 : slot + 1;
+    }
+    epi.chunk(tile, r0, scored & 1);
   }
   cp_async_wait<0>();
 }

@@ -32,16 +32,32 @@
 // peak); bf16 on wgmma, the list work and the 64-row score dumps between the
 // products; at k near 128 the replacements, each a pass over k entries.
 //
-// K3 still runs the scan block of common.cuh: block (u, qb) owns queries
-// qb*16 .. qb*16+15 and the active tiles u, u + U, ...; it reads its tiles
-// from the device-side schedule (n_active, then the active tile ids), so the
-// host never waits for the probe mask; the probe test is a direct lookup
-// mask[b, tc[tile, lcl[row]]], with int32 ids. Its CUDA-core score loop (one
-// row x 4 queries a thread, 2 shared loads per 4 FMAs) bounds it; it can
-// take the score tile as K2 did.
+// K3 is K2's stream with the probe test as epilogue work (MaskedLists in
+// topk_lists.cuh, which K4 shares). Block (u, g) owns up to 128 queries and
+// the active tiles u, u + U, ... of the device-side schedule (n_active, then
+// the active tile ids), so the host never waits for the probe mask, and its
+// lists (sorted, drained a query at a time by a whole warp) and the shared
+// gate live across that run. Before a tile it
+// builds its queries' probe table for the tile in shared memory from
+// mask[b, tc[tile, slot]], which is K4's local mask made in place, so no
+// [nt, B, cmax] buffer exists. It skips a tile that none of its own queries
+// probes (the schedule only says that some query of the batch does), copies
+// and multiplies only the 128-row chunks that hold a probed row, and dumps
+// and drains only the queries that probe a slot of a 64-row half. The gate
+// holds under a mask: a list holds only rows its query probes, so a row
+// above some full list's k-th entry is in no top-k of that query. U is
+// sized so that the launch is about one wave. What bounds it: as K4
+// (scan_topk.cu), the list work on the probed rows first, then the flags,
+// dumps and barriers of the scored halves and the per-tile tables, then the
+// walk; in f32 the fp32 FMAs of the scored chunks.
 #include "topk_lists.cuh"
 
 namespace pqv {
+
+// The gates of a launch start above the +3e38 sentinel: 0x7f7f7f7f is 3.39e38.
+static cudaError_t open_gates(int* gate, int B, cudaStream_t st) {
+  return cudaMemsetAsync(gate, 0x7f, (size_t)B * sizeof(int), st);
+}
 
 template <class Tile, int STAGES>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -76,8 +92,7 @@ int launch_stream_exact(const void* q, const void* emb, const float* emb_sq,
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  // Every gate starts above the +3e38 sentinel: 0x7f7f7f7f is 3.39e38.
-  err = cudaMemsetAsync(gate, 0x7f, (size_t)B * sizeof(int), st);
+  err = open_gates(gate, B, st);
   if (err != cudaSuccess) return (int)err;
   const int nqb = ceil_div(B, Tile::kQueries);
   kernel<<<ceil_div(n_pad, run) * nqb, kThreads, smem, st>>>(op, emb_sq, part_d, part_i,
@@ -85,20 +100,53 @@ int launch_stream_exact(const void* q, const void* emb, const float* emb_sq,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    stream_masked_kernel(ScanArgs a) {
-  __shared__ ScanSmem s;
-  const int unit = blockIdx.x;
-  const int q0 = blockIdx.y * kQB;
-  init_lists(s.ld, s.li, kQB);
-  __syncthreads();
-  const int n_active = a.sched[0];
-  for (int i = unit; i < n_active; i += a.units) {
-    const int t = a.sched[1 + i];
-    scan_rows<T, kMaskTable>(a, s, q0, t * a.tile, (t + 1) * a.tile, t);
+template <class Tile, int STAGES, bool TABLE>
+__global__ void __launch_bounds__(kThreads, 2)
+    stream_masked_kernel(TileOperands<typename Tile::Storage> op,
+                         const float* __restrict__ emb_sq, const int* __restrict__ lcl,
+                         ProbeSource src, const int* __restrict__ sched,
+                         float* __restrict__ part_d, int* __restrict__ part_i, int* gate,
+                         int k, int tile, int words, int units, int nqb) {
+  extern __shared__ char dyn[];
+  char* ring = align_ring(dyn);
+  Tile t;
+  MaskedLists<Tile, true, TABLE> epi;
+  epi.layout(ring + STAGES * Tile::kStageBytes, emb_sq, k, words);
+  epi.clear();
+  const int unit = blockIdx.x / nqb;
+  const int q0 = (blockIdx.x % nqb) * Tile::kQueries;
+  epi.lcl = lcl;
+  epi.src = src;
+  epi.q0 = q0;
+  epi.gate = gate + q0;
+  const int n_active = sched[0];
+  for (int i = unit; i < n_active; i += units) {
+    const int tl = sched[1 + i];
+    if (epi.load_table(tl)) walk_masked_tile<STAGES>(t, op, q0, tl, tile, ring, epi);
   }
-  write_lists(a, s, q0, unit);
+  __syncthreads();  // the lists are complete, also where the run scored no row
+  epi.write(part_d, part_i, unit, q0, op.B);
+}
+
+template <class Tile, int STAGES>
+int launch_stream_masked(const void* q, const void* emb, const float* emb_sq,
+                         const int* lcl, const ProbeSource& src, const int* sched,
+                         float* part_d, int* part_i, int* gate, int d, int k, int tile,
+                         int words, int units, cudaStream_t st) {
+  using T = typename Tile::Storage;
+  TileOperands<T> op = {static_cast<const T*>(q), static_cast<const T*>(emb), src.B, d};
+  auto kernel = words > 0 ? stream_masked_kernel<Tile, STAGES, true>
+                          : stream_masked_kernel<Tile, STAGES, false>;
+  const int smem = masked_lists_smem<Tile, STAGES>(k, words);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = open_gates(gate, src.B, st);
+  if (err != cudaSuccess) return (int)err;
+  const int nqb = ceil_div(src.B, Tile::kQueries);
+  kernel<<<units * nqb, kThreads, smem, st>>>(op, emb_sq, lcl, src, sched, part_d, part_i,
+                                              gate, k, tile, words, units, nqb);
+  return (int)cudaGetLastError();
 }
 
 // One warp per query: merge the [U, B, k] partial lists into [B, k].
@@ -140,8 +188,6 @@ static int merge(const float* part_d, const int* part_i, int units, int B, int k
 }
 
 }  // namespace pqv
-
-using pqv::ScanArgs;
 
 // K2: q [B, d] and emb [n_pad, d] in the storage dtype (bf16 when is_bf16),
 // emb_sq [n_pad] f32 with +3e38 on pad rows; a block owns `run` consecutive
@@ -188,38 +234,47 @@ extern "C" int pqv_stream_exact_topk_smem(int wgmma, int block_queries, int k) {
 
 // K3: q, emb and emb_sq as for K2; adds lcl [n_pad] and tc [nt, cmax] int32,
 // mask [B, kc_pad] f32 and the schedule sched [nt + 1] int32 (n_active, then
-// active tile ids); part_d/part_i [units, B, k] scratch.
+// active tile ids); a block owns the active tiles u, u + units, ...;
+// part_d/part_i [units, B, k] and gate [B] int32 scratch. wgmma as for K2;
+// words is the probe table's width in 32-bit words a query, ceil(cmax / 32)
+// up to 8, or 0 to read mask and tc from device memory in the epilogue; stats
+// is null or two int32 counters the launch adds the (block, tile) and
+// (block, chunk) pairs it scored to.
 extern "C" int pqv_stream_masked_topk(
     const void* q, const void* emb, const float* emb_sq, const int* lcl,
     const int* tc, const float* mask, const int* sched, int B, int d,
     int n_pad, int k, int tile, int cmax, int kc_pad, int units, int is_bf16,
-    float* part_d, int* part_i, float* out_d, int* out_i, void* stream) {
-  ScanArgs a = {};
-  a.q = q;
-  a.emb = emb;
-  a.emb_sq = emb_sq;
-  a.lcl = lcl;
-  a.tc = tc;
-  a.mask = mask;
-  a.sched = sched;
-  a.out_d = part_d;
-  a.out_i = part_i;
-  a.B = B;
-  a.d = d;
-  a.n_pad = n_pad;
-  a.k = k;
-  a.tile = tile;
-  a.cmax = cmax;
-  a.kc_pad = kc_pad;
-  a.units = units;
+    int wgmma, int words, int* stats, float* part_d, int* part_i, int* gate,
+    float* out_d, int* out_i, void* stream) {
+  using namespace pqv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(units, pqv::ceil_div(B, pqv::kQB));
-  if (is_bf16) {
-    pqv::stream_masked_kernel<__nv_bfloat16><<<grid, pqv::kThreads, 0, st>>>(a);
+  if (k < 1 || k > kMaxK || cmax < 1 || units < 1 || words < 0 ||
+      words > kTableWordsMax || (words > 0 && 32 * words < cmax) || tile < 1 ||
+      n_pad % tile)
+    return (int)cudaErrorInvalidValue;
+  const ProbeSource src = {nullptr, mask, tc, B, cmax, kc_pad, stats};
+  int rc;
+  if (wgmma) {
+    if (!is_bf16 || d % 8 || ((uintptr_t)q | (uintptr_t)emb) % 16)
+      return (int)cudaErrorInvalidValue;
+    rc = launch_stream_masked<MmaTile, kTopkMmaStages>(
+        q, emb, emb_sq, lcl, src, sched, part_d, part_i, gate, d, k, tile, words, units, st);
+  } else if (is_bf16) {  // the fp32 patch: 64 queries a block whatever the batch, as K4
+    rc = launch_stream_masked<FmaTile<__nv_bfloat16, 4>, kTopkFmaStages>(
+        q, emb, emb_sq, lcl, src, sched, part_d, part_i, gate, d, k, tile, words, units, st);
   } else {
-    pqv::stream_masked_kernel<float><<<grid, pqv::kThreads, 0, st>>>(a);
+    rc = launch_stream_masked<FmaTile<float, 4>, kTopkFmaStages>(
+        q, emb, emb_sq, lcl, src, sched, part_d, part_i, gate, d, k, tile, words, units, st);
   }
-  int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  return pqv::merge(part_d, part_i, units, B, k, out_d, out_i, st);
+  return merge(part_d, part_i, units, B, k, out_d, out_i, st);
+}
+
+// Dynamic shared memory of K3's launch, for the wrapper's own reckoning.
+extern "C" int pqv_stream_masked_topk_smem(int wgmma, int block_queries, int k,
+                                           int words) {
+  using namespace pqv;
+  if (wgmma) return masked_lists_smem<MmaTile, kTopkMmaStages>(k, words);
+  return block_queries > 64 ? masked_lists_smem<FmaTile<float, 8>, kTopkFmaStages>(k, words)
+                            : masked_lists_smem<FmaTile<float, 4>, kTopkFmaStages>(k, words);
 }

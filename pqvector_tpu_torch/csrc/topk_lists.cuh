@@ -1,6 +1,7 @@
-// Per-query top-k lists as an epilogue of the score tile (score_tile.cuh),
-// shared by K5 (exact per-tile top-k, scan_topk.cu) and K2 (streaming exact
-// top-k, stream_topk.cu).
+// Per-query top-k lists as an epilogue of the score tile (score_tile.cuh):
+// TopkLists, shared by K5 (exact per-tile top-k, scan_topk.cu) and K2
+// (streaming exact top-k, stream_topk.cu), and below it MaskedLists, shared by
+// K4 (masked per-tile top-k) and K3 (streaming masked top-k).
 //
 // The chunk's scores |x|^2 - 2 q.x go to shared memory 64 rows at a time,
 // and there one thread per query marks the scores that beat its list's
@@ -217,12 +218,317 @@ struct TopkLists {
   }
 };
 
+// How K4 and K3 learn whether query b probes the rows of slot s of tile t:
+// K4 from the pre-gathered local mask, K3 from the batch's probe mask through
+// the tile's cluster table, which is that local mask built in place.
+struct ProbeSource {
+  const float* lmask;  // K4: [nt, B, cmax]; null for K3
+  const float* mask;   // K3: [B, kc_pad]
+  const int* tc;       // K3: [nt, cmax]
+  int B, cmax, kc_pad;
+  int* stats;          // null, or two counters: (block, tile) and (block, chunk) pairs scored
+  __device__ __forceinline__ bool probed(int t, int b, int s) const {
+    if (lmask != nullptr) return lmask[((size_t)t * B + b) * cmax + s] > 0.5f;
+    return mask[(size_t)b * kc_pad + tc[(size_t)t * cmax + s]] > 0.5f;
+  }
+};
+
+constexpr int kTableWordsMax = 8;  // probe tables of up to 256 slots live in shared memory
+constexpr int kSegmentChunks = 32;  // chunks whose picks one MaskChunks word holds
+
+// The lists of K4 (a tile's own) and K3 (GATE: carried across a run of tiles
+// and gated across blocks as K2's are), fed only with the scores of (query,
+// row) pairs the query probes.
+//
+// TABLE: before a tile's first chunk the block holds its queries' probe table
+// for that tile as bits in shared memory, W words a query (`load_table`), and
+// their union over the block's queries. From the union and the rows' slots it
+// picks the chunks that hold a probed row (`pick_chunks`); the walk scores
+// only those. `begin` stages a scored chunk's slots beside its norms and
+// folds them, 32 rows a warp, into the set of slots each quarter of the chunk
+// holds. `chunk` then tests, from those sets and the table alone, which of
+// the block's queries probe each 64-row half: a half no query probes is not
+// dumped, and a query that probes none of a half's slots is neither dumped
+// nor drained. A dumped score whose (query, slot) bit is clear becomes the
+// +3e38 sentinel, which never enters a list. Nothing here assumes that the
+// slots of a tile are sorted, or few.
+//
+// Not TABLE (W words a query do not fit: cmax above 256, or k near 128 on
+// wgmma): the same kernel reads the slots and the probe source from device
+// memory, skips whole tiles only, and dumps and drains every half.
+//
+// The lists differ from TopkLists'. The rows a query probes are near it, so
+// far more of them enter its list than of a full scan's rows (about
+// k (1 + ln(rows / k)) per probed cluster), while few queries of a block
+// have anything to drain in a half. So a list is kept sorted, query-major
+// ([query][k]), and a whole warp drains one query at a time with the
+// warp-level lists of common.cuh: two scores a lane, a ballot of those that
+// beat the k-th entry, and each of them inserted by 32 lanes that hold k / 32
+// entries each (`warp_offer`). The block's queries are dealt to its 8 warps
+// in turn. Sorted lists need no ranking when they are written.
+template <class Tile, bool GATE, bool TABLE>
+struct MaskedLists {
+  static constexpr int NQB = Tile::kQueries;
+  using Gate = TopkLists<Tile, true>;  // for its order-preserving gate keys
+  const float* emb_sq;
+  const int* lcl;  // [n_pad] a row's slot in its tile's table
+  ProbeSource src;
+  float* ld;    // shared, [NQB][k], ascending under (distance, id)
+  int* li;      // shared, [NQB][k]
+  float* dump;  // shared, [NQB][kDumpStride]
+  float* sqs;   // shared, [2][kTR]
+  int* gate;    // GATE: device memory, this block's queries' shared gates
+  int k, row_end, W, t, q0;
+
+  // Shared memory after the norms: the union of the table over the queries
+  // [kTableWordsMax] and the word of picked chunks, in 64 bytes; then, with
+  // TABLE, the slots [2][kTR], the slot sets of each 32 rows of a chunk
+  // [2][4][W] and the table [NQB][W].
+  __device__ __forceinline__ unsigned* uni() const {
+    return reinterpret_cast<unsigned*>(sqs + 2 * kTR);
+  }
+  __device__ __forceinline__ unsigned* picks() const { return uni() + kTableWordsMax; }
+  __device__ __forceinline__ int* slots() const { return reinterpret_cast<int*>(uni() + 16); }
+  __device__ __forceinline__ unsigned* wbits() const {
+    return reinterpret_cast<unsigned*>(slots() + 2 * kTR);
+  }
+  __device__ __forceinline__ unsigned* tab() const { return wbits() + 2 * 4 * W; }
+
+  // Lay the lists, the dump, the norms and the table out at `mem` (the end of
+  // the ring), as TopkLists lays its own.
+  __device__ __forceinline__ void layout(char* mem, const float* norms, int k_, int words) {
+    emb_sq = norms;
+    ld = reinterpret_cast<float*>(mem);
+    li = reinterpret_cast<int*>(ld + NQB * k_);
+    dump = reinterpret_cast<float*>(li + NQB * k_);
+    sqs = dump + NQB * kDumpStride;
+    k = k_;
+    W = words;
+  }
+
+  // Empty every list. A barrier precedes their first use.
+  __device__ __forceinline__ void clear() {
+    for (int e = threadIdx.x; e < NQB * k; e += kThreads) {
+      ld[e] = kPosInf;
+      li[e] = -1;
+    }
+  }
+
+  // Take tile `tile_`: read the block's probe table for it. -> whether any
+  // of the block's queries probes any of its slots (the same in every thread).
+  __device__ __forceinline__ bool load_table(int tile_) {
+    t = tile_;
+    if constexpr (!TABLE) {
+      if (src.lmask == nullptr) return true;  // K3: the schedule's word stands
+      int any = 0;
+      const int nq = min(NQB, src.B - q0);
+      const float* m = src.lmask + ((size_t)t * src.B + q0) * src.cmax;
+      for (int e = threadIdx.x; e < nq * src.cmax; e += kThreads) any |= m[e] > 0.5f;
+      return __syncthreads_or(any) != 0;
+    } else {
+      __syncthreads();  // the last tile's walk has read its table
+      if (threadIdx.x < kTableWordsMax) uni()[threadIdx.x] = 0u;
+      __syncthreads();
+      for (int e = threadIdx.x; e < NQB * W; e += kThreads) {
+        const int b = q0 + e / W, c0 = 32 * (e % W);
+        unsigned word = 0u;
+        if (b < src.B) {
+          const int n = min(32, src.cmax - c0);
+          for (int i = 0; i < n; ++i) word |= (unsigned)src.probed(t, b, c0 + i) << i;
+        }
+        tab()[e] = word;
+        if (word) atomicOr(uni() + e % W, word);
+      }
+      __syncthreads();
+      unsigned any = 0u;
+      for (int w = 0; w < W; ++w) any |= uni()[w];
+      return any != 0u;
+    }
+  }
+
+  // The chunks of rows [seg0, seg_end), at most kSegmentChunks of them, that
+  // hold a row some query of the block probes, as MaskChunks' word.
+  __device__ __forceinline__ uint32_t pick_chunks(int seg0, int seg_end) {
+    const int nch = (seg_end - seg0 + kTR - 1) / kTR;
+    if constexpr (!TABLE) return nch == 32 ? 0xffffffffu : (1u << nch) - 1u;
+    if (threadIdx.x == 0) *picks() = 0u;  // a barrier has passed since its last reading
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
+    for (int base = seg0 + (threadIdx.x - lane); base < seg_end; base += kThreads) {
+      const int row = base + lane;
+      bool hit = false;
+      if (row < seg_end) {
+        const int s = lcl[row];
+        hit = (uni()[s >> 5] >> (s & 31)) & 1u;
+      }
+      if (__any_sync(kFull, hit) && lane == 0) atomicOr(picks(), 1u << ((base - seg0) / kTR));
+    }
+    __syncthreads();
+    return *picks();
+  }
+
+  __device__ __forceinline__ void begin(int r0, int slot) {
+    if (threadIdx.x < kTR) {
+      const int row = r0 + threadIdx.x;
+      const bool ok = row < row_end;
+      sqs[slot * kTR + threadIdx.x] = ok ? emb_sq[row] : kPosInf;
+      if constexpr (TABLE) {
+        const int s = ok ? lcl[row] : 0;
+        slots()[slot * kTR + threadIdx.x] = s;
+        unsigned* wb = wbits() + (slot * 4 + (threadIdx.x >> 5)) * W;
+        for (int w = 0; w < W; ++w) {
+          const unsigned bits =
+              __reduce_or_sync(kFull, ok && (s >> 5) == w ? 1u << (s & 31) : 0u);
+          if ((threadIdx.x & 31) == 0) wb[w] = bits;
+        }
+      }
+    }
+  }
+
+  // Whether the words `words` (a query's table row, or the union) meet the
+  // slots of half p of the chunk whose quarter sets are at wb.
+  __device__ __forceinline__ bool meets(const unsigned* words, const unsigned* wb,
+                                        int p) const {
+    unsigned hit = 0u;
+    for (int w = 0; w < W; ++w)
+      hit |= words[w] & (wb[2 * p * W + w] | wb[(2 * p + 1) * W + w]);
+    return hit != 0u;
+  }
+
+  // Whether query qq of the block has anything to do with half p.
+  __device__ __forceinline__ bool wanted(int qq, const unsigned* wb, int p) const {
+    if constexpr (TABLE) return meets(tab() + qq * W, wb, p);
+    return q0 + qq < src.B;
+  }
+
+  // Offer rows id0 .. id0 + 63 of the dump to the lists: warp w takes the
+  // queries w, w + 8, ... that want this half, one at a time.
+  __device__ __forceinline__ void drain(const unsigned* wb, int p, int id0) {
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    unsigned todo = __ballot_sync(
+        kFull, lane < NQB / kWarps && wanted(w + kWarps * lane, wb, p));
+    while (todo) {
+      const int qq = w + kWarps * (__ffs(todo) - 1);
+      todo &= todo - 1;
+      const float* col = dump + qq * kDumpStride;
+      float* qd = ld + qq * k;
+      int* qi = li + qq * k;
+      float g = 0.f;
+      if constexpr (GATE) g = Gate::gate_value(*(volatile int*)(gate + qq));
+#pragma unroll
+      for (int c0 = 0; c0 < 64; c0 += 32) {
+        const float v = col[c0 + lane];
+        warp_offer(qd, qi, k, v, id0 + c0 + lane, GATE ? v <= g : true, lane);
+      }
+      if constexpr (GATE) {  // a full list's k-th entry lowers the shared gate
+        if (lane == 0 && qi[k - 1] >= 0 && qd[k - 1] < g)
+          atomicMin(gate + qq, Gate::gate_key(qd[k - 1]));
+      }
+    }
+  }
+
+  __device__ __forceinline__ void chunk(const Tile& tl, int r0, int slot) {
+#ifdef PQV_PROFILE_NO_EPILOGUE  // scripts/torch_masked_epilogue_profile.py: the walk alone
+    return;
+#endif
+    const float* sq = sqs + slot * kTR;
+    const int* sl = slots() + slot * kTR;
+    const unsigned* wb = wbits() + slot * 4 * W;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      if (r0 + 64 * p >= row_end) break;  // uniform
+      if constexpr (TABLE) {
+        if (!meets(uni(), wb, p)) continue;  // uniform: no query probes this half
+      }
+      unsigned mine = 0u;  // this thread's queries to dump
+#pragma unroll
+      for (int jq = 0; jq < Tile::kPerThread; ++jq)
+        mine |= (unsigned)wanted(tl.query(jq), wb, p) << jq;
+      if (mine) {
+#pragma unroll
+        for (int g = 0; g < Tile::kGroups; ++g) {
+          if (Tile::half_of(g) != p) continue;
+#pragma unroll
+          for (int l = 0; l < Tile::kRun; ++l) {
+            const int r = tl.row_base(g) + l;
+            const float s = sq[r];
+            int cs = 0;
+            if constexpr (TABLE)
+              cs = sl[r];
+            else if (r0 + r < row_end)
+              cs = lcl[r0 + r];
+#pragma unroll
+            for (int jq = 0; jq < Tile::kPerThread; ++jq) {
+              if (!((mine >> jq) & 1u)) continue;
+              const int qq = tl.query(jq);
+              bool in;
+              if constexpr (TABLE)
+                in = (tab()[qq * W + (cs >> 5)] >> (cs & 31)) & 1u;
+              else
+                in = r0 + r < row_end && src.probed(t, q0 + qq, cs);
+              dump[qq * kDumpStride + r - 64 * p] =
+                  in ? __fmaf_rn(-2.f, tl.value(g, l, jq), s) : kPosInf;
+            }
+          }
+        }
+      }
+      __syncthreads();
+#ifndef PQV_PROFILE_NO_DRAIN  // the same script: flags, dumps and barriers, no list work
+      drain(wb, p, r0 + 64 * p);
+#endif
+      __syncthreads();
+    }
+  }
+
+  // Write the lists, sorted as they are, to out[unit, q0 .., :k].
+  __device__ __forceinline__ void write(float* out_d, int* out_i, int unit, int q0_,
+                                        int B) const {
+    const int nq = min(NQB, B - q0_);
+    const size_t at = ((size_t)unit * B + q0_) * k;
+    for (int e = threadIdx.x; e < nq * k; e += kThreads) {
+      out_d[at + e] = ld[e];
+      out_i[at + e] = li[e];
+    }
+  }
+};
+
+// Walk tile t (rows t * tile .. (t + 1) * tile - 1), whose table `epi` holds,
+// in segments of kSegmentChunks chunks, scoring the chunks it picks.
+template <int STAGES, class Tile, bool GATE, bool TABLE>
+__device__ __forceinline__ void walk_masked_tile(
+    Tile& tl, const TileOperands<typename Tile::Storage>& op, int q0, int t, int tile,
+    char* ring, MaskedLists<Tile, GATE, TABLE>& epi) {
+  const int tile_end = (t + 1) * tile;
+  epi.row_end = tile_end;
+  int scored = 0;
+  for (int seg0 = t * tile; seg0 < tile_end; seg0 += kSegmentChunks * kTR) {
+    const int seg_end = min(seg0 + kSegmentChunks * kTR, tile_end);
+    const MaskChunks chunks = {epi.pick_chunks(seg0, seg_end)};
+    scored += __popc(chunks.mask);
+    __syncthreads();  // every thread has left the last walk and read the word
+    walk_chunks<STAGES>(tl, op, q0, seg0, seg_end, ring, epi, chunks);
+  }
+  if (epi.src.stats != nullptr && threadIdx.x == 0 && scored > 0) {
+    atomicAdd(epi.src.stats, 1);
+    atomicAdd(epi.src.stats + 1, scored);
+  }
+}
+
 // Dynamic shared memory of a launch whose epilogue is TopkLists: the
 // alignment slack, the ring, the lists, the dump and the norms.
 template <class Tile, int STAGES>
 constexpr int topk_lists_smem(int k) {
   return 1024 + STAGES * Tile::kStageBytes + Tile::kQueries * (8 * k + 4 * kDumpStride) +
          2 * kTR * 4;
+}
+
+// ... and of one whose epilogue is MaskedLists with `words` table words a
+// query: 64 bytes of flags; with a table also the slots, the quarter sets
+// and the table.
+template <class Tile, int STAGES>
+constexpr int masked_lists_smem(int k, int words) {
+  return topk_lists_smem<Tile, STAGES>(k) + 64 +
+         (words > 0 ? 2 * kTR * 4 + 2 * 4 * words * 4 + Tile::kQueries * words * 4 : 0);
 }
 
 // Stages of the ring beside the lists: 3, but 2 on wgmma so that 128 lists

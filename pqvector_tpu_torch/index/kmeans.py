@@ -11,11 +11,12 @@ Counterpart of ``pqvector_tpu/index/kmeans.py``, with the same semantics
 * the centroid update is a one-hot matmul in fp32 per row block: cuBLAS
   gives the same bits on every run, where float atomics (``index_add_``)
   would not, so a build is deterministic per seed;
-* k-means++ seeding on a <=50k sub-sample draws its random numbers from a
-  seeded host generator (numpy), not from ``jax.random``: the seeds are
-  reproducible per seed but differ from the JAX package's. Its cumulative
-  sums run in a fixed order (``_prefix_sums``) for the same reason as the
-  update.
+* k-means++ seeding on a <=50k sub-sample draws the random scalars that
+  ``jax.random`` gives the JAX package for the same seed, computed on the
+  host (``_threefry.kmeans_pp_scalars``), so both pick the same seed rows
+  wherever their cumulative sums agree on the boundary a threshold falls at.
+  The sums run in a fixed order (``_prefix_sums``) for the same reason as
+  the update; ``jnp.cumsum`` may round a boundary differently.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from .._device import resolve_device
 from ..errors import ValidationError
 from ..kernels.assign import assign_clusters, assign_rows
+from ._threefry import kmeans_pp_scalars
 
 _INIT_SAMPLE_CAP = 50_000  # pq-vector src/ivf/index.rs:332
 _TRAIN_SAMPLE_CAP = 100_000  # pq-vector src/ivf/index.rs:173
@@ -91,15 +93,14 @@ def _kmeans_pp_init(sample: torch.Tensor, seed: int, n_clusters: int) -> torch.T
     running minimum and draws the next seed with probability proportional
     to it (first index whose cumulative sum reaches a uniform threshold); an
     all-zero total falls back to a uniform draw. All random numbers are drawn
-    up front from ``numpy.random.default_rng(seed)``, so the loop never waits
-    on the host."""
+    up front, the ones ``jax.random`` would give the JAX package's loop for
+    this seed, so the loop never waits on the host."""
     m, d = sample.shape
     k = n_clusters
     dev = sample.device
-    rng = np.random.default_rng(np.uint64(seed))
-    first = int(rng.integers(0, m))
-    u = torch.as_tensor(rng.random(k, dtype=np.float32), device=dev)
-    uniform_idx = torch.as_tensor(rng.integers(0, m, k), device=dev)
+    first, u, uniform_idx = kmeans_pp_scalars(seed, m, k)
+    u = torch.as_tensor(u, device=dev)
+    uniform_idx = torch.as_tensor(uniform_idx, device=dev)
 
     s_norm = (sample * sample).sum(dim=1)
     centroids = torch.zeros((k, d), dtype=torch.float32, device=dev)

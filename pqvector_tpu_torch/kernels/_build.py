@@ -43,8 +43,10 @@ _SIGNATURES = {
     "pqv_assign_smem": [],
     "pqv_stream_exact_topk": [_P, _P, _P] + [_I] * 7 + [_P] * 6,
     "pqv_stream_exact_topk_smem": [_I] * 3,
-    "pqv_stream_masked_topk": [_P] * 7 + [_I] * 9 + [_P] * 5,
-    "pqv_masked_local_topk": [_P] * 5 + [_I] * 7 + [_P] * 3,
+    "pqv_stream_masked_topk": [_P] * 7 + [_I] * 11 + [_P] * 7,
+    "pqv_stream_masked_topk_smem": [_I] * 4,
+    "pqv_masked_local_topk": [_P] * 5 + [_I] * 9 + [_P] * 4,
+    "pqv_masked_local_topk_smem": [_I] * 4,
     "pqv_exact_topk": [_P] * 3 + [_I] * 7 + [_P] * 3,
     "pqv_exact_topk_smem": [_I] * 3,
     "pqv_masked_topk": [_P] * 5 + [_I] * 7 + [_P] * 3,

@@ -6,10 +6,12 @@ Counterpart of ``pqvector_tpu/kernels/scan_topk.py``: ``_refine``,
 with a per-tile local mask), ``pallas_exact_topk`` (K5) and
 ``pallas_masked_topk`` (K6, any layout, a global probe mask looked up
 through each row's cluster id). The per-tile scans are the hand-written
-kernels of ``csrc/scan_topk.cu`` on CUDA tensors and the ``*_plain``
-functions on CPU tensors. The probe mask, the ``lmask`` gather, the
-cross-tile merge and the f32 re-score are plain torch, as they are XLA code
-outside the Pallas calls in the JAX package.
+kernels of ``csrc/scan_topk.cu`` on CUDA tensors (K5 and K4 on the score tile
+of ``csrc/score_tile.cuh``, K4 scoring only the chunks its queries probe:
+``scored_chunks``) and the ``*_plain`` functions on CPU tensors. The probe
+mask, the ``lmask`` gather, the cross-tile merge and the f32 re-score are
+plain torch, as they are XLA code outside the Pallas calls in the JAX
+package.
 
 Every selection orders on (distance, id): ties go to the lower row id, since
 ``torch.topk`` promises no order among ties.
@@ -23,7 +25,7 @@ from . import _build, score_tile
 
 POS_INF = 3.0e38  # pad and masked rows, as in the kernels
 MAX_K = 128  # largest k a kernel's top-k list holds
-QUERY_BLOCK = 16  # queries per block of K3, K4 and K6 (kQB in csrc/common.cuh)
+QUERY_BLOCK = 16  # queries per block of K6 (kQB in csrc/common.cuh)
 
 
 def select_lex(d: torch.Tensor, ids: torch.Tensor, k: int):
@@ -121,26 +123,81 @@ def masked_local_scan_plain(qf, emb, emb_sq, local_cluster, lmask, k, tile):
     return _tile_topk_plain(qf, emb, emb_sq, k, tile, probed)
 
 
-def masked_local_scan(qf, emb, emb_sq, local_cluster, lmask, k: int, tile: int):
+def scored_chunks(probe, local_cluster, tile: int, queries: int):
+    """Which 128-row chunks K4 and K3 score -> bool [nt, groups, chunks a
+    tile]: the skip rule of ``csrc/topk_lists.cuh`` (``MaskedLists``) in plain
+    torch. ``probe`` [nt, B, cmax] bool says which slots of each tile's
+    cluster table each query probes (K4's ``lmask > 0.5``; for K3
+    ``mask[:, tile_clusters] > 0.5``); a block owns ``queries`` consecutive
+    queries. A block scores a chunk of a tile iff some row of the chunk has a
+    slot that some query of the block probes; a tile none of whose chunks is
+    scored is skipped whole. Every probed (query, row) pair therefore lies
+    in a scored chunk. With no probe table in shared memory
+    (``score_tile.table_words`` = 0) the kernels score every chunk of a tile
+    that has a scored chunk here (K4), or of every active tile (K3)."""
+    nt, b, cmax = probe.shape
+    groups = -(-b // queries)
+    pad = torch.zeros((nt, groups * queries - b, cmax), dtype=torch.bool,
+                      device=probe.device)
+    union = torch.cat([probe, pad], dim=1).view(nt, groups, queries, cmax).any(dim=2)
+    slots = local_cluster.view(nt, 1, tile).expand(nt, groups, tile).long()
+    row_hit = union.gather(2, slots)  # [nt, groups, tile]
+    chunks = -(-tile // score_tile.CHUNK_ROWS)
+    row_hit = torch.nn.functional.pad(row_hit, (0, chunks * score_tile.CHUNK_ROWS - tile))
+    return row_hit.view(nt, groups, chunks, score_tile.CHUNK_ROWS).any(dim=3)
+
+
+def masked_geometry(kernel: str, qf, emb, k: int, cmax: int):
+    """(back end, queries a block, probe-table words, dynamic shared memory)
+    of a K4 or K3 launch on these operands."""
+    backend = score_tile.pick_backend(
+        emb.dtype, emb.shape[1], qf.data_ptr(), emb.data_ptr()
+    )
+    queries = score_tile.masked_block_queries(backend)
+    words = score_tile.table_words(kernel, backend, queries, k, cmax)
+    smem = score_tile.smem_bytes(kernel, backend, queries, k, words)
+    return backend, queries, words, smem
+
+
+def check_stats(stats, device) -> int:
+    """The address of K4's and K3's optional counters (0 for none): an int32
+    [2] CUDA tensor that a launch adds the (block, tile) and (block, chunk)
+    pairs it scored to."""
+    if stats is None:
+        return 0
+    if stats.dtype != torch.int32 or stats.shape != (2,) or stats.device != device:
+        raise TypeError("stats must be int32 [2] on the operands' device")
+    return stats.data_ptr()
+
+
+def masked_local_scan(qf, emb, emb_sq, local_cluster, lmask, k: int, tile: int,
+                      stats=None):
     """K4's scan: per-tile top-k of the probed rows -> ([nt, B, k], [nt, B, k]).
 
     ``qf`` [B, d] in the storage dtype, ``emb`` [n_pad, d], ``emb_sq``
     [n_pad] f32 (+3e38 on pad rows), ``local_cluster`` [n_pad] int32 (a row's
-    slot in its tile's cluster table), ``lmask`` [nt, B, cmax] f32."""
+    slot in its tile's cluster table, below cmax), ``lmask`` [nt, B, cmax]
+    f32. The kernel runs on the score tile of ``csrc/score_tile.cuh`` (fp32
+    FMA or wgmma by ``score_tile.pick_backend``) and scores only the chunks
+    that hold a row some query of the block probes (``scored_chunks``);
+    ``stats`` (``check_stats``) counts them, on CUDA tensors only."""
     check_scan_args(qf, emb, emb_sq, k, tile)
     nt = emb.shape[0] // tile
     if local_cluster.dtype != torch.int32 or local_cluster.shape != (emb.shape[0],):
         raise TypeError("local_cluster must be int32 [n_pad]")
-    if lmask.dtype != torch.float32 or lmask.shape[:2] != (nt, qf.shape[0]):
+    if (lmask.dtype != torch.float32 or lmask.dim() != 3 or lmask.shape[2] < 1
+            or lmask.shape[:2] != (nt, qf.shape[0])):
         raise TypeError("lmask must be float32 [nt, B, cmax]")
     if emb.device.type == "cpu":
         return masked_local_scan_plain(qf, emb, emb_sq, local_cluster, lmask, k, tile)
     check_cuda_operands(
         q=qf, emb=emb, emb_sq=emb_sq, local_cluster=local_cluster, lmask=lmask
     )
+    backend, _, words, _ = masked_geometry("K4", qf, emb, k, lmask.shape[2])
     return _launch_tile_topk(
         "K4", "pqv_masked_local_topk", qf, emb, emb_sq, k, tile,
         ptrs=(local_cluster, lmask), ints=(lmask.shape[2],),
+        flags=(int(backend == "wgmma"), words, check_stats(stats, emb.device)),
     )
 
 

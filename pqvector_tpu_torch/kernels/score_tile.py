@@ -1,4 +1,4 @@
-"""Launch geometry of the score tile shared by K9, K5, K2 and K1.
+"""Launch geometry of the score tile shared by K9, K5, K4, K3, K2 and K1.
 
 ``csrc/score_tile.cuh`` scores up to 128 queries against 128-row chunks in
 registers, on one of two back ends: ``"fma"``, IEEE fp32 on the CUDA cores
@@ -20,6 +20,8 @@ SMEM_LIMIT = 232_448  # dynamic shared memory a block can opt into on sm_90
 _ALIGN_SLACK = 1024  # the ring is aligned to the swizzle's 1024 bytes by hand
 _NORMS = 2 * CHUNK_ROWS * 4  # the norms of this chunk and the next
 DUMP_STRIDE = 65  # floats per query of the 64-row score dump of K5 and K2
+TABLE_WORDS_MAX = 8  # K4, K3: probe tables of up to 256 slots live in shared memory
+SEGMENT_CHUNKS = 32  # K4, K3: chunks of a tile whose picks one 32-bit word holds
 SM_COUNT = 132  # streaming multiprocessors of the H100
 SMEM_PER_SM = 233_472  # shared memory of one; a resident block reserves 1 KB more
 
@@ -40,6 +42,14 @@ def block_queries(batch: int, backend: str) -> int:
     return 64 if backend == "fma" and batch <= 64 else 128
 
 
+def masked_block_queries(backend: str) -> int:
+    """Queries one block of K4 or K3 owns: a warpgroup pair's 128 on wgmma,
+    64 on the CUDA cores whatever the batch. Fewer queries probe fewer of a
+    tile's chunks, which pays where the products are the time, and two
+    blocks fit an SM up to k = 100."""
+    return 128 if backend == "wgmma" else 64
+
+
 def stage_bytes(backend: str, queries: int) -> int:
     """One stage of the ring: 64 dimensions of 128 queries and 128 rows in
     bf16, or 16 dimensions of the queries and rows in f32, transposed with
@@ -49,23 +59,45 @@ def stage_bytes(backend: str, queries: int) -> int:
     return 16 * ((CHUNK_ROWS + 4) + (queries + 4)) * 4
 
 
+_LIST_KERNELS = ("K5", "K2", "K4", "K3")  # their epilogue keeps top-k lists
+
+
 def stages(kernel: str, backend: str) -> int:
-    """Stages in the ring: 3, but 2 for K5 and K2 on wgmma so that 128 lists
-    of k = 128 still fit beside them."""
-    return 2 if kernel in ("K5", "K2") and backend == "wgmma" else 3
+    """Stages in the ring: 3, but 2 for the list kernels on wgmma so that 128
+    lists of k = 128 still fit beside them."""
+    return 2 if kernel in _LIST_KERNELS and backend == "wgmma" else 3
 
 
-def smem_bytes(kernel: str, backend: str, queries: int, k: int = 0) -> int:
-    """Dynamic shared memory of a launch of ``kernel`` ("K9", "K5", "K2" or
-    "K1"): the ring and the norms; for K5 and K2 the lists ([k][queries] f32
-    + i32) and the score dump, for K9 one carried minimum per query; K1's
-    running argmin lives in registers."""
+def smem_bytes(kernel: str, backend: str, queries: int, k: int = 0, words: int = 0) -> int:
+    """Dynamic shared memory of a launch of ``kernel`` ("K9", "K5", "K4", "K3",
+    "K2" or "K1"): the ring and the norms; for K5, K4, K3 and K2 the lists
+    ([k][queries] f32 + i32) and the score dump, for K9 one carried minimum
+    per query; K1's running argmin lives in registers. K4 and K3 add 64 bytes
+    of flags and, with a probe table of ``words`` 32-bit words a query
+    (``table_words``), the staged slots of two chunks, the slot sets of their
+    quarters and the table."""
     total = _ALIGN_SLACK + stages(kernel, backend) * stage_bytes(backend, queries) + _NORMS
-    if kernel in ("K5", "K2"):
-        return total + queries * (8 * k + 4 * DUMP_STRIDE)
+    if kernel in _LIST_KERNELS:
+        total += queries * (8 * k + 4 * DUMP_STRIDE)
+        if kernel in ("K4", "K3"):
+            total += 64
+            if words:
+                total += 2 * CHUNK_ROWS * 4 + 2 * 4 * words * 4 + queries * words * 4
+        return total
     if kernel == "K9":
         return total + 128 * 4  # a long tile's minimum so far, per query
     return total
+
+
+def table_words(kernel: str, backend: str, queries: int, k: int, cmax: int) -> int:
+    """Width of K4's and K3's probe table in shared memory, in 32-bit words a
+    query: one bit per slot of a tile's cluster table (``cmax`` slots), or 0
+    where that is wider than ``TABLE_WORDS_MAX`` words or does not fit beside
+    the lists (k near 128 on wgmma). With 0 the same kernel reads the probe
+    source from device memory and skips whole tiles only."""
+    words = -(-cmax // 32)
+    fits = smem_bytes(kernel, backend, queries, k, words) <= SMEM_LIMIT
+    return words if words <= TABLE_WORDS_MAX and fits else 0
 
 
 def wave_blocks(smem: int) -> int:
@@ -78,7 +110,8 @@ def wave_blocks(smem: int) -> int:
 def grid_blocks(batch: int, backend: str, units: int) -> int:
     """Blocks of a launch over ``units`` row runs (K9, K2) or tiles (K5): the
     query groups of one unit are neighbours, so the later ones find the rows
-    in L2."""
+    in L2. K4 (tiles) and K3 (runs of active tiles) lay their grid out the
+    same way, with ``masked_block_queries`` queries a group."""
     q = block_queries(batch, backend)
     return units * (-(-batch // q))
 

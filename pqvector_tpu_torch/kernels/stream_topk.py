@@ -15,8 +15,10 @@ tile of ``csrc/score_tile.cuh`` (blocks of up to 128 queries, fp32 FMA or
 wgmma by ``score_tile.pick_backend``); its blocks also share one gate per
 query in device memory, the smallest k-th entry any full list has reached,
 so rows that can be in no global top-k are dropped everywhere: the partial
-lists then depend on timing, the merged result does not. K3 runs on
-``csrc/common.cuh``'s scan block (16 queries a block).
+lists then depend on timing, the merged result does not. K3 is the same
+stream over the active tiles of the device-side schedule, fed only with the
+(query, row) pairs the query probes: a block skips a tile, a 128-row chunk
+and a query that its probe table rules out (``scan_topk.scored_chunks``).
 """
 
 from __future__ import annotations
@@ -27,11 +29,12 @@ from . import _build, score_tile
 from .scan_topk import (
     MAX_K,
     POS_INF,
-    QUERY_BLOCK,
     _refine,
     check_cuda_operands,
     check_scan_args,
+    check_stats,
     empty_lists,
+    masked_geometry,
     merge_candidates,
     partial_scores,
     select_lex,
@@ -39,9 +42,6 @@ from .scan_topk import (
 
 #: Rows per step of the plain scans: bounds their [B, rows] score block.
 _PLAIN_ROWS = 65536
-#: Blocks a K3 launch aims for: about 8 per SM of the H100's 132, so the
-#: splits fill the card even when few query groups exist.
-_TARGET_BLOCKS = 1024
 
 
 def scan_units(chunks: int, batch: int, queries: int = 128, wave: int = 264) -> int:
@@ -63,11 +63,22 @@ def run_rows(n_pad: int, units: int) -> int:
     return -(-chunks // max(1, min(units, chunks))) * score_tile.CHUNK_ROWS
 
 
-def masked_scan_units(nt: int, batch: int) -> int:
-    """How many row splits K3 uses: enough blocks of 16 queries to fill the
-    card, never more than the tiles."""
-    groups = -(-batch // QUERY_BLOCK)
-    return max(1, min(nt, max(8, _TARGET_BLOCKS // groups)))
+def masked_scan_units(nt: int, batch: int, queries: int = 128, wave: int = 264) -> int:
+    """How many runs K3 splits the active tiles into for a batch served by
+    blocks of ``queries`` queries: one wave of blocks
+    (``score_tile.wave_blocks``) over the query groups, never more runs than
+    tiles. The schedule lives on the device, so the host sizes the launch by
+    ``nt``; run ``u`` of ``units`` takes the active tiles ``u, u + units, ...``
+    (``masked_run_tiles``), which spreads a burst of heavy tiles over the
+    runs and leaves no run empty while the active tiles are at least
+    ``units``."""
+    groups = -(-batch // queries)
+    return max(1, min(nt, wave // groups))
+
+
+def masked_run_tiles(unit: int, units: int, n_active: int) -> range:
+    """Positions in the schedule's active list that run ``unit`` walks."""
+    return range(unit, n_active, units)
 
 
 def stream_exact_scan_plain(qf, emb, emb_sq, k):
@@ -190,7 +201,9 @@ def stream_masked_scan_plain(qf, emb, emb_sq, local_cluster, tile_clusters, mask
 
 
 def _stream_masked_cuda(qf, emb, emb_sq, local_cluster, tile_clusters, mask,
-                        sched, k, tile):
+                        sched, k, tile, units=None, stats=None):
+    """Launch K3. ``units`` overrides ``masked_scan_units``' split of the active
+    tiles (the result does not depend on it); ``stats`` as for K4."""
     check_cuda_operands(
         q=qf, emb=emb, emb_sq=emb_sq, local_cluster=local_cluster,
         tile_clusters=tile_clusters, mask=mask, sched=sched,
@@ -198,19 +211,26 @@ def _stream_masked_cuda(qf, emb, emb_sq, local_cluster, tile_clusters, mask,
     lib = _build.load()
     n_pad, d = emb.shape
     b = qf.shape[0]
-    units = masked_scan_units(n_pad // tile, b)
+    cmax = tile_clusters.shape[1]
+    backend, queries, words, smem = masked_geometry("K3", qf, emb, k, cmax)
+    if units is None:
+        units = masked_scan_units(
+            n_pad // tile, b, queries, score_tile.wave_blocks(smem)
+        )
     dev = emb.device
     part_d = torch.empty((units, b, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((units, b, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    gate = torch.empty((b,), dtype=torch.int32, device=dev)  # the kernel sets it
     rc = lib.pqv_stream_masked_topk(
         qf.data_ptr(), emb.data_ptr(), emb_sq.data_ptr(),
         local_cluster.data_ptr(), tile_clusters.data_ptr(), mask.data_ptr(),
-        sched.data_ptr(), b, d, n_pad, k, tile, tile_clusters.shape[1],
+        sched.data_ptr(), b, d, n_pad, k, tile, cmax,
         mask.shape[1], units, int(emb.dtype == torch.bfloat16),
-        part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-        _build.stream_ptr(),
+        int(backend == "wgmma"), words, check_stats(stats, dev),
+        part_d.data_ptr(), part_i.data_ptr(), gate.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), _build.stream_ptr(),
     )
     _build.check(rc, "pqv_stream_masked_topk")
     _build.LAUNCHES["K3"] += 1
@@ -218,17 +238,23 @@ def _stream_masked_cuda(qf, emb, emb_sq, local_cluster, tile_clusters, mask,
 
 
 def stream_masked_scan(qf, emb, emb_sq, local_cluster, tile_clusters, mask, sched,
-                       k: int, tile: int):
+                       k: int, tile: int, stats=None):
     """K3's scan: masked top-k over the active tiles -> ([B, k], [B, k]).
 
     Adds ``local_cluster`` [n_pad] int32, ``tile_clusters`` [nt, cmax]
     int32, the probe ``mask`` [B, kc_pad] f32 and ``sched`` [nt + 1] int32
-    from ``_tile_schedule``; the kernel reads the schedule on the device."""
+    from ``_tile_schedule``; the kernel reads the schedule on the device. It
+    runs on the score tile of ``csrc/score_tile.cuh`` (fp32 FMA or wgmma by
+    ``score_tile.pick_backend``) with sorted lists, and K2's shared gate,
+    carried across a block's run of active tiles; ``stats``
+    (``scan_topk.check_stats``) counts the tiles and chunks it scored, on
+    CUDA tensors only."""
     check_scan_args(qf, emb, emb_sq, k, tile)
     nt = emb.shape[0] // tile
     if local_cluster.dtype != torch.int32 or local_cluster.shape != (emb.shape[0],):
         raise TypeError("local_cluster must be int32 [n_pad]")
-    if tile_clusters.dtype != torch.int32 or tile_clusters.shape[0] != nt:
+    if (tile_clusters.dtype != torch.int32 or tile_clusters.dim() != 2
+            or tile_clusters.shape[0] != nt or tile_clusters.shape[1] < 1):
         raise TypeError("tile_clusters must be int32 [nt, cmax]")
     if mask.dtype != torch.float32 or mask.shape[0] != qf.shape[0]:
         raise TypeError("mask must be float32 [B, kc_pad]")
@@ -239,7 +265,7 @@ def stream_masked_scan(qf, emb, emb_sq, local_cluster, tile_clusters, mask, sche
             qf, emb, emb_sq, local_cluster, tile_clusters, mask, sched, k, tile
         )
     return _stream_masked_cuda(
-        qf, emb, emb_sq, local_cluster, tile_clusters, mask, sched, k, tile
+        qf, emb, emb_sq, local_cluster, tile_clusters, mask, sched, k, tile, stats=stats
     )
 
 

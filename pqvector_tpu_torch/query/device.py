@@ -80,12 +80,13 @@ _NOT_PORTED = frozenset({"xbin", "xbin8", "tilescan", "autoscan"})
 _CERT_FUSE_BUDGET = 2 << 30
 #: Cap on the [B, chunk] f32 score block of the over-fetch modes.
 _APPROX_BLOCK_CAP = 1 << 30
-#: The scan kernels' tile: the rows one block owns and the unit of the
-#: per-tile cluster tables. The kernels stream 64-row chunks through a
-#: fixed 41 KB of shared memory whatever the tile (csrc/common.cuh), so the
-#: tile is chosen for the grid, not for memory: 1024 rows gives about 1000
-#: tiles at 1M rows (K4 then launches nt * B/16 blocks, dozens of waves on
-#: 132 SMs) while K3 still skips work at a grain of 1024 rows.
+#: The scan kernels' tile: the rows one block of K4, K5 and K6 owns, the
+#: grain at which K3 and K4 skip unprobed work, and the unit of the per-tile
+#: cluster tables. Shared memory does not depend on it (the kernels stream
+#: 128-row chunks, K6 64-row ones), so the tile is chosen for the grid and
+#: the tables: 1024 rows is about one cluster at IVF-1024 over 1M rows, gives
+#: about 1000 tiles there, and keeps a tile's table to a few clusters, one
+#: 32-bit word a query in K3's and K4's shared memory.
 _SCAN_TILE_CAP = 1024
 #: Cap on K4's pre-gathered [nt, B, cmax] f32 local mask, as in the JAX
 #: package; beyond it ``auto`` takes K3, which needs no such buffer.
@@ -622,14 +623,26 @@ class DeviceIvfSearcher:
         path: str | os.PathLike,
         dtype: torch.dtype = torch.float32,
         row_tile: int = 2048,
+        spill: float = 0.0,
+        assign_dtype: torch.dtype = torch.float32,
         rescore_dtype="auto",
         cluster_sorted: bool = False,
         device: str | torch.device | None = None,
     ) -> "DeviceIvfSearcher":
-        """Resident searcher from an indexed Parquet file."""
+        """Resident searcher from an indexed Parquet file. ``spill`` and
+        ``assign_dtype`` stand where the JAX package has them; its spilled
+        multi-assignment layout (``spill`` > 0) is not ported. The searcher
+        carries the file's provenance (``source_path``, ``source_column``
+        and ``source_key`` = (size, mtime in ns), (-1, -1) where the file
+        cannot be stat'ed), by which a caller can reject a searcher built
+        before a re-index."""
+        if spill:
+            raise ValidationError(
+                f"from_parquet(spill={spill}): the spilled layout is not ported"
+            )
         index, column = read_index_from_parquet(path)
         emb = read_embedding_column(path, column)
-        return cls(
+        searcher = cls(
             index,
             emb.data,
             dtype=dtype,
@@ -639,6 +652,14 @@ class DeviceIvfSearcher:
             rescore_dtype=rescore_dtype,
             device=device,
         )
+        searcher.source_path = os.fspath(path)
+        searcher.source_column = column.name
+        try:
+            st = os.stat(path)
+            searcher.source_key = (st.st_size, st.st_mtime_ns)
+        except OSError:
+            searcher.source_key = (-1, -1)
+        return searcher
 
     # ------------------------------------------------------------------
 

@@ -1,6 +1,6 @@
 """Quick check and timing of the score-tile kernels (K9 tile min, K5 exact
-per-tile top-k, K2 streaming exact top-k, K1 nearest-centroid assign) of the
-PyTorch port on one Hopper GPU.
+per-tile top-k, K4 masked per-tile top-k, K2 and K3 streaming exact and masked
+top-k, K1 nearest-centroid assign) of the PyTorch port on one Hopper GPU.
 
     python3 scripts/torch_score_tile_check.py [--rows 1000000] [--no-ptxas]
         [--time-only] [--package-root DIR] [--digest-file FILE] [--modes M]
@@ -11,13 +11,21 @@ Needs a card, nvcc and the repo root as the working directory. It
 2. holds the C sources' shared-memory sizes to ``kernels/score_tile.py``;
 3. runs the kernels against their plain versions on 1/4-grid data (every
    sum exact, so the results must be equal) over awkward shapes, on both
-   back ends, K2 also over several splits of the rows;
+   back ends, K2 and K3 also over several splits of the rows, K4 and K3 with
+   their counters of scored tiles and chunks held to the skip rule;
 4. times them at ``--rows`` x 128 (K9, K5 and K2 at B = 256 in f32 and bf16,
    K2 at k = 1, 10, 100 and 128 and at B = 1; K1 against 1024 centroids)
    beside one PyTorch chain for the same function, with CUDA events (median
    of 10), builds IVF-1024 over ``--rows`` x 128 seeded mixture rows (K1 in
    every Lloyd step) and prints a SHA-256 of K1's ids, of K2's f32 distances
-   and ids and of the index bytes.
+   and ids and of the index bytes;
+5. with ``--modes M``: times K4 and K3 on those cluster-sorted rows (tiles of
+   1024 rows, the M mode centres as centroids, nprobe 8) at B = 1, 16, 64, 256
+   and 4096, k = 10 and 100, in f32 and bf16, prints the share of tiles and
+   chunks the skip rule scores, and adds the SHA-256 of their f32 outputs to
+   the digests. The layout, the probe mask, the local mask and the schedule
+   come from seeded numpy and plain torch code in this script, so two
+   versions of the package get the same tensors.
 
 A short first call after touching the CUDA sources; ``chip_smoke.py`` is the
 full run. ``--time-only`` skips steps 2 and 3. ``--package-root DIR`` takes
@@ -28,9 +36,11 @@ in one call on one card; use it with ``--time-only --no-ptxas``.
 mode, as a cluster-sorted searcher holds them (the default, 0, is one
 standard normal cloud in random order): near rows then arrive in bursts and
 the top-k lists take more replacements.
-``--digest-file FILE`` writes the digests to FILE, or, where FILE exists,
-fails unless they equal the ones in it: run parent, change, change, parent
-with one file and the f32 outputs of K1 and K2 are held bit for bit.
+``--digest-file FILE`` holds the digests to the ones FILE has under the same
+names, fails where one differs, and adds the new names to FILE (a version
+that computes another function under an old name renames its digest, as the
+index bytes were when the k-means++ seeds changed): run parent, change, change, parent
+with one file and the f32 outputs of K1, K2, K3 and K4 are held bit for bit.
 """
 
 from __future__ import annotations
@@ -59,11 +69,15 @@ def ptxas_report(_build) -> None:
         lines = out.stderr.splitlines()
         for i, line in enumerate(lines):
             m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m and re.search(r"tile_min_kernel|exact_topk_kernel|stream_exact_kernel|assign_kernel", m.group(1)):
+            if m and re.search(r"tile_min_kernel|exact_topk_kernel|stream_exact_kernel|"
+                               r"assign_kernel|masked_local_kernel|stream_masked_kernel",
+                               m.group(1)):
+                kernel = re.search(r"\d+([a-z_]+_kernel)", m.group(1))
                 tile = re.search(r"(FmaTile\w+?EE|MmaTile)", m.group(1))
                 used = " ".join(l.strip() for l in lines[i + 1 : i + 4])
                 used = used.replace("ptxas info    : ", "")
-                print(f"ptxas {name} {tile.group(1) if tile else m.group(1)}: {used}")
+                print(f"ptxas {name} {kernel.group(1) if kernel else ''} "
+                      f"{tile.group(1) if tile else m.group(1)}: {used}")
 
 
 def check_shared_memory(lib) -> None:
@@ -79,6 +93,13 @@ def check_shared_memory(lib) -> None:
             assert got <= score_tile.SMEM_LIMIT
             got = lib.pqv_stream_exact_topk_smem(flag, nq, k)
             assert got == score_tile.smem_bytes("K2", backend, nq, k), (backend, nq, k)
+            for words in (0, 1, 8):
+                want = score_tile.smem_bytes("K4", backend, nq, k, words)
+                assert lib.pqv_masked_local_topk_smem(flag, nq, k, words) == want
+                assert lib.pqv_stream_masked_topk_smem(flag, nq, k, words) == want
+                assert want == score_tile.smem_bytes("K3", backend, nq, k, words)
+            words = score_tile.table_words("K4", backend, nq, k, 256)
+            assert score_tile.smem_bytes("K4", backend, nq, k, words) <= score_tile.SMEM_LIMIT
     assert lib.pqv_assign_smem() == score_tile.smem_bytes("K1", "fma", 128)
     print("shared-memory sizes agree with kernels/score_tile.py")
 
@@ -117,6 +138,8 @@ def main() -> None:
         cs.phase2_small_k9(torch, tm)
         cs.phase2_score_tile(torch, tm, sc)
         cs.phase2_small_k1_k2(torch, ka, st)
+        cs.phase2_small(torch, st, sc, ka)
+        cs.phase2_masked_score_tile(torch, st, sc)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
@@ -168,6 +191,8 @@ def main() -> None:
             ms1 = cs.time_ms(lambda: st.stream_exact_scan(qf[:1], emb, sq, kk, 4096))
             print(f"K2 {name} k={kk}: {swaps} near-tie swaps against plain, max err "
                   f"{err:.3g}, kernel {ms:.3f} ms (B=1: {ms1:.3f} ms)")
+    if args.modes:
+        masked_section(torch, cs, sc, st, x, sq, centres, label, rng, n, digests)
     cent = x[:1024].contiguous()
     got = ka.assign_rows(x[:n], cent)
     want = ka.assign_rows_plain(x[:n], cent)
@@ -185,21 +210,83 @@ def main() -> None:
     rows = ds.synthetic_embeddings(n, d)
     index = pqt.build_ivf_index(Embeddings(rows, d), pqt.IvfBuildConfig(n_clusters=1024),
                                 device=dev)
-    digests["index bytes, IVF-1024, seed 42"] = hashlib.sha256(index.to_bytes()).hexdigest()[:16]
+    # a package with index/_threefry.py seeds k-means++ as jax.random does: other bytes
+    seeds = "jax.random" if (_build.CSRC.parent / "index" / "_threefry.py").exists() else "numpy"
+    digests[f"index bytes, IVF-1024, seed 42, {seeds} seeds"] = hashlib.sha256(
+        index.to_bytes()).hexdigest()[:16]
     for key, value in digests.items():
         print(f"digest {key}: {value}")
-    if args.digest_file and os.path.exists(args.digest_file):
-        with open(args.digest_file) as f:
-            want = json.load(f)
-        bad = [key for key in digests if want.get(key) != digests[key]]
+    if args.digest_file:
+        want = {}
+        if os.path.exists(args.digest_file):
+            with open(args.digest_file) as f:
+                want = json.load(f)
+        shared = [key for key in digests if key in want]
+        bad = [key for key in shared if want[key] != digests[key]]
         if bad:
             raise SystemExit(f"outputs differ from {args.digest_file}: {bad}")
-        print(f"digests equal to {args.digest_file}")
-    elif args.digest_file:
+        print(f"{len(shared)} digests equal to {args.digest_file}; "
+              f"{len(digests) - len(shared)} new ones written to it")
         os.makedirs(os.path.dirname(os.path.abspath(args.digest_file)), exist_ok=True)
         with open(args.digest_file, "w") as f:
-            json.dump(digests, f)
+            json.dump({**want, **digests}, f)
     print("ok")
+
+
+def masked_section(torch, cs, sc, st, x, sq, centres, label, rng, n, digests) -> None:
+    """K4 and K3 on the cluster-sorted rows ``x`` (mode ``label[r]`` for row r,
+    the modes' ``centres`` for centroids): times, skip shares and digests."""
+    dev = x.device
+    n_pad, d = x.shape
+    tile, nprobe, kc = 1024, 8, centres.shape[0]
+    rc = np.full(n_pad, kc, np.int32)
+    rc[:n] = label.cpu().numpy()
+    parts = rc.reshape(-1, tile)
+    uniques = [np.unique(p) for p in parts]
+    tc_np = np.full((len(parts), max(u.size for u in uniques)), kc, np.int32)
+    lcl_np = np.zeros(parts.shape, np.int32)
+    for t, u in enumerate(uniques):
+        tc_np[t, : u.size] = u
+        lcl_np[t] = np.searchsorted(u, parts[t])
+    lcl = torch.from_numpy(lcl_np.reshape(-1)).to(dev)
+    tc = torch.from_numpy(tc_np).to(dev)
+    pick = torch.from_numpy(rng.integers(0, n, 4096)).to(dev)
+    noise = torch.from_numpy(rng.standard_normal((4096, d)).astype(np.float32)).to(dev)
+    q_all = x[pick] + 0.05 * noise
+    c_sq = (centres * centres).sum(1)
+    kc_pad = -(-(kc + 1) // 128) * 128
+    scored_chunks = getattr(sc, "scored_chunks", None)  # an older package has none
+    for b in (1, 16, 64, 256, 4096):
+        q = q_all[:b].contiguous()
+        mask = st._probe_mask(q, centres, c_sq, nprobe, 128, kc_pad)
+        sched = st._tile_schedule(mask, tc)
+        lmask = mask[:, tc.long()].permute(1, 0, 2).contiguous()
+        for name, emb in (("f32", x), ("bf16", x.to(torch.bfloat16))):
+            qf = q.to(emb.dtype)
+            if scored_chunks is not None:
+                queries = sc.masked_geometry("K4", qf, emb, 10, tc.shape[1])[1]
+                chunks = scored_chunks(lmask > 0.5, lcl, tile, queries)
+                print(f"K4/K3 {name} B={b} nprobe={nprobe}: {int(sched[0])} of {tc.shape[0]} "
+                      f"tiles active; blocks of {queries} queries score "
+                      f"{int(chunks.any(2).sum())} of {chunks.shape[0] * chunks.shape[1]} "
+                      f"(block, tile) pairs and {int(chunks.sum())} of {chunks.numel()} "
+                      "(block, chunk) pairs")
+            for k in (10, 100):
+                a4 = (qf, emb, sq, lcl, lmask, k, tile)
+                a3 = (qf, emb, sq, lcl, tc, mask, sched, k, tile)
+                g4, g3 = sc.masked_local_scan(*a4), st.stream_masked_scan(*a3)
+                torch.cuda.synchronize()
+                m4 = sc._final_merge(*g4, k)
+                same = bool(torch.equal(m4[1], g3[1]) and torch.equal(m4[0], g3[0]))
+                if name == "f32":
+                    digests[f"K4 f32 B={b} k={k}"] = digest(*g4)
+                    digests[f"K3 f32 B={b} k={k}"] = digest(*g3)
+                reps = 3 if b == 4096 else 10
+                ms4 = cs.time_ms(lambda: sc.masked_local_scan(*a4), reps=reps)
+                ms3 = cs.time_ms(lambda: st.stream_masked_scan(*a3), reps=reps)
+                print(f"K4 {name} B={b} k={k} nprobe={nprobe}: {ms4:.3f} ms; K3: {ms3:.3f} "
+                      f"ms; K3 equal to K4's merge: {same}")
+                del g4, g3, m4
 
 
 def digest(*tensors) -> str:

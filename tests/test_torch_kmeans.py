@@ -1,12 +1,16 @@
 """k-means and the IVF build in the torch port against the JAX package.
 
-Lloyd's loop is compared from one injected initialisation: the port draws
-its k-means++ seeds from numpy, the JAX package from ``jax.random``, so the
-seeds differ by design. Assignments must be equal and centroids agree at
-rtol 1e-5 (f32 sums taken in another order). On well-separated blobs the two
-full builds find the same partition up to a relabelling of clusters.
+Lloyd's loop is compared from one injected initialisation: assignments must
+be equal and centroids agree at rtol 1e-5 (f32 sums taken in another order).
+The port's k-means++ draws the scalars ``jax.random`` gives the JAX package
+for the same seed (a host-side threefry2x32, held to ``jax.random`` bit for
+bit here), so on the fixtures of ``tests/test_kmeans.py`` and
+``tests/test_determinism.py`` both pick the same seed rows and end in the
+same partition with the same labels. On well-separated blobs the two full
+builds find the same partition up to a relabelling of clusters.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -16,6 +20,7 @@ from pqvector_tpu.index import kmeans as jkm
 from pqvector_tpu.types import Embeddings as JEmbeddings
 from pqvector_tpu_torch.errors import ValidationError
 from pqvector_tpu_torch.index import build as tbuild
+from pqvector_tpu_torch.index import _threefry as tf
 from pqvector_tpu_torch.index import kmeans as tkm
 from pqvector_tpu_torch.types import Embeddings
 
@@ -70,6 +75,95 @@ def test_kmeans_pp_init_is_seeded_and_picks_sample_rows():
     assert torch.equal(a, b)
     # every seed is a row of the sample
     assert all(bool((x == row).all(dim=1).any()) for row in a)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 42, 123456789, 2**31 + 3])
+def test_threefry_primitives_equal_jax_random(seed):
+    """PRNGKey, split, uniform and randint of shape () against the installed
+    jax (threefry2x32, jax_threefry_partitionable on): equal bits, also for a
+    span that is no power of two and for spans above 2**16."""
+    assert jax.config.jax_threefry_partitionable
+    jkey = jax.random.PRNGKey(seed)
+    key = tf.prng_key(seed)
+    assert tuple(int(w) for w in np.asarray(jkey)) == key
+    for num in (2, 3):
+        want = [tuple(int(w) for w in row) for row in np.asarray(jax.random.split(jkey, num))]
+        assert tf.split(key, num) == want
+    want_u = np.float32(jax.random.uniform(jkey, (), np.float32))
+    assert np.float32(tf.uniform(key)).tobytes() == want_u.tobytes()
+    for m in (1, 2, 1000, 1024, 49_999, 50_000, 65_536, 65_537, 100_003, 2**31 - 1):
+        assert int(tf.randint(key, m)) == int(jax.random.randint(jkey, (), 0, m)), m
+
+
+def _jax_kmeans_pp_scalars(seed, m, k):
+    """The reference's key chain (pqvector_tpu/index/kmeans.py: k_means and
+    _kmeans_pp_init), drawn with jax.random."""
+    key = jax.random.PRNGKey(seed)
+    _, init_key, _ = jax.random.split(key, 3)
+    key, sub = jax.random.split(init_key)
+    first = int(jax.random.randint(sub, (), 0, m))
+    u = np.zeros(k, np.float32)
+    uniform_idx = np.zeros(k, np.int64)
+    for i in range(1, k):
+        key, t_key, u_key = jax.random.split(key, 3)
+        u[i] = jax.random.uniform(t_key, (), np.float32)
+        uniform_idx[i] = jax.random.randint(u_key, (), 0, m)
+    return first, u, uniform_idx
+
+
+@pytest.mark.parametrize(
+    "seed,m,k", [(42, 50_000, 24), (1, 777, 5), (7, 3000, 32), (9, 1000, 1), (3, 70_001, 6)]
+)
+def test_kmeans_pp_scalars_equal_jax_random(seed, m, k):
+    """``first``, every ``u[i]`` and every ``uniform_idx[i]`` equal
+    jax.random's bit for bit, for sample sizes that are no power of two."""
+    want = _jax_kmeans_pp_scalars(seed, m, k)
+    got = tf.kmeans_pp_scalars(seed, m, k)
+    assert got[0] == want[0]
+    assert got[1].dtype == np.float32 and got[1].tobytes() == want[1].tobytes()
+    np.testing.assert_array_equal(got[2], want[2])
+
+
+def _fixture_blobs(n_per, centers, seed):
+    """``make_blobs`` of tests/test_kmeans.py."""
+    rng = np.random.default_rng(seed)
+    centers = np.asarray(centers, np.float32)
+    return np.concatenate([
+        c + 0.05 * rng.standard_normal((n_per, centers.shape[1])).astype(np.float32)
+        for c in centers
+    ])
+
+
+_JAX_FIXTURES = {
+    # tests/test_kmeans.py
+    "clear_blobs": lambda: (_fixture_blobs(50, [[0, 0], [10, 0], [0, 10], [10, 10]], 0), 4, 1),
+    "three_blobs": lambda: (_fixture_blobs(30, [[0, 0], [5, 5], [0, 5]], 3), 3, 42),
+    # tests/test_determinism.py
+    "normal_seed7": lambda: (
+        np.random.default_rng(0).standard_normal((3000, 16)).astype(np.float32), 32, 7),
+    "normal_seed8": lambda: (
+        np.random.default_rng(0).standard_normal((3000, 16)).astype(np.float32), 32, 8),
+    "file_seed123": lambda: (
+        np.random.default_rng(1).standard_normal((500, 8)).astype(np.float32), 8, 123),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_JAX_FIXTURES))
+def test_seed_rows_and_partition_equal_jax_on_its_fixtures(name):
+    """Same seed rows from k-means++, and after Lloyd the same assignment
+    with the same labels (centroids at rtol 1e-5: f32 sums in another
+    order). ``jnp.cumsum`` and ``_prefix_sums`` could round a boundary
+    differently and so pick another row; on these five fixtures they do
+    not, so the comparison is exact and none is excused."""
+    x, k, seed = _JAX_FIXTURES[name]()
+    _, init_key, _ = jax.random.split(jax.random.PRNGKey(seed), 3)
+    want = np.asarray(jkm._kmeans_pp_init(jax.numpy.asarray(x), init_key, k))
+    got = tkm._kmeans_pp_init(torch.from_numpy(x), seed, k).numpy()
+    np.testing.assert_array_equal(got, want)
+    want_c, want_a = jkm.k_means(x, jkm.KMeansParams(n_clusters=k, seed=seed))
+    got_c, got_a = tkm.k_means(x, tkm.KMeansParams(n_clusters=k, seed=seed), device="cpu")
+    np.testing.assert_array_equal(got_a, want_a)
+    np.testing.assert_allclose(got_c, want_c, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("m", [1, 1000, 1024, 1025, 50_000])

@@ -11,6 +11,12 @@ searchers re-score in f32). Many distances tie. The JAX kernel extracts
 each tile's minima in (distance, column) order and merges tiles
 index-stably, so it keeps the lower id on ties as the port does: ids must
 be equal, d² at rtol 1e-5 and atol 1e-5 * |q|^2.
+
+The kernel scores only the chunks its queries probe. Which ones is a rule
+on the probe table and the rows' slots that ``scored_chunks`` states in
+plain torch; it is held here to its property on random and adversarial
+layouts: every probed (query, row) pair lies in a scored chunk, and no chunk
+is scored for nothing.
 """
 
 import jax.numpy as jnp
@@ -121,6 +127,115 @@ def test_masked_local_scan_per_tile_oracle():
         assert (d[tile].numpy()[want_i < 0] == np.float32(3.0e38)).all()
 
 
+def _random_layout(rng, nt, tile, cmax, sort, pad_rows):
+    """Slots of nt tiles of `tile` rows among cmax, sorted within a tile or
+    not; the last `pad_rows` rows point at the last slot, which no query
+    probes, as a searcher's pad rows do."""
+    lcl = rng.integers(0, max(1, cmax - 1), (nt, tile))
+    if sort:
+        lcl = np.sort(lcl, axis=1)
+    flat = lcl.reshape(-1)
+    if pad_rows:
+        flat[-pad_rows:] = cmax - 1
+    return torch.from_numpy(flat.astype(np.int32))
+
+
+# (tiles, tile, cmax, B, queries a block, probability of a probe, sorted slots, pad rows)
+SKIP_CASES = [
+    (6, 1024, 3, 256, 128, 0.01, True, 0),  # the served shape: few clusters a tile
+    (6, 1024, 3, 256, 128, 0.01, False, 300),  # unsorted slots, pad chunks at the end
+    (4, 1024, 300, 130, 128, 0.002, False, 0),  # cmax clusters in every tile
+    (5, 256, 7, 37, 64, 0.05, True, 0),  # a block of 64 queries, B no multiple of it
+    (9, 64, 4, 5, 64, 0.2, True, 10),  # a tile shorter than a chunk
+    (3, 192, 5, 129, 128, 0.03, False, 0),  # a tile that is 1.5 chunks
+    (2, 8192, 40, 16, 128, 0.01, True, 5000),  # 64 chunks a tile: two segments
+    (4, 512, 6, 1, 128, 0.3, True, 0),  # one query
+    (4, 512, 6, 64, 64, 0.0, True, 0),  # nothing probed
+    (4, 512, 6, 64, 64, 1.0, False, 0),  # everything probed
+]
+
+
+@pytest.mark.parametrize("nt,tile,cmax,b,queries,p,sort,pad_rows", SKIP_CASES)
+def test_skip_rule_scores_every_probed_pair(nt, tile, cmax, b, queries, p, sort, pad_rows):
+    rng = np.random.default_rng(nt * tile + cmax + b)
+    lcl = _random_layout(rng, nt, tile, cmax, sort, pad_rows)
+    probe = torch.from_numpy(rng.random((nt, b, cmax)) < p)
+    probe[:, :, cmax - 1] = False  # the pad slot's bit is never set
+    scored = tsc.scored_chunks(probe, lcl, tile, queries)
+    chunk = 128
+    chunks = -(-tile // chunk)
+    groups = -(-b // queries)
+    assert scored.shape == (nt, groups, chunks) and scored.dtype == torch.bool
+    # probed[t, b, r]: query b probes row r of tile t
+    probed = probe.gather(2, lcl.view(nt, 1, tile).expand(nt, b, tile).long())
+    want = torch.zeros((nt, groups, chunks), dtype=torch.bool)
+    for t, q, r in probed.nonzero().tolist():
+        want[t, q // queries, r // chunk] = True
+    # every probed pair lies in a scored chunk, and each scored chunk holds one
+    assert torch.equal(scored, want)
+    if p == 0.0:
+        assert not scored.any()
+    if p == 1.0 and not pad_rows:
+        assert scored.all()
+
+
+def test_skip_rule_adversarial_single_pair():
+    """One probed row in the last chunk of the last tile, for the last query
+    of the second block: exactly that (tile, block, chunk) is scored."""
+    nt, tile, cmax, b, queries = 3, 1024, 9, 200, 128
+    lcl = torch.zeros(nt * tile, dtype=torch.int32)
+    lcl[-1] = 8
+    probe = torch.zeros((nt, b, cmax), dtype=torch.bool)
+    probe[2, 199, 8] = True
+    scored = tsc.scored_chunks(probe, lcl, tile, queries)
+    assert scored.nonzero().tolist() == [[2, 1, 7]]
+    # the same slot probed in a tile that holds no row of it scores nothing
+    probe[:] = False
+    probe[0, 0, 8] = True
+    assert not tsc.scored_chunks(probe, lcl, tile, queries).any()
+
+
+def test_k3s_probe_table_is_k4s_local_mask():
+    """K3 builds its table from mask[b, tile_clusters[t, slot]]: K4's lmask."""
+    x, q, cent = _grid_data(1500, 16, 12, seed=3)
+    _, t = _layout(x, cent, jnp.float32)
+    qt = torch.from_numpy(q)
+    mask = _probe_mask(qt, t["centroids"], t["c_sq"], 3, 12, 128)
+    tc = t["tile_clusters"].long()
+    lmask = mask[:, tc].permute(1, 0, 2).contiguous()
+    nt, cmax = tc.shape
+    for tile_id in range(nt):
+        for slot in range(cmax):
+            assert torch.equal(lmask[tile_id, :, slot], mask[:, tc[tile_id, slot]])
+    scored = tsc.scored_chunks(lmask > 0.5, t["local_cluster"], TILE, 64)
+    # a tile with no scored chunk is one the schedule leaves out or no query probes
+    from pqvector_tpu_torch.kernels.stream_topk import _tile_schedule
+
+    sched = _tile_schedule(mask, t["tile_clusters"])
+    active = set(sched[1 : 1 + int(sched[0])].tolist())
+    assert {int(i) for i in scored.any(2).any(1).nonzero().flatten()} <= active
+
+
+def test_masked_geometry_picks_table_and_backend():
+    emb = torch.zeros((1024, 128), dtype=torch.bfloat16)
+    qf = torch.zeros((256, 128), dtype=torch.bfloat16)
+    assert tsc.masked_geometry("K4", qf, emb, 10, 4) == ("wgmma", 128, 1, 112_736)
+    assert tsc.masked_geometry("K3", qf, emb, 128, 4)[:3] == ("wgmma", 128, 0)
+    assert tsc.masked_geometry("K4", qf[:64].float(), emb.float(), 10, 300)[:3] == ("fma", 64, 0)
+    # the fp32 patch serves 64 queries a block whatever the batch
+    assert tsc.masked_geometry("K4", qf[:, :100].contiguous(), emb[:, :100].contiguous(),
+                               10, 40)[:3] == ("fma", 64, 2)
+    assert tsc.masked_geometry("K3", qf.float(), emb.float(), 100, 4)[:3] == ("fma", 64, 1)
+
+
+def test_stats_argument_is_checked():
+    with pytest.raises(TypeError, match="stats"):
+        tsc.check_stats(torch.zeros(3, dtype=torch.int32), torch.device("cpu"))
+    with pytest.raises(TypeError, match="stats"):
+        tsc.check_stats(torch.zeros(2, dtype=torch.int64), torch.device("cpu"))
+    assert tsc.check_stats(None, torch.device("cpu")) == 0
+
+
 def test_refine_matches_jax():
     rng = np.random.default_rng(8)
     emb = rng.standard_normal((300, 16)).astype(np.float32)
@@ -185,3 +300,37 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
     np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nt,tile,cmax,b,k", [
+    (6, 1024, 3, 256, 10),  # the served shape
+    (4, 1024, 300, 130, 10),  # no probe table in shared memory: cmax above 256
+    (5, 256, 7, 129, 128),  # k = 128: no room for a table on wgmma
+    (3, 192, 5, 37, 7),
+    (2, 8192, 40, 16, 10),  # two segments of 32 chunks
+])
+def test_kernel_counts_the_chunks_the_rule_scores(cuda_device, dtype, nt, tile, cmax, b, k):
+    """Random slots and probes: K4 equals its plain version on grid data and
+    its counters equal ``scored_chunks`` (whole tiles where no table fits)."""
+    rng = np.random.default_rng(nt * tile + cmax)
+    n_pad, d = nt * tile, 16
+    emb = torch.from_numpy(rng.integers(-8, 9, (n_pad, d)).astype(np.float32) / 4).to(
+        cuda_device).to(dtype)
+    sq = (emb.float() ** 2).sum(1)
+    qf = torch.from_numpy(rng.integers(-8, 9, (b, d)).astype(np.float32) / 4).to(
+        cuda_device).to(dtype)
+    lcl = _random_layout(rng, nt, tile, cmax, sort=False, pad_rows=0).to(cuda_device)
+    lmask = torch.from_numpy((rng.random((nt, b, cmax)) < 0.02).astype(np.float32)).to(
+        cuda_device)
+    stats = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    got = tsc.masked_local_scan(qf, emb, sq, lcl, lmask, k, tile, stats=stats)
+    want = tsc.masked_local_scan_plain(qf, emb, sq, lcl, lmask, k, tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    _, queries, words, _ = tsc.masked_geometry("K4", qf, emb, k, cmax)
+    chunks = tsc.scored_chunks(lmask > 0.5, lcl, tile, queries)
+    if not words:
+        chunks = chunks.any(2, keepdim=True).expand(-1, -1, -(-tile // 128))
+    assert stats.tolist() == [int(chunks.any(2).sum()), int(chunks.sum())]

@@ -1,7 +1,9 @@
-"""The score tile shared by K9, K5, K2 and K1 (``csrc/score_tile.cuh``,
+"""The score tile shared by K9, K5, K4, K3, K2 and K1 (``csrc/score_tile.cuh``,
 ``kernels/score_tile.py``): the rule on shapes that picks the back end, the
 launch geometry and the dynamic shared memory as Python functions (for K2
-also the split of the rows into runs, ``stream_topk.scan_units``); the
+also the split of the rows into runs, ``stream_topk.scan_units``; for K4 and
+K3 the width of the probe table, and for K3 the split of the active tiles
+into runs, ``stream_topk.masked_scan_units``); the
 wrappers on CPU tensors against the JAX package's ``pallas_tile_min`` and
 ``pallas_exact_topk`` in interpret mode at the shapes the 128 x 128 tile
 makes awkward; and, on the card, the kernels against their plain versions
@@ -209,6 +211,91 @@ def test_k2_launch_geometry_at_the_main_shape(batch, dtype, d, k, blocks):
     assert score_tile.grid_blocks(batch, backend, units) == blocks
 
 
+# ---------------------------------------------------------------- K4 and K3
+
+
+@pytest.mark.parametrize("k", range(1, 129))
+def test_masked_kernels_shared_memory_fits_for_every_k(k):
+    """K4 and K3 hold K5's and K2's block plus 64 bytes of flags and, where it
+    fits, a probe table of one bit per slot: its width is ceil(cmax / 32)
+    words up to 8, else 0 (the table is then read from device memory), and
+    the launch is within the limit either way."""
+    for backend, queries in (("fma", 64), ("fma", 128), ("wgmma", 128)):
+        base = score_tile.smem_bytes("K5", backend, queries, k)
+        for cmax in (1, 2, 32, 33, 150, 256, 257, 5000):
+            words = score_tile.table_words("K4", backend, queries, k, cmax)
+            assert words == score_tile.table_words("K3", backend, queries, k, cmax)
+            size = score_tile.smem_bytes("K4", backend, queries, k, words)
+            assert size == score_tile.smem_bytes("K3", backend, queries, k, words)
+            assert size <= score_tile.SMEM_LIMIT
+            assert words in (0, -(-cmax // 32)) and words <= score_tile.TABLE_WORDS_MAX
+            if cmax > 32 * score_tile.TABLE_WORDS_MAX:
+                assert words == 0
+            if words:
+                assert size == base + 64 + 1024 + 32 * words + 4 * queries * words
+            else:
+                assert size == base + 64
+                fit = score_tile.smem_bytes("K4", backend, queries, k, -(-cmax // 32))
+                assert cmax > 256 or fit > score_tile.SMEM_LIMIT
+
+
+def test_masked_kernels_table_at_the_corners():
+    """k = 128 at 128 queries on wgmma leaves 512 bytes: no table. The served
+    shape (k = 10, a few clusters a tile) holds one word a query and two
+    blocks on an SM."""
+    assert score_tile.table_words("K4", "wgmma", 128, 128, 2) == 0
+    assert score_tile.smem_bytes("K4", "wgmma", 128, 128, 0) == 231_936 + 64
+    assert score_tile.table_words("K4", "fma", 128, 128, 2) == 1
+    assert score_tile.table_words("K4", "wgmma", 128, 10, 4) == 1
+    served = score_tile.smem_bytes("K4", "wgmma", 128, 10, 1)
+    assert served == 112_736 and score_tile.wave_blocks(served) == 264
+    assert score_tile.stages("K4", "wgmma") == score_tile.stages("K3", "wgmma") == 2
+    assert score_tile.stages("K4", "fma") == score_tile.stages("K3", "fma") == 3
+    # on the CUDA cores a block serves 64 queries whatever the batch: two fit an SM to k = 100
+    assert score_tile.masked_block_queries("wgmma") == 128
+    assert score_tile.masked_block_queries("fma") == 64
+    at_100 = score_tile.smem_bytes("K4", "fma", 64, 100, 1)
+    assert score_tile.wave_blocks(at_100) == 264
+    assert score_tile.wave_blocks(score_tile.smem_bytes("K4", "wgmma", 128, 100, 1)) == 132
+
+
+@pytest.mark.parametrize(
+    "nt,batch,queries,wave,want",
+    [
+        (980, 256, 128, 264, 132),  # the main path: two query groups
+        (980, 1, 128, 264, 264),
+        (980, 64, 64, 264, 264),
+        (980, 256, 64, 264, 66),  # f32 storage: four groups of 64 queries
+        (980, 4096, 128, 264, 8),
+        (980, 256, 128, 132, 66),  # large k: one block an SM
+        (9766, 256, 128, 264, 132),
+        (3, 4096, 128, 264, 3),  # never more runs than tiles
+        (1, 1, 64, 264, 1),
+        (245, 100_000, 128, 264, 1),  # more query groups than a wave: one run each
+    ],
+)
+def test_masked_scan_units_fill_about_one_wave(nt, batch, queries, wave, want):
+    units = tst.masked_scan_units(nt, batch, queries, wave)
+    assert units == want
+    groups = -(-batch // queries)
+    assert 1 <= units <= nt
+    assert units * groups <= max(wave, groups)
+    if nt >= wave:
+        assert units * groups > wave // 2
+
+
+@pytest.mark.parametrize("units", [1, 3, 132, 264])
+@pytest.mark.parametrize("n_active", [0, 1, 131, 132, 133, 906, 980])
+def test_masked_runs_cover_every_active_tile_once(units, n_active):
+    """Run u walks the active tiles u, u + units, ...: together every active
+    tile once, and no run is empty while there are at least `units` tiles."""
+    runs = [list(tst.masked_run_tiles(u, units, n_active)) for u in range(units)]
+    assert sorted(p for run in runs for p in run) == list(range(n_active))
+    if n_active >= units:
+        assert all(runs)
+        assert max(map(len, runs)) - min(map(len, runs)) <= 1
+
+
 # ---------------------------------------------------------------- K9 vs JAX
 
 
@@ -320,6 +407,10 @@ def test_sources_and_python_agree_on_shared_memory(cuda_device):
                 "K5", backend, queries, k)
             assert lib.pqv_stream_exact_topk_smem(flag, queries, k) == score_tile.smem_bytes(
                 "K2", backend, queries, k)
+            for words in (0, 1, 8):
+                want = score_tile.smem_bytes("K4", backend, queries, k, words)
+                assert lib.pqv_masked_local_topk_smem(flag, queries, k, words) == want
+                assert lib.pqv_stream_masked_topk_smem(flag, queries, k, words) == want
     assert lib.pqv_assign_smem() == score_tile.smem_bytes("K1", "fma", 128)
 
 

@@ -18,6 +18,7 @@ gather path do not always keep the lower id at the boundary. Among
 themselves the port's modes must agree exactly.
 """
 
+import os
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -33,6 +34,7 @@ from pqvector_tpu.io.embed import read_index_from_parquet as j_read_index
 from pqvector_tpu.query.device import DeviceIvfSearcher as JSearcher
 from pqvector_tpu_torch import DeviceIvfSearcher
 from pqvector_tpu_torch.convert import copy_searcher_knobs
+from pqvector_tpu_torch.errors import ValidationError
 from pqvector_tpu_torch.io.embed import read_index_from_parquet as t_read_index
 
 N, D, KC, K, NPROBE, TILE = 3000, 16, 12, 10, 3, 256
@@ -241,3 +243,49 @@ def test_cosine_metric_end_to_end(tmp_path):
     index, _ = j_read_index(path)
     js = JSearcher(index, x, row_tile=TILE, metric="cosine", cluster_sorted=True)
     assert_match(ts.search(q, K, NPROBE), js.search(q, K, NPROBE, "gather"), q / 100.0)
+
+
+def test_from_parquet_carries_the_jax_searchers_provenance(indexed):
+    """``source_path``, ``source_column`` and ``source_key`` on one file, and
+    ``spill`` / ``assign_dtype`` in the reference's positions."""
+    path, _, _ = indexed
+    js = JSearcher.from_parquet(path, jnp.float32, TILE, 0.0, jnp.float32)
+    ts = DeviceIvfSearcher.from_parquet(path, torch.float32, TILE, 0.0, torch.float32,
+                                        device="cpu")
+    assert ts.source_path == js.source_path == os.fspath(path)
+    assert ts.source_column == js.source_column == "embedding"
+    assert ts.source_key == js.source_key
+    assert ts.source_key == (os.stat(path).st_size, os.stat(path).st_mtime_ns)
+    with pytest.raises(ValidationError, match="spill.*not ported"):
+        DeviceIvfSearcher.from_parquet(path, spill=0.25, device="cpu")
+
+
+def test_from_parquet_source_key_when_the_file_cannot_be_stated(indexed, monkeypatch):
+    path, _, _ = indexed
+    real_stat = os.stat
+
+    def no_stat(p, *args, **kwargs):
+        if os.fspath(p) == os.fspath(path):
+            raise OSError("gone")
+        return real_stat(p, *args, **kwargs)
+
+    ts = DeviceIvfSearcher.from_parquet(path, row_tile=TILE, device="cpu")
+    assert ts.source_key != (-1, -1)
+    import pqvector_tpu_torch.query.device as tdevice
+
+    monkeypatch.setattr(tdevice.os, "stat", no_stat)
+    ts = DeviceIvfSearcher.from_parquet(path, row_tile=TILE, device="cpu")
+    assert ts.source_key == (-1, -1)
+
+
+@pytest.mark.parametrize("method,args", [
+    ("cluster_sorted", ()), ("transfer_dtype", ("bfloat16",)), ("assign_backend", ("host",)),
+    ("streaming", ()), ("build_new", ("out.parquet",)),
+])
+def test_unported_builder_methods_raise_by_name(indexed, method, args):
+    """The JAX builder has them (it must not raise AttributeError either)."""
+    path, _, _ = indexed
+    assert callable(getattr(pqvector_tpu.IndexBuilder(path, "embedding"), method))
+    builder = pqvector_tpu_torch.IndexBuilder(path, "embedding", device="cpu")
+    with pytest.raises(ValidationError, match=f"{method} is not ported"):
+        getattr(builder, method)(*args)

@@ -338,12 +338,15 @@ def test_stream_exact_continuous_f32_awkward(d, k, b):
 
 
 def test_k2_and_k3_split_rows_by_their_own_rules():
-    """K2 fills one wave of 128-query blocks with runs of rows; K3 still
-    splits the tiles over blocks of 16 queries."""
+    """K2 fills one wave of 128-query blocks with runs of rows; K3 fills one
+    wave of 128-query blocks with runs of active tiles, never more runs than
+    tiles."""
     assert tst.scan_units(7840, 256) == 131
-    assert tst.masked_scan_units(245, 256) == 64
+    assert tst.masked_scan_units(245, 256) == 132
     assert tst.masked_scan_units(245, 1) == 245
     assert tst.masked_scan_units(3, 4096) == 3
+    assert tst.masked_scan_units(980, 256) == 132
+    assert list(tst.masked_run_tiles(5, 132, 906)) == [5, 137, 269, 401, 533, 665, 797]
 
 
 @pytest.fixture
