@@ -22,7 +22,10 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    for K4 and K3 on that tile also a last tile whose last chunks are all pad
    rows, a tile of 64 chunks, unsorted slots, 1 to 300 clusters a tile, three
    splits of the active tiles, and their counters of scored tiles and chunks
-   equal to the skip rule's) must agree exactly; at the main path's shapes the
+   equal to the skip rule's; for K6 on that tile the same in file order, its
+   counters held to ``masked_scan_chunks``; for K7 and K8 on that tile every
+   back end, wgmma, the fp32 patch and the dp4a patch, at 64 and 128
+   queries a block) must agree exactly; at the main path's shapes the
    ids must agree except where the two picks tie within the f32 tolerance
    (the int8 key tables exactly, K9 within the certificate's envelope, the
    gathers bit for bit), and both are timed with CUDA events (median of
@@ -70,8 +73,8 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    up to near-ties, K1 against 4096 centroids equal to its plain version up
    to near-ties).
 
-The last lines are the tiles and chunks K4 and K3 scored of those a full
-walk scores, the kernels' JSON, the card's name and power limit, and
+The last lines are the tiles and chunks K4, K3 and K6 scored of those a
+full walk scores, the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -265,6 +268,113 @@ def phase2_small(torch, st, sc, ka):
     log(f"phase 2a K2/K3/K4: {cases} cases (k=1..128, n<k, pad rows, f32/bf16): exact")
 
 
+def phase2_k6_score_tile(torch, st, sc):
+    """K6 on the score tile against its plain version on 1/4-grid data in
+    file order (rows in random order, so a tile holds rows of most
+    clusters), equal bit for bit on both back ends: B not a multiple of 64
+    or 128, k = 1 to 128, widths that end inside a stage, n < k, pad rows,
+    a tile shorter than a chunk and one of 64 chunks, one cluster and 20000
+    (a probe table too wide for shared memory, as at k = 128 on wgmma); the
+    kernel's counters of scored tiles and chunks equal to
+    ``masked_scan_chunks``'. -> cases."""
+    dev = torch.device(DEVICE)
+    cases = mma = tableless = 0
+    # (n, tile, k, d, B, clusters)
+    for n, tile, k, d, b, kc in (
+            (5000, 256, 128, 72, 128, 20), (3000, 1024, 10, 96, 129, 20),
+            (3000, 1024, 10, 100, 257, 7), (700, 64, 10, 8, 37, 20),
+            (5, 256, 9, 136, 5, 3), (20000, 8192, 10, 16, 13, 40),
+            (9000, 1024, 100, 128, 130, 300), (4000, 512, 1, 3, 1, 9),
+            (6000, 1024, 64, 40, 65, 50), (3000, 512, 128, 24, 70, 20000),
+            (600, 128, 5, 40, 3, 1)):
+        cent_np, emb, sq, lcl, tc, q = grid_layout(n, d, kc, tile, seed=n + k + d + 1,
+                                                   nq=b, shuffle=True)
+        rc = tc[np.arange(emb.shape[0]) // tile, lcl]  # row -> cluster, kc on pad rows
+        kc_pad = -(-(kc + 1) // 128) * 128
+        for dt in (torch.float32, torch.bfloat16):
+            E = torch.from_numpy(emb).to(dev).to(dt)
+            S = torch.from_numpy(sq).to(dev)
+            RC = torch.from_numpy(rc).to(dev)
+            C = torch.from_numpy(cent_np).to(dev)
+            Q = torch.from_numpy(q).to(dev)
+            qf = Q.to(dt)
+            mask = st._probe_mask(Q, C, (C * C).sum(1), min(3, kc), min(20, kc), kc_pad)
+            backend, queries, words, _ = sc.masked_geometry("K6", qf, E, k, kc_pad)
+            rule = sc.masked_scan_chunks(mask, RC, tile, queries, table=bool(words))
+            want_stats = [int(rule.any(2).sum()), int(rule.sum())]
+            stats = torch.zeros(2, dtype=torch.int32, device=dev)
+            args = (qf, E, S, RC, mask, k, tile)
+            g, w = sc.masked_scan(*args, stats=stats), sc.masked_scan_plain(*args)
+            torch.cuda.synchronize()
+            what = f"K6 small n={n} tile={tile} k={k} d={d} B={b} kc={kc} {dt}"
+            check(torch.equal(g[1], w[1]) and torch.equal(g[0], w[0]),
+                  f"{what}: {int((g[1] != w[1]).sum())} ids differ from plain")
+            check(stats.tolist() == want_stats,
+                  f"{what}: scored {stats.tolist()} tiles and chunks, the rule says "
+                  f"{want_stats}")
+            cases += 1
+            mma += backend == "wgmma"
+            tableless += not words
+    log(f"phase 2a K6, score tile: {cases} cases (k 1..128, B 1..257, d 3..136, tile "
+        f"64..8192, n < k, pad rows, file order, 1..20000 clusters, f32/bf16): ids and "
+        f"distances equal to the plain version, scored tiles and chunks equal to the "
+        f"rule's; {mma} on wgmma, {tableless} without the probe table in shared memory")
+    return cases
+
+
+def phase2_binscan_score_tile(torch, bs, quantize):
+    """K7 and K8 on the score tile against their plain versions on 1/4-grid
+    data, key tables equal bit for bit on every back end: wgmma (bf16,
+    d % 8 == 0), the fp32 patch (f32; bf16 of d = 100) and the dp4a patch
+    (int8, d = 33 and 200), each with 64 queries a block (B <= 64) and 128;
+    expand 1, 2 and 4, fewer selected slots than tiles, a partial last tile
+    group. -> cases."""
+    dev = torch.device(DEVICE)
+    cases = 0
+    seen = set()
+    # (n, d, tile, expand, dtype, slots selected or None, B)
+    for n, d, tile, expand, dt, n_sel, b in (
+            (5000, 64, 256, 1, "bf16", None, 13), (5000, 128, 256, 2, "bf16", None, 129),
+            (9000, 72, 256, 4, "bf16", 9, 257), (6000, 100, 256, 2, "bf16", None, 65),
+            (6000, 100, 256, 1, "bf16", 9, 3), (5000, 40, 128, 4, "f32", None, 37),
+            (7000, 96, 512, 2, "f32", 10, 200), (3000, 3, 128, 1, "f32", None, 64),
+            (6000, 33, 512, 2, "int8", 9, 77), (3000, 200, 256, 1, "int8", None, 20),
+            (8000, 128, 256, 4, "int8", 11, 130), (4000, 64, 128, 2, "int8", None, 1)):
+        emb, sq, q = grid_rows(n, d, tile, seed=n + d + tile + b, nq=b)
+        E32 = torch.from_numpy(emb).to(dev)
+        S = torch.from_numpy(sq).to(dev)
+        Q = torch.from_numpy(q).to(dev)
+        scale = None
+        if dt == "int8":
+            E, scale = quantize(E32)
+        else:
+            E = E32.to(torch.bfloat16 if dt == "bf16" else torch.float32)
+        nt = emb.shape[0] // tile
+        back = bs.backend(E, Q.to(E.dtype) if dt != "int8" else Q)
+        if n_sel is None:
+            got = bs.binned_scan_keys(Q, E, S, tile, expand, scale)
+            want = bs.binned_scan_keys_plain(Q, E, S, tile, expand, scale)
+        else:
+            sel = torch.from_numpy(
+                np.random.default_rng(n_sel).permutation(nt)[:n_sel].astype(np.int32)
+            ).to(dev)
+            got = bs.binned_scan_select_keys(Q, E, S, sel, tile, expand, scale)
+            want = bs.binned_scan_select_keys_plain(Q, E, S, sel, tile, expand, scale)
+        torch.cuda.synchronize()
+        name = "K7" if n_sel is None else "K8"
+        check(torch.equal(got, want),
+              f"{name} score tile n={n} d={d} tile={tile} expand={expand} {dt} B={b} "
+              f"({back}): {int((got != want).sum())} keys differ from plain")
+        check(bool((got != 2**31 - 1).all()), f"{name} score tile: a bin was never touched")
+        seen.add((back, 64 if back != "wgmma" and b <= 64 else 128))
+        cases += 1
+    check(len(seen) == 5, f"K7/K8 score tile cases missed a back end: {sorted(seen)}")
+    log(f"phase 2a K7/K8, score tile: {cases} cases (wgmma, fp32 and dp4a patches of 64 "
+        f"and 128 queries, d 3..200, B 1..257, expand 1/2/4, fewer selected slots than "
+        f"tiles): key tables equal to the plain versions")
+    return cases
+
+
 def grid_rows(n, d, tile, seed, nq=13):
     """Rows on a 1/4 grid with many ties, padded to a multiple of ``tile``
     (+3e38 norms on pad rows), and ``nq`` queries near them."""
@@ -408,21 +518,36 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
                           fo16._max_probe_bucket(nprobe_2b), kc_pad)
     xf, sqf = stored_f64(fo16.emb), fo16._pallas_emb_sq().cpu().numpy().astype(np.float64)
     m_args = (qf16, fo16.emb, fo16._pallas_emb_sq(), fo16.row_cluster, mask, K, tile)
-    err, swaps = compare_topk(sc._final_merge(*sc.masked_scan(*m_args), K),
+    stats = torch.zeros(2, dtype=torch.int32, device=dev)
+    err, swaps = compare_topk(sc._final_merge(*sc.masked_scan(*m_args, stats=stats), K),
                               sc._final_merge(*sc.masked_scan_plain(*m_args), K),
                               q16, xf, sqf)
+    backend, queries, words, _ = sc.masked_geometry("K6", qf16, fo16.emb, K, kc_pad)
+    rule = sc.masked_scan_chunks(mask, fo16.row_cluster, tile, queries, table=bool(words))
+    want_stats = [int(rule.any(2).sum()), int(rule.sum())]
+    check(stats.tolist() == want_stats,
+          f"phase 2b K6: scored {stats.tolist()} (block, tile) and (block, chunk) pairs, "
+          f"the rule says {want_stats}")
     results["K6"] = {
         "max_abs_err": err,
         "ms": time_ms(lambda: sc.masked_scan(*m_args)),
         "plain_ms": time_ms(lambda: sc.masked_scan_plain(*m_args)),
+        "scored": {"backend": backend, "table_words": words,
+                   "block_tiles": rule.shape[0] * rule.shape[1],
+                   "block_tiles_scored": want_stats[0], "block_chunks": rule.numel(),
+                   "block_chunks_scored": want_stats[1]},
     }
     log(f"phase 2b K6 bf16 file order, nprobe={nprobe_2b}: {swaps} near-tie swaps "
-        f"after the merge, max err {err:.3g}; kernel {results['K6']['ms']:.3f} ms, "
+        f"after the merge, max err {err:.3g}; blocks of {queries} queries on {backend} "
+        f"scored {want_stats[0]} of {rule.shape[0] * rule.shape[1]} (block, tile) and "
+        f"{want_stats[1]} of {rule.numel()} (block, chunk) pairs, as the rule says; "
+        f"kernel {results['K6']['ms']:.3f} ms, "
         f"plain {results['K6']['plain_ms']:.3f} ms")
     n_pad = fo16.emb.shape[0]
+    row_bytes, ops = probed_work(torch, mask, fo16.row_cluster, DIM, 2)
     results["K6"].update(
-        bound_of(nbytes_of(*m_args[:5]) + (n_pad // tile) * BATCH * K * 8,
-                 2.0 * BATCH * n_pad * DIM, "bf16"),
+        bound_of(row_bytes + nbytes_of(qf16, mask) + (n_pad // tile) * BATCH * K * 8, ops,
+                 "bf16"),
         library_ms=masked_library_ms(torch, qf16, fo16.emb, fo16._pallas_emb_sq(),
                                      fo16.row_cluster, mask, K, reps=5))
     del xf
@@ -1653,6 +1778,8 @@ def main() -> None:
     phase2_score_tile(torch, tm, sc)
     phase2_small_k1_k2(torch, ka, st)
     phase2_masked_score_tile(torch, st, sc)
+    phase2_k6_score_tile(torch, st, sc)
+    phase2_binscan_score_tile(torch, bs, _quantize_rows_i8)
     phase2_small_gather(torch, cp)
     results: dict[str, dict] = {}
     t0 = time.perf_counter()
@@ -1881,7 +2008,9 @@ def main() -> None:
     log("slice 3 path: " + json.dumps(main7))
     log("deep rung: " + json.dumps(main6))
     masked_work.update(main6["masked"]["work"])
-    log("K4/K3 tiles and chunks scored of those a full walk scores: " + json.dumps(masked_work))
+    masked_work[f"K6 1M x {DIM} bf16, file order"] = results["K6"].pop("scored")
+    log("K4/K3/K6 tiles and chunks scored of those a full walk scores: "
+        + json.dumps(masked_work))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // K7 and K8: the fused binned-min scan, over every tile (K7) or over a list
-// of selected tiles (K8), in an f32/bf16 body and an int8 body.
+// of selected tiles (K8), for f32, bf16 and int8 storage.
 //
 // Replace pqvector_tpu/kernels/binscan.py: pallas_binned_scan
 // (_binscan_kernel, _binscan8_kernel) and pallas_binned_scan_select
@@ -19,291 +19,243 @@
 // depend on the order, and since every bin is touched (the wrapper checks
 // nt >= expand * n_lg, or cap for K8) it equals the TPU's table.
 //
-// Block (query group of 16, slab, split) owns one slab of the table: for
-// each slot of its slab block (tile groups with tg % expand == e) it scores
-// the one lane group that folds into that slab, g3 = (slab - t) mod n_lg,
-// so every (slot, lane group) pair is scored by exactly one block. Its share
-// of the table is [16, 128], and thread (r, g), which scores lane r for
-// queries 8g .. 8g+7, keeps its eight bins in registers: a plain min, no
-// shared table and no atomics until the block folds them into the global
-// table. Shared memory holds only the staged rows, so several blocks fit on
-// an SM.
+// Block (query group, slab, split) owns one slab of the table: for each
+// slot of its slab block (tile groups with tg % expand == e) it scores the
+// one lane group that folds into that slab, g3 = (slab - t) mod n_lg, so
+// every (slot, lane group) pair is scored by exactly one block of a query
+// group (SlabChunks; kernels/binscan.py:chunk_schedule is the same index
+// math in Python). It walks those lane groups as 128-row chunks of the score
+// tile (score_tile.cuh, walk_list). A lane group is a chunk, so the sum for
+// (query, row r of the chunk) always folds into bin (query, lane r): the same
+// accumulator position in every chunk. The block's bins are therefore an
+// int array shaped like the tile's accumulator, in registers, and the
+// epilogue is elementwise: key = (bits((acc + |x|^2) + |q|^2) & hi) | code,
+// then min. No shared table, no shuffle, no list; one atomicMin per bin when
+// the walk is done.
 //
-// What bounds it on the H100: the CUDA-core score loop (fp32 FMA from
-// shared memory, 8 FMAs per 3 shared loads) and the staging of the rows,
-// each of whose elements feeds 16 FMAs; rows are staged with 16-byte loads
-// where their width allows. bf16 storage widens to fp32 on load, so its
-// products are exact. The int8 body scores 4 codes per __dp4a with exact
-// int32 sums, as the int8 MXU does. No tensor cores, TMA or wgmma yet.
+// Back ends (score_tile.cuh): bf16 with d % 8 == 0 and 16-byte aligned
+// arrays on wgmma (MmaTile, 128 queries a block); f32, and bf16 of other
+// widths, on the fp32 patch (FmaTile, 128 queries, 64 for a batch of at most
+// 64); int8 codes on the dp4a patch (Dp4aTile, the same shapes), whose int32
+// sums are exact, as the int8 MXU's are. What bounds it on the H100 (1M x
+// 128, B = 256): bf16 takes 0.52 ms against 0.08 for its bytes; with 64 bins
+// beside 64 sums a thread, one block fits an SM, so the key fold and the
+// barriers of a chunk do not overlap the tensor cores' work. f32 takes 2.4
+// ms, the fp32 FMAs of the patch at about half the 67 TFLOP/s peak (K9's
+// rate); int8 1.1 ms, the dp4a instructions, four products each on the same
+// patch, at about half their rate.
 //
 // Arithmetic order fixes the key bits, so it follows the TPU's:
 // f32/bf16 part = (scores + |x|^2) + |q|^2 with q pre-scaled by -2 in the
 // storage dtype; int8 part = max((f32(dot) * (qt * sr) + |x|^2) + |q|^2, 0)
 // with qt = -2 * (query scale). __fmul_rn/__fadd_rn keep nvcc from
-// contracting these into FMAs.
+// contracting these into FMAs. The fp32 patch adds the products in ascending
+// dimension order with __fmaf_rn from zero, so its f32 keys are those of a
+// sequential fmaf loop; wgmma's fp32 sums are the hardware's order.
 #include <climits>
 #include <type_traits>
 
-#include "common.cuh"
+#include "score_tile.cuh"
 
 namespace pqv {
-
-constexpr int kBinQB = 16;      // queries per block
-constexpr int kBinLanes = 128;  // rows of a lane group, lanes of a slab
-constexpr int kBinQT = kBinQB * kBinLanes / kThreads;  // queries per thread
-constexpr int kBinDK = 64;      // f32/bf16 dimensions staged per step
-constexpr int kBinDW = 32;      // int8: 4-code words staged per step
-static_assert(kBinQT == 8, "thread (r, g) scores row r for 8 queries");
 
 struct BinArgs {
   const void* q;        // [B, d]: -2q in the storage dtype, or int8 codes
   const float* qsq;     // [B] |q|^2
-  const float* qt;      // [B] -2 * query scale (int8 body)
+  const float* qt;      // [B] -2 * query scale (int8)
   const void* emb;      // [n_pad, d] f32, bf16 or int8 codes
   const float* emb_sq;  // [n_pad] |x|^2, +3e38 on pad rows
-  const float* scale;   // [n_pad] row scale (int8 body)
+  const float* scale;   // [n_pad] row scale (int8)
   const int* sel;       // [n_units] tile of each slot (K8), or null (K7)
   int* out;             // [expand * n_lg, B, 128], INT32_MAX on entry
   int B, d, tile, n_units, expand, tg_bits, code_bits, splits;
 };
 
-struct __align__(16) BinStage {
-  union {
-    struct {
-      float x[kBinLanes][kBinDK + 1];  // +1 column: rows in distinct banks
-      float qT[kBinDK][kBinQB];
-    } f;
-    struct {
-      int x[kBinLanes][kBinDW + 1];
-      int qT[kBinDW][kBinQB];
-    } i;
-  };
+// The chunks of block (slab, split): the slots of slab block e = slab / n_lg
+// in order (tile groups e, e + expand, ...; only the last tile group may be
+// partial), cut into `splits` near-equal runs; chunk c is the lane group g3
+// of slot(c) that folds into slab sl = slab % n_lg.
+struct SlabChunks {
+  const int* sel;
+  int tile, n_lg, expand, e, sl, lo, n, tg_bits;
+
+  __device__ __forceinline__ SlabChunks(const BinArgs& a, int slab, int split)
+      : sel(a.sel), tile(a.tile), n_lg(a.tile / kTR), expand(a.expand),
+        tg_bits(a.tg_bits) {
+    e = slab / n_lg;
+    sl = slab % n_lg;
+    const int full = a.n_units / n_lg, rem = a.n_units % n_lg;
+    const long long m_full = full > e ? (full - e + expand - 1) / expand : 0;
+    const long long cnt = m_full * n_lg + ((rem && full % expand == e) ? rem : 0);
+    lo = (int)(cnt * split / a.splits);
+    n = (int)(cnt * (split + 1) / a.splits) - lo;
+  }
+  __device__ __forceinline__ int slot(int c) const {
+    const int i = lo + c;
+    return (e + (i / n_lg) * expand) * n_lg + i % n_lg;
+  }
+  __device__ __forceinline__ int g3(int s) const { return (sl - s % n_lg + n_lg) % n_lg; }
+  // The first row of chunk c.
+  __device__ __forceinline__ int operator()(int c) const {
+    const int s = slot(c);
+    return (sel != nullptr ? sel[s] : s) * tile + g3(s) * kTR;
+  }
+  // The provenance of chunk c's rows.
+  __device__ __forceinline__ int code(int c) const {
+    const int s = slot(c);
+    return (g3(s) << tg_bits) + s / n_lg;
+  }
 };
 
-// The 16 bytes of w as f32 values: 4 floats, or 8 bf16 widened (a bf16 is
-// the high half of an f32, so the widening is exact).
-template <typename T>
-__device__ __forceinline__ void widen16(const uint4& w, float* dst) {
-  const unsigned u[4] = {w.x, w.y, w.z, w.w};
+// The epilogue: this thread's bins (query, lane) of the block's slab, one
+// per accumulator position, and the chunk's norms (and int8 scales) staged
+// beside the ring.
+template <class Tile>
+struct BinFold {
+  static constexpr bool kInt8 = std::is_same_v<typename Tile::Storage, int8_t>;
+  static constexpr int NQ = Tile::kPerThread;
+  const SlabChunks& sched;
+  const float* emb_sq;
+  const float* scale;
+  float* sqs;  // shared, [2][kTR]: the norms of this chunk and the next
+  float* scs;  // shared, [2][kTR]: their row scales (int8)
+  int hi_mask;
+  float qsq[NQ], qt[NQ];
+  int best[Tile::kGroups * Tile::kRun * NQ];
+
+  __device__ __forceinline__ BinFold(const BinArgs& a, const SlabChunks& s, const Tile& t,
+                                     int q0, char* mem)
+      : sched(s), emb_sq(a.emb_sq), scale(a.scale), sqs(reinterpret_cast<float*>(mem)),
+        scs(reinterpret_cast<float*>(mem) + 2 * kTR), hi_mask(~((1 << a.code_bits) - 1)) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if constexpr (std::is_same_v<T, float>) {
-      dst[j] = __uint_as_float(u[j]);
-    } else {
-      dst[2 * j] = __uint_as_float(u[j] << 16);
-      dst[2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+    for (int jq = 0; jq < NQ; ++jq) {
+      const int b = q0 + t.query(jq);
+      qsq[jq] = b < a.B ? a.qsq[b] : 0.f;
+      qt[jq] = (kInt8 && b < a.B) ? a.qt[b] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < Tile::kGroups * Tile::kRun * NQ; ++i) best[i] = INT_MAX;
+  }
+
+  __device__ __forceinline__ void begin(int, int r0, int slot) {
+    if (threadIdx.x < kTR) {
+      sqs[slot * kTR + threadIdx.x] = emb_sq[r0 + threadIdx.x];
+      if constexpr (kInt8) scs[slot * kTR + threadIdx.x] = scale[r0 + threadIdx.x];
     }
   }
-}
 
-// Stage rows row0 .. row0 + 127, dimensions d0 .. d0 + kBinDK - 1, as f32
-// (zero past d): 16-byte loads where every row starts 16-byte aligned.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* emb, int d, size_t row0,
-                                           int d0, float (*x)[kBinDK + 1]) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = kBinDK / kVec;
-  if (d % kVec == 0 && (reinterpret_cast<uintptr_t>(emb) & 15) == 0) {
-    for (int v = threadIdx.x; v < kBinLanes * kPerRow; v += kThreads) {
-      const int rr = v / kPerRow, cc = (v % kPerRow) * kVec;
-      float* dst = &x[rr][cc];
-      if (d0 + cc < d) {
-        widen16<T>(*reinterpret_cast<const uint4*>(emb + (row0 + rr) * d + d0 + cc), dst);
-      } else {
+  __device__ __forceinline__ void chunk(const Tile& t, int c, int, int slot) {
+    const float* sq = sqs + slot * kTR;
+    const float* sr = scs + slot * kTR;
+    const int code = sched.code(c);
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) dst[j] = 0.f;
+    for (int g = 0; g < Tile::kGroups; ++g) {
+#pragma unroll
+      for (int l = 0; l < Tile::kRun; ++l) {
+        const int r = t.row_base(g) + l;
+        const float s = sq[r];
+        float rs = 0.f;
+        if constexpr (kInt8) rs = sr[r];
+#pragma unroll
+        for (int jq = 0; jq < NQ; ++jq) {
+          float p;
+          if constexpr (kInt8) {
+            const float sc =
+                __fmul_rn(__int2float_rn(t.value(g, l, jq)), __fmul_rn(qt[jq], rs));
+            p = __fadd_rn(__fadd_rn(sc, s), qsq[jq]);
+            p = p < 0.f ? 0.f : p;  // quantization can push 0 below
+          } else {
+            p = __fadd_rn(__fadd_rn(t.value(g, l, jq), s), qsq[jq]);
+          }
+          int& bin = best[(g * Tile::kRun + l) * NQ + jq];
+          bin = min(bin, (__float_as_int(p) & hi_mask) | code);
+        }
       }
     }
-  } else {
-    for (int e = threadIdx.x; e < kBinLanes * kBinDK; e += kThreads) {
-      const int rr = e / kBinDK, cc = e % kBinDK, col = d0 + cc;
-      x[rr][cc] = col < d ? to_f32(emb[(row0 + rr) * d + col]) : 0.f;
+  }
+
+  // Fold the bins into the table's slab `slab`.
+  __device__ __forceinline__ void write(const Tile& t, int* out, int slab, int q0, int B) const {
+#pragma unroll
+    for (int jq = 0; jq < NQ; ++jq) {
+      const int b = q0 + t.query(jq);
+      if (b >= B) continue;
+      int* row = out + ((size_t)slab * B + b) * kTR;
+#pragma unroll
+      for (int g = 0; g < Tile::kGroups; ++g)
+#pragma unroll
+        for (int l = 0; l < Tile::kRun; ++l)
+          atomicMin(row + t.row_base(g) + l, best[(g * Tile::kRun + l) * NQ + jq]);
     }
   }
+};
+
+constexpr int kBinStages = 3;
+
+// 128 queries a block keep 64 sums and 64 bins a thread: one block an SM.
+template <class Tile>
+constexpr int bin_blocks_per_sm() {
+  return Tile::kQueries == 128 ? 1 : 2;
 }
 
-// Dot products of one lane group (rows row0 .. row0 + 127) with the block's
-// queries: thread (r, g) gets row row0 + r for queries 8g .. 8g + 7.
-template <typename T>
-__device__ __forceinline__ void score_lane_group(const BinArgs& a, BinStage& s,
-                                                 int q0, size_t row0,
-                                                 float acc[kBinQT]) {
-  const T* q = static_cast<const T*>(a.q);
-  const int t = threadIdx.x, r = t % kBinLanes, g = t / kBinLanes;
-  for (int d0 = 0; d0 < a.d; d0 += kBinDK) {
-    stage_rows<T>(static_cast<const T*>(a.emb), a.d, row0, d0, s.f.x);
-    for (int e = t; e < kBinQB * kBinDK; e += kThreads) {
-      const int qq = e / kBinDK, cc = e % kBinDK;
-      const int b = q0 + qq, col = d0 + cc;
-      s.f.qT[cc][qq] =
-          (b < a.B && col < a.d) ? to_f32(q[(size_t)b * a.d + col]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int cc = 0; cc < kBinDK; ++cc) {
-      const float xv = s.f.x[r][cc];
-      const float4 qa = *reinterpret_cast<const float4*>(&s.f.qT[cc][kBinQT * g]);
-      const float4 qb = *reinterpret_cast<const float4*>(&s.f.qT[cc][kBinQT * g + 4]);
-      acc[0] = fmaf(xv, qa.x, acc[0]);
-      acc[1] = fmaf(xv, qa.y, acc[1]);
-      acc[2] = fmaf(xv, qa.z, acc[2]);
-      acc[3] = fmaf(xv, qa.w, acc[3]);
-      acc[4] = fmaf(xv, qb.x, acc[4]);
-      acc[5] = fmaf(xv, qb.y, acc[5]);
-      acc[6] = fmaf(xv, qb.z, acc[6]);
-      acc[7] = fmaf(xv, qb.w, acc[7]);
-    }
-    __syncthreads();
-  }
+template <class Tile>
+constexpr int binscan_smem() {
+  return 1024 + kBinStages * Tile::kStageBytes + 4 * kTR * 4;
 }
 
-// Four int8 codes p[col .. col + 3] as one word, zero past d.
-__device__ __forceinline__ int load_word(const int8_t* p, int col, int d) {
-  if (col + 3 < d && (reinterpret_cast<uintptr_t>(p + col) & 3) == 0)
-    return *reinterpret_cast<const int*>(p + col);
-  unsigned w = 0;
-  for (int j = 0; j < 4; ++j)
-    if (col + j < d) w |= (unsigned)(uint8_t)p[col + j] << (8 * j);
-  return (int)w;
+template <class Tile>
+__global__ void __launch_bounds__(kThreads, bin_blocks_per_sm<Tile>())
+    binscan_kernel(BinArgs a) {
+  extern __shared__ char dyn[];
+  char* ring = align_ring(dyn);
+  const SlabChunks sched(a, blockIdx.y, blockIdx.z);
+  if (sched.n <= 0) return;  // uniform across the block
+  using T = typename Tile::Storage;
+  const TileOperands<T> op = {static_cast<const T*>(a.q), static_cast<const T*>(a.emb), a.B,
+                              a.d};
+  const int q0 = blockIdx.x * Tile::kQueries;
+  Tile t;
+  BinFold<Tile> epi(a, sched, t, q0, ring + kBinStages * Tile::kStageBytes);
+  walk_list<kBinStages>(t, op, q0, sched.n, sched, ring, epi);
+  epi.write(t, a.out, blockIdx.y, q0, a.B);
 }
 
-__device__ __forceinline__ void score_lane_group_i8(const BinArgs& a,
-                                                    BinStage& s, int q0,
-                                                    size_t row0,
-                                                    int acc[kBinQT]) {
-  const int8_t* q = static_cast<const int8_t*>(a.q);
-  const int8_t* emb = static_cast<const int8_t*>(a.emb);
-  const int t = threadIdx.x, r = t % kBinLanes, g = t / kBinLanes;
-  // 16 codes per load where every row starts 16-byte aligned
-  const bool vec = a.d % 16 == 0 && (reinterpret_cast<uintptr_t>(emb) & 15) == 0;
-  for (int d0 = 0; d0 < a.d; d0 += 4 * kBinDW) {
-    if (vec) {
-      for (int v = t; v < kBinLanes * kBinDW / 4; v += kThreads) {
-        const int rr = v / (kBinDW / 4), w = (v % (kBinDW / 4)) * 4;
-        const int col = d0 + 4 * w;
-        const int4 c = col < a.d
-            ? *reinterpret_cast<const int4*>(emb + (row0 + rr) * a.d + col)
-            : make_int4(0, 0, 0, 0);
-        s.i.x[rr][w] = c.x;
-        s.i.x[rr][w + 1] = c.y;
-        s.i.x[rr][w + 2] = c.z;
-        s.i.x[rr][w + 3] = c.w;
-      }
-    } else {
-      for (int e = t; e < kBinLanes * kBinDW; e += kThreads) {
-        const int rr = e / kBinDW, w = e % kBinDW, col = d0 + 4 * w;
-        s.i.x[rr][w] = col < a.d ? load_word(emb + (row0 + rr) * a.d, col, a.d) : 0;
-      }
-    }
-    for (int e = t; e < kBinQB * kBinDW; e += kThreads) {
-      const int qq = e / kBinDW, w = e % kBinDW;
-      const int b = q0 + qq, col = d0 + 4 * w;
-      s.i.qT[w][qq] = (b < a.B && col < a.d)
-                          ? load_word(q + (size_t)b * a.d, col, a.d)
-                          : 0;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int w = 0; w < kBinDW; ++w) {
-      const int xv = s.i.x[r][w];
-      const int4 qa = *reinterpret_cast<const int4*>(&s.i.qT[w][kBinQT * g]);
-      const int4 qb = *reinterpret_cast<const int4*>(&s.i.qT[w][kBinQT * g + 4]);
-      acc[0] = __dp4a(xv, qa.x, acc[0]);
-      acc[1] = __dp4a(xv, qa.y, acc[1]);
-      acc[2] = __dp4a(xv, qa.z, acc[2]);
-      acc[3] = __dp4a(xv, qa.w, acc[3]);
-      acc[4] = __dp4a(xv, qb.x, acc[4]);
-      acc[5] = __dp4a(xv, qb.y, acc[5]);
-      acc[6] = __dp4a(xv, qb.z, acc[6]);
-      acc[7] = __dp4a(xv, qb.w, acc[7]);
-    }
-    __syncthreads();
-  }
+template <class Tile>
+int launch_binscan(const BinArgs& a, cudaStream_t st) {
+  auto kernel = binscan_kernel<Tile>;
+  constexpr int smem = binscan_smem<Tile>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(ceil_div(a.B, Tile::kQueries), a.expand * (a.tile / kTR), a.splits);
+  kernel<<<grid, kThreads, smem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
-// DT: 0 f32, 1 bf16, 2 int8 codes.
-template <int DT>
-__global__ void __launch_bounds__(kThreads) binscan_kernel(BinArgs a) {
-  __shared__ BinStage s;
-  const int q0 = blockIdx.x * kBinQB;
-  const int n_lg = a.tile / kBinLanes;
-  const int e = blockIdx.y / n_lg;   // slab block
-  const int sl = blockIdx.y % n_lg;  // slab within it
-  // Slots of slab block e, in order: tile groups e, e + expand, ...; only
-  // the last tile group may be partial.
-  const int full = a.n_units / n_lg, rem = a.n_units % n_lg;
-  const long long m_full = full > e ? (full - e + a.expand - 1) / a.expand : 0;
-  const long long cnt =
-      m_full * n_lg + ((rem && full % a.expand == e) ? rem : 0);
-  const int lo = (int)(cnt * blockIdx.z / a.splits);
-  const int hi = (int)(cnt * (blockIdx.z + 1) / a.splits);
-  if (lo >= hi) return;  // uniform across the block
-  const int t = threadIdx.x, r = t % kBinLanes, g = t / kBinLanes;
-  const int hi_mask = ~((1 << a.code_bits) - 1);
-  float qsq[kBinQT], qt[kBinQT];
-  int best[kBinQT];
-#pragma unroll
-  for (int j = 0; j < kBinQT; ++j) {
-    const int b = q0 + kBinQT * g + j;
-    qsq[j] = b < a.B ? a.qsq[b] : 0.f;
-    qt[j] = (DT == 2 && b < a.B) ? a.qt[b] : 0.f;
-    best[j] = INT_MAX;
-  }
-  for (int i = lo; i < hi; ++i) {
-    const int slot = (e + (i / n_lg) * a.expand) * n_lg + i % n_lg;
-    const int tile_id = a.sel ? a.sel[slot] : slot;
-    const int tg = slot / n_lg;
-    const int g3 = (sl - slot % n_lg + n_lg) % n_lg;  // (slot + g3) % n_lg == sl
-    const size_t row0 = (size_t)tile_id * a.tile + (size_t)g3 * kBinLanes;
-    const size_t row = row0 + r;
-    float part[kBinQT];
-    if constexpr (DT == 2) {
-      int acc[kBinQT] = {};
-      score_lane_group_i8(a, s, q0, row0, acc);
-      const float sr = a.scale[row], sq = a.emb_sq[row];
-#pragma unroll
-      for (int j = 0; j < kBinQT; ++j) {
-        const float sc = __fmul_rn(__int2float_rn(acc[j]), __fmul_rn(qt[j], sr));
-        const float p = __fadd_rn(__fadd_rn(sc, sq), qsq[j]);
-        part[j] = p < 0.f ? 0.f : p;  // quantization can push 0 below
-      }
-    } else {
-      float acc[kBinQT] = {};
-      using T = std::conditional_t<DT == 1, __nv_bfloat16, float>;
-      score_lane_group<T>(a, s, q0, row0, acc);
-      const float sq = a.emb_sq[row];
-#pragma unroll
-      for (int j = 0; j < kBinQT; ++j) part[j] = __fadd_rn(__fadd_rn(acc[j], sq), qsq[j]);
-    }
-    const int code = (g3 << a.tg_bits) + tg;
-#pragma unroll
-    for (int j = 0; j < kBinQT; ++j)
-      best[j] = min(best[j], (__float_as_int(part[j]) & hi_mask) | code);
-  }
-#pragma unroll
-  for (int j = 0; j < kBinQT; ++j) {
-    const int b = q0 + kBinQT * g + j;
-    if (b < a.B) atomicMin(&a.out[((size_t)blockIdx.y * a.B + b) * kBinLanes + r], best[j]);
-  }
-}
-
-int launch_binscan(const BinArgs& a, int dtype, void* stream) {
+// dtype 0 f32, 1 bf16, 2 int8; wgmma: bf16 on the tensor cores, which needs
+// d % 8 == 0 and 16-byte aligned arrays. A batch of at most 64 takes the
+// 64-query patch on the CUDA cores.
+int dispatch_binscan(const BinArgs& a, int dtype, int wgmma, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(ceil_div(a.B, kBinQB), a.expand * (a.tile / kBinLanes), a.splits);
+  if (a.tile % kTR || a.splits < 1) return (int)cudaErrorInvalidValue;
+  if (wgmma) {
+    if (dtype != 1 || a.d % 8 || ((uintptr_t)a.q | (uintptr_t)a.emb) % 16)
+      return (int)cudaErrorInvalidValue;
+    return launch_binscan<MmaTile>(a, st);
+  }
+  const bool wide = a.B > 64;
   switch (dtype) {
     case 0:
-      binscan_kernel<0><<<grid, kThreads, 0, st>>>(a);
-      break;
+      return wide ? launch_binscan<FmaTile<float, 8>>(a, st)
+                  : launch_binscan<FmaTile<float, 4>>(a, st);
     case 1:
-      binscan_kernel<1><<<grid, kThreads, 0, st>>>(a);
-      break;
+      return wide ? launch_binscan<FmaTile<__nv_bfloat16, 8>>(a, st)
+                  : launch_binscan<FmaTile<__nv_bfloat16, 4>>(a, st);
     case 2:
-      binscan_kernel<2><<<grid, kThreads, 0, st>>>(a);
-      break;
+      return wide ? launch_binscan<Dp4aTile<8>>(a, st) : launch_binscan<Dp4aTile<4>>(a, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 BinArgs bin_args(const void* q, const float* qsq, const float* qt,
@@ -333,17 +285,18 @@ BinArgs bin_args(const void* q, const float* qsq, const float* qt,
 }  // namespace pqv
 
 // K7: every tile; n_units = nt. dtype 0 f32, 1 bf16, 2 int8 (qt and scale
-// are read only then). out [expand * tile/128, B, 128] holds INT32_MAX.
+// are read only then); wgmma as for dispatch_binscan. out [expand *
+// tile/128, B, 128] holds INT32_MAX.
 extern "C" int pqv_binned_scan(const void* q, const float* qsq, const float* qt,
                                const void* emb, const float* emb_sq,
                                const float* scale, int B, int d, int tile,
                                int n_units, int expand, int tg_bits,
-                               int code_bits, int splits, int dtype, int* out,
-                               void* stream) {
-  return pqv::launch_binscan(
+                               int code_bits, int splits, int dtype, int wgmma,
+                               int* out, void* stream) {
+  return pqv::dispatch_binscan(
       pqv::bin_args(q, qsq, qt, emb, emb_sq, scale, nullptr, B, d, tile,
                     n_units, expand, tg_bits, code_bits, splits, out),
-      dtype, stream);
+      dtype, wgmma, stream);
 }
 
 // K8: slot t scans tile sel[t]; n_units = cap, the length of sel.
@@ -353,9 +306,20 @@ extern "C" int pqv_binned_scan_select(const void* q, const float* qsq,
                                       const int* sel, int B, int d, int tile,
                                       int n_units, int expand, int tg_bits,
                                       int code_bits, int splits, int dtype,
-                                      int* out, void* stream) {
-  return pqv::launch_binscan(
+                                      int wgmma, int* out, void* stream) {
+  return pqv::dispatch_binscan(
       pqv::bin_args(q, qsq, qt, emb, emb_sq, scale, sel, B, d, tile, n_units,
                     expand, tg_bits, code_bits, splits, out),
-      dtype, stream);
+      dtype, wgmma, stream);
+}
+
+// Dynamic shared memory of a K7/K8 launch, for the wrapper's own reckoning:
+// backend 0 the fp32 patch, 1 wgmma, 2 the dp4a patch.
+extern "C" int pqv_binned_scan_smem(int backend, int block_queries) {
+  using namespace pqv;
+  if (backend == 1) return binscan_smem<MmaTile>();
+  if (backend == 2)
+    return block_queries > 64 ? binscan_smem<Dp4aTile<8>>() : binscan_smem<Dp4aTile<4>>();
+  return block_queries > 64 ? binscan_smem<FmaTile<float, 8>>()
+                            : binscan_smem<FmaTile<float, 4>>();
 }

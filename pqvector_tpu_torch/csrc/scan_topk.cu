@@ -1,5 +1,6 @@
 // K4: masked IVF scan over a cluster-sorted layout with a local mask.
-// K5: exact per-tile top-k. K6: per-tile top-k masked by a global probe mask.
+// K5: exact per-tile top-k. K6: per-tile top-k masked by a global probe mask,
+// any layout.
 //
 // Replace pqvector_tpu/kernels/scan_topk.py: pallas_masked_local_topk
 // (_masked_local_scan_kernel), pallas_exact_topk (_scan_kernel) and
@@ -48,31 +49,32 @@
 // half, a quarter; the walk itself, a quarter. In f32 the fp32 FMAs of the
 // scored chunks are three quarters.
 //
-// K6 runs the scan block of common.cuh: block (t, qb) scores tile t for
-// queries qb*16 .. qb*16+15 and keeps a sorted top-k per query in shared
-// memory, inserting only what beats the current k-th entry; the CUDA-core
-// score loop (fp32 FMA from shared memory, one row x 4 queries a thread)
-// bounds it, and it can take the score tile as K5 and K4 did. It looks up
-// mask[b, row_cluster[row]] with int32 cluster ids (the TPU kernel ships
-// them as f32 and tests them through a one-hot matmul, a Mosaic
-// workaround). Pad rows carry cluster id kc, whose mask slot is never set.
-// On a layout in file order a tile holds rows of most clusters, so K6
-// cannot skip tiles; it skips a 64-row chunk that none of its 16 queries
-// probes, which pays at small batches.
+// K6 is K4 with the probe read through each row's cluster id: a row's slot
+// is its cluster, and the test is mask[b, row_cluster[row]] (the TPU kernel
+// ships the ids as f32 and tests them through a one-hot matmul, a Mosaic
+// workaround). On a layout in file order every tile holds rows of most
+// clusters, so a per-tile table rules nothing out; K6's probe table is its
+// queries' rows of the batch's mask, the same for every tile, held in shared
+// memory as the set of the block's queries that probe each cluster
+// (ClusterLists in topk_lists.cuh). Building it reads B x kc_pad floats of
+// the mask, so a block walks a run of tiles (u, u + units, ...), about one
+// wave of them, and writes each tile's lists in turn. Of a tile it scores
+// the 128-row chunks that hold a row of a cluster some of its queries probe
+// (at B = 256 nearly all; at small B few); of a 64-row half it appends each
+// probed pair to its query's candidates and then one thread a query puts
+// them into its list. What bounds it on the H100
+// (scripts/torch_masked_epilogue_profile.py, 1M x 128 in file order, B = 256,
+// k = 10, bf16, device time): the walk 0.30 ms of 0.98, the probe bits,
+// appends and two barriers of each half 0.38, the list work 0.30; one block
+// an SM, since the table takes the room of a second. Where the table does
+// not fit beside the lists (k near 128 on wgmma, or tens of thousands of
+// clusters), K6 runs K4's kernel instead, reading the mask and the clusters
+// from device memory per pair and scoring every chunk, block (tile, query
+// group); those L2 reads bound it. Pad rows carry cluster id kc, whose mask
+// slot is never set.
 #include "topk_lists.cuh"
 
 namespace pqv {
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) masked_topk_kernel(ScanArgs a) {
-  __shared__ ScanSmem s;
-  const int t = blockIdx.x;
-  const int q0 = blockIdx.y * kQB;
-  init_lists(s.ld, s.li, kQB);
-  __syncthreads();
-  scan_rows<T>(a, s, q0, t * a.tile, (t + 1) * a.tile);
-  write_lists(a, s, q0, t);
-}
 
 // ---------------------------------------------------------------- K5
 
@@ -162,6 +164,73 @@ int launch_masked_local(const void* q, const void* emb, const float* emb_sq,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- K6
+
+// 128 queries a block on wgmma leave room for one block an SM beside the
+// probe table; the 64-query patch fits two.
+template <class Tile>
+constexpr int k6_blocks_per_sm() {
+  return Tile::kQueries == 128 ? 1 : 2;
+}
+
+template <class Tile, int STAGES>
+__global__ void __launch_bounds__(kThreads, k6_blocks_per_sm<Tile>())
+    masked_topk_kernel(TileOperands<typename Tile::Storage> op,
+                       const float* __restrict__ emb_sq, const int* __restrict__ rcl,
+                       const float* __restrict__ mask, int kc_pad, int* stats,
+                       float* __restrict__ out_d, int* __restrict__ out_i, int k, int tile,
+                       int nt, int units, int nqb) {
+  extern __shared__ char dyn[];
+  char* ring = align_ring(dyn);
+  Tile t;
+  ClusterLists<Tile> epi;
+  epi.layout(ring + STAGES * Tile::kStageBytes, emb_sq, k, kc_pad);
+  epi.rcl = rcl;
+  const int unit = blockIdx.x / nqb;
+  const int q0 = (blockIdx.x % nqb) * Tile::kQueries;
+  const bool any = epi.load_table(mask, q0, op.B);
+  int tiles = 0, chunks = 0;
+  for (int u = unit; u < nt; u += units) {
+    epi.clear();
+    const int tile_end = (u + 1) * tile;
+    epi.row_end = tile_end;
+    int scored = 0;
+    for (int seg0 = u * tile; any && seg0 < tile_end; seg0 += kSegmentChunks * kTR) {
+      const int seg_end = min(seg0 + kSegmentChunks * kTR, tile_end);
+      const MaskChunks picked = {epi.pick_chunks(seg0, seg_end)};
+      scored += __popc(picked.mask);
+      __syncthreads();  // every thread has left the last walk and read the word
+      walk_chunks<STAGES>(t, op, q0, seg0, seg_end, ring, epi, picked);
+    }
+    tiles += scored > 0;
+    chunks += scored;
+    __syncthreads();  // the lists are complete, also where no chunk was scored
+    epi.write(out_d, out_i, u, q0, op.B);
+    __syncthreads();  // the lists are read before the next tile clears them
+  }
+  if (stats != nullptr && threadIdx.x == 0 && tiles > 0) {
+    atomicAdd(stats, tiles);
+    atomicAdd(stats + 1, chunks);
+  }
+}
+
+template <class Tile, int STAGES>
+int launch_masked_topk(const void* q, const void* emb, const float* emb_sq, const int* rcl,
+                       const float* mask, int kc_pad, int* stats, float* out_d, int* out_i,
+                       int B, int d, int n_pad, int k, int tile, int units, cudaStream_t st) {
+  using T = typename Tile::Storage;
+  TileOperands<T> op = {static_cast<const T*>(q), static_cast<const T*>(emb), B, d};
+  auto kernel = masked_topk_kernel<Tile, STAGES>;
+  const int smem = cluster_lists_smem<Tile, STAGES>(k, kc_pad);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nqb = ceil_div(B, Tile::kQueries);
+  kernel<<<units * nqb, kThreads, smem, st>>>(op, emb_sq, rcl, mask, kc_pad, stats, out_d,
+                                              out_i, k, tile, n_pad / tile, units, nqb);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace pqv
 
 // K5: q [B, d] and emb [n_pad, d] in the storage dtype; out [nt, B, k] with
@@ -203,34 +272,53 @@ extern "C" int pqv_exact_topk_smem(int wgmma, int block_queries, int k) {
 }
 
 // K6: adds row_cluster [n_pad] int32 (kc on pad rows) and the probe mask
-// [B, kc_pad] f32; out [nt, B, k].
+// [B, kc_pad] f32 (kc_pad a multiple of 128); out [nt, B, k]. wgmma picks the
+// tensor-core back end as for K5. units > 0: the probe table in shared
+// memory (ClusterLists), block (u, query group) walking tiles u, u + units,
+// ...; units = 0: K4's kernel reading the mask from device memory, block
+// (tile, query group). stats is null or two int32 counters the launch adds
+// the (block, tile) and (block, chunk) pairs it scored to.
 extern "C" int pqv_masked_topk(const void* q, const void* emb, const float* emb_sq,
                                const int* row_cluster, const float* mask, int B,
                                int d, int n_pad, int k, int tile, int kc_pad,
-                               int is_bf16, float* out_d, int* out_i,
-                               void* stream) {
-  pqv::ScanArgs a = {};
-  a.q = q;
-  a.emb = emb;
-  a.emb_sq = emb_sq;
-  a.rcl = row_cluster;
-  a.mask = mask;
-  a.out_d = out_d;
-  a.out_i = out_i;
-  a.B = B;
-  a.d = d;
-  a.n_pad = n_pad;
-  a.k = k;
-  a.tile = tile;
-  a.kc_pad = kc_pad;
+                               int is_bf16, int wgmma, int units, int* stats,
+                               float* out_d, int* out_i, void* stream) {
+  using namespace pqv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(n_pad / tile, pqv::ceil_div(B, pqv::kQB));
-  if (is_bf16) {
-    pqv::masked_topk_kernel<__nv_bfloat16><<<grid, pqv::kThreads, 0, st>>>(a);
-  } else {
-    pqv::masked_topk_kernel<float><<<grid, pqv::kThreads, 0, st>>>(a);
+  if (k < 1 || k > kMaxK || kc_pad < 1 || kc_pad % 128 || units < 0 ||
+      (wgmma && (!is_bf16 || d % 8 || ((uintptr_t)q | (uintptr_t)emb) % 16)))
+    return (int)cudaErrorInvalidValue;
+  if (units > 0) {
+    if (wgmma)
+      return launch_masked_topk<MmaTile, kTopkMmaStages>(q, emb, emb_sq, row_cluster, mask,
+                                                         kc_pad, stats, out_d, out_i, B, d,
+                                                         n_pad, k, tile, units, st);
+    if (is_bf16)
+      return launch_masked_topk<FmaTile<__nv_bfloat16, 4>, kTopkFmaStages>(
+          q, emb, emb_sq, row_cluster, mask, kc_pad, stats, out_d, out_i, B, d, n_pad, k,
+          tile, units, st);
+    return launch_masked_topk<FmaTile<float, 4>, kTopkFmaStages>(
+        q, emb, emb_sq, row_cluster, mask, kc_pad, stats, out_d, out_i, B, d, n_pad, k, tile,
+        units, st);
   }
-  return (int)cudaGetLastError();
+  const ProbeSource src = {nullptr, mask, nullptr, B, kc_pad, kc_pad, stats};
+  if (wgmma)
+    return launch_masked_local<MmaTile, kTopkMmaStages>(q, emb, emb_sq, row_cluster, src,
+                                                        out_d, out_i, d, n_pad, k, tile, 0, st);
+  if (is_bf16)
+    return launch_masked_local<FmaTile<__nv_bfloat16, 4>, kTopkFmaStages>(
+        q, emb, emb_sq, row_cluster, src, out_d, out_i, d, n_pad, k, tile, 0, st);
+  return launch_masked_local<FmaTile<float, 4>, kTopkFmaStages>(
+      q, emb, emb_sq, row_cluster, src, out_d, out_i, d, n_pad, k, tile, 0, st);
+}
+
+// Dynamic shared memory of K6's launch with its probe table, for the
+// wrapper's own reckoning.
+extern "C" int pqv_masked_topk_smem(int wgmma, int block_queries, int k, int kc_pad) {
+  using namespace pqv;
+  if (wgmma) return cluster_lists_smem<MmaTile, kTopkMmaStages>(k, kc_pad);
+  return block_queries > 64 ? cluster_lists_smem<FmaTile<float, 8>, kTopkFmaStages>(k, kc_pad)
+                            : cluster_lists_smem<FmaTile<float, 4>, kTopkFmaStages>(k, kc_pad);
 }
 
 // K4: q [B, d] and emb [n_pad, d] in the storage dtype (bf16 when is_bf16);

@@ -1,19 +1,21 @@
-// The score tile of K9 (tile min), K5 (exact per-tile top-k), K4 (masked
-// per-tile top-k), K2 and K3 (streaming exact and masked top-k) and K1
-// (nearest-centroid assign) for sm_90a.
+// The score tile of K9 (tile min), K5 (exact per-tile top-k), K4 and K6
+// (masked per-tile top-k), K2 and K3 (streaming exact and masked top-k), K1
+// (nearest-centroid assign) and K7 and K8 (the binned-min scan) for sm_90a.
 //
 // A block of 256 threads owns up to 128 queries and walks a range of rows in
 // chunks of 128. The 128 x 128 dot products q.x of one chunk live in
 // registers and never reach device memory; an epilogue (a fold to per-tile
-// minima, per-query top-k lists, or a running argmin with K1's data rows as
-// the queries and its centroids as the rows) consumes them chunk by chunk; K4
-// and K3 walk only the chunks that hold a row some query of the block probes
-// (walk_chunks, MaskChunks). Slices of both operands arrive in a ring of
-// shared-memory stages filled by cp.async, so the copies of the next slices
-// overlap the arithmetic of this one and one __syncthreads() per slice is all
-// the walk needs.
+// minima, per-query top-k lists, a running argmin with K1's data rows as
+// the queries and its centroids as the rows, or K7's per-lane minimum of
+// packed keys) consumes them chunk by chunk. K4, K3 and K6 walk only the
+// chunks that hold a row some query of the block probes (walk_chunks,
+// MaskChunks); K7 and K8 walk 128-row chunks that are not neighbours, one
+// lane group of each tile (walk_list). Slices of both operands arrive in a
+// ring of shared-memory stages filled by cp.async, so the copies of the next
+// slices overlap the arithmetic of this one and one __syncthreads() per
+// slice is all the walk needs.
 //
-// Two back ends compute the sums, chosen by the caller from the shapes alone:
+// Three back ends compute the sums, chosen by the caller from the shapes alone:
 //
 // FmaTile, IEEE fp32 on the CUDA cores. A thread keeps an 8 rows x 8 queries
 //   patch (8 x 4 for a batch of at most 64). A stage holds 16 dimensions of
@@ -26,6 +28,12 @@
 //   alignment (d = 3). bf16 storage that the tensor cores cannot take is
 //   widened in registers on the way in. Every sum adds its products in
 //   ascending dimension order with __fmaf_rn, from a zero start.
+//
+// Dp4aTile, int8 codes on the CUDA cores (K7 and K8). FmaTile's patch and
+//   stages, with 4-code words in place of floats: a stage holds 16 words (64
+//   dimensions), and each __dp4a adds 4 exact products to an int32 sum.
+//   Words are copied by 4-byte cp.async where d % 4 == 0 and assembled from
+//   bytes otherwise, zero past d, so any d is taken.
 //
 // MmaTile, bf16 x bf16 with fp32 accumulation on the tensor cores. Each of
 //   the two warpgroups runs wgmma.mma_async m64n128k16 with its 64 queries
@@ -40,10 +48,10 @@
 // With queries as M a thread of the warpgroup holds two queries and, of the
 // chunk's rows, 16 groups of 2 consecutive ones, a group's neighbours in the
 // 3 other lanes of its quad: a tile's rows sit in one thread and 4 lanes.
-// The fp32 patch holds 2 groups of 4 consecutive rows, neighbours in 16
-// lanes. Both back ends describe their registers by the same few constants
-// (kGroups, kRun, kXor, kSpan) and accessors, and the epilogues are written
-// against those.
+// The patch of FmaTile and Dp4aTile (PatchLayout) holds 2 groups of 4
+// consecutive rows, neighbours in 16 lanes. All back ends describe their
+// registers by the same few constants (kGroups, kRun, kXor, kSpan) and
+// accessors, and the epilogues are written against those.
 #pragma once
 
 #include "common.cuh"
@@ -118,31 +126,45 @@ __device__ __forceinline__ void stage_transposed(float* dst, const T* src, int r
   }
 }
 
-// NQ queries per thread: the block owns 16 NQ queries (NQ is 8 or 4).
-template <typename T, int NQ>
-struct FmaTile {
-  using Storage = T;
+// The register patch of FmaTile and Dp4aTile: NQ queries per thread, the
+// block owns 16 NQ queries (NQ is 8 or 4). A stage holds 4-byte elements
+// (floats, or words of 4 int8 codes) transposed, kXS per staged row element
+// and kQS per staged query element.
+template <int NQ>
+struct PatchLayout {
   static constexpr int kQueries = 16 * NQ;
-  static constexpr int kDims = 16;          // dimensions per stage
-  static constexpr int kXS = kTR + 4;       // floats per staged dimension
+  static constexpr int kXS = kTR + 4;       // elements per staged dimension (word)
   static constexpr int kQS = kQueries + 4;
-  static constexpr int kStageBytes = kDims * (kXS + kQS) * 4;
   // Register layout: kGroups groups of kRun consecutive rows per thread; the
   // rows between a group's runs are in the lanes at XOR distance 1, 2, ...,
   // 2^(kXor-1) (row_lane() numbers them), which together span kSpan rows.
   static constexpr int kPerThread = NQ;  // queries per thread
   static constexpr int kGroups = 2, kRun = 4, kXor = 4, kSpan = 64;
 
-  float acc[8][NQ];
   int tx, ty;
 
-  __device__ __forceinline__ FmaTile() : tx(threadIdx.x & 15), ty(threadIdx.x >> 4) {}
+  __device__ __forceinline__ PatchLayout() : tx(threadIdx.x & 15), ty(threadIdx.x >> 4) {}
   __device__ __forceinline__ int query(int jq) const {
     return jq < 4 ? 4 * ty + jq : 60 + 4 * ty + jq;
   }
   __device__ __forceinline__ int row_base(int g) const { return 64 * g + 4 * tx; }
   __device__ __forceinline__ int row_lane() const { return tx; }
   static __device__ __forceinline__ int half_of(int g) { return g; }
+};
+
+template <typename T, int NQ>
+struct FmaTile : PatchLayout<NQ> {
+  using Storage = T;
+  using PatchLayout<NQ>::kQueries;
+  using PatchLayout<NQ>::kXS;
+  using PatchLayout<NQ>::kQS;
+  using PatchLayout<NQ>::tx;
+  using PatchLayout<NQ>::ty;
+  static constexpr int kDims = 16;          // dimensions per stage
+  static constexpr int kStageBytes = kDims * (kXS + kQS) * 4;
+
+  float acc[8][NQ];
+
   __device__ __forceinline__ float value(int g, int l, int jq) const {
     return acc[4 * g + l][jq];
   }
@@ -180,6 +202,101 @@ struct FmaTile {
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < NQ; ++j) acc[i][j] = __fmaf_rn(xr[i], qr[j], acc[i][j]);
+    }
+  }
+};
+
+// ------------------------------------------------------------ int8, dp4a
+
+// Stage `ROWS` rows x 16 four-code words of int8 `src` transposed, as
+// stage_transposed stages floats: dst[word][row], the codes of dimensions
+// d0 + 4 w .. d0 + 4 w + 3 in word w, zero past d. `by4`: every row starts
+// 4-byte aligned (d % 4 == 0), so a word is one 4-byte cp.async; else it is
+// assembled from single bytes.
+template <int ROWS, int STRIDE>
+__device__ __forceinline__ void stage_words(int* dst, const int8_t* src, int row0,
+                                           int row_limit, int d0, int d, bool by4) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int word = (lane >> 2) + 8 * (w & 1);
+  const int rb = (lane & 3) + 4 * (w >> 1);
+  const int col = d0 + 4 * word;
+  const int8_t* p = src + (size_t)(row0 + rb) * d + col;
+  int* o = dst + word * STRIDE + rb;
+  if (by4) {
+    const uint32_t o32 = smem_u32(o);
+#pragma unroll
+    for (int i = 0; i < ROWS / 16; ++i) {
+      const bool ok = col < d && row0 + rb + 16 * i < row_limit;
+      cp_async4(o32 + 64 * i, ok ? p + (size_t)16 * i * d : src, ok);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < ROWS / 16; ++i) {
+      uint32_t v = 0;
+      if (row0 + rb + 16 * i < row_limit) {
+        const int8_t* r = p + (size_t)16 * i * d;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (col + j < d) v |= (uint32_t)(uint8_t)r[j] << (8 * j);
+      }
+      o[16 * i] = (int)v;
+    }
+  }
+}
+
+template <int NQ>
+struct Dp4aTile : PatchLayout<NQ> {
+  using Storage = int8_t;
+  using PatchLayout<NQ>::kQueries;
+  using PatchLayout<NQ>::kXS;
+  using PatchLayout<NQ>::kQS;
+  using PatchLayout<NQ>::tx;
+  using PatchLayout<NQ>::ty;
+  static constexpr int kWords = 16;         // four-code words per stage
+  static constexpr int kDims = 4 * kWords;  // dimensions per stage
+  static constexpr int kStageBytes = kWords * (kXS + kQS) * 4;
+
+  int acc[8][NQ];
+
+  __device__ __forceinline__ int value(int g, int l, int jq) const {
+    return acc[4 * g + l][jq];
+  }
+
+  __device__ __forceinline__ void load(char* stage, const TileOperands<int8_t>& op, int q0,
+                                       int r0, int row_end, int d0) const {
+    int* s = reinterpret_cast<int*>(stage);
+    const bool by4 = op.d % 4 == 0 && ((uintptr_t)op.q | (uintptr_t)op.emb) % 4 == 0;
+    stage_words<kTR, kXS>(s, op.emb, r0, row_end, d0, op.d, by4);
+    stage_words<kQueries, kQS>(s + kWords * kXS, op.q, q0, op.B, d0, op.d, by4);
+  }
+  __device__ __forceinline__ void arrived() const {}
+
+  // acc += the stage's 16 words, ascending; `first` starts from zero. The
+  // int32 sums are exact.
+  __device__ __forceinline__ void mma(const char* stage, bool first, int) {
+    if (first) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) acc[i][j] = 0;
+    }
+    const int* xs = reinterpret_cast<const int*>(stage) + 4 * tx;
+    const int* qs = reinterpret_cast<const int*>(stage) + kWords * kXS + 4 * ty;
+#pragma unroll
+    for (int kk = 0; kk < kWords; ++kk) {
+      const int4 xa = *reinterpret_cast<const int4*>(xs + kk * kXS);
+      const int4 xb = *reinterpret_cast<const int4*>(xs + kk * kXS + 64);
+      const int4 qa = *reinterpret_cast<const int4*>(qs + kk * kQS);
+      const int xr[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+      int qr[NQ] = {qa.x, qa.y, qa.z, qa.w};
+      if constexpr (NQ == 8) {
+        const int4 qb = *reinterpret_cast<const int4*>(qs + kk * kQS + 64);
+        qr[4] = qb.x, qr[5] = qb.y, qr[6] = qb.z, qr[7] = qb.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) acc[i][j] = __dp4a(xr[i], qr[j], acc[i][j]);
     }
   }
 };
@@ -390,6 +507,50 @@ __device__ __forceinline__ void walk_chunks(Tile& tile,
       slot = slot + 1 == STAGES ? 0 : slot + 1;
     }
     epi.chunk(tile, r0, scored & 1);
+  }
+  cp_async_wait<0>();
+}
+
+// walk_rows over `n` chunks that need not be neighbours: chunk c is the kTR
+// rows from start(c), every one of them a row of the array. K7 and K8 score,
+// for each slot of a slab block, the one 128-row lane group that folds into
+// the block's slab (binscan.cu). The epilogue sees `epi.begin(c, r0, slot)`
+// and `epi.chunk(tile, c, r0, slot)` as walk_rows' sees its two calls. A
+// walk of its own, so that walk_rows compiles for K9, K5, K2 and K1 as it
+// always did.
+template <int STAGES, class Tile, class Start, class Epilogue>
+__device__ __forceinline__ void walk_list(Tile& tile,
+                                          const TileOperands<typename Tile::Storage>& op,
+                                          int q0, int n, const Start& start, char* ring,
+                                          Epilogue& epi) {
+  const int nk = (op.d + Tile::kDims - 1) / Tile::kDims;
+  int lc = 0, lk = 0, lslot = 0, lr0 = n > 0 ? start(0) : 0;  // next slice to load
+  auto fetch = [&]() {
+    if (lc < n) {
+      tile.load(ring + lslot * Tile::kStageBytes, op, q0, lr0, lr0 + kTR, lk * Tile::kDims);
+      if (++lk == nk) {
+        lk = 0;
+        if (++lc < n) lr0 = start(lc);
+      }
+    }
+    cp_async_commit();
+    lslot = lslot + 1 == STAGES ? 0 : lslot + 1;
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch();
+  int slot = 0;
+  for (int c = 0; c < n; ++c) {
+    const int r0 = start(c);
+    epi.begin(c, r0, c & 1);
+    for (int kb = 0; kb < nk; ++kb) {
+      cp_async_wait<STAGES - 2>();
+      tile.arrived();
+      __syncthreads();  // the slice is visible; the stage read last is free
+      fetch();
+      tile.mma(ring + slot * Tile::kStageBytes, kb == 0, op.d - kb * Tile::kDims);
+      slot = slot + 1 == STAGES ? 0 : slot + 1;
+    }
+    epi.chunk(tile, c, r0, c & 1);
   }
   cp_async_wait<0>();
 }

@@ -1,7 +1,8 @@
 // Per-query top-k lists as an epilogue of the score tile (score_tile.cuh):
 // TopkLists, shared by K5 (exact per-tile top-k, scan_topk.cu) and K2
 // (streaming exact top-k, stream_topk.cu), and below it MaskedLists, shared by
-// K4 (masked per-tile top-k) and K3 (streaming masked top-k).
+// K4 (masked per-tile top-k) and K3 (streaming masked top-k), and
+// ClusterLists, K6's (masked per-tile top-k on any layout).
 //
 // The chunk's scores |x|^2 - 2 q.x go to shared memory 64 rows at a time,
 // and there one thread per query marks the scores that beat its list's
@@ -218,25 +219,27 @@ struct TopkLists {
   }
 };
 
-// How K4 and K3 learn whether query b probes the rows of slot s of tile t:
-// K4 from the pre-gathered local mask, K3 from the batch's probe mask through
-// the tile's cluster table, which is that local mask built in place.
+// How K4, K3 and K6 learn whether query b probes the rows of slot s of tile
+// t: K4 from the pre-gathered local mask, K3 from the batch's probe mask
+// through the tile's cluster table, which is that local mask built in place,
+// and K6 from the probe mask directly: its rows' slots are their cluster ids.
 struct ProbeSource {
-  const float* lmask;  // K4: [nt, B, cmax]; null for K3
-  const float* mask;   // K3: [B, kc_pad]
-  const int* tc;       // K3: [nt, cmax]
+  const float* lmask;  // K4: [nt, B, cmax]; null for K3 and K6
+  const float* mask;   // K3, K6: [B, kc_pad]
+  const int* tc;       // K3: [nt, cmax]; null for K6
   int B, cmax, kc_pad;
   int* stats;          // null, or two counters: (block, tile) and (block, chunk) pairs scored
   __device__ __forceinline__ bool probed(int t, int b, int s) const {
     if (lmask != nullptr) return lmask[((size_t)t * B + b) * cmax + s] > 0.5f;
-    return mask[(size_t)b * kc_pad + tc[(size_t)t * cmax + s]] > 0.5f;
+    const int c = tc != nullptr ? tc[(size_t)t * cmax + s] : s;
+    return mask[(size_t)b * kc_pad + c] > 0.5f;
   }
 };
 
 constexpr int kTableWordsMax = 8;  // probe tables of up to 256 slots live in shared memory
 constexpr int kSegmentChunks = 32;  // chunks whose picks one MaskChunks word holds
 
-// The lists of K4 (a tile's own) and K3 (GATE: carried across a run of tiles
+// The lists of K4 and K6 (a tile's own) and K3 (GATE: carried across a run of tiles
 // and gated across blocks as K2's are), fed only with the scores of (query,
 // row) pairs the query probes.
 //
@@ -254,8 +257,9 @@ constexpr int kSegmentChunks = 32;  // chunks whose picks one MaskChunks word ho
 // slots of a tile are sorted, or few.
 //
 // Not TABLE (W words a query do not fit: cmax above 256, or k near 128 on
-// wgmma): the same kernel reads the slots and the probe source from device
-// memory, skips whole tiles only, and dumps and drains every half.
+// wgmma; and K6, whose rows' slots are cluster ids): the same kernel reads
+// the slots and the probe source from device memory, skips whole tiles only
+// (K4; K3 and K6 none), and dumps and drains every half.
 //
 // The lists differ from TopkLists'. The rows a query probes are near it, so
 // far more of them enter its list than of a full scan's rows (about
@@ -319,7 +323,7 @@ struct MaskedLists {
   __device__ __forceinline__ bool load_table(int tile_) {
     t = tile_;
     if constexpr (!TABLE) {
-      if (src.lmask == nullptr) return true;  // K3: the schedule's word stands
+      if (src.lmask == nullptr) return true;  // K3: the schedule's word stands; K6: every tile
       int any = 0;
       const int nq = min(NQB, src.B - q0);
       const float* m = src.lmask + ((size_t)t * src.B + q0) * src.cmax;
@@ -514,6 +518,232 @@ __device__ __forceinline__ void walk_masked_tile(
   }
 }
 
+// The lists of K6 (masked per-tile top-k on any layout), fed only with the
+// scores of (query, row) pairs whose row's cluster the query probes. A row's
+// slot is its cluster id, and on a layout in file order a tile holds rows of
+// most clusters, so a per-tile table buys nothing; the probe table is the
+// block's queries' rows of the batch's probe mask, the same for every tile.
+// It lives in shared memory cluster-major, as the set of the block's queries
+// that probe each cluster (`qset`, NQB / 32 words a cluster: a thread finds
+// the bits of its queries for a row in one word), with their union over the
+// queries (`uni`, a bit a cluster) for picking chunks. The table is built
+// once per block from the mask in device memory, and a block walks a run of
+// tiles (u, u + U, ...), so that cost is shared by many tiles.
+//
+// In file order a 64-row half concerns many of a block's queries (at B =
+// 256 about 50 of 128) with one or two probed rows each, so nothing is
+// dumped whole. `chunk` appends each probed pair's score and row to its
+// query's candidates in shared memory (a shared atomicAdd on the query's
+// count gives the place), and after one barrier thread qq puts query qq's
+// candidates, if it has any, into its list. The lists are sorted and
+// query-major, as MaskedLists' are; a candidate that beats the k-th entry is
+// inserted from the list's filled end (`cnt`), so an insert shifts only the
+// entries it passes. A half none of the block's queries probes costs one
+// __syncthreads_or. The order in which candidates arrive does not matter:
+// a list is the k smallest under the (distance, id) order of what it was
+// offered.
+template <class Tile>
+struct ClusterLists {
+  static constexpr int NQB = Tile::kQueries;
+  static constexpr int QW = NQB / 32;  // words of a cluster's query set
+  static_assert(Tile::kGroups * Tile::kRun * Tile::kPerThread <= 128,
+                "a half's pairs of a thread fit one 64-bit word");
+  const float* emb_sq;
+  const int* rcl;   // [n_pad] a row's cluster, kc on pad rows
+  float* ld;        // shared, [NQB][k], ascending under (distance, id)
+  int* li;          // shared, [NQB][k]
+  float* cv;        // shared, [NQB][kDumpStride]: the half's candidates' scores
+  float* sqs;       // shared, [2][kTR]: the norms of this chunk and the next
+  int* cls;         // shared, [2][kTR]: their clusters (-1 past the tile)
+  int* ncand;       // shared, [NQB]: each query's candidates in the half
+  int* cnt;         // shared, [NQB]: the filled entries of each list
+  unsigned* picks;  // shared, the word of picked chunks
+  unsigned* uni;    // shared, [kc_pad / 32]: clusters some query of the block probes
+  unsigned* qset;   // shared, [kc_pad][QW]: the block's queries that probe a cluster
+  uint8_t* crow;    // shared, [NQB][64]: the candidates' rows within the half
+  int k, kc_pad, row_end;
+
+  // Lay everything out at `mem` (the end of the ring), as TopkLists lays its own.
+  __device__ __forceinline__ void layout(char* mem, const float* norms, int k_, int kc_pad_) {
+    emb_sq = norms;
+    k = k_;
+    kc_pad = kc_pad_;
+    ld = reinterpret_cast<float*>(mem);
+    li = reinterpret_cast<int*>(ld + NQB * k);
+    cv = reinterpret_cast<float*>(li + NQB * k);
+    sqs = cv + NQB * kDumpStride;
+    cls = reinterpret_cast<int*>(sqs + 2 * kTR);
+    ncand = cls + 2 * kTR;
+    cnt = ncand + NQB;
+    picks = reinterpret_cast<unsigned*>(cnt + NQB);
+    uni = picks + 4;  // 16 bytes for the word
+    qset = uni + kc_pad / 32;
+    crow = reinterpret_cast<uint8_t*>(qset + kc_pad * QW);
+  }
+
+  // Build the table of queries q0 .. q0 + NQB - 1 from mask [B, kc_pad] and
+  // clear the candidate counts. -> whether any of them probes any cluster.
+  __device__ __forceinline__ bool load_table(const float* mask, int q0, int B) {
+    for (int e = threadIdx.x; e < kc_pad * QW; e += kThreads) {
+      const int w = e / kc_pad, c = e % kc_pad;  // neighbours read neighbouring clusters
+      const int n = min(32, B - q0 - 32 * w);
+      const float* m = mask + (size_t)(q0 + 32 * w) * kc_pad + c;
+      unsigned word = 0u;
+      if (n == 32) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) word |= (unsigned)(m[(size_t)j * kc_pad] > 0.5f) << j;
+      } else {
+        for (int j = 0; j < n; ++j) word |= (unsigned)(m[(size_t)j * kc_pad] > 0.5f) << j;
+      }
+      qset[c * QW + w] = word;
+    }
+    for (int e = threadIdx.x; e < NQB; e += kThreads) ncand[e] = 0;
+    __syncthreads();
+    int any = 0;
+    for (int e = threadIdx.x; e < kc_pad / 32; e += kThreads) {
+      unsigned bits = 0u;
+      for (int j = 0; j < 32; ++j) {
+        unsigned s = 0u;
+#pragma unroll
+        for (int w = 0; w < QW; ++w) s |= qset[(32 * e + j) * QW + w];
+        bits |= (unsigned)(s != 0u) << j;
+      }
+      uni[e] = bits;
+      any |= bits != 0u;
+    }
+    return __syncthreads_or(any) != 0;
+  }
+
+  __device__ __forceinline__ void clear() {
+    for (int e = threadIdx.x; e < NQB * k; e += kThreads) {
+      ld[e] = kPosInf;
+      li[e] = -1;
+    }
+    for (int e = threadIdx.x; e < NQB; e += kThreads) cnt[e] = 0;
+  }
+
+  // The chunks of rows [seg0, seg_end), at most kSegmentChunks of them, that
+  // hold a row of a cluster some query of the block probes, as MaskChunks' word.
+  __device__ __forceinline__ uint32_t pick_chunks(int seg0, int seg_end) {
+    if (threadIdx.x == 0) *picks = 0u;  // a barrier has passed since its last reading
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
+    for (int base = seg0 + (threadIdx.x - lane); base < seg_end; base += kThreads) {
+      const int row = base + lane;
+      bool hit = false;
+      if (row < seg_end) {
+        const int c = rcl[row];
+        hit = (uni[c >> 5] >> (c & 31)) & 1u;
+      }
+      if (__any_sync(kFull, hit) && lane == 0) atomicOr(picks, 1u << ((base - seg0) / kTR));
+    }
+    __syncthreads();
+    return *picks;
+  }
+
+  __device__ __forceinline__ void begin(int r0, int slot) {
+    if (threadIdx.x < kTR) {
+      const int row = r0 + threadIdx.x;
+      const bool ok = row < row_end;
+      sqs[slot * kTR + threadIdx.x] = ok ? emb_sq[row] : kPosInf;
+      cls[slot * kTR + threadIdx.x] = ok ? rcl[row] : -1;
+    }
+  }
+
+  // Thread qq puts query qq's candidates of rows id0 .. id0 + 63 into its
+  // list and clears their count.
+  __device__ __forceinline__ void drain(int id0) {
+    const int qq = threadIdx.x;
+    if (qq >= NQB) return;
+    const int nc = ncand[qq];
+    if (nc == 0) return;
+    ncand[qq] = 0;
+    float* qd = ld + qq * k;
+    int* qi = li + qq * k;
+    int n = cnt[qq];
+    for (int i = 0; i < nc; ++i) {
+      const float v = cv[qq * kDumpStride + i];
+      const int id = id0 + crow[qq * 64 + i];
+      if (!lex_less(v, id, qd[k - 1], qi[k - 1])) continue;
+      int j = n < k ? n++ : k - 1;  // the first free entry, or the k-th, which drops out
+      for (; j > 0 && lex_less(v, id, qd[j - 1], qi[j - 1]); --j) {
+        qd[j] = qd[j - 1];
+        qi[j] = qi[j - 1];
+      }
+      qd[j] = v;
+      qi[j] = id;
+    }
+    cnt[qq] = n;
+  }
+
+  __device__ __forceinline__ void chunk(const Tile& tl, int r0, int slot) {
+#ifdef PQV_PROFILE_NO_EPILOGUE  // scripts/torch_masked_epilogue_profile.py: the walk alone
+    return;
+#endif
+    const float* sq = sqs + slot * kTR;
+    const int* cl = cls + slot * kTR;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      if (r0 + 64 * p >= row_end) break;  // uniform
+      // First the probe bits of every pair of the half (loads only, so they
+      // overlap), then the few probed pairs' appends.
+      uint64_t hits = 0;
+      int i = 0;
+#pragma unroll
+      for (int g = 0; g < Tile::kGroups; ++g) {
+        if (Tile::half_of(g) != p) continue;
+#pragma unroll
+        for (int l = 0; l < Tile::kRun; ++l) {
+          const int c = cl[tl.row_base(g) + l];
+#pragma unroll
+          for (int jq = 0; jq < Tile::kPerThread; ++jq, ++i) {
+            const int qq = tl.query(jq);
+            const unsigned w = c >= 0 ? qset[c * QW + (qq >> 5)] : 0u;
+            hits |= (uint64_t)((w >> (qq & 31)) & 1u) << i;
+          }
+        }
+      }
+      if (hits) {
+        i = 0;
+#pragma unroll
+        for (int g = 0; g < Tile::kGroups; ++g) {
+          if (Tile::half_of(g) != p) continue;
+#pragma unroll
+          for (int l = 0; l < Tile::kRun; ++l) {
+            const int r = tl.row_base(g) + l;
+#pragma unroll
+            for (int jq = 0; jq < Tile::kPerThread; ++jq, ++i) {
+              if (!((hits >> i) & 1u)) continue;
+              const int qq = tl.query(jq);
+              const int at = atomicAdd(ncand + qq, 1);
+              cv[qq * kDumpStride + at] = __fmaf_rn(-2.f, tl.value(g, l, jq), sq[r]);
+              crow[qq * 64 + at] = (uint8_t)(r - 64 * p);
+            }
+          }
+        }
+      }
+      if (!__syncthreads_or(hits != 0)) continue;  // no query probes a row of the half
+#ifndef PQV_PROFILE_NO_DRAIN  // the same script: the candidates are written, no list work
+      drain(r0 + 64 * p);
+#else
+      if (threadIdx.x < NQB) ncand[threadIdx.x] = 0;
+#endif
+      __syncthreads();
+    }
+  }
+
+  // Write the lists, sorted as they are, to out[unit, q0 .., :k].
+  __device__ __forceinline__ void write(float* out_d, int* out_i, int unit, int q0,
+                                        int B) const {
+    const int nq = min(NQB, B - q0);
+    const size_t at = ((size_t)unit * B + q0) * k;
+    for (int e = threadIdx.x; e < nq * k; e += kThreads) {
+      out_d[at + e] = ld[e];
+      out_i[at + e] = li[e];
+    }
+  }
+};
+
 // Dynamic shared memory of a launch whose epilogue is TopkLists: the
 // alignment slack, the ring, the lists, the dump and the norms.
 template <class Tile, int STAGES>
@@ -529,6 +759,16 @@ template <class Tile, int STAGES>
 constexpr int masked_lists_smem(int k, int words) {
   return topk_lists_smem<Tile, STAGES>(k) + 64 +
          (words > 0 ? 2 * kTR * 4 + 2 * 4 * words * 4 + Tile::kQueries * words * 4 : 0);
+}
+
+// ... and of one whose epilogue is ClusterLists over kc_pad clusters (its
+// candidates' scores in the dump's place): the clusters of two chunks, two
+// counts a query, the picks word, the table with its union and the
+// candidates' rows.
+template <class Tile, int STAGES>
+constexpr int cluster_lists_smem(int k, int kc_pad) {
+  return topk_lists_smem<Tile, STAGES>(k) + 2 * kTR * 4 + Tile::kQueries * 8 + 16 +
+         kc_pad / 32 * 4 + kc_pad * (Tile::kQueries / 32) * 4 + Tile::kQueries * 64;
 }
 
 // Stages of the ring beside the lists: 3, but 2 on wgmma so that 128 lists

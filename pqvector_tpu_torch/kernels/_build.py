@@ -49,9 +49,11 @@ _SIGNATURES = {
     "pqv_masked_local_topk_smem": [_I] * 4,
     "pqv_exact_topk": [_P] * 3 + [_I] * 7 + [_P] * 3,
     "pqv_exact_topk_smem": [_I] * 3,
-    "pqv_masked_topk": [_P] * 5 + [_I] * 7 + [_P] * 3,
-    "pqv_binned_scan": [_P] * 6 + [_I] * 9 + [_P] * 2,
-    "pqv_binned_scan_select": [_P] * 7 + [_I] * 9 + [_P] * 2,
+    "pqv_masked_topk": [_P] * 5 + [_I] * 9 + [_P] * 4,
+    "pqv_masked_topk_smem": [_I] * 4,
+    "pqv_binned_scan": [_P] * 6 + [_I] * 10 + [_P] * 2,
+    "pqv_binned_scan_select": [_P] * 7 + [_I] * 10 + [_P] * 2,
+    "pqv_binned_scan_smem": [_I] * 2,
     "pqv_tile_min": [_P] * 3 + [_I] * 7 + [_P] * 2,
     "pqv_tile_min_smem": [_I] * 2,
     "pqv_tile_gather": [_P] * 5 + [_I, _L, _L, _I, _I, _P],

@@ -10,7 +10,10 @@ tables come from the hand-written kernel ``csrc/binscan.cu`` on CUDA tensors
 and from ``binned_scan_keys_plain``/``binned_scan_select_keys_plain`` on CPU
 tensors. The query preparation, the cross-bin merge, the provenance decode
 and the exact re-score are plain torch, as they are XLA code outside the
-Pallas calls in the JAX package.
+Pallas calls in the JAX package. The kernel walks, per block, one 128-row
+lane group of each slot of its slab block on the score tile of
+``csrc/score_tile.cuh`` (``chunk_schedule`` is its index math), on the back
+end ``backend`` picks.
 
 Each (query, row) pair packs the true squared distance's f32 bits, with the
 low ``code_bits`` replaced by the row's provenance, into one int32 key; the
@@ -23,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, score_tile
 from .scan_topk import _refine, check_cuda_operands
 
 #: Packed-key provenance budget: more code bits eat too many of the value's
@@ -32,11 +35,8 @@ from .scan_topk import _refine, check_cuda_operands
 PROVENANCE_BITS_MAX = 13
 INT32_MAX = 2**31 - 1
 LANES = 128
-#: Blocks a K7/K8 launch aims for: several waves of the H100's 132 SMs at
-#: about 6 resident blocks each, so the last wave is a small share.
-_TARGET_BLOCKS = 4096
-#: Queries per K7/K8 block (kBinQB in csrc/binscan.cu).
-_QUERY_BLOCK = 16
+#: Waves of blocks a K7/K8 launch aims for, at the blocks an SM holds.
+_TARGET_WAVES = 2
 #: Rows per step of the plain scans: bounds their [B, rows] score block.
 _PLAIN_ROWS = 65536
 
@@ -175,6 +175,48 @@ def _keys_plain(qs, qsq, qt, emb, emb_sq, scale, tiles, tile, expand, tg_bits,
     return table.permute(1, 0, 2).contiguous()
 
 
+def backend(emb, qs) -> str:
+    """The score tile's back end of a K7/K8 launch: ``"dp4a"`` for int8
+    codes, else ``score_tile.pick_backend`` (``"wgmma"`` for bf16 with
+    ``d % 8 == 0`` and 16-byte aligned arrays, ``"fma"`` otherwise)."""
+    if emb.dtype == torch.int8:
+        return "dp4a"
+    return score_tile.pick_backend(emb.dtype, emb.shape[1], qs.data_ptr(), emb.data_ptr())
+
+
+def splits_for(batch: int, backend_: str, n_units: int, tile: int, expand: int) -> int:
+    """Splits of each slab block's slots: about ``_TARGET_WAVES`` waves of
+    (query group, slab, split) blocks, at one block an SM for 128 queries a
+    block and two for 64, never more splits than a slab block has slots."""
+    queries = score_tile.block_queries(batch, backend_)
+    pairs = -(-batch // queries) * expand * (tile // LANES)
+    per_sm = 1 if queries == 128 else 2
+    per_block = -(-n_units // expand)  # slots of one slab block, at most
+    return max(1, min(per_block, _TARGET_WAVES * score_tile.SM_COUNT * per_sm // pairs))
+
+
+def chunk_schedule(n_units: int, n_lg: int, expand: int, splits: int):
+    """The lane groups each block of a query group scores, in the kernel's
+    index math (``SlabChunks`` in ``csrc/binscan.cu``) -> {(slab, split):
+    [(slot, g3), ...]}: the slots of slab block e = slab // n_lg (tile groups
+    e, e + expand, ...) cut into ``splits`` runs, and of each slot the lane
+    group g3 that folds into slab ``slab``."""
+    out = {}
+    full, rem = divmod(n_units, n_lg)
+    for slab in range(expand * n_lg):
+        e, sl = divmod(slab, n_lg)
+        m_full = -(-(full - e) // expand) if full > e else 0
+        cnt = m_full * n_lg + (rem if rem and full % expand == e else 0)
+        for split in range(splits):
+            lo, hi = cnt * split // splits, cnt * (split + 1) // splits
+            chunks = []
+            for i in range(lo, hi):
+                slot = (e + (i // n_lg) * expand) * n_lg + i % n_lg
+                chunks.append((slot, (sl - slot % n_lg) % n_lg))
+            out[(slab, split)] = chunks
+    return out
+
+
 def _keys_cuda(name, qs, qsq, qt, emb, emb_sq, scale, sel, n_units, tile,
                expand, tg_bits, code_bits):
     n_lg = tile // LANES
@@ -184,9 +226,8 @@ def _keys_cuda(name, qs, qsq, qt, emb, emb_sq, scale, sel, n_units, tile,
     )
     lib = _build.load()
     b, d = qs.shape
-    groups = -(-b // _QUERY_BLOCK)
-    per_block = -(-n_units // expand)  # slots of one slab block, at most
-    splits = max(1, min(per_block, _TARGET_BLOCKS // (groups * expand * n_lg)))
+    back = backend(emb, qs)
+    splits = splits_for(b, back, n_units, tile, expand)
     out = torch.full((expand * n_lg, b, LANES), INT32_MAX, dtype=torch.int32,
                      device=emb.device)
     dtype = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[emb.dtype]
@@ -196,7 +237,7 @@ def _keys_cuda(name, qs, qsq, qt, emb, emb_sq, scale, sel, n_units, tile,
         head.append(ptr(sel))
     rc = getattr(lib, name)(
         *head, b, d, tile, n_units, expand, tg_bits, code_bits, splits, dtype,
-        out.data_ptr(), _build.stream_ptr(),
+        int(back == "wgmma"), out.data_ptr(), _build.stream_ptr(),
     )
     _build.check(rc, name)
     _build.LAUNCHES["K8" if sel is not None else "K7"] += 1

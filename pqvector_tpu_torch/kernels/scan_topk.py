@@ -6,12 +6,12 @@ Counterpart of ``pqvector_tpu/kernels/scan_topk.py``: ``_refine``,
 with a per-tile local mask), ``pallas_exact_topk`` (K5) and
 ``pallas_masked_topk`` (K6, any layout, a global probe mask looked up
 through each row's cluster id). The per-tile scans are the hand-written
-kernels of ``csrc/scan_topk.cu`` on CUDA tensors (K5 and K4 on the score tile
-of ``csrc/score_tile.cuh``, K4 scoring only the chunks its queries probe:
-``scored_chunks``) and the ``*_plain`` functions on CPU tensors. The probe
-mask, the ``lmask`` gather, the cross-tile merge and the f32 re-score are
-plain torch, as they are XLA code outside the Pallas calls in the JAX
-package.
+kernels of ``csrc/scan_topk.cu`` on CUDA tensors (all three on the score
+tile of ``csrc/score_tile.cuh``; K4 and K6 score only the chunks their
+queries probe: ``scored_chunks``, ``masked_scan_chunks``) and the ``*_plain``
+functions on CPU tensors. The probe mask, the ``lmask`` gather, the
+cross-tile merge and the f32 re-score are plain torch, as they are XLA code
+outside the Pallas calls in the JAX package.
 
 Every selection orders on (distance, id): ties go to the lower row id, since
 ``torch.topk`` promises no order among ties.
@@ -25,7 +25,6 @@ from . import _build, score_tile
 
 POS_INF = 3.0e38  # pad and masked rows, as in the kernels
 MAX_K = 128  # largest k a kernel's top-k list holds
-QUERY_BLOCK = 16  # queries per block of K6 (kQB in csrc/common.cuh)
 
 
 def select_lex(d: torch.Tensor, ids: torch.Tensor, k: int):
@@ -147,22 +146,63 @@ def scored_chunks(probe, local_cluster, tile: int, queries: int):
     return row_hit.view(nt, groups, chunks, score_tile.CHUNK_ROWS).any(dim=3)
 
 
+def masked_scan_chunks(mask, row_cluster, tile: int, queries: int, table: bool = True):
+    """Which 128-row chunks K6 scores -> bool [nt, groups, chunks a tile]:
+    the skip rule of ``csrc/topk_lists.cuh`` (``ClusterLists``) in plain
+    torch. A block owns ``queries`` consecutive queries of ``mask`` [B,
+    kc_pad] and scores a chunk iff some row of it (``row_cluster`` [n_pad])
+    is of a cluster some query of the block probes, so every probed (query,
+    row) pair lies in a scored chunk. Without the probe table in shared
+    memory (it does not fit: ``k6_units`` = 0) K6 runs K4's kernel, which
+    scores every chunk."""
+    b = mask.shape[0]
+    nt = row_cluster.shape[0] // tile
+    groups = -(-b // queries)
+    chunks = -(-tile // score_tile.CHUNK_ROWS)
+    if not table:
+        return torch.ones((nt, groups, chunks), dtype=torch.bool, device=mask.device)
+    pad = torch.zeros((groups * queries - b, mask.shape[1]), dtype=torch.bool,
+                      device=mask.device)
+    union = torch.cat([mask > 0.5, pad]).view(groups, queries, -1).any(dim=1)
+    row_hit = union[:, row_cluster.long()].view(groups, nt, tile).transpose(0, 1)
+    row_hit = torch.nn.functional.pad(row_hit, (0, chunks * score_tile.CHUNK_ROWS - tile))
+    return row_hit.reshape(nt, groups, chunks, score_tile.CHUNK_ROWS).any(dim=3)
+
+
+def k6_units(batch: int, nt: int, smem: int, queries: int) -> int:
+    """Tile runs of a K6 launch with its probe table: about one wave of
+    (run, query group) blocks at the blocks an SM holds (one for 128
+    queries a block, two for 64, fewer where shared memory says so), no
+    more runs than tiles; 0 where the table does not fit shared memory."""
+    if smem > score_tile.SMEM_LIMIT:
+        return 0
+    per_sm = max(1, min(1 if queries == 128 else 2,
+                        score_tile.SMEM_PER_SM // (smem + 1024)))
+    groups = -(-batch // queries)
+    return max(1, min(nt, score_tile.SM_COUNT * per_sm // groups))
+
+
 def masked_geometry(kernel: str, qf, emb, k: int, cmax: int):
     """(back end, queries a block, probe-table words, dynamic shared memory)
-    of a K4 or K3 launch on these operands."""
+    of a K4, K6 or K3 launch on these operands (K6: ``cmax`` = kc_pad)."""
     backend = score_tile.pick_backend(
         emb.dtype, emb.shape[1], qf.data_ptr(), emb.data_ptr()
     )
     queries = score_tile.masked_block_queries(backend)
-    words = score_tile.table_words(kernel, backend, queries, k, cmax)
+    if kernel == "K6":  # cmax = kc_pad: a bit a cluster, or no table where it does not fit
+        words = cmax // 32
+        if score_tile.smem_bytes(kernel, backend, queries, k, words) > score_tile.SMEM_LIMIT:
+            words = 0
+    else:
+        words = score_tile.table_words(kernel, backend, queries, k, cmax)
     smem = score_tile.smem_bytes(kernel, backend, queries, k, words)
     return backend, queries, words, smem
 
 
 def check_stats(stats, device) -> int:
-    """The address of K4's and K3's optional counters (0 for none): an int32
-    [2] CUDA tensor that a launch adds the (block, tile) and (block, chunk)
-    pairs it scored to."""
+    """The address of K4's, K6's and K3's optional counters (0 for none): an
+    int32 [2] CUDA tensor that a launch adds the (block, tile) and (block,
+    chunk) pairs it scored to."""
     if stats is None:
         return 0
     if stats.dtype != torch.int32 or stats.shape != (2,) or stats.device != device:
@@ -257,10 +297,17 @@ def masked_scan_plain(qf, emb, emb_sq, row_cluster, mask, k, tile):
     return _tile_topk_plain(qf, emb, emb_sq, k, tile, probed)
 
 
-def masked_scan(qf, emb, emb_sq, row_cluster, mask, k: int, tile: int):
+def masked_scan(qf, emb, emb_sq, row_cluster, mask, k: int, tile: int, stats=None):
     """K6's scan: per-tile top-k under a global probe mask -> ([nt, B, k],
     [nt, B, k]). ``row_cluster`` [n_pad] int32 holds each row's cluster, kc
-    on pad rows; ``mask`` [B, kc_pad] f32 with kc_pad > kc, slot kc unset."""
+    on pad rows; ``mask`` [B, kc_pad] f32 with kc_pad > kc, slot kc unset.
+    The kernel runs on the score tile (fp32 FMA or wgmma by
+    ``score_tile.pick_backend``) with the block's queries' rows of the mask
+    as a probe table in shared memory, a block walking a run of tiles
+    (``k6_units``), or, where that table does not fit, K4's kernel reading
+    the mask through the rows' cluster ids; it scores the chunks
+    ``masked_scan_chunks`` picks, and ``stats`` (``check_stats``) counts the
+    (block, tile) and (block, chunk) pairs it scored, on CUDA tensors only."""
     check_scan_args(qf, emb, emb_sq, k, tile)
     if row_cluster.dtype != torch.int32 or row_cluster.shape != (emb.shape[0],):
         raise TypeError("row_cluster must be int32 [n_pad]")
@@ -268,10 +315,15 @@ def masked_scan(qf, emb, emb_sq, row_cluster, mask, k: int, tile: int):
         raise TypeError("mask must be float32 [B, kc_pad]")
     if emb.device.type == "cpu":
         return masked_scan_plain(qf, emb, emb_sq, row_cluster, mask, k, tile)
+    if mask.shape[1] % 128:
+        raise ValueError("mask's kc_pad must be a multiple of 128")
     check_cuda_operands(q=qf, emb=emb, emb_sq=emb_sq, row_cluster=row_cluster, mask=mask)
+    backend, queries, words, smem = masked_geometry("K6", qf, emb, k, mask.shape[1])
+    units = k6_units(qf.shape[0], emb.shape[0] // tile, smem, queries) if words else 0
     return _launch_tile_topk(
         "K6", "pqv_masked_topk", qf, emb, emb_sq, k, tile,
         ptrs=(row_cluster, mask), ints=(mask.shape[1],),
+        flags=(int(backend == "wgmma"), units, check_stats(stats, emb.device)),
     )
 
 

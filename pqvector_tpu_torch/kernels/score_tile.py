@@ -1,13 +1,16 @@
-"""Launch geometry of the score tile shared by K9, K5, K4, K3, K2 and K1.
+"""Launch geometry of the score tile shared by K9, K5, K4, K6, K3, K2, K1,
+K7 and K8.
 
 ``csrc/score_tile.cuh`` scores up to 128 queries against 128-row chunks in
-registers, on one of two back ends: ``"fma"``, IEEE fp32 on the CUDA cores
+registers, on one of three back ends: ``"fma"``, IEEE fp32 on the CUDA cores
 (f32 storage always; bf16 storage widened where the tensor cores cannot take
-it), and ``"wgmma"``, bf16 x bf16 with fp32 accumulation on the tensor cores.
-The only switch between them is ``pick_backend``, a rule on dtype, width and
-addresses decided before any launch. The functions below mirror the
-constants of the CUDA sources so that the shapes, the grid and the dynamic
-shared memory of a launch can be reckoned, and tested, without a card.
+it), ``"wgmma"``, bf16 x bf16 with fp32 accumulation on the tensor cores, and
+``"dp4a"``, K7's and K8's int8 codes with exact int32 sums on the CUDA cores
+(``kernels/binscan.py:backend``). The switch between the first two is
+``pick_backend``, a rule on dtype, width and addresses decided before any
+launch. The functions below mirror the constants of the CUDA sources so that
+the shapes, the grid and the dynamic shared memory of a launch can be
+reckoned, and tested, without a card.
 """
 
 from __future__ import annotations
@@ -39,12 +42,12 @@ def block_queries(batch: int, backend: str) -> int:
     """Queries one block owns: 128, or 64 on the CUDA cores for a batch of
     at most 64 (a warpgroup's wgmma has 64 query rows either way, and its
     unused rows cost no memory traffic)."""
-    return 64 if backend == "fma" and batch <= 64 else 128
+    return 64 if backend in ("fma", "dp4a") and batch <= 64 else 128
 
 
 def masked_block_queries(backend: str) -> int:
-    """Queries one block of K4 or K3 owns: a warpgroup pair's 128 on wgmma,
-    64 on the CUDA cores whatever the batch. Fewer queries probe fewer of a
+    """Queries one block of K4, K6 or K3 owns: a warpgroup pair's 128 on
+    wgmma, 64 on the CUDA cores whatever the batch. Fewer queries probe fewer of a
     tile's chunks, which pays where the products are the time, and two
     blocks fit an SM up to k = 100."""
     return 128 if backend == "wgmma" else 64
@@ -52,14 +55,15 @@ def masked_block_queries(backend: str) -> int:
 
 def stage_bytes(backend: str, queries: int) -> int:
     """One stage of the ring: 64 dimensions of 128 queries and 128 rows in
-    bf16, or 16 dimensions of the queries and rows in f32, transposed with
-    a 4-float pad per dimension."""
+    bf16, or 16 dimensions (``"dp4a"``: 16 four-code words) of the queries
+    and rows in 4-byte elements, transposed with a 4-element pad per
+    dimension."""
     if backend == "wgmma":
         return 2 * 128 * 128
     return 16 * ((CHUNK_ROWS + 4) + (queries + 4)) * 4
 
 
-_LIST_KERNELS = ("K5", "K2", "K4", "K3")  # their epilogue keeps top-k lists
+_LIST_KERNELS = ("K5", "K2", "K4", "K6", "K3")  # their epilogue keeps top-k lists
 
 
 def stages(kernel: str, backend: str) -> int:
@@ -69,17 +73,26 @@ def stages(kernel: str, backend: str) -> int:
 
 
 def smem_bytes(kernel: str, backend: str, queries: int, k: int = 0, words: int = 0) -> int:
-    """Dynamic shared memory of a launch of ``kernel`` ("K9", "K5", "K4", "K3",
-    "K2" or "K1"): the ring and the norms; for K5, K4, K3 and K2 the lists
-    ([k][queries] f32 + i32) and the score dump, for K9 one carried minimum
-    per query; K1's running argmin lives in registers. K4 and K3 add 64 bytes
-    of flags and, with a probe table of ``words`` 32-bit words a query
-    (``table_words``), the staged slots of two chunks, the slot sets of their
-    quarters and the table."""
+    """Dynamic shared memory of a launch of ``kernel`` ("K9", "K5", "K4", "K6",
+    "K3", "K2", "K1", "K7" or "K8"): the ring and the norms; for K5, K4, K6,
+    K3 and K2 the lists ([k][queries] f32 + i32) and the score dump, for K9
+    one carried minimum per query, for K7 and K8 the row scales of two
+    chunks; K1's running argmin and K7's bins live in registers. K4 and K3
+    add 64 bytes of flags and, with a probe table of ``words`` 32-bit words a
+    query (``table_words``), the staged slots of two chunks, the slot sets of
+    their quarters and the table; K6 with its table (``words`` = kc_pad / 32,
+    a bit a cluster) the clusters of two chunks, two counts a query, the
+    picks word, the union, the table and a byte a candidate's row, and
+    without it what K4 takes without one."""
     total = _ALIGN_SLACK + stages(kernel, backend) * stage_bytes(backend, queries) + _NORMS
+    if kernel in ("K7", "K8"):
+        return total + _NORMS
     if kernel in _LIST_KERNELS:
         total += queries * (8 * k + 4 * DUMP_STRIDE)
-        if kernel in ("K4", "K3"):
+        if kernel == "K6" and words:  # clusters, counts, picks, table, candidates' rows
+            return total + _NORMS + queries * 8 + 16 + words * 4 + queries * words * 4 \
+                + queries * 64
+        if kernel in ("K4", "K6", "K3"):
             total += 64
             if words:
                 total += 2 * CHUNK_ROWS * 4 + 2 * 4 * words * 4 + queries * words * 4

@@ -59,9 +59,9 @@ from ..kernels.binscan import (
     provenance_bits,
     quantize_queries_i8,
 )
+from ..kernels import score_tile
 from ..kernels.scan_topk import (
     MAX_K,
-    QUERY_BLOCK,
     _refine,
     exact_topk,
     masked_local_topk,
@@ -80,26 +80,39 @@ _NOT_PORTED = frozenset({"xbin", "xbin8", "tilescan", "autoscan"})
 _CERT_FUSE_BUDGET = 2 << 30
 #: Cap on the [B, chunk] f32 score block of the over-fetch modes.
 _APPROX_BLOCK_CAP = 1 << 30
-#: The scan kernels' tile: the rows one block of K4, K5 and K6 owns, the
-#: grain at which K3 and K4 skip unprobed work, and the unit of the per-tile
-#: cluster tables. Shared memory does not depend on it (the kernels stream
-#: 128-row chunks, K6 64-row ones), so the tile is chosen for the grid and
-#: the tables: 1024 rows is about one cluster at IVF-1024 over 1M rows, gives
+#: The scan kernels' tile: the rows one block of K4 and K5 owns, the unit of
+#: K6's per-tile lists, the grain at which K3 and K4 skip unprobed work, and
+#: the unit of the per-tile cluster tables. Shared memory does not depend on
+#: it (the kernels stream 128-row chunks), so the tile is chosen for the grid
+#: and the tables: 1024 rows is about one cluster at IVF-1024 over 1M rows, gives
 #: about 1000 tiles there, and keeps a tile's table to a few clusters, one
 #: 32-bit word a query in K3's and K4's shared memory.
 _SCAN_TILE_CAP = 1024
 #: Cap on K4's pre-gathered [nt, B, cmax] f32 local mask, as in the JAX
 #: package; beyond it ``auto`` takes K3, which needs no such buffer.
 _LOCAL_MASK_CAP = 256 << 20
-#: ``auto``'s cost model on a layout in file order, fit to K6 and
-#: ``gather`` timed on the H100 at 1M x 128 and 10M x 96 (PERF.md).
-#: K6 scores every resident row for each 16-query block: ms per 1e9
-#: (row, query slot, dimension) triples.
-_K6_MS_PER_G = 0.28
+#: ``auto``'s cost model on a layout in file order, fit to ``search``
+#: through K6 and through ``gather`` timed on the H100 at 1M x 128 (B = 1 to
+#: 256) and 10M x 96 (B = 1, 16, 256), PERF.md §5. K6: a fixed cost plus ms
+#: per 1e9 (row, dimension, query slot) triples of the chunks it scores: a
+#: block of 128 queries on wgmma (64 on the fp32 patch) walks the chunks
+#: that hold a row of a cluster its queries probe, each chunk's share
+#: ``_k6_chunk_share``. The fp32 patch's rate is the wgmma one times K6's
+#: f32/bf16 kernel ratio at B = 256 (2.3); no f32 route was timed.
+_K6_MS = 0.57
+_K6_MS_PER_G = {"wgmma": 0.053, "fma": 0.12}
 #: ``gather``: a fixed cost (the plain-torch probe chain's launches) plus ms
 #: per 1e6 candidate rows (batch * nprobe * longest list).
-_GATHER_MS = 4.4
-_GATHER_MS_PER_M = 1.1
+_GATHER_MS = 8.0
+_GATHER_MS_PER_M = 0.7
+
+
+def _k6_chunk_share(queries: int, nprobe: int, n_clusters: int) -> float:
+    """The share of 128-row chunks in file order that hold a row of a
+    cluster some of ``queries`` queries probes, each probing ``nprobe`` of
+    ``n_clusters`` at random: K6 scores those and skips the rest."""
+    p = min(1.0, queries * nprobe / n_clusters)
+    return 1.0 - (1.0 - p) ** 128
 
 
 def _round_up(x: int, m: int) -> int:
@@ -1156,10 +1169,13 @@ class DeviceIvfSearcher:
     def _unsorted_auto(self, batch: int, nprobe: int) -> str:
         """``auto``'s route on a layout in file order: K6 (``pallas``) or
         ``gather``, whichever the cost model fit on the H100 predicts is
-        faster. K6's cost grows with the resident rows times the padded
-        batch, the gather's with its candidate rows."""
-        slots = _round_up(batch, QUERY_BLOCK)
-        k6_ms = _K6_MS_PER_G * int(self.emb.shape[0]) * self.dim * slots / 1e9
+        faster. K6's cost grows with the rows of the chunks it scores times
+        the padded batch, the gather's with its candidate rows."""
+        backend = score_tile.pick_backend(self.emb.dtype, self.dim)
+        queries = score_tile.masked_block_queries(backend)
+        share = _k6_chunk_share(min(batch, queries), nprobe, self.index.n_clusters)
+        triples = int(self.emb.shape[0]) * self.dim * _round_up(batch, queries) * share
+        k6_ms = _K6_MS + _K6_MS_PER_G[backend] * triples / 1e9
         cand = batch * nprobe * int(self.clusters.shape[1])
         gather_ms = _GATHER_MS + _GATHER_MS_PER_M * cand / 1e6
         return "pallas" if k6_ms <= gather_ms else "gather"

@@ -1,4 +1,4 @@
-"""Where K4's and K3's time goes on one Hopper GPU: the walk, the sparse
+"""Where K4's, K3's and K6's time goes on one Hopper GPU: the walk, the
 dumps with their barriers, and the list work.
 
     python3 scripts/torch_masked_epilogue_profile.py [--rows 1000000]
@@ -11,7 +11,8 @@ dumps and both barriers of a half stay, no score enters a list); and with
 else; on the fp32 back end the compiler then drops the products too, so only
 the bf16 column says what the walk costs). Each build times K4, K3 and, as a
 yardstick for a full walk, K9 on ``--rows`` x 128 cluster-sorted rows of 1024
-modes (tiles of 1024 rows, nprobe 8, k = 10) at B = 256 and 16, in bf16 and
+modes (tiles of 1024 rows, nprobe 8, k = 10), and K6 on the same rows in a
+seeded random order (a layout in file order), at B = 256 and 16, in bf16 and
 f32, with 20 launches between two CUDA events, so the host's share of a
 single launch is not in the numbers. The two profile builds return wrong
 results by design; nothing else uses those flags.
@@ -80,19 +81,27 @@ def one_build(flag: str, rows: int) -> None:
     q_all = x[pick] + 0.05 * torch.from_numpy(
         rng.standard_normal((256, d)).astype(np.float32)).to(dev)
     c_sq = (centres * centres).sum(1)
+    perm = torch.from_numpy(np.random.default_rng(11).permutation(rows)).to(dev)
+    xf, sqf = x.clone(), sq.clone()
+    xf[:rows], sqf[:rows] = x[perm], sq[perm]
+    rcf = torch.full((n_pad,), modes, dtype=torch.int32, device=dev)
+    rcf[:rows] = torch.from_numpy(label).to(dev)[perm].to(torch.int32)
     out = [flag or "as built", cs.card_line()]
     for b in (256, 16):
         q = q_all[:b].contiguous()
         mask = st._probe_mask(q, centres, c_sq, 8, 128, -(-(modes + 1) // 128) * 128)
         sched = st._tile_schedule(mask, tc)
         lmask = mask[:, tc.long()].permute(1, 0, 2).contiguous()
-        for name, emb in (("bf16", x.to(torch.bfloat16)), ("f32", x)):
+        for name, emb, embf in (("bf16", x.to(torch.bfloat16), xf.to(torch.bfloat16)),
+                                ("f32", x, xf)):
             qf = q.to(emb.dtype)
             a4 = (qf, emb, sq, lcl, lmask, 10, tile)
             a3 = (qf, emb, sq, lcl, tc, mask, sched, 10, tile)
+            a6 = (qf, embf, sqf, rcf, mask, 10, tile)
             out.append(
                 f"B={b} {name}: K4 {device_ms(torch, lambda: sc.masked_local_scan(*a4)):.3f} "
                 f"K3 {device_ms(torch, lambda: st.stream_masked_scan(*a3)):.3f} "
+                f"K6 {device_ms(torch, lambda: sc.masked_scan(*a6)):.3f} "
                 f"K9 {device_ms(torch, lambda: tm.tile_min(q, emb, sq, 128)):.3f} ms")
     print(" | ".join(out), flush=True)
 

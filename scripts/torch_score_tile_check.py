@@ -1,6 +1,7 @@
 """Quick check and timing of the score-tile kernels (K9 tile min, K5 exact
-per-tile top-k, K4 masked per-tile top-k, K2 and K3 streaming exact and masked
-top-k, K1 nearest-centroid assign) of the PyTorch port on one Hopper GPU.
+per-tile top-k, K4 and K6 masked per-tile top-k, K2 and K3 streaming exact and
+masked top-k, K1 nearest-centroid assign, K7 and K8 binned-min scan) of the
+PyTorch port on one Hopper GPU.
 
     python3 scripts/torch_score_tile_check.py [--rows 1000000] [--no-ptxas]
         [--time-only] [--package-root DIR] [--digest-file FILE] [--modes M]
@@ -23,9 +24,15 @@ Needs a card, nvcc and the repo root as the working directory. It
    1024 rows, the M mode centres as centroids, nprobe 8) at B = 1, 16, 64, 256
    and 4096, k = 10 and 100, in f32 and bf16, prints the share of tiles and
    chunks the skip rule scores, and adds the SHA-256 of their f32 outputs to
-   the digests. The layout, the probe mask, the local mask and the schedule
-   come from seeded numpy and plain torch code in this script, so two
-   versions of the package get the same tensors.
+   the digests; then K6 on the same rows stored in a seeded random order
+   (file order) at the same shapes, and K7 (tile 2048, expand 2) and K8 (a
+   seeded half of those tiles) at B = 1, 16, 64, 256 and 4096 in f32, bf16
+   and int8 codes, each beside its bound and, up to B = 256, the PyTorch
+   chain of ``chip_smoke.py`` phase 2b, adding the SHA-256 of K6's f32
+   outputs and of K7's and K8's f32 and int8 key tables. The layout, the
+   probe mask, the local mask and the schedule come from seeded numpy and
+   plain torch code in this script, so two versions of the package get the
+   same tensors.
 
 A short first call after touching the CUDA sources; ``chip_smoke.py`` is the
 full run. ``--time-only`` skips steps 2 and 3. ``--package-root DIR`` takes
@@ -40,7 +47,8 @@ the top-k lists take more replacements.
 names, fails where one differs, and adds the new names to FILE (a version
 that computes another function under an old name renames its digest, as the
 index bytes were when the k-means++ seeds changed): run parent, change, change, parent
-with one file and the f32 outputs of K1, K2, K3 and K4 are held bit for bit.
+with one file and the f32 outputs of K1, K2, K3, K4 and K6 and the f32 and
+int8 key tables of K7 and K8 are held bit for bit.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ sys.path.insert(0, ROOT)
 
 
 def ptxas_report(_build) -> None:
-    for name in ("tilemin.cu", "scan_topk.cu", "stream_topk.cu", "assign.cu"):
+    for name in ("tilemin.cu", "scan_topk.cu", "stream_topk.cu", "assign.cu", "binscan.cu"):
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
                os.devnull, str(_build.CSRC / name)]
         out = subprocess.run(cmd, capture_output=True, text=True)
@@ -70,10 +78,10 @@ def ptxas_report(_build) -> None:
         for i, line in enumerate(lines):
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m and re.search(r"tile_min_kernel|exact_topk_kernel|stream_exact_kernel|"
-                               r"assign_kernel|masked_local_kernel|stream_masked_kernel",
-                               m.group(1)):
+                               r"assign_kernel|masked_local_kernel|stream_masked_kernel|"
+                               r"binscan_kernel|masked_topk_kernel", m.group(1)):
                 kernel = re.search(r"\d+([a-z_]+_kernel)", m.group(1))
-                tile = re.search(r"(FmaTile\w+?EE|MmaTile)", m.group(1))
+                tile = re.search(r"(FmaTile\w+?EE|Dp4aTile\w+?EE|MmaTile)", m.group(1))
                 used = " ".join(l.strip() for l in lines[i + 1 : i + 4])
                 used = used.replace("ptxas info    : ", "")
                 print(f"ptxas {name} {kernel.group(1) if kernel else ''} "
@@ -101,6 +109,16 @@ def check_shared_memory(lib) -> None:
             words = score_tile.table_words("K4", backend, nq, k, 256)
             assert score_tile.smem_bytes("K4", backend, nq, k, words) <= score_tile.SMEM_LIMIT
     assert lib.pqv_assign_smem() == score_tile.smem_bytes("K1", "fma", 128)
+    for backend, nq in (("fma", 64), ("wgmma", 128)):
+        for k in (1, 10, 128):
+            for kc_pad in (128, 1152, 4224):
+                got = lib.pqv_masked_topk_smem(int(backend == "wgmma"), nq, k, kc_pad)
+                want = score_tile.smem_bytes("K6", backend, nq, k, kc_pad // 32)
+                assert got == want, (backend, nq, k, kc_pad, got, want)
+    for code, backend, nq in ((0, "fma", 64), (0, "fma", 128), (1, "wgmma", 128),
+                              (2, "dp4a", 64), (2, "dp4a", 128)):
+        got = lib.pqv_binned_scan_smem(code, nq)
+        assert got == score_tile.smem_bytes("K7", backend, nq), (backend, nq, got)
     print("shared-memory sizes agree with kernels/score_tile.py")
 
 
@@ -121,6 +139,7 @@ def main() -> None:
     import chip_smoke as cs
     from pqvector_tpu_torch.kernels import _build
     from pqvector_tpu_torch.kernels import assign as ka
+    from pqvector_tpu_torch.kernels import binscan as bs
     from pqvector_tpu_torch.kernels import scan_topk as sc
     from pqvector_tpu_torch.kernels import stream_topk as st
     from pqvector_tpu_torch.kernels import tilemin as tm
@@ -140,6 +159,9 @@ def main() -> None:
         cs.phase2_small_k1_k2(torch, ka, st)
         cs.phase2_small(torch, st, sc, ka)
         cs.phase2_masked_score_tile(torch, st, sc)
+        cs.phase2_k6_score_tile(torch, st, sc)
+        cs.phase2_binscan_score_tile(torch, bs, bs.quantize_queries_i8)
+        cs.phase2_small_slice2(torch, st, sc, bs, bs.quantize_queries_i8)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
@@ -193,6 +215,8 @@ def main() -> None:
                   f"{err:.3g}, kernel {ms:.3f} ms (B=1: {ms1:.3f} ms)")
     if args.modes:
         masked_section(torch, cs, sc, st, x, sq, centres, label, rng, n, digests)
+        k6_section(torch, cs, sc, st, x, sq, centres, label, n, digests)
+        binned_section(torch, cs, bs, x, sq, digests)
     cent = x[:1024].contiguous()
     got = ka.assign_rows(x[:n], cent)
     want = ka.assign_rows_plain(x[:n], cent)
@@ -287,6 +311,102 @@ def masked_section(torch, cs, sc, st, x, sq, centres, label, rng, n, digests) ->
                 print(f"K4 {name} B={b} k={k} nprobe={nprobe}: {ms4:.3f} ms; K3: {ms3:.3f} "
                       f"ms; K3 equal to K4's merge: {same}")
                 del g4, g3, m4
+
+
+def k6_section(torch, cs, sc, st, x, sq, centres, label, n, digests) -> None:
+    """K6 on the rows of ``masked_section`` stored in a seeded random order,
+    as a searcher in file order holds them: times, bounds (the rows of the
+    probed clusters and the probed pairs' products, as ``chip_smoke.py``
+    counts K3's and K4's), the PyTorch chain up to B = 256, and digests of
+    the f32 outputs."""
+    dev = x.device
+    n_pad, d = x.shape
+    tile, nprobe, kc = 1024, 8, centres.shape[0]
+    perm = torch.from_numpy(np.random.default_rng(11).permutation(n)).to(dev)
+    xf = x.clone()
+    xf[:n] = x[perm]
+    sqf = sq.clone()
+    sqf[:n] = sq[perm]
+    rc = torch.full((n_pad,), kc, dtype=torch.int32, device=dev)
+    rc[:n] = label[perm].to(torch.int32)
+    kc_pad = -(-(kc + 1) // 128) * 128
+    c_sq = (centres * centres).sum(1)
+    g = np.random.default_rng(12)
+    pick = torch.from_numpy(g.integers(0, n, 4096)).to(dev)
+    q_all = xf[pick] + 0.05 * torch.from_numpy(
+        g.standard_normal((4096, d)).astype(np.float32)).to(dev)
+    for name, emb in (("f32", xf), ("bf16", xf.to(torch.bfloat16))):
+        kind = "fp32" if name == "f32" else "bf16"
+        for b in (1, 16, 64, 256, 4096):
+            q = q_all[:b].contiguous()
+            mask = st._probe_mask(q, centres, c_sq, nprobe, 128, kc_pad)
+            qf = q.to(emb.dtype)
+            for k in (10, 100):
+                args = (qf, emb, sqf, rc, mask, k, tile)
+                got = sc.masked_scan(*args)
+                if name == "f32":
+                    digests[f"K6 f32 B={b} k={k}"] = digest(*got)
+                del got
+                reps = 3 if b == 4096 else 10
+                ms = cs.time_ms(lambda: sc.masked_scan(*args), reps=reps)
+                row_bytes, ops = cs.probed_work(torch, mask, rc, d, emb.element_size())
+                bound = cs.bound_of(row_bytes + cs.nbytes_of(qf, mask)
+                                    + (n_pad // tile) * b * k * 8, ops, kind)
+                lib = "not timed"
+                if b <= 256:
+                    lib_ms = cs.masked_library_ms(torch, qf, emb, sqf, rc, mask, k, reps=5)
+                    lib = f"{lib_ms:.3f} ms"
+                print(f"K6 {name} file order B={b} k={k} nprobe={nprobe}: {ms:.3f} ms, bound "
+                      f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}), mm + gathered mask "
+                      f"+ topk {lib}")
+    del xf, sqf
+
+
+def binned_section(torch, cs, bs, x, sq, digests) -> None:
+    """K7 (every tile) and K8 (a seeded half of the tiles) at tile 2048,
+    expand 2 on the rows ``x``: f32, bf16 and int8 codes at B = 1 .. 4096,
+    times, bounds, the PyTorch chain up to B = 256, and digests of the f32
+    and int8 key tables."""
+    dev = x.device
+    n_pad, d = x.shape
+    tile, expand = 2048, 2
+    nt = n_pad // tile
+    sel = np.sort(np.random.default_rng(13).permutation(nt)[: nt // 2]).astype(np.int32)
+    sel = torch.from_numpy(sel).to(dev)
+    g = np.random.default_rng(14)
+    noise = torch.from_numpy(g.standard_normal((4096, d)).astype(np.float32)).to(dev)
+    q_all = x[torch.from_numpy(g.integers(0, n_pad - tile, 4096)).to(dev)] + 0.05 * noise
+    codes, scale = bs.quantize_queries_i8(x)
+    arrays = (("f32", x, None, "fp32"), ("bf16", x.to(torch.bfloat16), None, "bf16"),
+              ("int8", codes, scale, "int8"))
+    for name, emb, sc8, kind in arrays:
+        for what, s_ in (("K7", None), ("K8", sel)):
+            rows = n_pad if s_ is None else s_.shape[0] * tile
+            for b in (1, 16, 64, 256, 4096):
+                q = q_all[:b].contiguous()
+                if s_ is None:
+                    def call():
+                        return bs.binned_scan_keys(q, emb, sq, tile, expand, sc8)
+                else:
+                    def call():
+                        return bs.binned_scan_select_keys(q, emb, sq, s_, tile, expand, sc8)
+                table = call()
+                if name != "bf16":
+                    digests[f"{what} {name} B={b}"] = digest(table)
+                del table
+                ms = cs.time_ms(call, reps=3 if b == 4096 else 10)
+                extra = 0 if sc8 is None else rows * 4
+                bound = cs.bound_of(rows * (d * emb.element_size() + 4) + extra
+                                    + cs.nbytes_of(q) + expand * tile * b * 4,
+                                    2.0 * b * rows * d, kind)
+                lib = "not timed"
+                if b <= 256 and sc8 is None:
+                    src = emb if s_ is None else emb.view(-1, tile, d)[s_.long()].reshape(rows, d)
+                    lib = f"{cs.binned_library_ms(torch, q, src, expand * tile):.3f} ms"
+                    del src
+                print(f"{what} {name} tile={tile} expand={expand} rows={rows} B={b}: "
+                      f"{ms:.3f} ms, bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}), "
+                      f"mm + scatter_reduce(amin) {lib}")
 
 
 def digest(*tensors) -> str:

@@ -224,3 +224,110 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, masked):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
     np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+
+
+def _file_order(n, kc, tile, seed):
+    """Rows' clusters in random order, pad rows of cluster kc, and a probe
+    mask [B, kc_pad] of random clusters (none of them kc)."""
+    rng = np.random.default_rng(seed)
+    n_pad = -(-(n + 1) // tile) * tile
+    rc = np.full(n_pad, kc, np.int32)
+    rc[:n] = rng.integers(0, kc, n)
+    return torch.from_numpy(rc), rng
+
+
+@pytest.mark.parametrize(
+    "n,kc,tile,batch,queries,nprobe",
+    [(5000, 40, 256, 37, 64, 3), (5000, 40, 256, 130, 128, 2), (3000, 300, 64, 5, 64, 1),
+     (20000, 1000, 8192, 200, 128, 8), (700, 1, 128, 3, 64, 1)],
+)
+def test_k6_scores_the_chunks_that_hold_a_probed_row(n, kc, tile, batch, queries, nprobe):
+    """K6's skip rule: a block scores a chunk iff some row of it is of a
+    cluster some query of the block probes, so every probed (query, row)
+    pair lies in a scored chunk; without the table it scores every chunk."""
+    rc, rng = _file_order(n, kc, tile, seed=n + kc)
+    kc_pad = -(-(kc + 1) // 128) * 128
+    mask = torch.zeros((batch, kc_pad))
+    for b in range(batch):
+        mask[b, torch.from_numpy(rng.choice(kc, min(nprobe, kc), replace=False))] = 1.0
+    got = tsc.masked_scan_chunks(mask, rc, tile, queries)
+    n_pad = rc.shape[0]
+    nt, groups, chunks = n_pad // tile, -(-batch // queries), -(-tile // 128)
+    assert got.shape == (nt, groups, chunks)
+    probed = (mask > 0.5)[:, rc.long()]  # [B, n_pad]
+    for g in range(groups):
+        hit = probed[g * queries:(g + 1) * queries].any(0).numpy()
+        for t in range(nt):
+            for c in range(chunks):
+                lo = t * tile + c * 128
+                want = bool(hit[lo:min(lo + 128, (t + 1) * tile)].any())
+                assert bool(got[t, g, c]) == want
+    assert bool(tsc.masked_scan_chunks(mask, rc, tile, queries, table=False).all())
+
+
+def test_k6_rule_is_k4s_on_a_sorted_layout():
+    """On a cluster-sorted layout a row's slot in its tile's table names its
+    cluster, so K6's rule and K4's (``scored_chunks``) pick the same chunks."""
+    x, q, cent = _grid_data(6000, 16, 40, seed=9)
+    rc = np.sort(((x[:, None, :] - cent[None]) ** 2).sum(-1).argmin(1)).astype(np.int32)
+    tile, kc = 256, 40
+    n_pad = -(-(len(rc) + 1) // tile) * tile
+    row_cluster = np.full(n_pad, kc, np.int32)
+    row_cluster[: len(rc)] = rc
+    parts = row_cluster.reshape(-1, tile)
+    uniq = [np.unique(p) for p in parts]
+    tc = np.full((len(parts), max(u.size for u in uniq)), kc, np.int32)
+    lcl = np.zeros(parts.shape, np.int32)
+    for t, u in enumerate(uniq):
+        tc[t, : u.size] = u
+        lcl[t] = np.searchsorted(u, parts[t])
+    qt = torch.from_numpy(q)
+    cent_t = torch.from_numpy(cent)
+    mask = _probe_mask(qt, cent_t, (cent_t * cent_t).sum(1), 3, 40, 128)
+    lmask = mask[:, torch.from_numpy(tc).long()].permute(1, 0, 2)
+    for queries in (64, 128):
+        k4 = tsc.scored_chunks(lmask > 0.5, torch.from_numpy(lcl.reshape(-1)), tile, queries)
+        k6 = tsc.masked_scan_chunks(mask, torch.from_numpy(row_cluster), tile, queries)
+        assert torch.equal(k4, k6)
+
+
+@pytest.mark.parametrize(
+    "batch,nt,queries,kc_pad,k,want",
+    [
+        (256, 980, 128, 1152, 10, 66),  # the main path's file on wgmma: one block an SM
+        (1, 980, 128, 1152, 10, 132),
+        (256, 980, 64, 1152, 10, 66),  # the fp32 patch: two blocks an SM
+        (4096, 980, 128, 1152, 10, 4),
+        (4096, 9768, 128, 4224, 10, 4),  # the 10M rung's 4096 clusters still fit
+        (256, 3, 64, 1152, 10, 3),  # never more runs than tiles
+        (256, 980, 128, 1152, 128, 0),  # k = 128 on wgmma: no room for the table
+    ],
+)
+def test_k6_units_fill_one_wave(batch, nt, queries, kc_pad, k, want):
+    backend = "wgmma" if queries == 128 else "fma"
+    smem = tsc.score_tile.smem_bytes("K6", backend, queries, k, kc_pad // 32)
+    assert tsc.k6_units(batch, nt, smem, queries) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("k,batch", [(10, 3), (10, 130), (128, 70)])
+def test_k6_equals_plain_and_counts_its_chunks_on_card(cuda_device, dtype, k, batch):
+    """K6 with its probe table (and without it at k = 128 on wgmma) equals
+    its plain version on grid data in file order, and its counters equal
+    ``masked_scan_chunks``'."""
+    x, _, cent = _grid_data(20_000, 64, 40, seed=8)
+    _, _, t = _layout(x, cent, dtype)
+    t = {key: None if v is None else v.to(cuda_device) for key, v in t.items()}
+    rng = np.random.default_rng(batch)
+    qt = torch.from_numpy(x[rng.integers(0, len(x), batch)] + 0.25).to(cuda_device)
+    qf = qt.to(t["emb"].dtype)
+    mask = _probe_mask(qt, t["centroids"], t["c_sq"], 4, 64, 128)
+    args = (qf, t["emb"], t["emb_sq"], t["row_cluster"], mask, k, TILE)
+    _, queries, words, _ = tsc.masked_geometry("K6", qf, t["emb"], k, 128)
+    stats = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    got, want = tsc.masked_scan(*args, stats=stats), tsc.masked_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    rule = tsc.masked_scan_chunks(mask, t["row_cluster"], TILE, queries, table=bool(words))
+    assert stats.tolist() == [int(rule.any(2).sum()), int(rule.sum())]

@@ -214,22 +214,33 @@ def test_auto_routes_unsorted_layout_to_gather(indexed):
 
 
 @pytest.mark.parametrize(
-    "n_pad,d,lmax,nprobe,batch,want",
+    "n_pad,d,kc,lmax,nprobe,batch,dtype,want",
     [
-        # K6 against gather on the H100 (PERF.md): the bench's 1M x 128
-        # IVF-1024 file at nprobe 8, where K6 won at every batch size ...
-        (1_003_520, 128, 4039, 8, 1, "pallas"),
-        (1_003_520, 128, 4039, 8, 64, "pallas"),
-        (1_003_520, 128, 4039, 8, 256, "pallas"),
-        # ... and the 10M x 96 IVF-4096 rung at nprobe 4, where gather won
-        # 4x at B = 256 and K6 at B = 1.
-        (10_002_432, 96, 9948, 4, 1, "pallas"),
-        (10_002_432, 96, 9948, 4, 256, "gather"),
+        # K6 against gather on the H100 (PERF.md §5), bf16 storage: the
+        # bench's 1M x 128 IVF-1024 file at nprobe 8, where K6 won at every
+        # batch size ...
+        (1_003_520, 128, 1024, 4039, 8, 1, torch.bfloat16, "pallas"),
+        (1_003_520, 128, 1024, 4039, 8, 4, torch.bfloat16, "pallas"),
+        (1_003_520, 128, 1024, 4039, 8, 16, torch.bfloat16, "pallas"),
+        (1_003_520, 128, 1024, 4039, 8, 64, torch.bfloat16, "pallas"),
+        (1_003_520, 128, 1024, 4039, 8, 256, torch.bfloat16, "pallas"),
+        # ... and the 10M x 96 IVF-4096 rung at nprobe 4, where it won too
+        # (by 1.2x at B = 256, where the old K6 lost 4x).
+        (10_002_432, 96, 4096, 9948, 4, 1, torch.bfloat16, "pallas"),
+        (10_002_432, 96, 4096, 9948, 4, 16, torch.bfloat16, "pallas"),
+        (10_002_432, 96, 4096, 9948, 4, 256, torch.bfloat16, "pallas"),
+        # Where the model, not a timing, decides: f32 rows on the fp32 patch
+        # at the rung's B = 256, and a batch of 4096 there (K6's 16 query
+        # groups against a gather linear in its candidates).
+        (10_002_432, 96, 4096, 9948, 4, 256, torch.float32, "gather"),
+        (10_002_432, 96, 4096, 9948, 4, 4096, torch.bfloat16, "gather"),
     ],
 )
-def test_unsorted_auto_follows_the_card_measurements(n_pad, d, lmax, nprobe, batch, want):
-    layout = SimpleNamespace(emb=torch.empty((n_pad, 0)), dim=d,
-                             clusters=torch.empty((1, lmax)))
+def test_unsorted_auto_follows_the_card_measurements(n_pad, d, kc, lmax, nprobe, batch,
+                                                     dtype, want):
+    layout = SimpleNamespace(emb=torch.empty((n_pad, 0), dtype=dtype), dim=d,
+                             clusters=torch.empty((1, lmax)),
+                             index=SimpleNamespace(n_clusters=kc))
     assert DeviceIvfSearcher._unsorted_auto(layout, batch, nprobe) == want
 
 
