@@ -72,9 +72,27 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    to K2's, K4's merge and K3 equal to each other and to K3's plain version
    up to near-ties, K1 against 4096 centroids equal to its plain version up
    to near-ties).
+8. The front doors on the same rows, rewritten with an offset index and
+   8-row pages so the page-exact reader serves candidate reads, and
+   indexed in place (K1; index bytes equal phase 3's): 64 of the queries,
+   each as ``SELECT id FROM t ORDER BY array_distance(embedding, [...])
+   LIMIT 10`` and again with ``WHERE id >= 500000``, through a host-path
+   ``Session`` (nprobe 8), a resident one with an f32 ``device_searcher`` and
+   one with a bf16 searcher and its f32 copy; and ``TopkBuilder`` for the
+   first 8 of the plain form. The native page decoder must have built. The resident sessions must take the resident path on every
+   query (``resident_candidates`` > 0, 0 on the host session) and give the
+   host path's ids, as must ``TopkBuilder`` (rows tied at the k-th distance
+   may swap); ``explain()`` shows ``VectorTopKExec``; one query at nprobe 32
+   re-scores its candidates on the card (``_device_sqdist``) with the ids of
+   the host re-score; ``python -m pqvector_tpu_torch info`` and ``search
+   --device-mode auto`` run as subprocesses, the latter with the ids of
+   ``DeviceIvfSearcher.from_parquet(...).search(q, 10, 8, "auto")``. Recall
+   against the K2 truth, the median ms per query of each door and the
+   resident path's share in its device search go into a ``front doors:``
+   line.
 
 The last lines are the tiles and chunks K4, K3 and K6 scored of those a
-full walk scores, the kernels' JSON, the card's name and power limit, and
+full walk scores, the front doors' line, the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1716,6 +1734,263 @@ def phase7b(torch, ds, cp, compact_select, s, q256, truth):
 # --------------------------------------------------------------------------
 
 
+FRONT_QUERIES, FRONT_NPROBE, FRONT_FILTER = 64, 8, "WHERE id >= 500000"
+#: TopkBuilder reads the file's index and offset index anew on every call
+#: (about 2 s a query at 1M rows), so it runs the first few plain queries.
+FRONT_TOPK_QUERIES = 8
+
+
+def write_page_indexed(path, emb_np):
+    """The phase-3 rows again, with an offset index and pages of 8 rows
+    (4 KB), so the page-exact reader serves a candidate read."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    n, d = emb_np.shape
+    vec = pa.ListArray.from_arrays(pa.array(np.arange(n + 1, dtype=np.int32) * d),
+                                   pa.array(emb_np.reshape(-1), pa.float32()))
+    pq.write_table(pa.table({"id": pa.array(np.arange(n)), "embedding": vec}), path,
+                   compression="snappy", use_dictionary=False, write_page_index=True,
+                   row_group_size=65536, data_page_size=4096, write_batch_size=8)
+
+
+def vector_sql(q, where=""):
+    lit = ", ".join(repr(float(v)) for v in q)
+    where = f"{where} " if where else ""
+    return f"SELECT id FROM t {where}ORDER BY array_distance(embedding, [{lit}]) LIMIT {K}"
+
+
+def topk_node(plan):
+    return next((n for n in _walk_plan(plan) if n.name == "VectorTopKExec"), None)
+
+
+def same_or_tied(got, want, emb_np, q, what):
+    """Two top-k id lists from the same probed rows: equal, except that
+    rows whose squared distances (f64, from the file's rows) tie with the
+    k-th to 1e-5 relative may swap. -> swapped slots."""
+    got, want = np.asarray(got, np.int64), np.asarray(want, np.int64)
+    check(got.size == want.size, f"{what}: {got.size} ids, want {want.size}")
+    if np.array_equal(got, want):
+        return 0
+    q64 = q.astype(np.float64)
+    d2 = lambda ids: ((emb_np[ids].astype(np.float64) - q64) ** 2).sum(1)  # noqa: E731
+    dg, dw = d2(got), d2(want)
+    check(np.allclose(np.sort(dg), np.sort(dw), rtol=1e-5, atol=1e-6),
+          f"{what}: distances differ: {dg} vs {dw}")
+    kth = dw.max()
+    swapped = np.setxor1d(got, want)
+    for i in swapped:
+        check(abs(d2(np.array([i]))[0] - kth) <= 1e-5 * kth,
+              f"{what}: id {i} is no tie at the k-th distance")
+    return int((got != want).sum())
+
+
+def run_sql(session, sql):
+    """-> (ids, ms on the host clock, resident candidates, stage seconds)."""
+    from pqvector_tpu_torch.utils.profiling import drain_stages
+
+    drain_stages()
+    t0 = time.perf_counter()
+    df = session.sql(sql)
+    table = df.collect()
+    ms = (time.perf_counter() - t0) * 1e3
+    stages = {}
+    for name, sec in drain_stages():
+        stages[name] = stages.get(name, 0.0) + sec
+    node = topk_node(df.physical_plan())
+    check(node is not None, "the rewrite did not fire: no VectorTopKExec")
+    return (table.column("id").to_pylist(), ms,
+            node.metrics.value("resident_candidates"), stages, df)
+
+
+def phase8(torch, pqt, _build, ds, emb_np, queries, truth_np, index_bytes, data_dir, card):
+    """The front doors on the card: SQL (host path, resident f32 and bf16
+    searchers), TopkBuilder, and the CLI, on a page-indexed copy of the
+    phase-3 rows, checked against each other and the K2 truth."""
+    from pqvector_tpu_torch.engine import Session, VectorTopKOptions
+    from pqvector_tpu_torch.engine import exec as texec
+    from pqvector_tpu_torch.io import native
+    from pqvector_tpu_torch.io.pages import PageSelectiveReader
+
+    out = {}
+    path = os.path.join(data_dir, f"paged_{ROWS}x{DIM}.parquet")
+    t0 = time.perf_counter()
+    write_page_indexed(path, emb_np)
+    out["write_s"] = time.perf_counter() - t0
+    check(PageSelectiveReader(path, pqt.EmbeddingColumn("embedding")).supports_page_reads,
+          "the phase-8 file has no offset index")
+    out["native_decoder"] = native.load() is not None
+    check(out["native_decoder"], "phase 8: the native page decoder did not build; the "
+          "Python decoder's times are not the port's")
+    log(f"phase 8 wrote {os.path.basename(path)} ({os.path.getsize(path) / 1e6:.1f} MB, "
+        f"offset index, 8-row pages) in {out['write_s']:.1f} s; native page decoder "
+        f"loaded")
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    index = pqt.IndexBuilder(path, "embedding").n_clusters(N_CLUSTERS).build_inplace()
+    out["build_s"] = time.perf_counter() - t0
+    check(index.to_bytes() == index_bytes, "phase 8 index differs from phase 3's")
+    log(f"phase 8 build_inplace IVF-{N_CLUSTERS} (K1) in {out['build_s']:.2f} s: index "
+        f"bytes equal phase 3's")
+
+    host = Session(VectorTopKOptions(nprobe=FRONT_NPROBE))
+    host.register_parquet("t", path)
+    res32 = Session(VectorTopKOptions(nprobe=FRONT_NPROBE))
+    res32.register_parquet("t", path)
+    res16 = Session(VectorTopKOptions(nprobe=FRONT_NPROBE))
+    res16.register_parquet("t", path)
+    t0 = time.perf_counter()
+    s32 = res32.device_searcher("t")
+    s16 = res16.device_searcher("t", dtype=torch.bfloat16)
+    out["searchers_s"] = time.perf_counter() - t0
+    check(s32.device.type == "cuda" and s16.emb.dtype == torch.bfloat16
+          and s16._emb_ref is not None, "resident searchers are not f32 / bf16 + f32 copy")
+    explain = host.sql(vector_sql(queries[0])).explain()
+    check("VectorTopKExec" in explain, f"explain() shows no VectorTopKExec:\n{explain}")
+    log("phase 8 plan: " + " | ".join(line.strip() for line in explain.splitlines()))
+
+    qs = queries[:FRONT_QUERIES]
+    ms = {"a_host": [], "b_resident_f32": [], "c_resident_bf16": [], "d_topk_builder": []}
+    share = {"b_resident_f32": [0.0, 0.0], "c_resident_bf16": [0.0, 0.0]}
+    host_stages: dict[str, float] = {}
+    swaps = {"b": 0, "c": 0, "d": 0}
+    host_ids = []
+    pages = 0
+    for where in ("", FRONT_FILTER):
+        for i, q in enumerate(qs):
+            sql = vector_sql(q, where)
+            ids_a, t_a, r_a, st_a, df_a = run_sql(host, sql)
+            check(r_a == 0, "the host session took the resident path")
+            check(len(ids_a) == K, f"host path returned {len(ids_a)} rows")
+            if where:
+                check(all(i_ >= 500000 for i_ in ids_a), "the filter was not applied")
+            else:
+                host_ids.append(ids_a)
+            for node in (n for n in _walk_plan(df_a.physical_plan())
+                         if n.name == "DataSourceExec"):
+                pages += node.metrics.value("pages_read")
+            ms["a_host"].append(t_a)
+            for name, sec in st_a.items():
+                host_stages[name] = host_stages.get(name, 0.0) + sec
+            for key, sess in (("b_resident_f32", res32), ("c_resident_bf16", res16)):
+                ids_r, t_r, r_r, st_r, _ = run_sql(sess, sql)
+                check(r_r > 0, f"{key}: query {i} {where!r} did not take the resident path")
+                swaps[key[0]] += same_or_tied(ids_r, ids_a, emb_np, q,
+                                              f"phase 8 {key} query {i} {where!r}")
+                ms[key].append(t_r)
+                share[key][0] += st_r.get("vector_topk.resident.device_search", 0.0)
+                share[key][1] += st_r.get("vector_topk.resident.fetch_and_topk", 0.0)
+            if not where and i < FRONT_TOPK_QUERIES:
+                t0 = time.perf_counter()
+                hits = pqt.TopkBuilder(path, q).k(K).nprobe(FRONT_NPROBE).search()
+                ms["d_topk_builder"].append((time.perf_counter() - t0) * 1e3)
+                swaps["d"] += same_or_tied([h.row_idx for h in hits], ids_a, emb_np, q,
+                                           f"phase 8 TopkBuilder query {i}")
+    check(pages > 0, "the host path read no candidate pages")
+    out["recall_at_10"] = ds.recall_at_k(truth_np[:FRONT_QUERIES], np.asarray(host_ids))
+    out["median_ms_per_query"] = {key: float(np.median(v)) for key, v in ms.items()}
+    out["resident_device_search_share"] = {
+        key: dev_s / (dev_s + fetch_s) for key, (dev_s, fetch_s) in share.items()}
+    out["host_stage_ms_per_query"] = {
+        name: 1e3 * sec / (2 * FRONT_QUERIES) for name, sec in host_stages.items()}
+    out["swaps_vs_host"] = swaps
+    out["pages_read_per_query"] = pages / (2 * FRONT_QUERIES)
+    log(f"phase 8 {2 * FRONT_QUERIES} SQL queries (plain and {FRONT_FILTER}) on each "
+        f"session: resident f32 and bf16 took the resident path on every one and gave "
+        f"the host path's ids ({swaps['b']} / {swaps['c']} slots swapped at a tie); "
+        f"TopkBuilder gave them on {FRONT_TOPK_QUERIES} ({swaps['d']} swapped); recall@{K} "
+        f"against the K2 truth {out['recall_at_10']:.4f} at nprobe={FRONT_NPROBE}")
+    log("phase 8 median ms per query: " + ", ".join(
+        f"{key} {v:.3f}" for key, v in out["median_ms_per_query"].items())
+        + f"; host path {out['pages_read_per_query']:.0f} pages read per query; on {card}")
+    log("phase 8 resident share in device_search vs fetch + top-k: " + ", ".join(
+        f"{key} {v:.3f}" for key, v in out["resident_device_search_share"].items())
+        + "; host stages ms per query: " + json.dumps(out["host_stage_ms_per_query"]))
+
+    # _device_sqdist: a candidate set above the threshold, re-scored on the card.
+    q = queries[0]
+    sql = vector_sql(q)
+    calls = []
+    orig = texec._device_sqdist
+
+    def spy(mat, qv, device):
+        calls.append((mat.shape[0], str(device)))
+        return orig(mat, qv, device)
+
+    texec._device_sqdist = spy
+    try:
+        picked = {}
+        for use_device in (True, False):
+            sess = Session(VectorTopKOptions(nprobe=32, use_device=use_device))
+            sess.register_parquet("t", path)
+            ids_u, t_u, _, _, _ = run_sql(sess, sql)
+            ids_u, t_u, _, _, _ = run_sql(sess, sql)  # warm
+            picked[use_device] = (ids_u, t_u)
+    finally:
+        texec._device_sqdist = orig
+    rows = sum(n for n, _ in calls)
+    check(calls and all(dev_.startswith("cuda") for _, dev_ in calls)
+          and rows >= texec._DEVICE_THRESHOLD,
+          f"_device_sqdist did not run on the card above the threshold: {calls}")
+    check(picked[True][0] == picked[False][0],
+          "use_device=True and False give different ids")
+    out["device_rescore"] = {"rows": rows // 2, "ms_use_device": picked[True][1],
+                             "ms_host": picked[False][1]}
+    log(f"phase 8 _device_sqdist at nprobe=32: {rows // 2} candidate rows re-scored on "
+        f"the card, ids equal to the host re-score; {picked[True][1]:.1f} ms vs "
+        f"{picked[False][1]:.1f} ms a query")
+
+    # The CLI, as subprocesses, against the searcher in this process.
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cli = [sys.executable, "-m", "pqvector_tpu_torch"]
+    info = subprocess.run(cli + ["info", path], capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=300)
+    check(info.returncode == 0 and f"clusters         : {N_CLUSTERS}" in info.stdout,
+          f"CLI info failed: {info.stdout}{info.stderr}")
+    row = 4242
+    t0 = time.perf_counter()
+    srch = subprocess.run(cli + ["search", path, "--query-row", str(row), "-k", str(K),
+                                 "--nprobe", str(FRONT_NPROBE), "--device-mode", "auto"],
+                          capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    out["cli_search_s"] = time.perf_counter() - t0
+    check(srch.returncode == 0, f"CLI search failed: {srch.stderr}")
+    cli_ids = [int(line.split("\t")[0]) for line in srch.stdout.strip().splitlines()]
+    fp = pqt.DeviceIvfSearcher.from_parquet(path)
+    route = fp._unsorted_auto(1, FRONT_NPROBE)
+    _, want = fp.search(emb_np[row][None, :], K, FRONT_NPROBE, "auto")
+    want = [int(i) for i in want[0].cpu().numpy() if i >= 0]
+    check(cli_ids == want, f"CLI search ids {cli_ids} != the searcher's {want}")
+    # The SQL host path against the same file's f32 searcher, one batch.
+    _, g_ids = fp.search(torch.from_numpy(np.ascontiguousarray(qs)).to(fp.device), K,
+                         FRONT_NPROBE, "gather")
+    g_ids = g_ids.cpu().numpy()
+    out["searcher_recall_at_10"] = ds.recall_at_k(truth_np[:FRONT_QUERIES], g_ids)
+    gather_swaps = sum(same_or_tied(g_ids[i], host_ids[i], emb_np, qs[i],
+                                    f"phase 8 f32 gather vs SQL query {i}")
+                       for i in range(FRONT_QUERIES))
+    log(f"phase 8 the f32 searcher's search(gather) on the {FRONT_QUERIES} queries: ids "
+        f"of the SQL host path ({gather_swaps} swapped at a tie), recall@{K} "
+        f"{out['searcher_recall_at_10']:.4f}")
+    out["launches"] = {k_: v for k_, v in _build.LAUNCHES.items() if v}
+    check(out["launches"].get("K1", 0) > 0, "K1 was not launched by phase 8's build")
+    check(route != "pallas" or out["launches"].get("K6", 0) > 0,
+          "search(auto) chose K6 but K6 was not launched")
+    out["cli_auto_route"] = route
+    log(f"phase 8 CLI: info and search --device-mode auto exit 0; search ids equal "
+        f"DeviceIvfSearcher.from_parquet(...).search(q, {K}, {FRONT_NPROBE}, 'auto') "
+        f"(route {route}); CLI search {out['cli_search_s']:.1f} s with start-up")
+    log(f"phase 8 launches: {out['launches']}")
+    del s32, s16, fp
+    return out
+
+
+def _walk_plan(plan):
+    yield plan
+    for child in plan.children():
+        yield from _walk_plan(child)
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     try:
@@ -1990,6 +2265,9 @@ def main() -> None:
     main6 = phase6(torch, pqt, _build, ds, Embeddings, dev, cp, _compact_select, tm, sc, st,
                    ka)
     launches["K11"] = main6["slice3"]["gather"]["K11"]["path_launches"]
+    torch.cuda.empty_cache()
+    main8 = phase8(torch, pqt, _build, ds, emb_np, queries, truth_np, index.to_bytes(),
+                   data_dir, card)
 
     kernels = []
     for name, (fn, source, replaces) in KERNELS.items():
@@ -2011,6 +2289,7 @@ def main() -> None:
     masked_work[f"K6 1M x {DIM} bf16, file order"] = results["K6"].pop("scored")
     log("K4/K3/K6 tiles and chunks scored of those a full walk scores: "
         + json.dumps(masked_work))
+    log("front doors: " + json.dumps(main8))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
 """pqvector-tpu on PyTorch: IVF vector search over Parquet files on a GPU.
 
 A port of the JAX package ``pqvector_tpu`` to PyTorch and hand-written CUDA
-kernels for NVIDIA Hopper (sm_90a). This slice builds an IVF index into a
-Parquet file (``IndexBuilder``) and serves exact and IVF top-k from
-device-resident embeddings (``DeviceIvfSearcher``). It imports neither JAX
-nor the JAX package.
+kernels for NVIDIA Hopper (sm_90a). It builds an IVF index into a Parquet
+file (``IndexBuilder``), serves exact and IVF top-k from device-resident
+embeddings (``DeviceIvfSearcher``), and has the reference's two front doors:
+the standalone ``TopkBuilder`` and the SQL engine (``engine.Session``, whose
+``ORDER BY array_distance(col, [q]) LIMIT k`` rewrite reads only candidate
+rows). ``python -m pqvector_tpu_torch`` is its command line. It imports
+neither JAX nor the JAX package.
 
 fp32 selection scores must be IEEE fp32: TF32 keeps about three decimal
 digits, which reorders near neighbours on clustered data, so importing the
@@ -26,12 +29,17 @@ from .errors import (  # noqa: E402
 )
 from .index import IvfBuildConfig, IvfIndex, build_ivf_index  # noqa: E402
 from .io.embed import has_pq_vector_index  # noqa: E402
-from .query import DeviceIvfSearcher  # noqa: E402
+from .query import DeviceIvfSearcher, SearchResult, TopkBuilder  # noqa: E402
+from .types import ClusterCount, EmbeddingColumn, EmbeddingDim, Embeddings  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "ClusterCount",
     "DeviceIvfSearcher",
+    "EmbeddingColumn",
+    "EmbeddingDim",
+    "Embeddings",
     "ExecutionError",
     "FormatError",
     "IndexBuilder",
@@ -39,6 +47,8 @@ __all__ = [
     "IvfIndex",
     "PlanError",
     "PqVectorError",
+    "SearchResult",
+    "TopkBuilder",
     "ValidationError",
     "build_ivf_index",
     "has_pq_vector_index",

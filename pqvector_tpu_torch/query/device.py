@@ -542,6 +542,10 @@ class DeviceIvfSearcher:
             embeddings = normalize_rows(embeddings)
 
         self._gid: np.ndarray | None = None
+        # True when the resident layout holds duplicate rows (the JAX
+        # package's spilled multi-assignment, not ported: always False
+        # here). The SQL engine reads it to bound its resident fetch.
+        self._spill_dups = False
         if cluster_sorted and not np.array_equal(
             index.row_ids, np.arange(index.total_rows, dtype=index.row_ids.dtype)
         ):
@@ -606,6 +610,14 @@ class DeviceIvfSearcher:
         # (ctile, cap, nprobe, batch) of the last calibrate_bincompact
         self._bincompact_calibrated: tuple[int, int, int, int] | None = None
         self._tile_range_cache: dict[int, tuple] = {}
+        # Dynamic updates (tombstone deletes, delta-buffer appends) in the
+        # JAX package's plain starting state; the methods that change it
+        # are not ported. The SQL engine refuses its resident path when
+        # they are set.
+        self._id_domain = n  # original-id space
+        self._deleted_host: np.ndarray | None = None  # bool over id domain
+        self._deleted_dev = None
+        self._delta: tuple | None = None  # (emb [m,d], sq [m], ids [m])
         self.emb_sq = torch.from_numpy(sq).to(dev)
         self.centroids = torch.from_numpy(np.asarray(index.centroids)).to(dev)
         self.c_sq = (self.centroids * self.centroids).sum(dim=1)

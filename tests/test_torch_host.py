@@ -16,6 +16,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
+import torch
 
 import pqvector_tpu
 import pqvector_tpu_torch
@@ -128,7 +129,9 @@ def test_read_embedding_column_matches(tmp_path, width):
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys, pqvector_tpu_torch, pqvector_tpu_torch.convert;"
+        "import sys, pqvector_tpu_torch, pqvector_tpu_torch.convert,"
+        " pqvector_tpu_torch.engine, pqvector_tpu_torch.query.search,"
+        " pqvector_tpu_torch.io.pages, pqvector_tpu_torch.__main__;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'pqvector_tpu' or m.startswith('pqvector_tpu.')];"
         "print(bad); sys.exit(1 if bad else 0)"
@@ -150,3 +153,16 @@ def test_port_sources_name_no_jax():
                             "from pqvector_tpu.", "from pqvector_tpu import",
                             "allow_tf32 = True"):
                     assert bad not in text, f"{name}: {bad!r}"
+
+
+def test_session_default_device_is_the_card():
+    """``Session()`` resolves ``device=None`` to the card; without one it
+    raises, with no CPU fallback."""
+    from pqvector_tpu_torch.engine import Session
+
+    if torch.cuda.is_available():
+        assert Session().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Session()
+    assert Session(device="cpu").device == torch.device("cpu")
