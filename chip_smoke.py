@@ -91,9 +91,38 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    resident path's share in its device search go into a ``front doors:``
    line.
 
+9. Slice 9's path on the phase-3 file and index, launch counts from 0:
+   (a) ``with_spill(spill=0.2)`` as bf16 storage with its f32 copy (200k
+   extra rows): ``search(auto)`` (K4 at k = 20) swept over nprobe until
+   recall@10 >= 0.95, each nprobe beside the unspilled searcher's recall
+   (never more than 0.002 under it); no row repeats an id; ``stream`` (K3)
+   gives K4's ids; an f32 spilled searcher's ``exact(stream)`` (K2 at 2k)
+   is the K2 truth; ``from_parquet(path, spill=0.2)`` gives ``with_spill``'s
+   ids; ``bincompact`` (K8) calibrated to recall >= 0.95; ms a batch
+   spilled and unspilled. (c) ``autotune`` on the sorted bf16 searcher
+   (k = 10, target 0.95): every plan meets the target, ``pallas`` and
+   ``stream`` among them, ``gather`` in none. (b) 10,000 deletes (the K2
+   top-1 of the first 64 queries among them) and 4,096 appends (the queries
+   + 1e-3, then rows drawn as the file's): ``search`` auto, stream, binscan,
+   bincompact and ``exact`` stream, pallas, cert return no deleted id and no
+   empty slot, each query's appended copy first; the same updates on the f32
+   truth searcher, whose ``exact(stream)`` equals a plain f32 scan over the
+   live and appended rows (the bf16 searcher's, a 2k shortlist selected at
+   storage precision, has against it at least its recall of the K2 truth
+   before the updates, less 0.005); ``search(auto)`` ms with and without
+   the state, and a torch.profiler breakdown of both. (d) On copies of the file: the staged
+   ``build_inplace`` (index bytes equal phase 3's; its stages beside phase
+   3's and the column's pyarrow and native read times), ``build_new``
+   (same bytes; pyarrow reads it), ``cluster_sorted().build_new`` (same
+   centroids and list sizes, rows in ``index.row_ids`` order, served by
+   ``from_parquet`` at phase 3's recall at nprobe 8) and
+   ``streaming(131072).build_inplace`` (one seed, identical bytes; K1 once
+   per batch; recall at nprobe 8 within 0.01 of phase 3's).
+
 The last lines are the tiles and chunks K4, K3 and K6 scored of those a
-full walk scores, the front doors' line, the kernels' JSON, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+full walk scores, the front doors' line, slice 9's line, the kernels' JSON
+(with each kernel's launches in phase 9), the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -522,6 +551,23 @@ def binned_library_ms(torch, q, emb, bins):
     return time_ms(chain)
 
 
+def binned_library_ms_i8(torch, bs, q, e8, scale, bins):
+    """The int8 form of that chain: ``torch._int_mm`` of the int8 query codes
+    by the int8 row codes (int32 sums), the per-query and per-row scales,
+    then ``scatter_reduce(amin)`` into ``bins``; values only."""
+    q8, qs = bs.quantize_queries_i8(q)
+    e8t = e8.T  # column-major, as _int_mm's second operand takes it
+    idx = (torch.arange(e8.shape[0], device=q.device) % bins)[None, :].expand(
+        q.shape[0], -1).contiguous()
+
+    def chain():
+        prod = torch._int_mm(q8, e8t).float() * (-2.0 * qs[:, None]) * scale[None, :]
+        table = torch.full((q.shape[0], bins), torch.inf, device=q.device)
+        return table.scatter_reduce_(1, idx, prod, "amin")
+
+    return time_ms(chain)
+
+
 def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16, q,
                    q16, tile, results):
     """K6, K7 and K8 at the main path's shapes against their plain versions,
@@ -605,8 +651,12 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
     ms8 = time_ms(lambda: bs.binned_scan_keys(*i8_args))
     plain8 = time_ms(lambda: bs.binned_scan_keys_plain(*i8_args))
     results["K7"]["int8_ms"], results["K7"]["int8_plain_ms"] = ms8, plain8
+    lib8 = binned_library_ms_i8(torch, bs, q, e8, sc8,
+                                fo16._binscan_expand(t8, esize=1) * t8)
+    results["K7"]["int8_library_ms"] = lib8
     log(f"phase 2b K7 int8, tile={t8}: key table identical to plain; kernel "
-        f"{ms8:.3f} ms, plain {plain8:.3f} ms")
+        f"{ms8:.3f} ms, plain {plain8:.3f} ms, _int_mm + scales + scatter_reduce(amin) "
+        f"{lib8:.3f} ms")
     del fo16, e8, sc8
 
     ctile, cap = s16.calibrate_bincompact(q, nprobe_2b, K)
@@ -651,8 +701,14 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
     ms8 = time_ms(lambda: bs.binned_scan_select_keys(*i8_args))
     plain8 = time_ms(lambda: bs.binned_scan_select_keys_plain(*i8_args))
     results["K8"]["int8_ms"], results["K8"]["int8_plain_ms"] = ms8, plain8
+    e_sel8 = s16._binscan_expand(ctile, cap=cap, esize=1)
+    lib8 = binned_library_ms_i8(
+        torch, bs, q, e8.view(-1, ctile, DIM)[sel.long()].reshape(rows8, DIM),
+        sc8.view(-1, ctile)[sel.long()].reshape(rows8), e_sel8 * ctile)
+    results["K8"]["int8_library_ms"] = lib8
     log(f"phase 2b K8 int8: key table identical to plain; kernel {ms8:.3f} ms, "
-        f"plain {plain8:.3f} ms")
+        f"plain {plain8:.3f} ms, _int_mm + scales + scatter_reduce(amin) over the "
+        f"gathered rows {lib8:.3f} ms")
     s16._emb_i8 = s16._emb_i8_scale = None
 
 
@@ -1985,6 +2041,435 @@ def phase8(torch, pqt, _build, ds, emb_np, queries, truth_np, index_bytes, data_
     return out
 
 
+# --------------------------------------------------------------------------
+# Slice 9: spill, dynamic state, autotune, the builds
+
+SPILL, N_DELETE, N_APPEND = 0.2, 10_000, 4096
+
+
+def recall_of(ds, truth_np, ids):
+    return ds.recall_at_k(truth_np, ids.cpu().numpy() if hasattr(ids, "cpu") else ids)
+
+
+def distinct_ids(ids, what):
+    for r in ids:
+        vals = r[r >= 0]
+        check(len(set(vals.tolist())) == len(vals), f"{what}: a row repeats an id")
+
+
+def phase9_spill(torch, pqt, _build, ds, path, emb_np, queries, q, truth, searcher, chosen,
+                 index, out):
+    """(a) The spilled layout at SPILL on the phase-3 rows and index."""
+    truth_d, truth_ids = truth
+    truth_np = truth_ids.cpu().numpy()
+    dev = q.device
+    t0 = time.perf_counter()
+    sp16 = pqt.DeviceIvfSearcher.with_spill(index, emb_np, spill=SPILL, dtype=torch.bfloat16,
+                                            row_tile=ROW_TILE, device=dev)
+    torch.cuda.synchronize()
+    out["spill_build_s"] = time.perf_counter() - t0
+    extra = sp16.n - ROWS
+    check(extra == round(SPILL * ROWS), f"with_spill added {extra} rows")
+    log(f"phase 9a with_spill({SPILL}) bf16 + f32 copy: {extra} extra rows, "
+        f"{sp16.emb.shape[0]} padded, built in {out['spill_build_s']:.2f} s")
+    sweep, nprobe_s, nprobe = {}, None, 1
+    while nprobe <= N_CLUSTERS:
+        before = _build.LAUNCHES["K4"]
+        _, ids_sp = sp16.search(q, K, nprobe, "auto")
+        check(_build.LAUNCHES["K4"] == before + 1, "spilled search(auto) did not take K4")
+        r_sp = recall_of(ds, truth_np, ids_sp)
+        r_pl = recall_of(ds, truth_np, searcher.search(q, K, nprobe, "auto")[1])
+        sweep[nprobe] = {"spilled": r_sp, "unspilled": r_pl}
+        log(f"phase 9a search(auto) nprobe={nprobe}: recall@{K} spilled {r_sp:.4f}, "
+            f"unspilled {r_pl:.4f}")
+        check(r_sp >= r_pl - 0.002, f"spilled recall {r_sp} under unspilled {r_pl}")
+        if r_sp >= RECALL_TARGET:
+            nprobe_s = nprobe
+            break
+        nprobe *= 2
+    check(nprobe_s is not None, f"spilled recall never reached {RECALL_TARGET}")
+    out["sweep"], out["nprobe"] = sweep, nprobe_s
+    _, ids_a = sp16.search(q, K, nprobe_s, "auto")
+    ids_a = ids_a.cpu().numpy()
+    check((ids_a >= 0).all(), "spilled search(auto) left an empty slot")
+    distinct_ids(ids_a, "spilled search(auto)")
+    before = _build.LAUNCHES["K3"]
+    _, ids_st = sp16.search(q, K, nprobe_s, "stream")
+    check(_build.LAUNCHES["K3"] > before, "spilled search(stream) did not take K3")
+    ids_st = ids_st.cpu().numpy()
+    distinct_ids(ids_st, "spilled search(stream)")
+    swaps = sum(same_or_tied(ids_st[i], ids_a[i], emb_np, queries[i],
+                             f"phase 9a spilled K3 vs K4 query {i}") for i in range(BATCH))
+    log(f"phase 9a nprobe={nprobe_s}: no row repeats an id; K3 (stream) gives K4's ids "
+        f"({swaps} slots swapped at a tie)")
+
+    t0 = time.perf_counter()
+    sp32 = pqt.DeviceIvfSearcher.with_spill(index, emb_np, spill=SPILL, row_tile=ROW_TILE,
+                                            device=dev)
+    before = _build.LAUNCHES["K2"]
+    got = sp32.exact(q, K, "stream")
+    check(_build.LAUNCHES["K2"] > before, "spilled exact(stream) did not take K2")
+    swaps = ids_equal_or_tied(got, truth, "phase 9a f32 spilled exact(stream)")
+    log(f"phase 9a f32 spilled exact(stream) (K2 at k={2 * K}): the K2 truth "
+        f"({swaps} slots swapped at a tie)")
+    del sp32
+    fp = pqt.DeviceIvfSearcher.from_parquet(path, dtype=torch.bfloat16, row_tile=ROW_TILE,
+                                            spill=SPILL, device=dev)
+    _, ids_fp = fp.search(q, K, nprobe_s, "auto")
+    check(np.array_equal(ids_fp.cpu().numpy(), ids_a),
+          "from_parquet(spill) and with_spill give different ids")
+    del fp
+    torch.cuda.empty_cache()
+    log(f"phase 9a from_parquet(path, spill={SPILL}) gives with_spill's ids")
+
+    nprobe_b = nprobe_s
+    while True:
+        ctile, cap = sp16.calibrate_bincompact(q, nprobe_b, K)
+        check(ctile > 0, "spilled bincompact is ineligible")
+        before = _build.LAUNCHES["K8"]
+        _, ids_b = sp16.search(q, K, nprobe_b, "bincompact")
+        check(_build.LAUNCHES["K8"] > before, "spilled bincompact did not take K8")
+        r_b = recall_of(ds, truth_np, ids_b)
+        distinct_ids(ids_b.cpu().numpy(), "spilled bincompact")
+        log(f"phase 9a bincompact (K8) nprobe={nprobe_b}: tile={ctile}, cap={cap}, "
+            f"recall@{K} {r_b:.4f}")
+        if r_b >= RECALL_TARGET or nprobe_b >= N_CLUSTERS:
+            break
+        nprobe_b *= 2
+    check(r_b >= RECALL_TARGET, f"spilled bincompact recall {r_b}")
+    out["bincompact"] = {"nprobe": nprobe_b, "recall": r_b}
+    ms_sp = time_ms(lambda: sp16.search(q, K, nprobe_s, "auto"))
+    ms_sp_eq = time_ms(lambda: sp16.search(q, K, chosen, "auto"))
+    ms_pl = time_ms(lambda: searcher.search(q, K, chosen, "auto"))
+    out["ms"] = {f"spilled_nprobe{nprobe_s}": ms_sp, f"spilled_nprobe{chosen}": ms_sp_eq,
+                 f"unspilled_nprobe{chosen}": ms_pl}
+    out["profile"] = profile_modes(torch, [
+        (f"search(auto) spilled nprobe={nprobe_s}",
+         lambda: sp16.search(q, K, nprobe_s, "auto")),
+        (f"search(auto) unspilled nprobe={chosen}",
+         lambda: searcher.search(q, K, chosen, "auto"))])
+    log(f"phase 9a search(auto) B={BATCH}: spilled nprobe={nprobe_s} {ms_sp:.3f} ms "
+        f"({BATCH / ms_sp * 1e3:.0f} QPS), spilled nprobe={chosen} {ms_sp_eq:.3f} ms, "
+        f"unspilled nprobe={chosen} {ms_pl:.3f} ms ({BATCH / ms_pl * 1e3:.0f} QPS)")
+    del sp16
+    torch.cuda.empty_cache()
+
+
+def phase9_autotune(torch, searcher, queries, out):
+    """(c) autotune on the sorted bf16 searcher, before (b) changes it."""
+    from pqvector_tpu_torch.query import autotune
+
+    t0 = time.perf_counter()
+    rep = autotune(searcher, queries, k=K, recall_target=RECALL_TARGET, reps=4, budget_s=0.5)
+    out["autotune_s"] = time.perf_counter() - t0
+    for p in rep.plans:
+        log(f"phase 9c plan {p.mode} nprobe={p.nprobe}: recall@{K} {p.recall:.4f}, "
+            f"{p.qps:.0f} QPS")
+    for mode, why in rep.rejected.items():
+        log(f"phase 9c rejected {mode}: {why}")
+    modes = {p.mode for p in rep.plans}
+    check(all(p.recall >= RECALL_TARGET for p in rep.plans), "a plan misses the target")
+    check("gather" not in modes, "gather is in a plan")
+    check({"pallas", "stream"} <= modes, f"pallas and stream are not both plans: {modes}")
+    out["plans"] = [(p.mode, p.nprobe, p.recall, p.qps) for p in rep.plans]
+    out["rejected"] = rep.rejected
+    log(f"phase 9c autotune in {out['autotune_s']:.1f} s: best {rep.best.mode} "
+        f"nprobe={rep.best.nprobe}")
+
+
+def plain_topk(torch, q, rows, victims, sq=None):
+    """Top-K ids of a plain f32 scan on the card over ``rows`` with the
+    ``victims`` rows left out, scoring |x|^2 - 2 q.x with the squared norms
+    ``sq`` where given, else the rows' own."""
+    x = torch.from_numpy(rows).to(q.device)
+    sq = (x * x).sum(dim=1) if sq is None else torch.from_numpy(sq).to(q.device)
+    sq[torch.from_numpy(victims).to(q.device)] = torch.inf
+    best_d = best_i = None
+    step = 1 << 18
+    for lo in range(0, x.shape[0], step):
+        vals, idx = torch.topk(sq[None, lo:lo + step] - 2.0 * (q @ x[lo:lo + step].T), K,
+                               dim=1, largest=False)
+        idx = idx + lo
+        if best_d is not None:
+            vals, idx = torch.cat([best_d, vals], 1), torch.cat([best_i, idx], 1)
+        order = torch.topk(vals, K, dim=1, largest=False).indices
+        best_d, best_i = vals.gather(1, order), idx.gather(1, order)
+    return best_i.cpu().numpy()
+
+
+def bf16_selection_check(torch, got, got_d, want, rows, sq, queries):
+    """Hold a bf16 searcher's exact top-K (ids ``got``, distances ``got_d``)
+    to a plain f32 scan's (``want``) over ``rows``, file rows then appended
+    rows (already bf16-rounded), ids their positions, with squared norms
+    ``sq``. Squared distances are |x|^2 - 2 q.x + |q|^2 in f64, floored at
+    0: for an appended row its f32 norm against its bf16 row, the form the
+    searcher scores. A tie is 1e-5 (|q|^2 + max|x|^2), above f32's
+    expanded-form error. Each returned distance is its row's. A slot of the
+    scan missing from the result is a tie with every returned row, or a
+    file row that bf16 selection could leave out: each returned file row
+    farther than it scores at most as low at storage precision (|x|^2 in
+    f32 less 2 bf16(q).bf16(x)), to 2e-5 (2|q| max|x| + max|x|^2), twice
+    the error bound of an f32 sum of 128 bf16 products. The appended rows
+    are scanned exactly, so none may be missing but at a tie.
+    -> (slots swapped at a tie, slots swapped by bf16 selection)."""
+    def bf16(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).double().numpy()
+
+    xmax2 = float(sq.max())
+    ties = sel = 0
+    for i in range(got.shape[0]):
+        qi = queries[i].astype(np.float64)
+        q2 = float(qi @ qi)
+        tie = 1e-5 * (q2 + xmax2)
+        delta = 2e-5 * (2.0 * np.sqrt(q2 * xmax2) + xmax2)
+        d2 = lambda ids: np.maximum(  # noqa: E731
+            sq[ids].astype(np.float64) - 2.0 * rows[ids].astype(np.float64) @ qi + q2, 0.0)
+        dg = d2(got[i])
+        check(np.allclose(got_d[i].astype(np.float64) ** 2, dg, rtol=0, atol=tie),
+              f"bf16 exact(stream) query {i}: distances {got_d[i] ** 2} are not the rows' {dg}")
+        missing = np.setdiff1d(want[i], got[i])
+        if missing.size == 0:
+            continue
+        main = got[i][got[i] < ROWS]
+        est = lambda ids: (sq[ids].astype(np.float64)  # noqa: E731
+                           - 2.0 * bf16(rows[ids]) @ bf16(queries[i]))
+        for w in missing:
+            dw = d2(np.array([w]))[0]
+            if (dg <= dw + 2 * tie).all():
+                ties += 1
+                continue
+            check(w < ROWS, f"bf16 exact(stream) query {i}: appended row {w} is missing")
+            farther = main[d2(main) > dw + 2 * tie]
+            ew = est(np.array([w]))[0]
+            check((est(farther) <= ew + 2 * delta).all(),
+                  f"bf16 exact(stream) query {i}: row {w} lost to rows {farther} that score "
+                  f"{est(farther)} against its {ew} at storage precision")
+            sel += 1
+    return ties, sel
+
+
+def phase9_dynamic(torch, _build, ds, emb_np, queries, q, truth_np, searcher, truth_s,
+                   chosen, out):
+    """(b) deletes and appends on the sorted bf16 searcher, every mode; the
+    same updates on the f32 truth searcher, whose exact(stream) must equal
+    a plain f32 scan over the live and appended rows."""
+    out["plain_auto_ms"] = time_ms(lambda: searcher.search(q, K, chosen, "auto"))
+    r16_before = ds.recall_at_k(truth_np, searcher.exact(q, K, "stream")[1].cpu().numpy())
+    rng = np.random.default_rng(9)
+    must = np.unique(truth_np[:64, 0])
+    others = rng.choice(np.setdiff1d(np.arange(ROWS), must), N_DELETE - must.size,
+                        replace=False)
+    victims = np.concatenate([must, others])
+    modes = np.random.default_rng(1234).uniform(-1.0, 1.0, (256, DIM)).astype(np.float32)
+    rng = np.random.default_rng(11)  # rows drawn as the file's (datasets.generate_dataset)
+    drawn = (modes[rng.integers(0, 256, N_APPEND - BATCH)] + 0.15 * rng.standard_normal(
+        (N_APPEND - BATCH, DIM)).astype(np.float32))
+    app = np.concatenate([queries + np.float32(1e-3), drawn]).astype(np.float32)
+    for s in (searcher, truth_s):
+        s.delete_rows(victims)
+        new_ids = s.append_rows(app)
+        check(np.array_equal(new_ids, ROWS + np.arange(N_APPEND)), "append_rows ids")
+    log(f"phase 9b deleted {victims.size} rows (the K2 top-1 of the first 64 queries "
+        f"among them), appended {N_APPEND} (the {BATCH} queries + 1e-3 and "
+        f"{N_APPEND - BATCH} drawn as the file's rows), on the sorted bf16 searcher and "
+        f"the f32 truth searcher")
+
+    ctile, _ = searcher.calibrate_bincompact(q, chosen, K)
+    check(ctile > 0, "bincompact ineligible after the updates")
+    calls = {
+        "search(auto)": lambda: searcher.search(q, K, chosen, "auto"),
+        "search(stream)": lambda: searcher.search(q, K, chosen, "stream"),
+        "search(binscan)": lambda: searcher.search(q, K, chosen, "binscan"),
+        "search(bincompact)": lambda: searcher.search(q, K, chosen, "bincompact"),
+        "exact(stream)": lambda: searcher.exact(q, K, "stream"),
+        "exact(pallas)": lambda: searcher.exact(q, K, "pallas"),
+        "exact(cert)": lambda: searcher.exact(q, K, "cert"),
+        "f32 exact(stream)": lambda: truth_s.exact(q, K, "stream"),
+    }
+    results, dists = {}, {}
+    for name, fn in calls.items():
+        d, ids = fn()
+        ids = ids.cpu().numpy()
+        check(not np.isin(ids, victims).any(), f"{name}: a deleted id came back")
+        check((ids >= 0).all(), f"{name}: an empty slot where live rows exist")
+        check(np.array_equal(ids[:, 0], new_ids[:BATCH]),
+              f"{name}: a query's top-1 is not its appended copy")
+        results[name], dists[name] = ids, d.float().cpu().numpy()
+    rows32 = np.concatenate([emb_np, app])
+    want = plain_topk(torch, q, rows32, victims)
+    swaps = sum(same_or_tied(results["f32 exact(stream)"][i], want[i], rows32, queries[i],
+                             f"phase 9b f32 exact(stream) vs the plain f32 scan, query {i}")
+                for i in range(BATCH))
+    # The bf16 searcher keeps its appended rows rounded to bf16 beside their
+    # f32 norms (as the JAX package does), and selects its file rows at bf16
+    # before an f32 re-score: against a plain f32 scan over the file rows and
+    # the bf16-rounded appended rows with those norms, a slot may differ only
+    # at a tie or where bf16 selection could rank the rows so.
+    app16 = torch.from_numpy(app).to(torch.bfloat16).float().numpy()
+    rows16 = np.concatenate([emb_np, app16])
+    sq16 = np.concatenate([np.einsum("nd,nd->n", emb_np, emb_np),
+                           np.einsum("nd,nd->n", app, app)])
+    want16 = plain_topk(torch, q, rows16, victims, sq=sq16)
+    ties16, sel16 = bf16_selection_check(
+        torch, results["exact(stream)"], dists["exact(stream)"], want16, rows16, sq16,
+        queries)
+    r16 = ds.recall_at_k(want16, results["exact(stream)"])
+    out["bf16_exact_vs_plain"] = {"recall_before": r16_before, "recall": r16,
+                                  "tie_swaps": ties16, "bf16_selection_swaps": sel16}
+    log(f"phase 9b {', '.join(calls)}: no deleted id, no empty slot, each query's top-1 "
+        f"its appended copy; f32 exact(stream) equals the plain f32 scan over the live "
+        f"and appended rows ({swaps} slots swapped at a tie); bf16 exact(stream) against "
+        f"the plain f32 scan over the live and bf16-rounded appended rows: distances "
+        f"equal, {ties16} slots swapped at a tie, {sel16} by bf16 selection, recall@{K} "
+        f"{r16:.4f} ({r16_before:.4f} against the K2 truth before the updates)")
+    out["dynamic_auto_ms"] = time_ms(lambda: searcher.search(q, K, chosen, "auto"))
+    out["profile"] = profile_modes(torch, [
+        (f"search(auto) bf16 nprobe={chosen}, dynamic state",
+         lambda: searcher.search(q, K, chosen, "auto"))])
+    log(f"phase 9b search(auto) B={BATCH} nprobe={chosen}: {out['plain_auto_ms']:.3f} ms "
+        f"plain, {out['dynamic_auto_ms']:.3f} ms with {victims.size} tombstones and a "
+        f"{N_APPEND}-row delta (_finalize)")
+
+
+def phase9_builds(torch, pqt, _build, ds, path, emb_np, q, truth_np, index, r8,
+                  phase3_stages, data_dir, out):
+    """(d) The staged, build_new, cluster-sorted and streaming builds, each
+    on a copy of the phase-3 file."""
+    import pyarrow.parquet as pq
+
+    from pqvector_tpu_torch.index.streaming import (
+        assign_clusters_streaming,
+        iter_embedding_batches,
+    )
+    from pqvector_tpu_torch.io.embed import read_index_from_parquet
+    from pqvector_tpu_torch.io.reader import extract_embeddings, read_embedding_column
+    from pqvector_tpu_torch.types import EmbeddingColumn
+    from pqvector_tpu_torch.utils.profiling import drain_stages
+
+    dev = q.device
+    col = EmbeddingColumn("embedding")
+
+    def copy(name):
+        dst = os.path.join(data_dir, name)
+        shutil.copy(path, dst)
+        return dst
+
+    def builder(p):
+        return pqt.IndexBuilder(p, "embedding", device=dev).n_clusters(N_CLUSTERS)
+
+    p1 = copy("staged.parquet")
+    drain_stages()
+    t0 = time.perf_counter()
+    idx = builder(p1).build_inplace()
+    out["staged_s"] = time.perf_counter() - t0
+    stages = dict(drain_stages())
+    check(idx.to_bytes() == index.to_bytes(), "staged build_inplace differs from phase 3")
+    t0 = time.perf_counter()
+    extract_embeddings(pq.read_table(p1, columns=["embedding"]), col)
+    pyarrow_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    read_embedding_column(p1, col)
+    native_s = time.perf_counter() - t0
+    out["stages"] = {"phase9": stages, "phase3": phase3_stages,
+                     "read_pyarrow_s": pyarrow_s, "read_native_s": native_s}
+    log(f"phase 9d staged build_inplace in {out['staged_s']:.2f} s, index bytes equal "
+        "phase 3's; stages " + ", ".join(f"{k_} {v:.3f}" for k_, v in stages.items())
+        + " s; phase 3 " + ", ".join(f"{k_} {v:.3f}" for k_, v in phase3_stages.items())
+        + f" s; the column alone: pyarrow {pyarrow_s:.3f} s, native decoder "
+        f"{native_s:.3f} s")
+    os.remove(p1)
+
+    out1 = os.path.join(data_dir, "new.parquet")
+    t0 = time.perf_counter()
+    idx = builder(path).build_new(out1)
+    out["build_new_s"] = time.perf_counter() - t0
+    check(idx.to_bytes() == index.to_bytes(), "build_new's index differs from phase 3")
+    check(read_index_from_parquet(out1)[0].to_bytes() == index.to_bytes(),
+          "build_new's file holds another index")
+    back = pq.read_table(out1)
+    check(back.num_rows == ROWS and back.column_names == ["id", "embedding"],
+          "pyarrow does not read build_new's file back")
+    del back
+    os.remove(out1)
+    log(f"phase 9d build_new in {out['build_new_s']:.2f} s: index bytes equal phase 3's; "
+        "pyarrow reads the file back")
+
+    out2 = os.path.join(data_dir, "sorted.parquet")
+    t0 = time.perf_counter()
+    idx = builder(path).cluster_sorted().build_new(out2)
+    out["cluster_sorted_s"] = time.perf_counter() - t0
+    check(np.array_equal(idx.centroids, index.centroids)
+          and np.array_equal(idx.cluster_sizes(), index.cluster_sizes()),
+          "cluster-sorted build_new: other centroids or list sizes")
+    order = np.asarray(index.row_ids, np.int64)
+    check(np.array_equal(read_embedding_column(out2, col).data, emb_np[order]),
+          "cluster-sorted rows are not permuted as index.row_ids orders them")
+    s2 = pqt.DeviceIvfSearcher.from_parquet(out2, dtype=torch.bfloat16, row_tile=ROW_TILE,
+                                            device=dev)
+    _, pos = s2.search(q, K, 8, "auto")
+    pos = pos.cpu().numpy()
+    r_sorted = recall_of(ds, truth_np, np.where(pos >= 0, order[np.maximum(pos, 0)], -1))
+    check(abs(r_sorted - r8) <= 0.002, f"cluster-sorted file recall {r_sorted} vs {r8}")
+    del s2
+    os.remove(out2)
+    log(f"phase 9d cluster_sorted().build_new in {out['cluster_sorted_s']:.2f} s: same "
+        f"centroids and list sizes, rows in index.row_ids order; from_parquet serves "
+        f"search(auto) nprobe=8 at recall@{K} {r_sorted:.4f} (phase 3 {r8:.4f})")
+
+    pa_, pb_ = copy("stream_a.parquet"), copy("stream_b.parquet")
+    t0 = time.perf_counter()
+    ia = builder(pa_).streaming(131072).build_inplace()
+    out["streaming_s"] = time.perf_counter() - t0
+    ib = builder(pb_).streaming(131072).build_inplace()
+    check(ia.to_bytes() == ib.to_bytes(), "two streaming builds with one seed differ")
+    n_batches = sum(1 for _ in iter_embedding_batches(pa_, col, 131072))
+    before = _build.LAUNCHES["K1"]
+    assign = assign_clusters_streaming(pa_, col, ia.centroids, 131072, device=dev)
+    check(_build.LAUNCHES["K1"] - before == n_batches,
+          f"K1 ran {_build.LAUNCHES['K1'] - before} times for {n_batches} batches")
+    check(type(ia).from_assignments(ia.centroids, assign).to_bytes() == ia.to_bytes(),
+          "the streamed assignment is not the streaming build's")
+    ss = pqt.DeviceIvfSearcher(ia, emb_np, dtype=torch.bfloat16, row_tile=ROW_TILE,
+                               cluster_sorted=True, device=dev)
+    r_stream = recall_of(ds, truth_np, ss.search(q, K, 8, "auto")[1])
+    check(abs(r_stream - r8) <= 0.01, f"streaming build recall {r_stream} vs {r8}")
+    del ss
+    os.remove(pa_)
+    os.remove(pb_)
+    out["streaming"] = {"batches": n_batches, "recall_nprobe8": r_stream}
+    log(f"phase 9d streaming(131072).build_inplace in {out['streaming_s']:.2f} s: two "
+        f"builds with one seed give identical bytes; K1 once per batch ({n_batches}); "
+        f"recall@{K} at nprobe=8 {r_stream:.4f} (phase 3 {r8:.4f})")
+
+
+def phase9(torch, pqt, _build, ds, path, emb_np, queries, q, truth, truth_s, searcher, chosen,
+           index, phase3_stages, data_dir, card):
+    """Slice 9's path on the phase-3 file and index: (a) the spilled layout,
+    (c) autotune, (b) deletes and appends (after (c), which wants the file's
+    rows), (d) the builds. Launch counts start at 0 here."""
+    t_phase = time.perf_counter()
+    truth_np = truth[1].cpu().numpy()
+    out = {}
+    _build.reset_launches()
+    r8 = recall_of(ds, truth_np, searcher.search(q, K, 8, "auto")[1])
+    out["spill"] = {}
+    phase9_spill(torch, pqt, _build, ds, path, emb_np, queries, q, truth, searcher, chosen,
+                 index, out["spill"])
+    phase9_autotune(torch, searcher, queries, out)
+    out["dynamic"] = {}
+    phase9_dynamic(torch, _build, ds, emb_np, queries, q, truth_np, searcher, truth_s, chosen,
+                   out["dynamic"])
+    torch.cuda.empty_cache()
+    phase9_builds(torch, pqt, _build, ds, path, emb_np, q, truth_np, index, r8,
+                  phase3_stages, data_dir, out)
+    out["launches"] = {k_: v for k_, v in _build.LAUNCHES.items() if v}
+    for name in ("K1", "K2", "K3", "K4", "K5", "K7", "K8", "K9", "K10"):
+        check(out["launches"].get(name, 0) > 0, f"{name} was not launched in phase 9")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 9 launches {out['launches']}; {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def _walk_plan(plan):
     yield plan
     for child in plan.children():
@@ -2177,11 +2662,16 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- phase 3: the main path -----------------------------------------
+    from pqvector_tpu_torch.utils.profiling import drain_stages
+
     _build.reset_launches()
+    drain_stages()
     t0 = time.perf_counter()
     index = pqt.IndexBuilder(path, "embedding", device=dev).n_clusters(N_CLUSTERS).build_inplace()
     build_s = time.perf_counter() - t0
-    log(f"phase 3 build_inplace 1M x 128, IVF-{N_CLUSTERS} on the card: {build_s:.2f} s")
+    build_stages = dict(drain_stages())
+    log(f"phase 3 build_inplace 1M x 128, IVF-{N_CLUSTERS} on the card: {build_s:.2f} s; "
+        "stages " + ", ".join(f"{k_} {v:.3f} s" for k_, v in build_stages.items()))
     check(pqt.has_pq_vector_index(path), "has_pq_vector_index is false")
     import pyarrow.parquet as pq
 
@@ -2260,6 +2750,8 @@ def main() -> None:
                    card)
     for name in ("K9", "K10"):
         launches[name] = main7["launches"][name]
+    main9 = phase9(torch, pqt, _build, ds, path, emb_np, queries, q, (truth_d, truth_ids),
+                   truth_s, searcher, chosen, index, build_stages, data_dir, card)
     del truth_s, searcher
     torch.cuda.empty_cache()
     main6 = phase6(torch, pqt, _build, ds, Embeddings, dev, cp, _compact_select, tm, sc, st,
@@ -2277,7 +2769,8 @@ def main() -> None:
             **{key: results[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             **{key: v for key, v in results[name].items()
-               if key.startswith(("bf16_", "k100_", "f32_"))},
+               if key.startswith(("bf16_", "k100_", "f32_", "int8_"))},
+            "phase9_launches": main9["launches"].get(name, 0),
         })
     log("main path: " + json.dumps({"build_s": build_s, "nprobe": chosen,
                                     "recall_at_10": recall, "search_ms": search_ms,
@@ -2290,6 +2783,7 @@ def main() -> None:
     log("K4/K3/K6 tiles and chunks scored of those a full walk scores: "
         + json.dumps(masked_work))
     log("front doors: " + json.dumps(main8))
+    log("slice 9 path: " + json.dumps(main9))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,8 @@ import torch
 
 from .._device import resolve_device
 from ..errors import ValidationError
-from ..kernels.assign import assign_clusters, assign_rows
+from ..kernels import assign as _k1
+from ..kernels.assign import assign_rows
 from ._threefry import kmeans_pp_scalars
 
 _INIT_SAMPLE_CAP = 50_000  # pq-vector src/ivf/index.rs:332
@@ -183,6 +184,21 @@ def k_means(
     block = min(params.block_rows, max(256, n))
     centroids, assign = _lloyd(x, centroids0, params.max_iters, block, k)
     return centroids.cpu().numpy(), assign.cpu().numpy()
+
+
+def assign_clusters(
+    x: np.ndarray | torch.Tensor,
+    centroids: np.ndarray | torch.Tensor,
+    block_rows: int = 8192,
+    device: str | torch.device | None = None,
+) -> np.ndarray:
+    """Nearest-centroid assignment for all rows, the final inverted-list
+    pass (pq-vector src/ivf/index.rs:193-206): K1 on the card, the plain
+    assign on the CPU, numpy ids out. ``block_rows`` stands where the JAX
+    package has it; K1 masks the ragged last block itself and needs no
+    padding to a block."""
+    del block_rows
+    return _k1.assign_clusters(x, centroids, device=device)
 
 
 __all__ = [

@@ -1,5 +1,5 @@
-"""Host-side Parquet IO: embed the index in a footer, read it and the
-embedding column back (reference layer: pq-vector src/ivf/parquet.rs)."""
+"""Host-side Parquet IO: embed/extract, footer surgery, property-preserving
+rewrite (reference layer: pq-vector src/ivf/parquet.rs)."""
 
 from .embed import (
     FOOTER_SIZE,
@@ -21,6 +21,7 @@ from .reader import (
     read_embedding_column,
     read_parquet_with_embeddings,
 )
+from .writer import collect_column_write_options, write_parquet_with_index
 
 __all__ = [
     "FOOTER_SIZE",
@@ -29,6 +30,7 @@ __all__ = [
     "PQ_VECTOR_INDEX_OFFSET_KEY",
     "ParquetEmbeddings",
     "append_index_inplace",
+    "collect_column_write_options",
     "encode_index_payload",
     "extract_embeddings",
     "has_pq_vector_index",
@@ -39,4 +41,5 @@ __all__ = [
     "read_index_from_payload",
     "read_index_metadata",
     "read_parquet_with_embeddings",
+    "write_parquet_with_index",
 ]

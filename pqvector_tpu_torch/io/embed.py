@@ -175,10 +175,25 @@ def append_index_inplace(
     ``file_len - 8``; spliced metadata (old pq keys stripped, new ones
     appended) + fresh footer tail written after it.
 
-    This is the JAX package's pure-Python path, the byte-identical oracle
-    of its native route; the native route is not ported yet.
+    Routed through the native C++ library (native/pqvector_host.cpp) when it
+    is available; the pure-Python path below is the portable fallback and
+    byte-identical test oracle.
     """
+    from .native import append_index_inplace_native
+
     extra_kv = {} if metric == "l2" else {PQ_VECTOR_METRIC_KEY: metric}
+    if append_index_inplace_native(
+        path,
+        index.to_bytes(),
+        str(embedding_column),
+        PQ_VECTOR_INDEX_OFFSET_KEY,
+        PQ_VECTOR_EMBEDDING_COLUMN_KEY,
+        PQ_VECTOR_INDEX_MAGIC,
+        extra_kv=extra_kv,
+        extra_drop_keys=tuple(sorted(_PQ_KEYS)),
+    ):
+        return
+
     with open(path, "r+b") as f:
         f.seek(0, os.SEEK_END)
         file_len = f.tell()

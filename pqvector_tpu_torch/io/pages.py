@@ -34,7 +34,7 @@ import threading
 
 import numpy as np
 
-from ..errors import ExecutionError, FormatError
+from ..errors import ExecutionError, FormatError, ValidationError
 from ..types import EmbeddingColumn
 from .embed import read_footer_metadata
 from ..utils.alloc import alloc_matrix, populate
@@ -1073,7 +1073,8 @@ def decode_rg_matrix_native(
 def decode_rg_matrix_from_buf(
     buf, rg: RowGroupInfo, leaf_idx: int, leaf: SchemaLeaf, out=None
 ) -> np.ndarray | None:
-    """Decode a row group's column chunk from pre-read bytes (the prefetch
+    """Decode a row group's column chunk from pre-read bytes (a worker of
+    ``decode_row_groups`` reads them; in the JAX package the prefetch
     pipeline reads the next chunk while this one decodes)."""
     from .native import decode_chunk_native
 
@@ -1101,6 +1102,97 @@ def decode_rg_matrix_from_buf(
     return values.reshape(-1, dim)
 
 
+def embedding_dim_hint(rg: RowGroupInfo, leaf_idx: int) -> int | None:
+    """Values per row of a row group's vector column from its metadata (the
+    chunk's value count over its row count), or None where they do not
+    divide. A hint: the decoder checks every row's length against it."""
+    rows, values = rg.num_rows, int(rg.chunks[leaf_idx].num_values)
+    if rows <= 0 or values <= 0 or values % rows:
+        return None
+    return values // rows
+
+
+#: Row groups a parallel column read decodes at once (``decode_row_groups``).
+DECODE_WORKERS = min(8, os.cpu_count() or 1)
+
+
+def _read_row_group_arrow(path, i: int, column: EmbeddingColumn, dst):
+    """Row group ``i``'s vector column through pyarrow (the layouts the
+    native decoder declines, with the canonical validation errors), into
+    ``dst`` when given."""
+    import pyarrow.parquet as pq
+
+    from .reader import extract_embeddings
+
+    table = pq.ParquetFile(path).read_row_group(i, columns=[str(column)])
+    mat = extract_embeddings(table, column).data
+    if dst is None:
+        return mat
+    if mat.shape != dst.shape:
+        raise ValidationError("Inconsistent embedding dimensions")
+    dst[...] = mat
+    return dst
+
+
+def decode_row_groups(path, row_groups, leaf_idx: int, leaf: SchemaLeaf,
+                      out=None, workers: int = DECODE_WORKERS,
+                      column: EmbeddingColumn | None = None):
+    """Yield each row group's vector column as [rows, dim] f32 through the
+    native chunk decoder, in row-group order, ``workers`` row groups at a
+    time: each thread reads its chunk's bytes and decodes them (both
+    release the GIL), so the read runs on that many cores where the
+    sequential decoder runs on one. ``out``, an [n, dim] array, takes each
+    row group in its slice; a function of the row group's position
+    (called on the worker) may give each its [rows, dim] destination
+    instead. No more than ``workers`` are decoding at once, each submitted
+    after the one ``workers`` before it was yielded, so at most
+    ``workers + 1`` decoded row groups are alive while the caller holds
+    the last one. A row group the decoder declines (or every one, without
+    the native library) is read by pyarrow on the worker when ``column``
+    names it, and yields None otherwise (the caller falls back); stopping
+    early cancels what is queued."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .native import load
+
+    native = load() is not None
+    starts = np.zeros(len(row_groups) + 1, np.int64)
+    np.cumsum([rg.num_rows for rg in row_groups], out=starts[1:])
+
+    def job(i):
+        rg = row_groups[i]
+        if callable(out):
+            dst = out(i)
+        elif out is not None:
+            dst = out[starts[i] : starts[i + 1]]
+            populate(dst)
+        else:
+            dst = None
+        got = None
+        if native:
+            start, length = rg_chunk_span(rg, leaf_idx)
+            with open(path, "rb") as f:
+                f.seek(start)
+                buf = f.read(length)
+            got = decode_rg_matrix_from_buf(buf, rg, leaf_idx, leaf, out=dst)
+        if got is None and column is not None:
+            got = _read_row_group_arrow(path, i, column, dst)
+        return got
+
+    pool = ThreadPoolExecutor(max(1, workers))
+    try:
+        pending = deque()
+        nxt = 0
+        while nxt < len(row_groups) or pending:
+            while nxt < len(row_groups) and len(pending) < max(1, workers):
+                pending.append(pool.submit(job, nxt))
+                nxt += 1
+            yield pending.popleft().result()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
 def read_embedding_matrix_native(
     path: str | os.PathLike, column: EmbeddingColumn
 ) -> np.ndarray | None:
@@ -1108,16 +1200,17 @@ def read_embedding_matrix_native(
     sequential chunk decoder, decoding each row group's pages straight into
     a preallocated output (no per-batch Arrow assembly — pyarrow's
     list<float> path measured 89 MB/s single-core on the 1M x 1024 build).
-    A background thread prefetches the next row group's chunk bytes while
-    the current one decodes (read and decode both release the GIL), so the
-    load runs at max(disk, decode) instead of their sum.
+    The row groups decode in parallel (``decode_row_groups``; the JAX
+    package decodes one at a time behind a read-ahead thread, which ran at
+    200 MB/s on the H100's host, slower than pyarrow's thread pool), into a
+    matrix shaped from the metadata (``embedding_dim_hint``). The matrix is
+    the same.
 
     Returns None to fall back to the pyarrow reader (library unavailable,
     dictionary-encoded chunks, non-float leaves, or ragged rows — the
     fallback raises the canonical validation errors).
     """
     from .native import load
-    from .prefetch import iter_prefetched
 
     if load() is None:
         return None
@@ -1128,34 +1221,16 @@ def read_embedding_matrix_native(
     total_rows = sum(rg.num_rows for rg in row_groups)
     if total_rows == 0:
         return None
-    out = None
-    dim = None
-    row0 = 0
-    chunks = iter_prefetched(
-        path, row_groups, lambda rg: rg_chunk_span(rg, leaf_idx)
-    )
+    dim = embedding_dim_hint(row_groups[0], leaf_idx)
+    if dim is None:
+        return None
+    # Fault-aware: np.empty first-touch can be slow on a microVM
+    # (utils/alloc module docstring); each slice is batch-faulted before
+    # the decoder writes it.
+    out = alloc_matrix((total_rows, dim), np.float32)
+    chunks = decode_row_groups(path, row_groups, leaf_idx, leaf, out=out)
     with contextlib.closing(chunks):
-        for rg, buf in chunks:
-            if out is None:
-                first = decode_rg_matrix_from_buf(buf, rg, leaf_idx, leaf)
-                if first is None:
-                    return None
-                dim = first.shape[1]
-                # Fault-aware: np.empty first-touch can be slow on a
-                # microVM (utils/alloc module docstring).
-                out = alloc_matrix((total_rows, dim), np.float32)
-                out[: first.shape[0]] = first
-                row0 = first.shape[0]
-                continue
-            dst = out[row0 : row0 + rg.num_rows]
-            # Batch-fault the slice before the decoder writes it: the
-            # decoder runs several times faster into warm pages than when
-            # each write faults (utils/alloc module docstring).
-            populate(dst)
-            got = decode_rg_matrix_from_buf(buf, rg, leaf_idx, leaf, out=dst)
+        for got in chunks:
             if got is None:
                 return None
-            row0 += rg.num_rows
-    if out is None or row0 != total_rows:
-        return None
     return out

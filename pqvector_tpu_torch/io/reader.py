@@ -20,7 +20,7 @@ import numpy as np
 import pyarrow as pa
 import pyarrow.parquet as pq
 
-from ..errors import ValidationError
+from ..errors import FormatError, ValidationError
 from ..types import EmbeddingColumn, Embeddings
 
 _FLOAT_TYPES = (pa.float32(), pa.float64())
@@ -112,8 +112,18 @@ def read_embedding_column(
 ) -> Embeddings:
     """Projected scan of just the vector column (query-side warm path).
 
-    This is the JAX package's pyarrow path; its native chunk decoder is not
-    ported yet."""
+    Tries the native sequential chunk decoder first (pyarrow's list<float>
+    assembly measured 89 MB/s single-core on the 1M x 1024 build); pyarrow
+    serves layouts the native path declines (dictionary encoding, nulls,
+    ragged rows — with the canonical validation errors)."""
+    from .pages import read_embedding_matrix_native
+
+    try:
+        mat = read_embedding_matrix_native(path, embedding_column)
+    except (OSError, FormatError):
+        mat = None
+    if mat is not None:
+        return Embeddings(mat, mat.shape[1])
     table = pq.read_table(path, columns=[str(embedding_column)])
     return extract_embeddings(table, embedding_column)
 

@@ -26,9 +26,18 @@ Modes:
   then the over-fetch extraction runs over that block), ``bincompact`` and
   ``bincompact8`` (K8), and ``auto``.
 
-``exact_loop`` and ``search_loop`` repeat a call ``reps`` times. The JAX
-package's ``xbin``, ``xbin8``, ``tilescan`` and ``autoscan`` are not ported
-and raise ``ValidationError``.
+``exact_loop`` and ``search_loop`` repeat a call ``reps`` times; they take
+the JAX package's loop catalogues, without ``gather``. The JAX package's
+``xbin``, ``xbin8``, ``tilescan`` and ``autoscan`` are not ported and raise
+``ValidationError``.
+
+Dynamic and spilled state, as in the JAX package: ``with_spill`` builds a
+layout with the rows nearest a second centroid duplicated into it
+(``query/spill.py``), ``delete_rows`` tombstones ids and ``append_rows``
+keeps new rows in a delta buffer. The mode implementations (``_exact_impl``,
+``_search_impl``) select over the static layout, at ``2k`` on a spilled
+one; the public wrappers then run ``_finalize`` in plain torch on the
+device: tombstone filter, exact delta scan and merge, id dedup, trim to k.
 
 The JAX package extracts candidates in ``scan``, ``approx`` and ``compact``
 with ``lax.approx_min_k``, an XLA operation that runs on the TPU's
@@ -74,6 +83,16 @@ from ..kernels.tilemin import tile_min
 
 #: Modes of the JAX package that this package does not run.
 _NOT_PORTED = frozenset({"xbin", "xbin8", "tilescan", "autoscan"})
+#: The JAX package's loop catalogues (``_search_loop_impl``,
+#: ``_exact_loop_impl``) without the modes not ported. ``gather`` is not
+#: one: a loop that ran it would time another path than the one it names.
+_SEARCH_LOOP_MODES = frozenset({
+    "auto", "stream", "pallas", "masked", "approx", "scan", "compact",
+    "binscan", "bincompact", "binscan8", "bincompact8", "cert",
+})
+_EXACT_LOOP_MODES = frozenset({
+    "auto", "stream", "pallas", "xla", "approx", "binscan", "binscan8", "cert",
+})
 #: One-shot candidate-scoring budget of ``cert``: the [B, m, tile, d] gather
 #: of pass 2 stays one call while under this many bytes; beyond it the
 #: scoring walks the selected tiles with a running top-k merge.
@@ -506,6 +525,61 @@ def _ivf_masked_scan_impl(
     return _refine(q, emb if emb_ref is None else emb_ref, best_d, best_i, k)
 
 
+def _dedup_topk(d, ids, k: int):
+    """Collapse duplicate ids in an ascending-by-distance [B, m] candidate
+    list down to the k nearest DISTINCT ids.
+
+    Spilled layouts hold each row at most twice, so a top-2k selection
+    always contains the true top-k distinct rows. Among equal ids the
+    earlier (nearer) slot survives, by a stable argsort of the ids; invalid
+    slots (id -1, distance inf) sort to the tail either way. The final pick
+    is by (distance, position), as the JAX package's index-stable
+    ``lax.top_k``."""
+    m = ids.shape[1]
+    if k >= m:
+        return d, ids
+    order = torch.argsort(ids, dim=1, stable=True)
+    ids_s = ids.gather(1, order)
+    dup_s = torch.zeros_like(ids_s, dtype=torch.bool)
+    dup_s[:, 1:] = (ids_s[:, 1:] == ids_s[:, :-1]) & (ids_s[:, 1:] >= 0)
+    dup = torch.empty_like(dup_s).scatter_(1, order, dup_s)
+    d_m = torch.where(dup, torch.inf, d)
+    idx = torch.argsort(d_m, dim=1, stable=True)[:, :k]
+    return d_m.gather(1, idx), torch.where(dup, -1, ids).gather(1, idx)
+
+
+def _finalize_impl(q, d, ids, deleted, delta, k: int, spill: bool):
+    """Shared epilogue of dynamic and spilled searchers, in the JAX
+    package's order: tombstone filter -> exact delta scan ([B, m] scores,
+    the best ``min(k, m)``, square roots) -> ``[main, delta]`` sorted
+    stably by distance -> spilled id dedup -> trim to k. ``deleted`` is the
+    padded tombstone bitmap or None, ``delta`` (f32 rows [m, d] rounded to
+    the storage dtype, squared norms [m] with +inf on empty and deleted
+    slots, ids [m] with -1 on empty slots) or None. Plain torch, no host synchronisation."""
+    if deleted is not None:
+        hit = (ids >= 0) & deleted[ids.clamp(0, deleted.shape[0] - 1).long()]
+        d = torch.where(hit, torch.inf, d)
+        ids = torch.where(hit, -1, ids)
+    if delta is not None:
+        de, se, ge = delta
+        dd2 = se[None, :] - 2.0 * (q @ de.T) + (q * q).sum(dim=1)[:, None]
+        # (value, position) order as lax.top_k's; a sort needs no host sync
+        vals, didx = torch.sort(dd2, dim=1, stable=True)
+        vals, didx = vals[:, : min(k, de.shape[0])], didx[:, : min(k, de.shape[0])]
+        dead = torch.isinf(vals)
+        dd = torch.where(dead, torch.inf, vals.clamp_min(0.0).sqrt())
+        dgi = torch.where(dead, -1, ge[didx.long()])
+        d = torch.cat([d, dd], dim=1)
+        ids = torch.cat([ids, dgi.to(ids.dtype)], dim=1)
+    # JAX merges a one-row +inf sentinel when there is no delta; it sorts
+    # after every real slot, so leaving it out changes no result.
+    order = torch.argsort(d, dim=1, stable=True)
+    d, ids = d.gather(1, order), ids.gather(1, order)
+    if spill:
+        return _dedup_topk(d, ids, k)
+    return d[:, :k], ids[:, :k]
+
+
 class DeviceIvfSearcher:
     """Device-resident searcher over one embedding matrix + its IVF index."""
 
@@ -542,9 +616,10 @@ class DeviceIvfSearcher:
             embeddings = normalize_rows(embeddings)
 
         self._gid: np.ndarray | None = None
-        # True when the resident layout holds duplicate rows (the JAX
-        # package's spilled multi-assignment, not ported: always False
-        # here). The SQL engine reads it to bound its resident fetch.
+        # True when the resident layout holds duplicate rows (spilled
+        # multi-assignment, ``with_spill``): public searches then select 2k
+        # and dedup by original id. The SQL engine reads it to bound its
+        # resident fetch.
         self._spill_dups = False
         if cluster_sorted and not np.array_equal(
             index.row_ids, np.arange(index.total_rows, dtype=index.row_ids.dtype)
@@ -610,16 +685,16 @@ class DeviceIvfSearcher:
         # (ctile, cap, nprobe, batch) of the last calibrate_bincompact
         self._bincompact_calibrated: tuple[int, int, int, int] | None = None
         self._tile_range_cache: dict[int, tuple] = {}
-        # Dynamic updates (tombstone deletes, delta-buffer appends) in the
-        # JAX package's plain starting state; the methods that change it
-        # are not ported. The SQL engine refuses its resident path when
-        # they are set.
-        self._id_domain = n  # original-id space
+        # Dynamic updates (tombstone deletes, delta-buffer appends), merged
+        # and filtered in _finalize. The SQL engine refuses its resident
+        # path when they are set.
+        self._id_domain = n  # original-id space; grows with appends
         self._deleted_host: np.ndarray | None = None  # bool over id domain
         self._deleted_dev = None
         self._delta: tuple | None = None  # (emb [m,d], sq [m], ids [m])
+        self._delta_host: list[np.ndarray] = []
         self.emb_sq = torch.from_numpy(sq).to(dev)
-        self.centroids = torch.from_numpy(np.asarray(index.centroids)).to(dev)
+        self.centroids = torch.from_numpy(np.array(index.centroids, np.float32)).to(dev)
         self.c_sq = (self.centroids * self.centroids).sum(dim=1)
 
         sizes = index.cluster_sizes()
@@ -654,29 +729,23 @@ class DeviceIvfSearcher:
         cluster_sorted: bool = False,
         device: str | torch.device | None = None,
     ) -> "DeviceIvfSearcher":
-        """Resident searcher from an indexed Parquet file. ``spill`` and
-        ``assign_dtype`` stand where the JAX package has them; its spilled
-        multi-assignment layout (``spill`` > 0) is not ported. The searcher
+        """Resident searcher from an indexed Parquet file. ``spill`` > 0
+        builds the spilled multi-assignment layout (see ``with_spill``, which
+        implies ``cluster_sorted``), the knob that
+        ``Session.device_searcher(name, spill=...)`` forwards. The searcher
         carries the file's provenance (``source_path``, ``source_column``
         and ``source_key`` = (size, mtime in ns), (-1, -1) where the file
         cannot be stat'ed), by which a caller can reject a searcher built
         before a re-index."""
-        if spill:
-            raise ValidationError(
-                f"from_parquet(spill={spill}): the spilled layout is not ported"
-            )
         index, column = read_index_from_parquet(path)
         emb = read_embedding_column(path, column)
-        searcher = cls(
-            index,
-            emb.data,
-            dtype=dtype,
-            row_tile=row_tile,
-            metric=read_index_metric(path),
-            cluster_sorted=cluster_sorted,
-            rescore_dtype=rescore_dtype,
-            device=device,
-        )
+        kwargs = dict(dtype=dtype, row_tile=row_tile, metric=read_index_metric(path),
+                      rescore_dtype=rescore_dtype, device=device)
+        if spill:
+            searcher = cls.with_spill(index, emb.data, spill=spill,
+                                      assign_dtype=assign_dtype, **kwargs)
+        else:
+            searcher = cls(index, emb.data, cluster_sorted=cluster_sorted, **kwargs)
         searcher.source_path = os.fspath(path)
         searcher.source_column = column.name
         try:
@@ -831,6 +900,7 @@ class DeviceIvfSearcher:
     def can_binscan(self, k: int = 10, esize: int | None = None) -> bool:
         """Whether the binned-min scan takes this array and k (bins and the
         provenance budget). ``esize=1`` gates ``binscan8``."""
+        k = self._spill_k(k)  # spilled searches select 2k for the dedup
         try:
             t = self._binscan_tile(esize=esize)
         except ValidationError:
@@ -894,6 +964,7 @@ class DeviceIvfSearcher:
         self._bincompact_calibrated = None
         if not self._row_cluster_sorted:
             return (0, 0)
+        k = self._spill_k(k)  # spilled searches run the impls at 2k
         q = np.asarray(
             queries.cpu() if isinstance(queries, torch.Tensor) else queries, np.float32
         )
@@ -964,7 +1035,8 @@ class DeviceIvfSearcher:
                             esize: int | None = None) -> float:
         """Fraction of the row tiles bincompact would read (cap / nt), 1.0
         when ineligible."""
-        ctile, cap = self._compact_bin_params(batch, nprobe, k, esize=esize)
+        ctile, cap = self._compact_bin_params(batch, nprobe, self._spill_k(k),
+                                              esize=esize)
         if not ctile:
             return 1.0
         return cap / max(int(self.emb.shape[0]) // ctile, 1)
@@ -1025,7 +1097,7 @@ class DeviceIvfSearcher:
     def can_cert(self, k: int = 10) -> bool:
         """Whether the certified-exact scan takes this array and k."""
         try:
-            self._cert_tile_checked(k)
+            self._cert_tile_checked(self._spill_k(k))
         except ValidationError:
             return False
         return True
@@ -1064,7 +1136,7 @@ class DeviceIvfSearcher:
         margins say how much room, in squared-distance units, the data's
         tile-min gaps leave over the arithmetic slack."""
         q = self._check_queries(queries)
-        _, _, okq, margin = self._cert(q, k, diagnostic=True)
+        _, _, okq, margin = self._cert(q, self._spill_k(k), diagnostic=True)
         return float(okq.float().mean()), margin.cpu().numpy()
 
     # -- over-fetch modes (scan, approx, compact) --------------------------
@@ -1106,7 +1178,7 @@ class DeviceIvfSearcher:
 
     def compact_coverage(self, batch: int, nprobe: int, k: int = 10) -> float:
         """Fraction of the row tiles ``compact`` gathers (cap / nt)."""
-        ctile, cap, _ = self._compact_params(batch, nprobe, k)
+        ctile, cap, _ = self._compact_params(batch, nprobe, self._spill_k(k))
         return cap / max(int(self.emb.shape[0]) // ctile, 1)
 
     def _compact(self, q, k: int, nprobe: int):
@@ -1136,8 +1208,9 @@ class DeviceIvfSearcher:
 
     # ------------------------------------------------------------------
 
-    def exact(self, queries, k: int, mode: str = "auto"):
-        """Exact brute-force top-k -> (sqrt distances [B, k], ids [B, k]).
+    def _exact_impl(self, queries, k: int, mode: str = "auto"):
+        """Exact brute-force top-k over the static layout -> (sqrt distances
+        [B, k], ids [B, k]).
 
         ``auto`` takes K2 (``stream``) for k <= 128, the most a kernel's
         top-k list holds, and the plain torch scan (``xla``) beyond. Unlike
@@ -1192,8 +1265,9 @@ class DeviceIvfSearcher:
         gather_ms = _GATHER_MS + _GATHER_MS_PER_M * cand / 1e6
         return "pallas" if k6_ms <= gather_ms else "gather"
 
-    def search(self, queries, k: int, nprobe: int, mode: str = "auto"):
-        """IVF top-k -> (sqrt distances [B, k], ids [B, k]).
+    def _search_impl(self, queries, k: int, nprobe: int, mode: str = "auto"):
+        """IVF top-k over the static layout -> (sqrt distances [B, k], ids
+        [B, k]).
 
         ``auto`` on a cluster-sorted layout with k <= 128 takes K4
         (``pallas``) while its [nt, B, cmax] local mask stays within 256 MB,
@@ -1283,22 +1357,243 @@ class DeviceIvfSearcher:
             raise ValidationError(f"Unknown search mode '{mode}'")
         return d2.sqrt(), self._map_ids(d2, ids)
 
-    def search_loop(self, queries, k: int, nprobe: int, reps: int = 16,
-                    mode: str = "auto"):
-        """``reps`` IVF searches of the same batch, one after the other on
-        the current stream -> the last repetition's result. The JAX package
-        chains the repetitions inside one dispatch to hide its dispatch
-        latency; here each is a plain call."""
+    def _search_loop_impl(self, queries, k: int, nprobe: int, reps: int = 16,
+                          mode: str = "auto"):
+        """``reps`` IVF searches of the same batch over the static layout,
+        one after the other on the current stream -> the last repetition's
+        result. The JAX package chains the repetitions inside one dispatch
+        to hide its dispatch latency; here each is a plain call. The modes
+        are the JAX loop's catalogue: not ``gather``, which has no chained
+        loop there, so that a loop never times another path than the one
+        it names."""
         if reps <= 0:
             raise ValidationError("reps must be > 0")
+        if mode in _NOT_PORTED:
+            raise ValidationError(f"search_loop mode '{mode}' is not ported")
+        if mode not in _SEARCH_LOOP_MODES:
+            raise ValidationError(f"Unknown search_loop mode '{mode}'")
         for _ in range(reps):
-            out = self.search(queries, k, nprobe, mode)
+            out = self._search_impl(queries, k, nprobe, mode)
         return out
 
-    def exact_loop(self, queries, k: int, reps: int = 16, mode: str = "auto"):
+    def _exact_loop_impl(self, queries, k: int, reps: int = 16, mode: str = "auto"):
         """``reps`` exact scans of the same batch -> the last one's result."""
         if reps <= 0:
             raise ValidationError("reps must be > 0")
+        if mode in _NOT_PORTED:
+            raise ValidationError(f"exact_loop mode '{mode}' is not ported")
+        if mode not in _EXACT_LOOP_MODES:
+            raise ValidationError(f"Unknown exact_loop mode '{mode}'")
         for _ in range(reps):
-            out = self.exact(queries, k, mode)
+            out = self._exact_impl(queries, k, mode)
         return out
+
+    # ------------------------------------------------------------------
+    # Public entry points. The impls select over the static layout; the
+    # wrappers finalize: tombstone filter, delta-buffer merge, spilled id
+    # dedup (the impls select 2k on spilled layouts), trim to k.
+    # ------------------------------------------------------------------
+
+    def _spill_k(self, k: int) -> int:
+        return 2 * k if self._spill_dups and k > 0 else k
+
+    def _plain(self) -> bool:
+        return (
+            not self._spill_dups
+            and self._deleted_dev is None
+            and self._delta is None
+        )
+
+    def exact(self, queries, k: int, mode: str = "auto"):
+        """Exact brute-force top-k (see ``_exact_impl`` for the modes)."""
+        d, ids = self._exact_impl(queries, self._spill_k(k), mode)
+        return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
+
+    def search(self, queries, k: int, nprobe: int, mode: str = "auto"):
+        """IVF top-k (see ``_search_impl`` for the mode catalogue)."""
+        d, ids = self._search_impl(queries, self._spill_k(k), nprobe, mode)
+        return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
+
+    def search_loop(self, queries, k: int, nprobe: int, reps: int = 16,
+                    mode: str = "auto"):
+        """``reps`` IVF searches of the same batch (see ``_search_loop_impl``)."""
+        d, ids = self._search_loop_impl(queries, self._spill_k(k), nprobe,
+                                        reps=reps, mode=mode)
+        return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
+
+    def exact_loop(self, queries, k: int, reps: int = 16, mode: str = "auto"):
+        """``reps`` exact scans of the same batch."""
+        d, ids = self._exact_loop_impl(queries, self._spill_k(k), reps=reps, mode=mode)
+        return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
+
+    # ------------------------------------------------------------------
+    # Dynamic updates: tombstone deletes + delta-buffer appends. The main
+    # layout stays static; deletes exclude rows at the selection (squared
+    # norm -> inf) and at the output (id filter), appends live in a side
+    # buffer scanned exactly and merged at finalize: the classic main +
+    # memtable design. The reference's file-embedded index supports
+    # neither without a rebuild.
+    # ------------------------------------------------------------------
+
+    def delete_rows(self, row_ids) -> None:
+        """Tombstone ``row_ids`` (original or appended ids): they stop
+        appearing in any mode's results."""
+        ids = np.unique(np.asarray(row_ids, np.int64).reshape(-1))
+        if ids.size == 0:
+            return
+        if ids.min() < 0 or ids.max() >= self._id_domain:
+            raise ValidationError(
+                f"delete_rows ids must be in [0, {self._id_domain})"
+            )
+        if self._deleted_host is None:
+            self._deleted_host = np.zeros(self._id_domain, bool)
+        elif self._deleted_host.size < self._id_domain:
+            grown = np.zeros(self._id_domain, bool)
+            grown[: self._deleted_host.size] = self._deleted_host
+            self._deleted_host = grown
+        self._deleted_host[ids] = True
+        self._ship_deleted()
+        # Main-layout positions of every copy (spilled rows have two).
+        main_ids = ids[ids < (self._gid.max() + 1 if self._gid is not None
+                              else self.n)]
+        if self._gid is not None:
+            pos = np.flatnonzero(np.isin(self._gid, main_ids))
+        else:
+            pos = main_ids[main_ids < self.n]
+        if pos.size:
+            self.emb_sq = self.emb_sq.index_fill(
+                0, torch.from_numpy(pos.astype(np.int64)).to(self.device), torch.inf
+            )
+            # The kernels' finite +3e38 copy is the only cache derived from
+            # the norms (the tile tables, tile ranges, cmax and the
+            # bincompact calibration follow the cluster layout, and the
+            # int8 codes hold no norms): a stale copy would let a deleted
+            # row take a selection slot that _finalize then empties.
+            self._emb_sq_pallas = None
+        # Delta-buffer copies.
+        if self._delta is not None:
+            de, se, ge = self._delta
+            dpos = np.flatnonzero(np.isin(ge.cpu().numpy(), ids))
+            if dpos.size:
+                se = se.index_fill(0, torch.from_numpy(dpos).to(self.device), torch.inf)
+                self._delta = (de, se, ge)
+
+    @staticmethod
+    def _bucket(n: int, floor: int = 256) -> int:
+        cap = floor
+        while cap < n:
+            cap *= 2
+        return cap
+
+    def _ship_deleted(self) -> None:
+        """Upload the tombstone bitmap padded to a power of two covering the
+        WHOLE id domain: shapes stay stable between appends, and an appended
+        id never clip-aliases into a smaller bitmap."""
+        padded = np.zeros(self._bucket(self._id_domain), bool)
+        padded[: self._deleted_host.size] = self._deleted_host
+        self._deleted_dev = torch.from_numpy(padded).to(self.device)
+
+    def append_rows(self, embeddings) -> np.ndarray:
+        """Append new rows to the delta buffer; returns their ids (the id
+        space continues past the original rows). Deltas are scanned EXACTLY
+        (one [B, m] product at finalize), so appended rows have recall 1.0;
+        fold them into the main index with a rebuild when the buffer grows
+        large."""
+        x = np.ascontiguousarray(embeddings, np.float32)
+        if x.ndim == 1:
+            x = x[None, :]
+        if x.ndim != 2 or x.shape[1] != self.dim:
+            raise ValidationError(
+                f"append_rows expects [m, {self.dim}] embeddings"
+            )
+        if self.metric == "cosine":
+            from ..index.metrics import normalize_rows
+
+            x = normalize_rows(x)
+        new_ids = np.arange(
+            self._id_domain, self._id_domain + len(x), dtype=np.int32
+        )
+        self._id_domain += len(x)
+        self._delta_host.append(x)
+        total = sum(len(a) for a in self._delta_host)
+        # Power-of-two capacity with an inf-norm / -1-id tail: shapes change
+        # only when the bucket grows (stable shapes for a later CUDA graph),
+        # and the upload below is the only per-append transfer.
+        cap = self._bucket(total)
+        all_x = np.zeros((cap, self.dim), np.float32)
+        np.concatenate(self._delta_host, out=all_x[:total])
+        sq = np.full(cap, np.inf, np.float32)
+        sq[:total] = np.einsum("md,md->m", all_x[:total], all_x[:total])
+        first_id = self._id_domain - total
+        gids = np.full(cap, -1, np.int32)
+        gids[:total] = np.arange(first_id, self._id_domain, dtype=np.int32)
+        # Keep earlier tombstones on re-materialization, and the device
+        # bitmap sized for the grown id domain.
+        if self._deleted_host is not None:
+            dead = np.zeros(total, bool)
+            upto = min(self._deleted_host.size - first_id, total)
+            if upto > 0:
+                dead[:upto] = self._deleted_host[first_id : first_id + upto]
+            sq[:total][dead] = np.inf
+            self._ship_deleted()
+        dev = self.device
+        self._delta = (
+            # rounded to the storage dtype as the JAX package stores them,
+            # held in f32 so that _finalize converts nothing per call
+            torch.from_numpy(all_x).to(dev, self.emb.dtype).float(),
+            torch.from_numpy(sq).to(dev),
+            torch.from_numpy(gids).to(dev),
+        )
+        return new_ids
+
+    def _finalize(self, queries, d, ids, k: int):
+        """Tombstone filter -> delta merge -> spilled dedup -> trim
+        (``_finalize_impl``), on the device."""
+        return _finalize_impl(
+            self._check_queries(queries), d, ids, self._deleted_dev, self._delta,
+            k, self._spill_dups,
+        )
+
+    @classmethod
+    def with_spill(
+        cls,
+        index: IvfIndex,
+        embeddings: np.ndarray,
+        spill: float = 0.2,
+        assign_block: int = 65536,
+        assign_dtype: torch.dtype = torch.float32,
+        **kwargs,
+    ) -> "DeviceIvfSearcher":
+        """Resident searcher over a SPILLED layout: the ``spill`` fraction of
+        rows with the smallest runner-up margin is duplicated into their
+        runner-up cluster (``query/spill.py``), lifting probe recall at
+        unchanged nprobe. The runner-up pass runs on the searcher's
+        ``device`` in ``assign_dtype``.
+
+        The file format is untouched: the spill is a runtime structure built
+        from the standard index at load. Costs: device memory and probed
+        traffic grow by about ``spill``; the impls select 2k for the dedup,
+        so a kernel's k <= 128 becomes k <= 64. ``cluster_sorted`` is
+        implied (the extended layout is sorted)."""
+        from .spill import build_spilled_layout
+
+        kwargs.pop("cluster_sorted", None)
+        device = resolve_device(kwargs.pop("device", None))
+        if kwargs.get("metric") == "cosine":
+            # Runner-up margins must be computed in the search metric; the
+            # constructor's own normalization is idempotent over this.
+            from ..index.metrics import normalize_rows
+
+            embeddings = normalize_rows(np.asarray(embeddings, np.float32))
+        ext_index, ext_emb, gid = build_spilled_layout(
+            index, embeddings, spill, block=assign_block,
+            assign_dtype=assign_dtype, device=device,
+        )
+        searcher = cls(ext_index, ext_emb, device=device, **kwargs)
+        searcher._gid = gid
+        searcher._gid_dev = torch.from_numpy(gid).to(device)
+        searcher._spill_dups = True
+        # The public id space is the ORIGINAL rows, not the extended layout
+        # (appends and deletes address original ids).
+        searcher._id_domain = int(gid.max()) + 1 if gid.size else 0
+        return searcher

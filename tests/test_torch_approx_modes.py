@@ -141,7 +141,7 @@ def test_approx_min_k_clamped_matches_jax(k, width):
 
 
 @pytest.mark.parametrize("mode", ["scan", "approx", "masked", "compact", "pallas",
-                                  "stream", "gather", "binscan"])
+                                  "stream", "auto", "binscan"])
 def test_search_loop_returns_the_single_call(mode):
     x, q = _data(seed=7)
     _, ts = _pair(x, "bfloat16", True)
@@ -207,3 +207,25 @@ def test_copy_searcher_knobs_carries_every_knob():
     js.approx_score_dtype = jnp.float32
     copy_searcher_knobs(js, ts)
     assert ts.approx_score_dtype == torch.float32
+
+
+def test_search_loop_refuses_gather_as_the_jax_package_does():
+    """``gather`` has no loop in the JAX package: its catalogue refuses it,
+    so that a loop never times another path than the one it names. The
+    port's loops take the same catalogues."""
+    from pqvector_tpu.errors import ValidationError as JValidationError
+
+    x, q = _data()
+    js, ts = _pair(x, sorted_=True)
+    with pytest.raises(JValidationError, match="Unknown search_loop mode 'gather'"):
+        js.search_loop(q, 5, 3, reps=1, mode="gather")
+    with pytest.raises(ValidationError, match="Unknown search_loop mode 'gather'"):
+        ts.search_loop(q, 5, 3, reps=1, mode="gather")
+    with pytest.raises(JValidationError, match="Unknown exact_loop mode 'gather'"):
+        js.exact_loop(q, 5, reps=1, mode="gather")
+    with pytest.raises(ValidationError, match="Unknown exact_loop mode 'gather'"):
+        ts.exact_loop(q, 5, reps=1, mode="gather")
+    for mode in sorted(tdev._SEARCH_LOOP_MODES - {"bincompact", "bincompact8"}):
+        ts.search_loop(q, 5, 3, reps=1, mode=mode)
+    for mode in sorted(tdev._EXACT_LOOP_MODES):
+        ts.exact_loop(q, 5, reps=1, mode=mode)

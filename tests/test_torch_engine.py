@@ -408,8 +408,10 @@ def test_session_device_searcher_cache_and_errors(indexed):
     assert int(ids[0, 0]) == 3
     with pytest.raises(PlanError, match="not registered"):
         s.device_searcher("missing")
-    with pytest.raises(Exception, match="not ported"):
-        s.device_searcher("t", spill=0.2)
+    spilled = s.device_searcher("t", spill=0.2)
+    assert spilled is not s.device_searcher("t") and spilled._spill_dups
+    _, ids = spilled.search(x[3], k=1, nprobe=8)
+    assert int(ids[0, 0]) == 3
 
 
 # ----------------------------------------------------------------------

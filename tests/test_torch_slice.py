@@ -19,6 +19,7 @@ themselves the port's modes must agree exactly.
 """
 
 import os
+import shutil
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -267,8 +268,15 @@ def test_from_parquet_carries_the_jax_searchers_provenance(indexed):
     assert ts.source_column == js.source_column == "embedding"
     assert ts.source_key == js.source_key
     assert ts.source_key == (os.stat(path).st_size, os.stat(path).st_mtime_ns)
-    with pytest.raises(ValidationError, match="spill.*not ported"):
-        DeviceIvfSearcher.from_parquet(path, spill=0.25, device="cpu")
+    # spill > 0 builds the spilled layout, with the same provenance
+    js = JSearcher.from_parquet(path, jnp.float32, TILE, 0.25, jnp.float32)
+    ts = DeviceIvfSearcher.from_parquet(path, torch.float32, TILE, 0.25, torch.float32,
+                                        device="cpu")
+    assert ts._spill_dups and js._spill_dups
+    assert (ts.source_path, ts.source_column, ts.source_key) == (
+        js.source_path, js.source_column, js.source_key)
+    _, _, q = indexed
+    assert_match(ts.search(q, K, NPROBE), js.search(q, K, NPROBE, "gather"), q)
 
 
 def test_from_parquet_source_key_when_the_file_cannot_be_stated(indexed, monkeypatch):
@@ -290,13 +298,38 @@ def test_from_parquet_source_key_when_the_file_cannot_be_stated(indexed, monkeyp
 
 
 @pytest.mark.parametrize("method,args", [
-    ("cluster_sorted", ()), ("transfer_dtype", ("bfloat16",)), ("assign_backend", ("host",)),
-    ("streaming", ()), ("build_new", ("out.parquet",)),
+    ("transfer_dtype", ("bfloat16",)), ("assign_backend", ("host",)),
 ])
 def test_unported_builder_methods_raise_by_name(indexed, method, args):
-    """The JAX builder has them (it must not raise AttributeError either)."""
+    """The JAX builder has them (it must not raise AttributeError either);
+    the TPU tunnel's bf16 wire and the host assignment are not ported."""
     path, _, _ = indexed
     assert callable(getattr(pqvector_tpu.IndexBuilder(path, "embedding"), method))
     builder = pqvector_tpu_torch.IndexBuilder(path, "embedding", device="cpu")
     with pytest.raises(ValidationError, match=f"{method} is not ported"):
         getattr(builder, method)(*args)
+
+
+@pytest.mark.parametrize("method", ["cluster_sorted", "streaming", "build_new"])
+def test_builder_methods_of_the_jax_package_work(indexed, tmp_path, method):
+    """``cluster_sorted().build_new``, ``streaming().build_inplace`` and
+    ``build_new`` give the JAX package's index bytes on the slice's file."""
+    path, _, _ = indexed
+    if method == "streaming":  # in place, each on a copy
+        shutil.copy(path, tmp_path / "j.parquet")
+        shutil.copy(path, tmp_path / "t.parquet")
+        path_j, path_t = tmp_path / "j.parquet", tmp_path / "t.parquet"
+    else:
+        path_j = path_t = path
+    jb = pqvector_tpu.IndexBuilder(path_j, "embedding").n_clusters(KC)
+    tb = pqvector_tpu_torch.IndexBuilder(path_t, "embedding", device="cpu").n_clusters(KC)
+    if method == "streaming":
+        want = jb.streaming(700).build_inplace()
+        got = tb.streaming(700).build_inplace()
+    else:
+        if method == "cluster_sorted":
+            jb, tb = jb.cluster_sorted(), tb.cluster_sorted()
+        want = jb.build_new(tmp_path / "j.parquet")
+        got = tb.build_new(tmp_path / "t.parquet")
+    assert got.to_bytes() == want.to_bytes()
+    assert (tmp_path / "t.parquet").read_bytes() == (tmp_path / "j.parquet").read_bytes()
