@@ -119,10 +119,39 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    ``streaming(131072).build_inplace`` (one seed, identical bytes; K1 once
    per batch; recall at nprobe 8 within 0.01 of phase 3's).
 
+10. Slice 10 (``dist/``) on the phase-3 rows and index, launch counts from
+   0, on ``make_mesh(4, device="cuda:0")`` (four shards of one card; also
+   ``make_mesh()`` over distinct cards where there are two or more):
+   (a) ``build_ivf_index_distributed`` on 4 shards against 1 shard
+   (centroids within 2e-5, assignments equal but at ties), served as phase
+   3 serves its index at nprobe 8 (recall within 0.01 of phase 3's); (b)
+   ``distributed_lloyd`` from the single build's initial centroids against
+   ``_lloyd`` (assignments equal but at ties; K1 once a shard an
+   iteration), and K1 at shard 0's shapes against its plain version (ids
+   equal but at near ties); (c) ``DistributedIvfSearcher`` on bf16 storage
+   with its f32 copy at phase 3's nprobe: ``search_fused`` (K3 on each
+   shard) with every slot at least as near as the single-device
+   ``search(stream)``'s (each shard fetches 2k), the f32 searcher's ids
+   equal to the f32 single ``search(stream)``'s, and both searchers'
+   gather chains' ids equal to their ``search_fused``'s, but at ties;
+   ``search_binscan``, ``search_binscan8`` (K7), ``search_scan`` and,
+   calibrated, ``search_bincompact`` (K8) at recall >= 0.95; K7 (bf16,
+   int8) and K8 at shard 0's shapes against their plain versions as phase
+   2b holds them, K8 on the searcher's own tile selection at the
+   calibrated cap and at nprobe 1 with half the shard's tiles (then run
+   through ``search_bincompact``); ``DistributedExactSearcher`` (K2 on each shard)
+   equal to the K2 truth; the 2 x 2 ``DistributedClusterIvfSearcher`` with the
+   1-D mesh's ids; ``with_spill(0.2)`` with no repeated id; each kernel
+   launched once a shard a call; ms a batch at 1 and 4 shards beside the
+   single-device searcher; then 1,000 deletes and 256 appends, after which
+   no deleted id comes back and each query's appended copy is first.
+   ``scripts/torch_dist_check.py`` runs this phase alone.
+
 The last lines are the tiles and chunks K4, K3 and K6 scored of those a
-full walk scores, the front doors' line, slice 9's line, the kernels' JSON
-(with each kernel's launches in phase 9), the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+full walk scores, the front doors' line, slice 9's and slice 10's lines,
+the script's and phase 10's seconds, the kernels' JSON (with each kernel's
+launches in phases 9 and 10), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2470,6 +2499,464 @@ def phase9(torch, pqt, _build, ds, path, emb_np, queries, q, truth, truth_s, sea
     return out
 
 
+# --------------------------------------------------------------------------
+# Slice 10: dist/ over a one-process mesh (K1, K2, K3, K7, K8 per shard)
+
+N_SHARDS, N_DIST_DELETE = 4, 1000
+
+
+def nearer_or_tied(got, want, what):
+    """``got`` (sqrt distances [B, k], ids, numpy) selected from a superset
+    of ``want``'s candidates and ranked on the same f32 distances: every
+    slot of ``got`` is at least as near as ``want``'s, to 1e-5 relative.
+    -> (slots whose ids differ at a tie, slots where ``got`` is nearer)."""
+    gd, gi = got
+    wd, wi = want
+    check(bool((gd <= wd * (1 + 1e-5) + 1e-6).all()), f"{what}: a slot is farther")
+    differ = gi != wi
+    tied = differ & np.isclose(gd, wd, rtol=1e-5, atol=1e-6)
+    return int(tied.sum()), int((differ & ~tied).sum())
+
+
+def uncounted(_build, fn):
+    """fn() with every launch count as it was before: launches made to hold
+    a kernel to its plain version are not the path's."""
+    saved = dict(_build.LAUNCHES)
+    try:
+        return fn()
+    finally:
+        _build.LAUNCHES.update(saved)
+
+
+def phase10_k1(torch, ka, meshes, sample, c0, emb_np, index, out):
+    """K1 at the shapes shard 0 of four gives it (its padded block of the
+    training sample against the initial centroids, and of the 1M rows
+    against the index's centroids) against the plain version: ids equal
+    except near ties, as phase 2b holds K1 at 1M rows."""
+    from pqvector_tpu_torch.dist.kmeans import _shard_rows_padded
+
+    res = {}
+    for label, rows, cents in (("sample", sample, c0), ("rows", emb_np, index.centroids)):
+        xs, _, _ = _shard_rows_padded(rows, meshes[4], 8192)
+        x0, c = xs[0], torch.from_numpy(np.asarray(cents, np.float32)).to(xs[0].device)
+        del xs
+        differ, gap = assign_near_ties(torch, x0, c, ka.assign_rows(x0, c),
+                                       ka.assign_rows_plain(x0, c), f"shard 0 K1 {label}")
+        res[label] = {"rows": x0.shape[0], "differ": differ, "max_abs_err": gap}
+    out["shard0_K1"] = res
+    log(f"phase 10b K1 on shard 0 of {N_SHARDS} against the plain version (ids equal "
+        f"except near ties): {res}")
+
+
+def phase10_k7_k8(torch, bs, s16, q, chosen, out):
+    """K7 (bf16 and int8) and K8 at the shapes shard 0 of four gives them,
+    against their plain versions as phase 2b holds them: bf16 key tables
+    within compare_tables' tolerance, the int8 table bit for bit. K8 runs on
+    the tiles the searcher selects, at the calibrated cap (every tile of the
+    shard at this batch and nprobe) and at nprobe 1 with half the shard's
+    tiles, where the popularity order chooses."""
+    emb, sq = s16.emb[0], s16.emb_sq_pallas[0]
+    q64 = q.double().cpu().numpy()
+    sq64 = sq.cpu().numpy().astype(np.float64)
+    res = {}
+    t7 = s16._binscan_tile()
+    args = (q, emb, sq, t7)
+    err, swaps = compare_tables(bs.binned_scan_keys(*args), bs.binned_scan_keys_plain(*args),
+                                q64, sq64, bs.provenance_bits(emb.shape[0] // t7, t7))
+    res["K7_bf16"] = {"tile": t7, "max_abs_err": err, "bins_differ": swaps}
+    e8, sc8 = s16._xbin8_arrays()
+    t8 = s16._binscan_tile(esize=1)
+    args8 = (q, e8[0], sq, t8, 1, sc8[0])
+    check(torch.equal(bs.binned_scan_keys(*args8), bs.binned_scan_keys_plain(*args8)),
+          "shard 0 K7 int8: key table differs from plain")
+    res["K7_int8"] = {"tile": t8, "equal": True}
+    nt = s16._nt_local
+    for label, nprobe, cap in (("calibrated", chosen, s16._bincompact_calibrated[0]),
+                               ("nprobe1", 1, nt // 2)):
+        sel = s16._bincompact_sel(0, q, nprobe, cap)
+        check(sel.shape[0] == cap and int(sel.unique().numel()) == cap,
+              f"shard 0 K8 {label}: sel is not {cap} distinct tiles")
+        s_args = (q, emb, sq, sel, s16.tile)
+        err, swaps = compare_tables(bs.binned_scan_select_keys(*s_args),
+                                    bs.binned_scan_select_keys_plain(*s_args), q64, sq64,
+                                    bs.provenance_bits(cap, s16.tile))
+        res[f"K8_{label}"] = {"nprobe": nprobe, "cap": cap, "tiles": nt,
+                              "max_abs_err": err, "bins_differ": swaps}
+    out["shard0_kernels"] = res
+    log(f"phase 10c K7/K8 on shard 0 of {N_SHARDS} against their plain versions: {res}")
+
+
+def launched(_build, name, fn):
+    """(fn(), launches of kernel ``name`` during it)."""
+    before = _build.LAUNCHES[name]
+    res = fn()
+    return res, _build.LAUNCHES[name] - before
+
+
+def check_shard_launches(n, dev, what, calls=1):
+    """A sharded call on the card launches its kernel once a shard for each
+    of ``calls`` calls (``None``: any positive number of calls); on the CPU
+    (a rehearsal) the plain versions launch nothing."""
+    if dev.type != "cuda":
+        check(n == 0, f"{what}: {n} launches on the CPU")
+    elif calls is None:
+        check(n > 0 and n % N_SHARDS == 0, f"{what}: {n} launches on {N_SHARDS} shards")
+    else:
+        check(n == calls * N_SHARDS, f"{what}: {n} launches on {N_SHARDS} shards")
+
+
+def phase10_build(torch, pqt, _build, ds, dist, emb_np, queries, truth_np, index, r8,
+                  meshes, out):
+    """(a) the sharded build on four shards of one card against one shard
+    and phase 3's single build, and served as phase 3 serves its index;
+    (b) distributed_lloyd against _lloyd from the single build's initial
+    centroids. The block sums add in row order whatever the shards, so each
+    pair must agree bit for bit. Then K1 at shard 0's shapes against its
+    plain version."""
+    from pqvector_tpu_torch.index.kmeans import (
+        _kmeans_pp_init,
+        _lloyd,
+        init_key,
+        sample_indices_host,
+        train_sample_size,
+    )
+    from pqvector_tpu_torch.kernels import assign as ka
+    from pqvector_tpu_torch.types import Embeddings
+
+    cfg = pqt.IvfBuildConfig(n_clusters=N_CLUSTERS)
+    built = {}
+    for label, mesh in (("4", meshes[4]), ("1", meshes[1])):
+        t0 = time.perf_counter()
+        built[label], k1 = launched(_build, "K1", lambda: dist.build_ivf_index_distributed(
+            Embeddings(emb_np, DIM), cfg, mesh=mesh))
+        out[f"build{label}_s"] = time.perf_counter() - t0
+        out[f"build{label}_K1"] = k1
+    i4, i1 = built["4"], built["1"]
+    check(i4.to_bytes() == i1.to_bytes(), "sharded build: 4 and 1 shards differ")
+    # At 1M rows the training sample is the single build's init-sample cap
+    # (50k), so the single build seeds and trains on the same rows.
+    check(i4.to_bytes() == index.to_bytes(), "sharded build: index bytes differ from "
+          "phase 3's single build")
+    # served as phase 3 serves its index: the sorted bf16 searcher, auto
+    s4 = pqt.DeviceIvfSearcher(i4, emb_np, dtype=torch.bfloat16, row_tile=ROW_TILE,
+                               cluster_sorted=True, device=meshes[4].devices[0])
+    r8_4 = ds.recall_at_k(truth_np, s4.search(queries, K, 8)[1].cpu().numpy())
+    out["recall_nprobe8"] = r8_4
+    check(abs(r8_4 - r8) <= 0.01, f"sharded build: recall@{K} at nprobe 8 {r8_4} against "
+          f"phase 3's {r8}")
+    del s4
+    log(f"phase 10a build_ivf_index_distributed {ROWS} x {DIM}, IVF-{N_CLUSTERS}: 4 shards "
+        f"{out['build4_s']:.2f} s (K1 {out['build4_K1']}), 1 shard {out['build1_s']:.2f} s "
+        f"(K1 {out['build1_K1']}); index bytes equal to each other and to phase 3's "
+        f"single build; recall@{K} at nprobe 8 {r8_4:.4f} (phase 3 {r8:.4f})")
+
+    dev = meshes[4].devices[0]
+    n_sample = train_sample_size(ROWS, N_CLUSTERS)  # phase 3's training sample
+    sample = emb_np[sample_indices_host(42 ^ 0x5A5A5A5A, ROWS, n_sample)]
+    xs = torch.from_numpy(sample).to(dev)
+    c0 = _kmeans_pp_init(xs, init_key(42), N_CLUSTERS)
+    (cd, ad), k1 = launched(_build, "K1", lambda: dist.distributed_lloyd(
+        sample, c0.cpu().numpy(), 20, mesh=meshes[4], block_rows=8192))
+    cs, as_ = _lloyd(xs, c0, 20, 8192, N_CLUSTERS)
+    cs, as_ = cs.cpu().numpy(), as_.cpu().numpy()
+    out["lloyd"] = {"K1": k1, "assign_differ": int((ad != as_).sum()),
+                    "centroid_bits_equal": cd.tobytes() == cs.tobytes()}
+    check(out["lloyd"]["assign_differ"] == 0 and out["lloyd"]["centroid_bits_equal"],
+          f"distributed_lloyd against _lloyd: {out['lloyd']}")
+    check_shard_launches(k1, dev, "distributed_lloyd, K1", calls=None)
+    log(f"phase 10b distributed_lloyd (4 shards) against _lloyd, {n_sample} x {DIM}, "
+        f"{N_CLUSTERS} clusters, 20 iterations from the single build's initial "
+        f"centroids: {out['lloyd']}")
+    uncounted(_build, lambda: phase10_k1(torch, ka, meshes, sample, c0.cpu().numpy(),
+                                          emb_np, index, out))
+
+
+def phase10_serve(torch, pqt, _build, ds, dist, emb_np, queries, q, truth, index, chosen,
+                  meshes, out):
+    """(c) the sharded searchers on phase 3's index: K3, the gather chain,
+    K7, K8 and K2 on each of four shards of one card, held to the
+    single-device searcher, to each other and to the K2 truth; the 2 x 2
+    mesh; the spilled layout; times at 1 and 4 shards."""
+    from pqvector_tpu_torch.kernels import binscan as bs
+
+    dev = meshes[4].devices[0]
+    truth_np = truth[1].cpu().numpy()
+    m4 = meshes[4]
+    s16 = dist.DistributedIvfSearcher(index, emb_np, mesh=m4, dtype=torch.bfloat16)
+    s32 = dist.DistributedIvfSearcher(index, emb_np, mesh=m4)
+    single16 = pqt.DeviceIvfSearcher(index, emb_np, dtype=torch.bfloat16, row_tile=ROW_TILE,
+                                      cluster_sorted=True, device=dev)
+    single32 = pqt.DeviceIvfSearcher(index, emb_np, row_tile=ROW_TILE, cluster_sorted=True,
+                                     device=dev)
+    out["layout"] = {"rows_per_shard": s16._rows_per_dev, "tiles_per_shard": s16._nt_local,
+                     "cmax": s16._cmax}
+
+    def np_of(res):
+        return res[0].float().cpu().numpy(), res[1].cpu().numpy()
+
+    def as_t(res):
+        return torch.from_numpy(res[0]), torch.from_numpy(res[1])
+
+    fused16, k3 = launched(_build, "K3", lambda: s16.search_fused(queries, K, chosen))
+    check_shard_launches(k3, dev, "search_fused, K3")
+    fused32 = s32.search_fused(queries, K, chosen)
+    stream32 = np_of(single32.search(q, K, chosen, "stream"))
+    swaps32 = ids_equal_or_tied(as_t(fused32), as_t(stream32),
+                                "f32 search_fused against single search(stream)")
+    ties16, nearer16 = nearer_or_tied(fused16, np_of(single16.search(q, K, chosen, "stream")),
+                                      "bf16 search_fused against single search(stream)")
+    # the single searcher's selection at 2k, re-scored, cut to k: what a
+    # shard's fetch does on one device
+    rec_2k = ds.recall_at_k(truth_np, single16._search_impl(q, 2 * K, chosen, "stream")[1]
+                            [:, :K].cpu().numpy())
+    gather32 = s32.search(queries, K, chosen)
+    gswaps32 = ids_equal_or_tied(as_t(gather32), as_t(fused32), "f32 search against fused")
+    gather16 = s16.search(queries, K, chosen)
+    gswaps16 = ids_equal_or_tied(as_t(gather16), as_t(fused16), "bf16 search against fused")
+    rec = {name: ds.recall_at_k(truth_np, res[1]) for name, res in (
+        ("fused16", fused16), ("gather16", gather16), ("fused32", fused32))}
+    rec["single16_stream"] = ds.recall_at_k(truth_np, single16.search(q, K, chosen, "stream")
+                                            [1].cpu().numpy())
+    rec["single16_stream_2k"] = rec_2k
+    out["search"] = {"nprobe": chosen, "recall": rec, "f32_fused_vs_stream_tie_swaps": swaps32,
+                     "bf16_fused_vs_stream": {"ties": ties16, "nearer": nearer16},
+                     "f32_gather_vs_fused_tie_swaps": gswaps32,
+                     "bf16_gather_vs_fused_tie_swaps": gswaps16}
+    log(f"phase 10c search_fused (K3 x {N_SHARDS}) nprobe={chosen}: f32 ids = single "
+        f"search(stream)'s ({swaps32} tie swaps); bf16 + f32 copy: every slot at least as "
+        f"near as single search(stream)'s ({ties16} tie swaps, {nearer16} nearer by the "
+        f"2k fetch a shard); search (gather) = search_fused on f32 ({gswaps32} tie swaps) "
+        f"and on bf16 ({gswaps16}); recall@{K} {rec}")
+
+    for name, fn, kern in (
+        ("binscan", lambda: s16.search_binscan(queries, K), "K7"),
+        ("binscan8", lambda: s16.search_binscan8(queries, K), "K7"),
+    ):
+        res, n = launched(_build, kern, fn)
+        check_shard_launches(n, dev, f"search_{name}, {kern}")
+        r = ds.recall_at_k(truth_np, res[1])
+        check(r >= RECALL_TARGET, f"search_{name} recall@{K} {r}")
+        out[name] = {"recall": r, "tile": s16._binscan_tile(1 if name[-1] == "8" else None)}
+    r = ds.recall_at_k(truth_np, s16.search_scan(queries, K)[1])
+    check(r >= RECALL_TARGET, f"search_scan recall@{K} {r}")
+    out["scan"] = {"recall": r}
+    cap = s16.calibrate_bincompact(queries, chosen, K)
+    check(cap > 0, "calibrate_bincompact: ineligible")
+    res, n = launched(_build, "K8", lambda: s16.search_bincompact(queries, K, chosen))
+    check_shard_launches(n, dev, "search_bincompact, K8")
+    r = ds.recall_at_k(truth_np, res[1])
+    check(r >= RECALL_TARGET, f"search_bincompact recall@{K} {r}")
+    out["bincompact"] = {"recall": r, "cap": cap, "coverage": cap / s16._nt_local}
+    uncounted(_build, lambda: phase10_k7_k8(torch, bs, s16, q, chosen, out))
+    cap_low = out["shard0_kernels"]["K8_nprobe1"]["cap"]
+    res, n = launched(_build, "K8", lambda: s16.search_bincompact(queries, K, 1,
+                                                                  cap=cap_low))
+    check_shard_launches(n, dev, f"search_bincompact nprobe=1 cap={cap_low}, K8")
+    out["bincompact"]["nprobe1"] = {"cap": cap_low, "recall": ds.recall_at_k(truth_np, res[1])}
+    exact4 = dist.DistributedExactSearcher(emb_np, mesh=m4)
+    res, n = launched(_build, "K2", lambda: exact4.search(queries, K))
+    check_shard_launches(n, dev, "DistributedExactSearcher, K2")
+    out["exact_tie_swaps"] = ids_equal_or_tied(as_t(res), (truth[0].cpu(), truth[1].cpu()),
+                                               "DistributedExactSearcher against the K2 truth")
+    log(f"phase 10c binscan (K7) {out['binscan']}, binscan8 {out['binscan8']}, bincompact "
+        f"(K8) {out['bincompact']}, scan {out['scan']}; DistributedExactSearcher (K2 x {N_SHARDS}) = the K2 "
+        f"truth ({out['exact_tie_swaps']} tie swaps)")
+
+    c22 = dist.DistributedClusterIvfSearcher(index, emb_np,
+                                             mesh=dist.make_mesh_2d(2, 2, device=dev))
+    res, n = launched(_build, "K3", lambda: c22.search(queries, K, chosen))
+    check_shard_launches(n, dev, "the 2 x 2 searcher, K3")
+    out["cluster_2x2_tie_swaps"] = ids_equal_or_tied(as_t(res), as_t(fused32),
+                                                     "2 x 2 mesh against the 1-D mesh")
+    del c22
+    sp = dist.DistributedIvfSearcher.with_spill(index, emb_np, spill=0.2, mesh=m4,
+                                                dtype=torch.bfloat16)
+    res = sp.search_fused(queries, K, chosen)
+    distinct_ids(res[1], "spilled search_fused")
+    out["spill"] = {"recall": ds.recall_at_k(truth_np, res[1]), "rows": sp.n}
+    del sp
+    log(f"phase 10c 2 x 2 (data, cluster) mesh = the 1-D mesh's ids "
+        f"({out['cluster_2x2_tie_swaps']} tie swaps); with_spill(0.2): no repeated id, "
+        f"recall@{K} {out['spill']['recall']:.4f} at nprobe={chosen}")
+
+    # Times: four shards on one card run one after another, so these show
+    # the sharding's overhead, not scaling.
+    s16_1 = dist.DistributedIvfSearcher(index, emb_np, mesh=meshes[1], dtype=torch.bfloat16)
+    s16_1.calibrate_bincompact(queries, chosen, K)
+    exact1 = dist.DistributedExactSearcher(emb_np, mesh=meshes[1])
+    times = {}
+    for label, s, e in (("1", s16_1, exact1), ("4", s16, exact4)):
+        times[label] = {
+            "search_fused": time_ms(lambda: s.search_fused(queries, K, chosen)),
+            "search_binscan": time_ms(lambda: s.search_binscan(queries, K)),
+            "search_bincompact": time_ms(lambda: s.search_bincompact(queries, K, chosen)),
+            "exact": time_ms(lambda: e.search(queries, K)),
+        }
+    times["single"] = {
+        "search(stream)": time_ms(lambda: single16.search(q, K, chosen, "stream")),
+        "exact(stream)": time_ms(lambda: single32.exact(q, K, "stream")),
+    }
+    out["ms"] = times
+    log(f"phase 10c ms a batch (B={BATCH}, bf16 + f32 copy, exact f32), 1 and "
+        f"{N_SHARDS} shards of one card, and the single-device searcher: {times}")
+    if dev.type == "cuda":
+        out["profile"] = profile_modes(torch, [
+            (f"phase 10 search_fused, {N_SHARDS} shards",
+             lambda: s16.search_fused(queries, K, chosen)),
+            ("phase 10 search_fused, 1 shard", lambda: s16_1.search_fused(queries, K, chosen)),
+            (f"phase 10 search_binscan, {N_SHARDS} shards",
+             lambda: s16.search_binscan(queries, K)),
+        ])
+    if torch.cuda.device_count() >= 2:
+        out["distinct_cards"] = phase10_distinct(torch, pqt, dist, emb_np, queries, truth,
+                                                 index, chosen)
+    else:
+        out["distinct_cards"] = None
+        log("phase 10c one card: distinct-card mesh not run")
+
+    rng = np.random.default_rng(10)
+    must = np.unique(truth_np[:, 0])
+    victims = np.concatenate([must, rng.choice(np.setdiff1d(np.arange(ROWS), must),
+                                               N_DIST_DELETE - must.size, replace=False)])
+    s16.delete_rows(victims)
+    new_ids = s16.append_rows(queries + np.float32(1e-3))
+    check(np.array_equal(new_ids, ROWS + np.arange(BATCH)), "append_rows ids")
+    for name, fn in (
+        ("search_fused", lambda: s16.search_fused(queries, K, chosen)),
+        ("search", lambda: s16.search(queries, K, chosen)),
+        ("search_binscan", lambda: s16.search_binscan(queries, K)),
+        ("search_bincompact", lambda: s16.search_bincompact(queries, K, chosen)),
+    ):
+        _, ids = fn()
+        check(not np.isin(ids, victims).any(), f"{name}: a deleted id came back")
+        check(np.array_equal(ids[:, 0], new_ids), f"{name}: a query's top-1 is not its "
+              "appended copy")
+    log(f"phase 10c after {victims.size} deletes (every query's K2 top-1 among them) and "
+        f"{BATCH} appends (the queries + 1e-3): search_fused, search, search_binscan, "
+        f"search_bincompact return no deleted id, each query's appended copy first")
+
+
+def phase10_distinct(torch, pqt, dist, emb_np, queries, truth, index, chosen):
+    """A mesh of distinct cards (``make_mesh()``: every card) against as many
+    shards of the first card: the same layout, so K1 (the sharded build),
+    K3, K7 and K2 on each card must give the one card's bits, each launched
+    under its own card's scope; times of both."""
+    from pqvector_tpu_torch.types import Embeddings
+
+    md = dist.make_mesh()
+    m1 = dist.make_mesh(md.size, device=torch.device("cuda", 0))
+    built = dist.build_ivf_index_distributed(
+        Embeddings(emb_np, DIM), pqt.IvfBuildConfig(n_clusters=N_CLUSTERS), mesh=md)
+    check(built.to_bytes() == index.to_bytes(),
+          f"sharded build over {md.size} cards: index bytes differ from phase 3's")
+    res = {"cards": md.size}
+    searchers = [(dist.DistributedIvfSearcher(index, emb_np, mesh=m, dtype=torch.bfloat16),
+                  dist.DistributedExactSearcher(emb_np, mesh=m)) for m in (md, m1)]
+    for name, call in (
+        ("search_fused", lambda s, e: s.search_fused(queries, K, chosen)),
+        ("search_binscan", lambda s, e: s.search_binscan(queries, K)),
+        ("exact", lambda s, e: e.search(queries, K)),
+    ):
+        (gd, gi), (wd, wi) = (call(*pair) for pair in searchers)
+        check(np.array_equal(gi, wi) and gd.tobytes() == wd.tobytes(),
+              f"{name}: {md.size} cards differ from {md.size} shards of one card")
+        res[name] = {"ms_cards": time_ms(lambda: call(*searchers[0])),
+                     "ms_one_card": time_ms(lambda: call(*searchers[1]))}
+    res["exact_tie_swaps"] = ids_equal_or_tied(
+        tuple(torch.from_numpy(a) for a in searchers[0][1].search(queries, K)),
+        (truth[0].cpu(), truth[1].cpu()), f"exact over {md.size} cards against the K2 truth")
+    log(f"phase 10c distinct-card mesh of {md.size} cards: the sharded build gives phase "
+        f"3's index bytes; search_fused, search_binscan and exact give {md.size} shards "
+        f"of one card's bits; ms a batch {res}")
+    return res
+
+
+def phase10(torch, pqt, _build, ds, emb_np, queries, q, truth, index, r8, chosen, card,
+            device="cuda:0"):
+    """Slice 10's path on the phase-3 rows and index, launch counts from 0:
+    the sharded build and Lloyd, and the three sharded searchers on a mesh
+    of four shards of ``device`` (and of every card where there are two or
+    more)."""
+    from pqvector_tpu_torch import dist
+
+    t_phase = time.perf_counter()
+    out = {}
+    meshes = {n: dist.make_mesh(n, device=device) for n in (1, N_SHARDS)}
+    _build.reset_launches()
+    phase10_build(torch, pqt, _build, ds, dist, emb_np, queries, truth[1].cpu().numpy(),
+                  index, r8, meshes, out)
+    torch.cuda.empty_cache()
+    phase10_serve(torch, pqt, _build, ds, dist, emb_np, queries, q, truth, index, chosen,
+                  meshes, out)
+    torch.cuda.empty_cache()
+    out["launches"] = {k_: v for k_, v in _build.LAUNCHES.items() if v}
+    if meshes[1].devices[0].type == "cuda":
+        for name in ("K1", "K2", "K3", "K7", "K8"):
+            check(out["launches"].get(name, 0) > 0, f"{name} was not launched in phase 10")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 10 launches {out['launches']}; {out['seconds']:.1f} s on {card}")
+    return out
+
+
+def write_rows(ds, data_dir):
+    """Phase 3's rows: the seeded 1M x 128 file written as Parquet under
+    ``data_dir`` (made anew) and read back, and the 256 seeded queries.
+    -> (path, rows, queries)."""
+    from pqvector_tpu_torch.io.reader import read_embedding_column
+
+    shutil.rmtree(data_dir, ignore_errors=True)
+    os.makedirs(data_dir)
+    path = os.path.join(data_dir, f"bench_{ROWS}x{DIM}.parquet")
+    t0 = time.perf_counter()
+    ds.generate_dataset(path, ROWS, DIM)
+    log(f"setup: wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    emb_np = read_embedding_column(path, "embedding").data
+    rng = np.random.default_rng(7)  # queries as bench.py:573-577
+    queries = emb_np[rng.integers(0, ROWS, BATCH)] + 0.05 * rng.standard_normal(
+        (BATCH, DIM)
+    ).astype(np.float32)
+    return path, emb_np, queries
+
+
+def phase3_serve(torch, pqt, _build, ds, index, emb, q, dev):
+    """Phase 3's truth and probe sweep on ``index`` over the rows ``emb``:
+    the f32 exact truth (auto), then the sorted bf16 searcher's
+    ``search(auto)`` (K4) at nprobe 1, 2, 4, ... until recall@10 reaches
+    the target, and ``search(stream)`` (K3) with the same ids there.
+    -> (truth searcher, (truth d, truth ids), bf16 searcher, nprobe, recall)."""
+    truth_s = pqt.DeviceIvfSearcher(index, emb, row_tile=ROW_TILE,
+                                    cluster_sorted=True, device=dev)
+    t0 = time.perf_counter()
+    truth_d, truth_ids = truth_s.exact(q, K)
+    torch.cuda.synchronize()
+    log(f"phase 3 exact truth (auto, f32, B={BATCH}): {time.perf_counter() - t0:.3f} s")
+    truth_np = truth_ids.cpu().numpy()
+    check(bool(torch.isfinite(truth_d).all()) and truth_np.shape == (BATCH, K),
+          "exact truth has empty slots")
+    searcher = pqt.DeviceIvfSearcher(index, emb, dtype=torch.bfloat16,
+                                     row_tile=ROW_TILE, cluster_sorted=True,
+                                     device=dev)
+    chosen, recall = None, 0.0
+    nprobe = 1
+    while nprobe <= N_CLUSTERS:
+        before = _build.LAUNCHES["K4"]
+        d, ids = searcher.search(q, K, nprobe, "auto")
+        check(_build.LAUNCHES["K4"] == before + 1, "search(auto) did not take K4")
+        recall = ds.recall_at_k(truth_np, ids.cpu().numpy())
+        log(f"phase 3 search auto (K4) nprobe={nprobe}: recall@{K} {recall:.4f}")
+        if recall >= RECALL_TARGET:
+            chosen = nprobe
+            break
+        nprobe *= 2
+    check(chosen is not None, f"recall never reached {RECALL_TARGET}")
+    check(bool(torch.isfinite(d).all()), "search returned empty slots")
+    d_s, ids_s = searcher.search(q, K, chosen, "stream")
+    check(torch.equal(ids_s, ids), "K3 (stream) and K4 (auto) ids differ")
+    log(f"phase 3 K3 (stream) and K4 (auto) ids identical at nprobe={chosen}")
+    return truth_s, (truth_d, truth_ids), searcher, chosen, recall
+
+
 def _walk_plan(plan):
     yield plan
     for child in plan.children():
@@ -2477,6 +2964,7 @@ def _walk_plan(plan):
 
 
 def main() -> None:
+    t_script = time.perf_counter()
     sys.path.insert(0, ROOT)
     try:
         import torch
@@ -2518,18 +3006,7 @@ def main() -> None:
 
     dev = torch.device(DEVICE)
     data_dir = os.path.join(ROOT, "data", "chip_smoke")
-    shutil.rmtree(data_dir, ignore_errors=True)
-    os.makedirs(data_dir)
-    path = os.path.join(data_dir, f"bench_{ROWS}x{DIM}.parquet")
-    t0 = time.perf_counter()
-    ds.generate_dataset(path, ROWS, DIM)
-    log(f"setup: wrote {path} ({os.path.getsize(path) / 1e6:.1f} MB) "
-        f"in {time.perf_counter() - t0:.1f} s")
-    emb_np = read_embedding_column(path, "embedding").data
-    rng = np.random.default_rng(7)  # queries as bench.py:573-577
-    queries = emb_np[rng.integers(0, ROWS, BATCH)] + 0.05 * rng.standard_normal(
-        (BATCH, DIM)
-    ).astype(np.float32)
+    path, emb_np, queries = write_rows(ds, data_dir)
 
     # ---- phase 2 ---------------------------------------------------------
     phase2_small(torch, st, sc, ka)
@@ -2686,35 +3163,9 @@ def main() -> None:
     emb = read_embedding_column(path, column).data
     check(np.array_equal(emb, emb_np), "embedding column changed")
 
-    truth_s = pqt.DeviceIvfSearcher(index_r, emb, row_tile=ROW_TILE,
-                                    cluster_sorted=True, device=dev)
-    t0 = time.perf_counter()
-    truth_d, truth_ids = truth_s.exact(q, K)
-    torch.cuda.synchronize()
-    log(f"phase 3 exact truth (auto, f32, B={BATCH}): {time.perf_counter() - t0:.3f} s")
+    truth_s, (truth_d, truth_ids), searcher, chosen, recall = phase3_serve(
+        torch, pqt, _build, ds, index_r, emb, q, dev)
     truth_np = truth_ids.cpu().numpy()
-    check(bool(torch.isfinite(truth_d).all()) and truth_np.shape == (BATCH, K),
-          "exact truth has empty slots")
-    searcher = pqt.DeviceIvfSearcher(index_r, emb, dtype=torch.bfloat16,
-                                     row_tile=ROW_TILE, cluster_sorted=True,
-                                     device=dev)
-    chosen, recall = None, 0.0
-    nprobe = 1
-    while nprobe <= N_CLUSTERS:
-        before = _build.LAUNCHES["K4"]
-        d, ids = searcher.search(q, K, nprobe, "auto")
-        check(_build.LAUNCHES["K4"] == before + 1, "search(auto) did not take K4")
-        recall = ds.recall_at_k(truth_np, ids.cpu().numpy())
-        log(f"phase 3 search auto (K4) nprobe={nprobe}: recall@{K} {recall:.4f}")
-        if recall >= RECALL_TARGET:
-            chosen = nprobe
-            break
-        nprobe *= 2
-    check(chosen is not None, f"recall never reached {RECALL_TARGET}")
-    check(bool(torch.isfinite(d).all()), "search returned empty slots")
-    d_s, ids_s = searcher.search(q, K, chosen, "stream")
-    check(torch.equal(ids_s, ids), "K3 (stream) and K4 (auto) ids differ")
-    log(f"phase 3 K3 (stream) and K4 (auto) ids identical at nprobe={chosen}")
 
     d100, i100 = truth_s.exact(q, 100, "stream")
     p100, pi100 = truth_s.exact(q, 100, "xla")
@@ -2750,10 +3201,13 @@ def main() -> None:
                    card)
     for name in ("K9", "K10"):
         launches[name] = main7["launches"][name]
+    r8 = recall_of(ds, truth_np, searcher.search(q, K, 8, "auto")[1])
     main9 = phase9(torch, pqt, _build, ds, path, emb_np, queries, q, (truth_d, truth_ids),
                    truth_s, searcher, chosen, index, build_stages, data_dir, card)
     del truth_s, searcher
     torch.cuda.empty_cache()
+    main10 = phase10(torch, pqt, _build, ds, emb_np, queries, q, (truth_d, truth_ids),
+                     index, r8, chosen, card)
     main6 = phase6(torch, pqt, _build, ds, Embeddings, dev, cp, _compact_select, tm, sc, st,
                    ka)
     launches["K11"] = main6["slice3"]["gather"]["K11"]["path_launches"]
@@ -2771,6 +3225,7 @@ def main() -> None:
             **{key: v for key, v in results[name].items()
                if key.startswith(("bf16_", "k100_", "f32_", "int8_"))},
             "phase9_launches": main9["launches"].get(name, 0),
+            "phase10_launches": main10["launches"].get(name, 0),
         })
     log("main path: " + json.dumps({"build_s": build_s, "nprobe": chosen,
                                     "recall_at_10": recall, "search_ms": search_ms,
@@ -2784,6 +3239,9 @@ def main() -> None:
         + json.dumps(masked_work))
     log("front doors: " + json.dumps(main8))
     log("slice 9 path: " + json.dumps(main9))
+    log("slice 10 path: " + json.dumps(main10))
+    log(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s, phase 10 "
+        f"{main10['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

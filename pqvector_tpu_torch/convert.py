@@ -79,3 +79,34 @@ def copy_searcher_knobs(reference, searcher) -> None:
         if name == "approx_score_dtype":
             value = getattr(torch, np.dtype(value).name)
         setattr(searcher, name, value)
+
+
+#: A JAX distributed searcher's row-sharded arrays, by the port's names.
+DIST_ARRAYS = ("emb", "_emb_ref", "emb_sq", "emb_sq_pallas", "gids", "tables", "lcl", "tc")
+
+
+def dist_searcher_state_from_reference(
+    reference, device: str | torch.device | None = None
+) -> dict[str, list[torch.Tensor] | None]:
+    """Per-shard tensors on ``device`` from a JAX distributed searcher
+    (``DistributedIvfSearcher`` or ``DistributedClusterIvfSearcher``),
+    in the port's layout: each of ``DIST_ARRAYS`` that the searcher holds,
+    split into one row block per device of its mesh (None where it holds
+    none). The cluster tables and tile tables become int32 (``lcl`` is f32
+    there); ``tc`` loses the JAX package's padding to 128 lanes, keeping
+    the largest distinct-cluster count of a tile, the port's width."""
+    device = resolve_device(device)
+    n_dev = int(np.asarray(reference.mesh.devices).size)
+    out: dict[str, list[torch.Tensor] | None] = {}
+    for name in DIST_ARRAYS:
+        a = getattr(reference, name, None)
+        if a is None:
+            out[name] = None
+            continue
+        a = np.asarray(a)
+        if name in ("gids", "tables", "lcl", "tc"):
+            a = a.astype(np.int32)
+        if name == "tc":
+            a = a[:, : int(np.asarray(reference.lcl).max()) + 1]
+        out[name] = [_tensor(part, device) for part in np.split(a, n_dev)]
+    return out

@@ -81,17 +81,16 @@ def randint(key, maxval: int):
     return (offset & _MASK) % maxval
 
 
-def kmeans_pp_scalars(seed: int, m: int, k: int):
+def kmeans_pp_scalars_from_key(key, m: int, k: int):
     """Every random scalar k-means++ needs for ``k`` seeds over ``m`` sample
-    rows, as the JAX package draws them: ``PRNGKey(seed)`` is split in 3 and
-    its second key seeds the init; that key is split in 2 for ``first``;
+    rows, drawn from the init key ``key`` as the JAX package's
+    ``_kmeans_pp_init`` draws them: ``key`` is split in 2 for ``first``;
     then step ``i`` (1 <= i < k) splits the running key in 3 for its
     threshold ``u[i]`` and its fallback row ``uniform_idx[i]``. The chain of
     running keys is walked key by key; the k - 1 thresholds and rows are
     then drawn as one batch.
     -> (first, u [k] float32, uniform_idx [k] int64); slot 0 of the arrays is
     unused."""
-    _, key, _ = split(prng_key(seed), 3)
     key, sub = split(key)
     first = int(randint(sub, m))
     u = np.zeros(k, np.float32)
@@ -104,3 +103,10 @@ def kmeans_pp_scalars(seed: int, m: int, k: int):
         u[1:] = uniform(tuple(t_keys))
         uniform_idx[1:] = randint(tuple(u_keys), m)
     return first, u, uniform_idx
+
+
+def kmeans_pp_scalars(seed: int, m: int, k: int):
+    """``kmeans_pp_scalars_from_key`` for the single build's init key:
+    ``PRNGKey(seed)`` split in 3, its second key (``index/kmeans.py:k_means``
+    of the JAX package)."""
+    return kmeans_pp_scalars_from_key(split(prng_key(seed), 3)[1], m, k)

@@ -31,7 +31,7 @@ from .._device import resolve_device
 from ..errors import ValidationError
 from ..kernels import assign as _k1
 from ..kernels.assign import assign_rows
-from ._threefry import kmeans_pp_scalars
+from ._threefry import kmeans_pp_scalars_from_key, prng_key, split
 
 _INIT_SAMPLE_CAP = 50_000  # pq-vector src/ivf/index.rs:332
 _TRAIN_SAMPLE_CAP = 100_000  # pq-vector src/ivf/index.rs:173
@@ -86,20 +86,29 @@ def _prefix_sums(v: torch.Tensor) -> torch.Tensor:
     return (part + (lower @ part[:, -1])[:, None]).reshape(-1)[:m]
 
 
-def _kmeans_pp_init(sample: torch.Tensor, seed: int, n_clusters: int) -> torch.Tensor:
+def init_key(seed: int) -> tuple[int, int]:
+    """The single build's k-means++ key: ``PRNGKey(seed)`` split in 3, its
+    second key (the JAX package's ``k_means``)."""
+    return split(prng_key(seed), 3)[1]
+
+
+def _kmeans_pp_init(sample: torch.Tensor, key: tuple[int, int], n_clusters: int
+                    ) -> torch.Tensor:
     """k-means++ seeding (pq-vector src/ivf/index.rs:332-390) on ``sample``'s
-    device.
+    device from a threefry ``key``, a pair of 32-bit words: ``init_key(seed)``
+    for the single build, ``split(prng_key(seed))[1]`` for the distributed
+    one (``dist/build.py``).
 
     Each step folds the squared distance to the newest centroid into the
     running minimum and draws the next seed with probability proportional
     to it (first index whose cumulative sum reaches a uniform threshold); an
     all-zero total falls back to a uniform draw. All random numbers are drawn
     up front, the ones ``jax.random`` would give the JAX package's loop for
-    this seed, so the loop never waits on the host."""
+    this key, so the loop never waits on the host."""
     m, d = sample.shape
     k = n_clusters
     dev = sample.device
-    first, u, uniform_idx = kmeans_pp_scalars(seed, m, k)
+    first, u, uniform_idx = kmeans_pp_scalars_from_key(key, m, k)
     u = torch.as_tensor(u, device=dev)
     uniform_idx = torch.as_tensor(uniform_idx, device=dev)
 
@@ -180,7 +189,7 @@ def k_means(
         idx = sample_indices_host(params.seed ^ 0x3C3C3C3C, n, init_sample_size)
         init_sample = x[torch.as_tensor(idx, device=x.device)]
 
-    centroids0 = _kmeans_pp_init(init_sample, params.seed, k)
+    centroids0 = _kmeans_pp_init(init_sample, init_key(params.seed), k)
     block = min(params.block_rows, max(256, n))
     centroids, assign = _lloyd(x, centroids0, params.max_iters, block, k)
     return centroids.cpu().numpy(), assign.cpu().numpy()

@@ -70,8 +70,8 @@ def test_host_sampling_and_sizes_match_jax():
 
 def test_kmeans_pp_init_is_seeded_and_picks_sample_rows():
     x = torch.from_numpy(_blobs(500, 8, 6, seed=4))
-    a = tkm._kmeans_pp_init(x, 42, 6)
-    b = tkm._kmeans_pp_init(x, 42, 6)
+    a = tkm._kmeans_pp_init(x, tkm.init_key(42), 6)
+    b = tkm._kmeans_pp_init(x, tkm.init_key(42), 6)
     assert torch.equal(a, b)
     # every seed is a row of the sample
     assert all(bool((x == row).all(dim=1).any()) for row in a)
@@ -95,11 +95,12 @@ def test_threefry_primitives_equal_jax_random(seed):
         assert int(tf.randint(key, m)) == int(jax.random.randint(jkey, (), 0, m)), m
 
 
-def _jax_kmeans_pp_scalars(seed, m, k):
+def _jax_kmeans_pp_scalars(seed, m, k, n_split=3):
     """The reference's key chain (pqvector_tpu/index/kmeans.py: k_means and
-    _kmeans_pp_init), drawn with jax.random."""
+    _kmeans_pp_init), drawn with jax.random. ``n_split=2`` is the
+    distributed build's init key (pqvector_tpu/dist/build.py)."""
     key = jax.random.PRNGKey(seed)
-    _, init_key, _ = jax.random.split(key, 3)
+    init_key = jax.random.split(key, n_split)[1]
     key, sub = jax.random.split(init_key)
     first = int(jax.random.randint(sub, (), 0, m))
     u = np.zeros(k, np.float32)
@@ -122,6 +123,34 @@ def test_kmeans_pp_scalars_equal_jax_random(seed, m, k):
     assert got[0] == want[0]
     assert got[1].dtype == np.float32 and got[1].tobytes() == want[1].tobytes()
     np.testing.assert_array_equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("seed,m,k", [(42, 50_000, 24), (5, 12, 6), (3, 70_001, 6)])
+def test_kmeans_pp_scalars_from_the_two_way_key_equal_jax_random(seed, m, k):
+    """The key-level entry on the distributed build's init key,
+    ``split(PRNGKey(seed))[1]``: equal bits to jax.random's draws. The seed
+    form takes the single build's three-way key, whose second key is the
+    same block of threefry (counter (0, 1)), so both draw the same."""
+    want = _jax_kmeans_pp_scalars(seed, m, k, n_split=2)
+    got = tf.kmeans_pp_scalars_from_key(tf.split(tf.prng_key(seed))[1], m, k)
+    assert got[0] == want[0]
+    assert got[1].tobytes() == want[1].tobytes()
+    np.testing.assert_array_equal(got[2], want[2])
+    single = tf.kmeans_pp_scalars(seed, m, k)
+    three = tf.kmeans_pp_scalars_from_key(tf.split(tf.prng_key(seed), 3)[1], m, k)
+    assert single[0] == three[0] and single[1].tobytes() == three[1].tobytes()
+    assert tf.split(tf.prng_key(seed))[1] == tf.split(tf.prng_key(seed), 3)[1]
+    assert got[0] == single[0] and got[1].tobytes() == single[1].tobytes()
+
+
+def test_kmeans_pp_init_takes_a_key():
+    """``_kmeans_pp_init`` with the two-way key picks the JAX package's seed
+    rows for that key (the distributed build's seeding)."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((300, 8)).astype(np.float32)
+    want = np.asarray(jkm._kmeans_pp_init(x, jax.random.split(jax.random.PRNGKey(9))[1], 7))
+    got = tkm._kmeans_pp_init(torch.from_numpy(x), tf.split(tf.prng_key(9))[1], 7)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def _fixture_blobs(n_per, centers, seed):
@@ -158,7 +187,7 @@ def test_seed_rows_and_partition_equal_jax_on_its_fixtures(name):
     x, k, seed = _JAX_FIXTURES[name]()
     _, init_key, _ = jax.random.split(jax.random.PRNGKey(seed), 3)
     want = np.asarray(jkm._kmeans_pp_init(jax.numpy.asarray(x), init_key, k))
-    got = tkm._kmeans_pp_init(torch.from_numpy(x), seed, k).numpy()
+    got = tkm._kmeans_pp_init(torch.from_numpy(x), tkm.init_key(seed), k).numpy()
     np.testing.assert_array_equal(got, want)
     want_c, want_a = jkm.k_means(x, jkm.KMeansParams(n_clusters=k, seed=seed))
     got_c, got_a = tkm.k_means(x, tkm.KMeansParams(n_clusters=k, seed=seed), device="cpu")
