@@ -147,11 +147,29 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    no deleted id comes back and each query's appended copy is first.
    ``scripts/torch_dist_check.py`` runs this phase alone.
 
+11. Slice 11 on the phase-3 file in its original row order (bf16 storage
+   with its f32 copy), launch counts from 0: ``exact`` with ``xbin``,
+   ``xbin8`` and ``tilescan`` at B = 256 (recall@10 against the K2 truth,
+   each returned distance its row's exact distance, ms a batch beside K7
+   ``binscan`` and the bf16 ``mm`` + row-min floor), ``xbin`` and
+   ``tilescan`` again at B = 4096 through their chunked branch (step count
+   printed; its first 256 queries give the B = 256 ids, but at ties);
+   ``autoscan``: the default prober's weather report on the card and its
+   route, then an injected healthy report (``search(scan)``'s ids, no K7
+   launch) and a degraded one (``search(binscan)``'s ids, K7 launched);
+   ``search_loop(binscan8)`` (K7), ``exact_loop(xbin8)`` and, on the sorted
+   bf16 searcher, ``search_loop(stream)`` (K3), reps 4, under
+   ``loop_rescore`` "body" and "defer", the deferred result equal to the
+   2k storage-precision selection re-scored once, with ``_hbm_bytes()`` and
+   the ``auto`` decision; ``search_xbin`` and ``search_xbin8`` on four
+   shards of the card (recall, exact distances, ms a batch).
+   ``scripts/torch_slice11_check.py`` runs this phase alone.
+
 The last lines are the tiles and chunks K4, K3 and K6 scored of those a
-full walk scores, the front doors' line, slice 9's and slice 10's lines,
-the script's and phase 10's seconds, the kernels' JSON (with each kernel's
-launches in phases 9 and 10), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+full walk scores, the front doors' line, slice 9's, slice 10's and slice
+11's lines, the script's, phase 10's and phase 11's seconds, the kernels'
+JSON (with each kernel's launches in phases 9, 10 and 11), the card's name
+and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2898,6 +2916,228 @@ def phase10(torch, pqt, _build, ds, emb_np, queries, q, truth, index, r8, chosen
     return out
 
 
+BIG_BATCH = 4096  # phase 11's second batch: the packed-key scans' chunked branch
+
+
+def expect_launches(n, want, dev, what):
+    """``want`` launches on the card; on the CPU (a rehearsal) the plain
+    versions launch nothing."""
+    want = want if dev.type == "cuda" else 0
+    check(n == want, f"{what}: {n} launches, not {want}")
+
+
+def exact_distances_hold(emb_np, queries, d, ids, what):
+    """Every slot of (sqrt distances, ids, numpy) is a row at its exact
+    distance from its query, within f32 rounding of a 128-term sum.
+    -> the largest error."""
+    d, ids = np.asarray(d, np.float64), np.asarray(ids)
+    check(bool((ids >= 0).all() and np.isfinite(d).all()), f"{what}: empty slots")
+    diff = emb_np[ids].astype(np.float64) - queries[:, None, :].astype(np.float64)
+    want = np.sqrt((diff * diff).sum(-1))
+    err = np.abs(d - want)
+    check(bool((err <= 1e-5 * want + 1e-5).all()),
+          f"{what}: a distance is off its row's exact distance by {err.max():.3g}")
+    return float(err.max())
+
+
+def phase11_scans(torch, ds, tdev, fo, q, queries, q_big, big, emb_np, truth_np, out):
+    """(a) ``exact`` with xbin, xbin8 and tilescan on the file-order bf16
+    searcher at B = 256 (recall, exact distances, ms beside K7 and the
+    mm + row-min floor), then xbin and tilescan at B = 4096 through their
+    chunked branch (exact distances; on the first 256 queries the B = 256
+    recall within 0.005: a bigger batch may sum the f32 products in another
+    order, which moves keys at near ties)."""
+    n_pad = int(fo.emb.shape[0])
+    qb = q.to(torch.bfloat16)
+    sq = fo._pallas_emb_sq()
+    out["floor_ms"] = time_ms(lambda: (sq[None, :] - 2.0 * (qb @ fo.emb.T).float()).amin(1))
+    out["binscan_ms"] = time_ms(lambda: fo.exact(q, K, "binscan"))
+    out["binscan_recall"] = recall_of(ds, truth_np, fo.exact(q, K, "binscan")[1])
+    res256 = {}
+    for mode in ("xbin", "xbin8", "tilescan"):
+        d, ids = fo.exact(q, K, mode)
+        res256[mode] = (d, ids)
+        r = recall_of(ds, truth_np, ids)
+        err = exact_distances_hold(emb_np, queries, d.cpu().numpy(), ids.cpu().numpy(),
+                                   f"exact({mode}) B={BATCH}")
+        out[mode] = {"recall_at_10": r, "max_abs_err": err,
+                     "ms": time_ms(lambda: fo.exact(q, K, mode))}
+        log(f"phase 11 exact({mode}) bf16 file order B={BATCH}: recall@{K} {r:.4f}, "
+            f"distances exact (max err {err:.3g}), {out[mode]['ms']:.3f} ms/batch")
+    lb = fo._xbin_bins_checked(K)
+    tile = fo._tilescan_tile_checked(K)
+    out["geometry"] = {"xbin_bins": lb, "tilescan_tile": tile, "n_pad": n_pad}
+    log(f"phase 11 B={BATCH}: K7 binscan {out['binscan_ms']:.3f} ms (recall@{K} "
+        f"{out['binscan_recall']:.4f}), bf16 mm + row min floor {out['floor_ms']:.3f} ms; "
+        f"xbin {lb} bins, tilescan tile {tile}")
+    groups = tdev._xbin_auto_chunk(big, n_pad, lb, fo.xbin_chunk_groups)
+    steps = {"xbin": len(tdev._group_steps(n_pad // lb, lb, groups)),
+             "tilescan": len(tdev._tilescan_steps(big, n_pad, tile, fo.tilescan_chunk_rows))}
+    for mode in ("xbin", "tilescan"):
+        check(steps[mode] > 1, f"exact({mode}) B={big} took one step, not the chunked branch")
+        d, ids = fo.exact(q_big, K, mode)
+        err = exact_distances_hold(emb_np, q_big.cpu().numpy(), d.cpu().numpy(),
+                                   ids.cpu().numpy(), f"exact({mode}) B={big}")
+        r = recall_of(ds, truth_np, ids[:BATCH])
+        check(abs(r - out[mode]["recall_at_10"]) <= 0.005,
+              f"exact({mode}) B={big}: recall@{K} {r:.4f} on the first {BATCH} queries, "
+              f"{out[mode]['recall_at_10']:.4f} at B={BATCH}")
+        same = int((ids[:BATCH] == res256[mode][1]).sum())
+        ms = time_ms(lambda: fo.exact(q_big, K, mode), reps=3)
+        out[f"{mode}_b{big}"] = {"steps": steps[mode], "max_abs_err": err, "ms": ms,
+                                 "recall_first_256": r, "ids_equal_b256": same}
+        log(f"phase 11 exact({mode}) B={big}: {steps[mode]} steps (the chunked branch), "
+            f"distances exact, first {BATCH} queries recall@{K} {r:.4f} ({same} of "
+            f"{BATCH * K} ids as at B={BATCH}), {ms:.3f} ms/batch")
+    out[f"floor_ms_b{big}"] = time_ms(
+        lambda: (sq[None, :] - 2.0 * (q_big.to(torch.bfloat16) @ fo.emb.T).float()).amin(1),
+        reps=3)
+    out[f"binscan_ms_b{big}"] = time_ms(lambda: fo.exact(q_big, K, "binscan"), reps=3)
+    log(f"phase 11 B={big}: K7 binscan {out[f'binscan_ms_b{big}']:.3f} ms, floor "
+        f"{out[f'floor_ms_b{big}']:.3f} ms")
+
+
+def phase11_autoscan(torch, _build, fo, q, out):
+    """(b) ``autoscan``: the default prober's report on the card and its
+    route, then an injected healthy and degraded report, each route giving
+    ``search(scan)``'s and ``search(binscan)``'s ids; K7 launches on the
+    degraded route only."""
+    from pqvector_tpu_torch.query.autotune import WeatherReport
+
+    t0 = time.perf_counter()
+    route = fo.scan_route(q, K, force=True)
+    rep = fo._weather[1]
+    out["weather"] = {"floor_qps": rep.floor_qps, "extract_qps": rep.extract_qps,
+                      "extract_frac": rep.extract_frac, "degraded": rep.degraded,
+                      "route": route, "probe_s": time.perf_counter() - t0}
+    log(f"phase 11 probe_weather on {q.device}: floor {rep.floor_qps:.0f} QPS, extraction "
+        f"{rep.extract_qps:.0f} QPS, extract_frac {rep.extract_frac:.4f} -> "
+        f"{'degraded' if rep.degraded else 'healthy'}, route {route} "
+        f"({out['weather']['probe_s']:.1f} s)")
+    for degraded, mode in ((False, "scan"), (True, "binscan")):
+        fo.weather_prober = lambda s, qq, k, budget_s=1.0, dg=degraded: WeatherReport(
+            floor_qps=1.0, extract_qps=0.1 if dg else 0.6, extract_frac=0.1 if dg else 0.6,
+            degraded=dg, batch=len(qq), k=k)
+        fo._weather = None
+        (d, ids), k7 = launched(_build, "K7", lambda: fo.search(q, K, 1, "autoscan"))
+        check(torch.equal(ids, fo.search(q, K, 1, mode)[1]),
+              f"autoscan ({'degraded' if degraded else 'healthy'}) differs from search({mode})")
+        expect_launches(k7, int(degraded), q.device, f"autoscan {mode} route, K7")
+        out[f"autoscan_{mode}"] = {"K7_launches": k7}
+    fo.weather_prober = None
+    fo._weather = None
+    for mode in ("scan", "binscan"):
+        out[f"autoscan_{mode}"]["ms"] = time_ms(lambda: fo.search(q, K, 1, mode))
+    log("phase 11 autoscan: a healthy report routes to scan (no K7 launch), a degraded "
+        "one to binscan (K7 launched); each gives that mode's ids; search(scan) "
+        f"{out['autoscan_scan']['ms']:.3f} ms/batch, search(binscan) "
+        f"{out['autoscan_binscan']['ms']:.3f}")
+
+
+def phase11_loops(torch, ds, _build, tdev, fo, sorted16, q, truth_np, chosen, out):
+    """(c) The loops under ``loop_rescore`` "body" and "defer", reps 4: the
+    deferred result is the storage-precision selection of 2k re-scored once
+    against the f32 copy, exactly."""
+    from pqvector_tpu_torch.kernels.scan_topk import _refine
+
+    qc = fo._check_queries(q)
+    out["hbm_bytes"] = fo._hbm_bytes()
+    out["auto_defers"] = fo._loop_defer_rescore()
+    cases = (("search_loop", "binscan8", fo, "K7"), ("exact_loop", "xbin8", fo, None),
+             ("search_loop", "stream", sorted16, "K3"))
+    for loop, mode, s, kern in cases:
+        res = {}
+        for form in ("body", "defer"):
+            s.loop_rescore = form
+            call = (lambda: s.search_loop(q, K, chosen, reps=4, mode=mode)) \
+                if loop == "search_loop" else (lambda: s.exact_loop(q, K, reps=4, mode=mode))
+            if kern is None:
+                d, ids = call()
+            else:
+                (d, ids), n = launched(_build, kern, call)
+                expect_launches(n, 4, q.device, f"{loop}({mode}) {form}, {kern}")
+            res[form] = {"recall_at_10": recall_of(ds, truth_np, ids),
+                         "ms": time_ms(call, reps=3)}
+        s.loop_rescore = "auto"
+
+        def one_rescore():
+            s._hold_ref = True
+            try:
+                if loop == "search_loop":
+                    d2, i2 = s._search_raw(qc, 2 * K, chosen, mode)
+                else:
+                    d2, i2 = s._exact_raw(qc, 2 * K, mode)
+            finally:
+                s._hold_ref = False
+            d2, i2 = _refine(qc, s._emb_ref, d2, i2, K)
+            return d2.sqrt(), s._map_ids(d2, i2)
+
+        want = uncounted(_build, one_rescore)
+        check(torch.equal(ids, want[1]) and torch.equal(d, want[0]),
+              f"{loop}({mode}) defer is not the 2k selection re-scored once")
+        out[f"{loop}_{mode}"] = res
+        log(f"phase 11 {loop}({mode}) reps 4: body recall@{K} "
+            f"{res['body']['recall_at_10']:.4f} {res['body']['ms']:.3f} ms, defer "
+            f"{res['defer']['recall_at_10']:.4f} {res['defer']['ms']:.3f} ms; defer = the "
+            "2k storage-precision selection re-scored once")
+    log(f"phase 11 _hbm_bytes() {out['hbm_bytes']} ({out['hbm_bytes'] / 2**30:.1f} GiB): "
+        f"loop_rescore='auto' {'defers' if out['auto_defers'] else 're-scores in the body'} "
+        f"at {fo.emb.shape[0]} x {fo.emb.shape[1]} bf16 + f32 copy")
+
+
+def phase11(torch, pqt, _build, ds, path, emb_np, queries, q, truth, index, chosen, card,
+            device="cuda:0"):
+    """Slice 11's path on the phase-3 file in its original row order (bf16
+    storage with the f32 copy), launch counts from 0: the packed-key scans,
+    the weather-routed autoscan, the loops' deferred re-score, and the
+    sharded packed-key scans on four shards of ``device``."""
+    import pqvector_tpu_torch.query.device as tdev
+    from pqvector_tpu_torch import dist
+
+    t_phase = time.perf_counter()
+    out = {}
+    dev = torch.device(device)
+    truth_np = truth[1].cpu().numpy()
+    fo = pqt.DeviceIvfSearcher.from_parquet(path, dtype=torch.bfloat16, row_tile=ROW_TILE,
+                                            device=dev)
+    check(not fo._row_cluster_sorted, "from_parquet did not keep the file order")
+    sorted16 = pqt.DeviceIvfSearcher(index, emb_np, dtype=torch.bfloat16, row_tile=ROW_TILE,
+                                     cluster_sorted=True, device=dev)
+    rng = np.random.default_rng(11)
+    more = emb_np[rng.integers(0, ROWS, BIG_BATCH - BATCH)] + 0.05 * rng.standard_normal(
+        (BIG_BATCH - BATCH, DIM)).astype(np.float32)
+    q_big = torch.from_numpy(np.concatenate([queries, more])).to(dev)
+    _build.reset_launches()
+    phase11_scans(torch, ds, tdev, fo, q, queries, q_big, BIG_BATCH, emb_np, truth_np, out)
+    torch.cuda.empty_cache()
+    phase11_autoscan(torch, _build, fo, q, out)
+    phase11_loops(torch, ds, _build, tdev, fo, sorted16, q, truth_np, chosen, out)
+    del sorted16, q_big
+    torch.cuda.empty_cache()
+
+    s4 = dist.DistributedIvfSearcher(index, emb_np, mesh=dist.make_mesh(N_SHARDS, device=dev),
+                                     dtype=torch.bfloat16)
+    check(s4.can_xbin(K), "the sharded searcher cannot take xbin")
+    for name, fn in (("xbin", lambda: s4.search_xbin(queries, K)),
+                     ("xbin8", lambda: s4.search_xbin8(queries, K))):
+        d, ids = fn()
+        err = exact_distances_hold(emb_np, queries, d, ids, f"search_{name} x {N_SHARDS}")
+        out[f"dist_{name}"] = {"recall_at_10": recall_of(ds, truth_np, ids),
+                               "max_abs_err": err, "ms": time_ms(fn, reps=3)}
+        log(f"phase 11 search_{name} on {N_SHARDS} shards of one card: recall@{K} "
+            f"{out[f'dist_{name}']['recall_at_10']:.4f}, distances exact, "
+            f"{out[f'dist_{name}']['ms']:.3f} ms/batch")
+    del s4, fo
+    torch.cuda.empty_cache()
+    out["launches"] = {k_: v for k_, v in _build.LAUNCHES.items() if v}
+    if dev.type == "cuda":
+        for name in ("K3", "K7"):
+            check(out["launches"].get(name, 0) > 0, f"{name} was not launched in phase 11")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 11 launches {out['launches']}; {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def write_rows(ds, data_dir):
     """Phase 3's rows: the seeded 1M x 128 file written as Parquet under
     ``data_dir`` (made anew) and read back, and the 256 seeded queries.
@@ -3208,6 +3448,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     main10 = phase10(torch, pqt, _build, ds, emb_np, queries, q, (truth_d, truth_ids),
                      index, r8, chosen, card)
+    torch.cuda.empty_cache()
+    main11 = phase11(torch, pqt, _build, ds, path, emb_np, queries, q, (truth_d, truth_ids),
+                     index, chosen, card)
     main6 = phase6(torch, pqt, _build, ds, Embeddings, dev, cp, _compact_select, tm, sc, st,
                    ka)
     launches["K11"] = main6["slice3"]["gather"]["K11"]["path_launches"]
@@ -3226,6 +3469,7 @@ def main() -> None:
                if key.startswith(("bf16_", "k100_", "f32_", "int8_"))},
             "phase9_launches": main9["launches"].get(name, 0),
             "phase10_launches": main10["launches"].get(name, 0),
+            "phase11_launches": main11["launches"].get(name, 0),
         })
     log("main path: " + json.dumps({"build_s": build_s, "nprobe": chosen,
                                     "recall_at_10": recall, "search_ms": search_ms,
@@ -3240,8 +3484,9 @@ def main() -> None:
     log("front doors: " + json.dumps(main8))
     log("slice 9 path: " + json.dumps(main9))
     log("slice 10 path: " + json.dumps(main10))
+    log("slice 11 path: " + json.dumps(main11))
     log(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s, phase 10 "
-        f"{main10['seconds']:.1f} s")
+        f"{main10['seconds']:.1f} s, phase 11 {main11['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -65,7 +65,8 @@ def searcher_state_from_reference(
 SEARCHER_KNOBS = (
     "approx_recall_target", "approx_score_dtype", "scan_overfetch",
     "tilescan_tile", "cert_fetch_tiles", "cert_pass1", "cert_pass2",
-    "compact_slack",
+    "compact_slack", "xbin_bins", "xbin_chunk_groups", "tilescan_chunk_rows",
+    "loop_rescore", "weather_ttl_s",
 )
 
 

@@ -4,7 +4,8 @@ Counterpart of ``pqvector_tpu/dist/search.py``. Each shard holds a block of
 rows on its device and runs one of the port's single-device top-k paths over
 it: K2 (``DistributedExactSearcher``), the plain-torch gather chain
 (``search``), K3 (``search_fused``, ``search_loop`` and the cluster-axis
-searcher), the exact-selection full scan (``search_scan``), K7
+searcher), the exact-selection full scan (``search_scan``), the packed-key
+binned scans in plain torch (``search_xbin``, ``search_xbin8``), K7
 (``search_binscan``, ``search_binscan8``) or K8 (``search_bincompact``). Its
 winners get global ids (and an f32 re-score against the shard's f32 rows
 where the searcher keeps them beside reduced-precision storage); then
@@ -14,12 +15,11 @@ distances keep shard order, then slot order, as the JAX package's
 ``jnp.argsort(stable=True)`` does. Every shard is launched before the host
 reads anything; the merged result is read once. ``search_scan`` is the one
 path whose shard work reads the device (the exact selection's
-``nonzero``).
+``nonzero``), as are ``search_xbin`` and ``search_xbin8``, whose bin
+selection is the same.
 
 Public calls take and return numpy, as in the JAX package: distances are
-square roots, and an empty slot is (+inf, -1). The JAX package's ``xbin``
-and ``xbin8`` scans are not ported (as on one device) and raise
-``ValidationError``.
+square roots, and an empty slot is (+inf, -1).
 """
 
 from __future__ import annotations
@@ -39,11 +39,16 @@ from ..kernels.binscan import (
 from ..kernels.scan_topk import MAX_K, POS_INF, _refine, select_lex
 from ..kernels.stream_topk import stream_exact_scan, stream_masked_topk
 from ..query.device import (
+    _checked_bins,
     _exact_approx_topk_impl,
     _exact_topk_impl,
+    _exact_xbin8_impl,
+    _exact_xbin_impl,
     _ivf_topk_impl,
     _quantize_rows_i8,
     _round_up,
+    _xbin_auto_chunk,
+    _xbin_bins,
 )
 from .mesh import (
     CLUSTER_AXIS,
@@ -424,8 +429,46 @@ class DistributedIvfSearcher:
         return _sharded_topk(self, queries, shard_fn, reps)
 
     def can_xbin(self, k: int = 10) -> bool:
-        """The XLA binned-min scans are not ported."""
-        return False
+        """Whether ``search_xbin``/``search_xbin8`` take k: ``_xbin_bins`` on
+        the per-shard rows."""
+        if self._spill_dups:
+            k = 2 * k  # spilled searches select 2k for the id dedup
+        return _xbin_bins(self._rows_per_dev, k) > 0
+
+    def _xbin_geometry(self, queries, k: int, l_bins: int, chunk_groups: int):
+        """(bins, tile groups a step) of the sharded packed-key scans, each
+        shard binning its own rows: ``_checked_bins`` of ``l_bins`` and
+        ``_xbin_auto_chunk`` of ``chunk_groups`` on the per-shard rows."""
+        l_bins = _checked_bins(self._rows_per_dev, k, l_bins, "l_bins")
+        b = int(np.shape(queries)[0]) if np.ndim(queries) > 1 else 1
+        return l_bins, _xbin_auto_chunk(b, self._rows_per_dev, l_bins, chunk_groups)
+
+    def _search_xbin_impl(self, queries, k: int, reps: int | None = None,
+                          l_bins: int = 0, chunk_groups: int = 0):
+        """``_exact_xbin_impl`` per shard over its rows (+inf pad norms), its
+        winners re-scored against the shard's storage rows (then its f32
+        rows, where held) before the merge."""
+        l_bins, chunk = self._xbin_geometry(queries, k, l_bins, chunk_groups)
+
+        def shard_fn(s, q):
+            return _exact_xbin_impl(q, self.emb[s], self.emb_sq[s], k, l_bins,
+                                    chunk_groups=chunk)
+
+        return _sharded_topk(self, queries, shard_fn, reps)
+
+    def _search_xbin8_impl(self, queries, k: int, reps: int | None = None,
+                           l_bins: int = 0, chunk_groups: int = 0):
+        """``_exact_xbin8_impl`` per shard over its int8 codes, its winners
+        re-scored against the shard's storage rows (then its f32 rows, where
+        held) before the merge."""
+        l_bins, chunk = self._xbin_geometry(queries, k, l_bins, chunk_groups)
+        e8, sc = self._xbin8_arrays()
+
+        def shard_fn(s, q):
+            return _exact_xbin8_impl(q, e8[s], sc[s], self.emb_sq[s], self.emb[s], k,
+                                     l_bins, chunk_groups=chunk)
+
+        return _sharded_topk(self, queries, shard_fn, reps)
 
     def _binscan_tile(self, esize: int | None = None) -> int:
         """Largest lane-aligned tile dividing the per-shard rows whose
@@ -455,7 +498,8 @@ class DistributedIvfSearcher:
         return k <= t and provenance_bits(nt, t) <= PROVENANCE_BITS_MAX
 
     def _xbin8_arrays(self):
-        """Lazy per-shard int8 codes and scales of the storage rows."""
+        """Lazy per-shard int8 codes and scales of the storage rows (the int8
+        scans: ``search_binscan8`` and ``search_xbin8``)."""
         if self._emb_i8 is None:
             codes, scales = [], []
             for s, dev in enumerate(self.mesh.devices):
@@ -633,15 +677,19 @@ class DistributedIvfSearcher:
         return self._spill_dedup(self._search_scan_impl, queries, k, reps,
                                  recall_target, overfetch)
 
-    def search_xbin(self, queries, k: int, reps=None, l_bins: int = 0,
+    def search_xbin(self, queries, k: int, reps: int | None = None, l_bins: int = 0,
                     chunk_groups: int = 0):
-        """Not ported (the JAX package's XLA binned-min scan)."""
-        raise ValidationError("search_xbin is not ported")
+        """The binned-min scan per shard (``_search_xbin_impl``); ``l_bins``
+        and ``chunk_groups`` are the single searcher's ``xbin_bins`` and
+        ``xbin_chunk_groups``, applied per shard."""
+        return self._spill_dedup(self._search_xbin_impl, queries, k, reps, l_bins,
+                                 chunk_groups)
 
-    def search_xbin8(self, queries, k: int, reps=None, l_bins: int = 0,
+    def search_xbin8(self, queries, k: int, reps: int | None = None, l_bins: int = 0,
                      chunk_groups: int = 0):
-        """Not ported (the JAX package's int8 XLA binned-min scan)."""
-        raise ValidationError("search_xbin8 is not ported")
+        """The int8 binned-min scan per shard (``_search_xbin8_impl``)."""
+        return self._spill_dedup(self._search_xbin8_impl, queries, k, reps, l_bins,
+                                 chunk_groups)
 
     def search_binscan(self, queries: np.ndarray, k: int, reps: int | None = None):
         """K7 per shard over every row."""

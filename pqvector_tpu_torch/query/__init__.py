@@ -2,7 +2,7 @@
 device-resident batched exact and IVF search, and the serving-plan
 autotuner."""
 
-from .autotune import AutotuneReport, ServingPlan, autotune
+from .autotune import AutotuneReport, ServingPlan, WeatherReport, autotune, probe_weather
 from .device import DeviceIvfSearcher
 from .search import SearchResult, TopkBuilder, topk, topk_batch
 from .selective import read_embeddings_for_rows
@@ -13,7 +13,9 @@ __all__ = [
     "SearchResult",
     "ServingPlan",
     "TopkBuilder",
+    "WeatherReport",
     "autotune",
+    "probe_weather",
     "read_embeddings_for_rows",
     "topk",
     "topk_batch",

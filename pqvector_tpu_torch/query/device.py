@@ -24,12 +24,21 @@ Modes:
   nprobe-free full scans ``scan``, ``cert``, ``binscan`` and ``binscan8``
   (K7), the probed-union modes ``compact`` (K10 gathers the active tiles,
   then the over-fetch extraction runs over that block), ``bincompact`` and
-  ``bincompact8`` (K8), and ``auto``.
+  ``bincompact8`` (K8), and ``auto``;
+* both: the packed-key full scans ``xbin`` (binned min over up to 65,536
+  bins), ``xbin8`` (the same on int8 codes) and ``tilescan`` (per-tile
+  argmin), plain torch as they are plain XLA in the JAX package, and
+  ``autoscan``, which ``scan_route`` resolves by the weather probe
+  (``query/autotune.py:probe_weather``): ``scan`` (``approx`` on the exact
+  paths) while the extraction keeps pace with the floor, ``binscan`` (K7)
+  when it does not.
 
 ``exact_loop`` and ``search_loop`` repeat a call ``reps`` times; they take
-the JAX package's loop catalogues, without ``gather``. The JAX package's
-``xbin``, ``xbin8``, ``tilescan`` and ``autoscan`` are not ported and raise
-``ValidationError``.
+the JAX package's loop catalogues, without ``gather``. Under
+``loop_rescore`` (``_loop_defer_rescore``) a loop over a layout with an f32
+copy may select 2k at storage precision in every repetition and re-score
+only the last one's winners against the copy, as the JAX package's loops
+do past 3/4 of the device memory.
 
 Dynamic and spilled state, as in the JAX package: ``with_spill`` builds a
 layout with the rows nearest a second centroid duplicated into it
@@ -51,6 +60,7 @@ package's.
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -81,17 +91,17 @@ from ..kernels.compact import tile_gather
 from ..kernels.stream_topk import _probe_mask, stream_exact_topk, stream_masked_topk
 from ..kernels.tilemin import tile_min
 
-#: Modes of the JAX package that this package does not run.
-_NOT_PORTED = frozenset({"xbin", "xbin8", "tilescan", "autoscan"})
 #: The JAX package's loop catalogues (``_search_loop_impl``,
-#: ``_exact_loop_impl``) without the modes not ported. ``gather`` is not
-#: one: a loop that ran it would time another path than the one it names.
+#: ``_exact_loop_impl``). ``gather`` is not one: a loop that ran it would
+#: time another path than the one it names.
 _SEARCH_LOOP_MODES = frozenset({
     "auto", "stream", "pallas", "masked", "approx", "scan", "compact",
-    "binscan", "bincompact", "binscan8", "bincompact8", "cert",
+    "binscan", "bincompact", "xbin", "binscan8", "bincompact8", "tilescan",
+    "cert", "xbin8",
 })
 _EXACT_LOOP_MODES = frozenset({
-    "auto", "stream", "pallas", "xla", "approx", "binscan", "binscan8", "cert",
+    "auto", "stream", "pallas", "xla", "approx", "binscan", "xbin", "binscan8",
+    "tilescan", "cert", "xbin8",
 })
 #: One-shot candidate-scoring budget of ``cert``: the [B, m, tile, d] gather
 #: of pass 2 stays one call while under this many bytes; beyond it the
@@ -443,6 +453,262 @@ def _exact_approx_topk_impl(
     )
 
 
+# -- the packed-key scans (xbin, xbin8, tilescan) ---------------------------
+# Plain torch, as they are plain XLA in the JAX package. Each score packs its
+# f32 value (the non-negative IEEE bit pattern orders as an int32) with a
+# provenance code in the low mantissa bits, and a grouped min over the int32
+# keys selects. The epilogues keep the JAX package's operation order: the
+# keys are the bits of the value, so a reordered sum moves them.
+
+
+def _xbin_code_bits(n_pad: int, l_bins: int) -> int:
+    """Low mantissa bits a packed ``xbin`` key spends on the tile code."""
+    return max(1, (n_pad // l_bins - 1).bit_length())
+
+
+def _xbin_bins(n_pad: int, k: int) -> int:
+    """Bin count of ``xbin``, as in the JAX package: the largest 128-multiple
+    divisor of ``n_pad`` up to 65,536 whose tile code fits the provenance
+    budget (``PROVENANCE_BITS_MAX``), else the largest divisor of any size
+    that does; 0 when that count is below k. More bins mean fewer collisions
+    among the true top-k and fewer code bits a key."""
+    cap = min(n_pad, 65536)
+    best = 0
+    for l_bins in range(128, cap + 1, 128):
+        if n_pad % l_bins == 0 and _xbin_code_bits(n_pad, l_bins) <= PROVENANCE_BITS_MAX:
+            best = l_bins
+    if not best:
+        for l_bins in range(cap, 0, -1):
+            if n_pad % l_bins == 0 and _xbin_code_bits(n_pad, l_bins) <= PROVENANCE_BITS_MAX:
+                best = l_bins
+                break
+    return best if 0 < k <= best else 0
+
+
+#: Auto-chunk budget of ``xbin`` (bytes), the JAX package's knob under its
+#: name: the scan stays one call while its [B, n_pad] f32 score block fits,
+#: and walks groups of tiles beyond. Torch materializes every block, so the
+#: budget bounds the block each step holds.
+_XBIN_FUSE_BUDGET = int(os.environ.get("PQVECTOR_TPU_XBIN_FUSE_BUDGET", 2 << 30))
+
+
+def _xbin_auto_chunk(b: int, n_pad: int, l_bins: int, chunk_groups: int) -> int:
+    """Effective ``chunk_groups`` of ``_exact_xbin_impl``: > 0 explicit, -1
+    one call, 0 auto (one call while [B, n_pad] f32 fits ``_XBIN_FUSE_BUDGET``,
+    else steps of as many tile groups as the budget holds, at least one)."""
+    if chunk_groups > 0:
+        return int(chunk_groups)
+    if chunk_groups < 0 or b * n_pad * 4 <= _XBIN_FUSE_BUDGET:
+        return 0
+    return max(1, _XBIN_FUSE_BUDGET // max(1, b * l_bins * 4))
+
+
+def _pack(part: torch.Tensor, mask: int, code: torch.Tensor) -> torch.Tensor:
+    """f32 values -> int32 keys: the value's bits under ``mask``, ``code`` in
+    the bits below."""
+    return (part.view(torch.int32) & mask) | code[None, :]
+
+
+def _decode(key_w: torch.Tensor, mask: int) -> torch.Tensor:
+    """The value part of packed keys as f32. A pad-only bin decodes to +inf
+    (the code sits below the mantissa bits +inf leaves clear), which
+    ``_refine`` marks missing."""
+    return (key_w & mask).view(torch.float32)
+
+
+def _checked_bins(rows: int, k: int, l_bins: int, what: str) -> int:
+    """Bins of the packed-key binned scans over ``rows`` rows: ``l_bins``
+    (the knob ``what``) checked, a divisor of the rows from k to 65,536 whose
+    tile code fits the provenance budget, or ``_xbin_bins`` when 0."""
+    if l_bins:
+        if rows % l_bins or not (0 < k <= l_bins) or l_bins > 65536:
+            raise ValidationError(
+                f"{what}={l_bins} invalid: must divide the {rows} rows, "
+                "satisfy k<=bins, and stay <= 65536"
+            )
+        if _xbin_code_bits(rows, l_bins) > PROVENANCE_BITS_MAX:
+            raise ValidationError(
+                f"{what}={l_bins} spends {_xbin_code_bits(rows, l_bins)} provenance "
+                f"bits at {rows} rows (max {PROVENANCE_BITS_MAX}): too few value "
+                "mantissa bits for reliable selection; use more bins"
+            )
+        return l_bins
+    l_bins = _xbin_bins(rows, k)
+    if not l_bins:
+        raise ValidationError(f"xbin ineligible for {rows} rows, k={k}")
+    return l_bins
+
+
+def _group_steps(n_units: int, unit: int, groups: int):
+    """Row ranges of ``groups`` units (clamped to the largest divisor of
+    ``n_units`` not above it), or one range over every row when ``groups``
+    is 0 or covers them all."""
+    if not groups or groups >= n_units:
+        return [(0, n_units * unit)]
+    g = max(1, groups)
+    while n_units % g:
+        g -= 1
+    step = g * unit
+    return [(lo, lo + step) for lo in range(0, n_units * unit, step)]
+
+
+def _bin_select(block_keys, nt: int, l_bins: int, chunk_groups: int, k_fetch: int,
+                mask: int):
+    """The binned scans' selection: ``block_keys(lo, hi)`` ([B, l_bins] bin
+    keys of rows lo:hi) min-folded over ``_group_steps``, then the
+    ``k_fetch`` smallest keys by (key, bin), as the JAX package's
+    ``lax.top_k`` of the negated table -> (values [B, k_fetch] f32, rows
+    [B, k_fetch] int32)."""
+    binmins = None
+    for lo, hi in _group_steps(nt, l_bins, chunk_groups):
+        keys = block_keys(lo, hi)
+        binmins = keys if binmins is None else torch.minimum(binmins, keys)
+    key_w, bin_idx = _topk_min_wide(binmins, k_fetch)
+    return _decode(key_w, mask), (key_w & ~mask) * l_bins + bin_idx
+
+
+def _exact_xbin_impl(
+    q, emb, emb_sq, k: int, l_bins: int, score_dtype=torch.float32,
+    overfetch: int = 0, chunk_groups: int = 0, emb_ref=None,
+):
+    """Full scan with binned-min selection over ``l_bins`` bins (the JAX
+    package's ``_exact_xbin_impl``): row r lands in bin ``r % l_bins`` with
+    its tile code ``r // l_bins`` in the key's low bits; the key is the bits
+    of ``|x|^2 - 2 q.x + |q|^2`` (``emb_sq`` +inf on pad rows). The
+    ``max(2k, 32)`` (or ``overfetch``) smallest bin keys decode to rows,
+    re-scored against ``emb_ref`` (or ``emb``). Selection misses only where
+    two true neighbours share a bin. ``chunk_groups`` > 0 walks blocks of
+    that many tile groups (a divisor of the tile count) with an INT32_MAX
+    running min; the keys, and so the result, do not change."""
+    b = q.shape[0]
+    n_pad = emb.shape[0]
+    nt = n_pad // l_bins
+    mask = ~((1 << max(1, (nt - 1).bit_length())) - 1)
+    qf = q.to(emb.dtype).float()
+    qsq = (q * q).sum(dim=1)
+    code = torch.arange(n_pad, dtype=torch.int32, device=q.device) // l_bins
+
+    def block_keys(lo, hi):
+        scores = (qf @ emb[lo:hi].float().T).to(score_dtype).float()
+        # (x2 - 2 s) + |q|^2 in the JAX package's order: -2 s is exact
+        part = scores.mul_(-2.0).add_(emb_sq[None, lo:hi]).add_(qsq[:, None])
+        return _pack(part, mask, code[lo:hi]).view(b, -1, l_bins).amin(dim=1)
+
+    k_fetch = min(max(k, overfetch) if overfetch else max(2 * k, 32), l_bins)
+    val, rows = _bin_select(block_keys, nt, l_bins, chunk_groups, k_fetch, mask)
+    return _refine(q, emb if emb_ref is None else emb_ref, val, rows, k)
+
+
+def _int8_dots(qi: torch.Tensor, e8: torch.Tensor) -> torch.Tensor:
+    """``qi @ e8.T`` of int8 codes as f32: the int32 sums of the JAX
+    package's int8 product, converted. Products are at most 127^2, so f32
+    sums are exact while d * 127^2 <= 2^24 and f64 ones beyond; either way
+    the conversion rounds the exact integer once."""
+    if qi.shape[1] * 127 * 127 <= 1 << 24:
+        return qi.float() @ e8.float().T
+    return (qi.double() @ e8.double().T).float()
+
+
+def _exact_xbin8_impl(
+    q, emb_i8, scale, emb_sq, emb_ref, k: int, l_bins: int, overfetch: int = 0,
+    chunk_groups: int = 0,
+):
+    """``_exact_xbin_impl`` on per-row int8 codes (the JAX package's
+    ``_exact_xbin8_impl``): the value is ``|x|^2 - 2 tq (sc dots) + |q|^2``
+    clamped at 0, with exact int8 dot sums, the exact f32 ``emb_sq`` and the
+    shared query quantizer; the winners are re-scored against ``emb_ref``.
+    It fetches ``max(4k, 64)`` bins by default."""
+    b = q.shape[0]
+    n_pad = emb_i8.shape[0]
+    nt = n_pad // l_bins
+    mask = ~((1 << max(1, (nt - 1).bit_length())) - 1)
+    qi, tq = quantize_queries_i8(q)
+    qsq = (q * q).sum(dim=1)
+    tq2 = 2.0 * tq[:, None]
+    code = torch.arange(n_pad, dtype=torch.int32, device=q.device) // l_bins
+
+    def block_keys(lo, hi):
+        # x2 - (2 tq) (sc dots) + |q|^2 as XLA compiles the JAX expression:
+        # the first two terms as one fused multiply-add (carried in f64,
+        # where the product of two f32 values is exact), then + |q|^2
+        t = _int8_dots(qi, emb_i8[lo:hi]).mul_(scale[None, lo:hi]).double()
+        part = torch.addcmul(emb_sq[None, lo:hi].double(), t, tq2.double(), value=-1.0)
+        part = part.float().add_(qsq[:, None]).clamp_min_(0.0)
+        return _pack(part, mask, code[lo:hi]).view(b, -1, l_bins).amin(dim=1)
+
+    k_fetch = min(max(k, overfetch) if overfetch else max(4 * k, 64), l_bins)
+    val, rows = _bin_select(block_keys, nt, l_bins, chunk_groups, k_fetch, mask)
+    return _refine(q, emb_ref, val, rows, k)
+
+
+#: Auto-chunk budget of ``tilescan`` (bytes), the JAX package's knob under
+#: its name: rows a step are sized so the [B, rows] f32 score block fits.
+_TILESCAN_FUSE_BUDGET = int(os.environ.get("PQVECTOR_TPU_TILESCAN_FUSE_BUDGET", 2 << 30))
+
+
+def _tilescan_auto_chunk(b: int, n_pad: int, tile: int, chunk_rows: int) -> int:
+    """Effective rows a step of ``_tile_min_keys``: > 0 explicit, -1 one
+    call, 0 auto by ``_TILESCAN_FUSE_BUDGET`` (a multiple of ``tile``)."""
+    if chunk_rows > 0:
+        return int(chunk_rows)
+    if chunk_rows < 0 or b * n_pad * 4 <= _TILESCAN_FUSE_BUDGET:
+        return 0
+    return max(tile, (_TILESCAN_FUSE_BUDGET // max(1, b * 4)) // tile * tile)
+
+
+def _tile_min_keys(q, emb, emb_sq, tile: int, chunk_rows: int = 0):
+    """[B, n_pad / tile] per-tile min keys of ``tilescan``: the bits of
+    ``|x|^2 + (-2q).x + |q|^2`` (the -2 folded into the query operand, as in
+    the JAX package) with the row's offset in its tile in the low
+    ``log2(tile)`` bits. Steps of rows (``_tilescan_steps``) stack their
+    tables, tiles being independent."""
+    b = q.shape[0]
+    n_pad = emb.shape[0]
+    low = (1 << max(1, (tile - 1).bit_length())) - 1
+    qf2 = (-2.0 * q).to(emb.dtype).float()
+    qsq = (q * q).sum(dim=1)
+    off = torch.arange(n_pad, dtype=torch.int32, device=q.device) & low
+
+    def block_mins(lo, hi):
+        part = (qf2 @ emb[lo:hi].float().T).add_(emb_sq[None, lo:hi]).add_(qsq[:, None])
+        return _pack(part, ~low, off[lo:hi]).view(b, -1, tile).amin(dim=2)
+
+    steps = _tilescan_steps(b, n_pad, tile, chunk_rows)
+    if len(steps) == 1:
+        return block_mins(0, n_pad)
+    return torch.cat([block_mins(lo, hi) for lo, hi in steps], dim=1)
+
+
+def _tilescan_steps(b: int, n_pad: int, tile: int, chunk_rows: int):
+    """Row ranges of ``_tile_min_keys``' steps: ``_tilescan_auto_chunk``'s
+    rows lowered to a tile-multiple divisor of ``n_pad``, or one range."""
+    step_rows = _tilescan_auto_chunk(b, n_pad, tile, chunk_rows)
+    if not step_rows or step_rows >= n_pad:
+        return [(0, n_pad)]
+    sr = max(tile, step_rows // tile * tile)
+    while n_pad % sr:
+        sr -= tile
+    return [(lo, lo + sr) for lo in range(0, n_pad, sr)]
+
+
+def _exact_tilescan_impl(
+    q, emb, emb_sq, k: int, tile: int, chunk_rows: int = 0, overfetch: int = 0,
+    emb_ref=None,
+):
+    """Full scan with per-tile argmin selection (the JAX package's
+    ``_exact_tilescan_impl``): each ``tile``-row group gives its best row
+    (``_tile_min_keys``), the ``_fetch_width`` best tiles (at most the tile
+    count) decode to rows and are re-scored against ``emb_ref`` (or
+    ``emb``). Two true neighbours in one tile lose the farther for good, so
+    it serves the original row order only."""
+    nt = emb.shape[0] // tile
+    low = (1 << max(1, (tile - 1).bit_length())) - 1
+    binmins = _tile_min_keys(q, emb, emb_sq, tile, chunk_rows)
+    key_w, tidx = _topk_min_wide(binmins, min(_fetch_width(k, overfetch), nt))
+    rows = tidx * tile + (key_w & low)
+    return _refine(q, emb if emb_ref is None else emb_ref, _decode(key_w, ~low), rows, k)
+
+
 def _ivf_approx_masked_impl(
     q, centroids, c_sq, row_cluster, emb, emb_sq, nprobe: int, k: int,
     max_probe: int, chunk: int, recall_target: float,
@@ -663,6 +929,24 @@ class DeviceIvfSearcher:
         self.cert_fetch_tiles = 0
         self.cert_pass1 = "highest"
         self.cert_pass2 = "auto"
+        # mode="xbin"/"xbin8": bins (0 = _xbin_bins) and tile groups a step
+        # (0 = auto by _XBIN_FUSE_BUDGET, -1 = one call); mode="tilescan":
+        # rows a step (0 = auto by _TILESCAN_FUSE_BUDGET, -1 = one call) over
+        # tiles of ``tilescan_tile`` rows (0 = 128, shrunk while k exceeds the
+        # tile count).
+        self.xbin_bins = 0
+        self.xbin_chunk_groups = 0
+        self.tilescan_chunk_rows = 0
+        # The loops' re-score against the f32 copy: "body" in every
+        # repetition, "defer" once after the last (which then selects 2k at
+        # storage precision), "auto" defers past 3/4 of the device memory.
+        self.loop_rescore = "auto"
+        # mode="autoscan": how long one weather report holds, and the prober
+        # (None = query/autotune.py:probe_weather).
+        self.weather_ttl_s = 300.0
+        self.weather_prober = None
+        self._weather: tuple | None = None  # (monotonic time, report)
+        self._hold_ref = False  # set while a deferred loop's body runs
 
         n_pad = _round_up(n + 1, row_tile)  # +1 sentinel row
         emb = np.zeros((n_pad, d), dtype=np.float32)
@@ -846,8 +1130,15 @@ class DeviceIvfSearcher:
 
     def _ref(self):
         """Full-precision re-score rows, or None when ``self.emb`` already
-        is the reference (f32 storage / re-score opt-out)."""
-        return self._emb_ref
+        is the reference (f32 storage / re-score opt-out) or a deferred
+        loop's body holds the reference back (``_loop_defer_rescore``)."""
+        return None if self._hold_ref else self._emb_ref
+
+    def _i8_ref(self):
+        """The rows the int8 modes re-score against: the f32 copy where one
+        is held and not held back, else the storage rows."""
+        ref = self._ref()
+        return self.emb if ref is None else ref
 
     def _ref_or_emb(self):
         """The array exact re-scores run against."""
@@ -916,7 +1207,7 @@ class DeviceIvfSearcher:
             return binned_scan(
                 q, e8, self._pallas_emb_sq(), k, tile=tile,
                 expand=self._binscan_expand(tile, esize=esize), scale=sc,
-                emb_ref=self._ref_or_emb() if int8 else self._ref(),
+                emb_ref=self._i8_ref() if int8 else self._ref(),
             )
         except ValueError as exc:
             raise ValidationError(str(exc)) from exc
@@ -1060,7 +1351,7 @@ class DeviceIvfSearcher:
             return binned_scan_select(
                 q, e8, self._pallas_emb_sq(), sel, k, tile=ctile,
                 expand=self._binscan_expand(ctile, cap=cap, esize=esize), scale=sc,
-                emb_ref=self._ref_or_emb() if int8 else self._ref(),
+                emb_ref=self._i8_ref() if int8 else self._ref(),
             )
         except ValueError as exc:
             raise ValidationError(str(exc)) from exc
@@ -1076,11 +1367,12 @@ class DeviceIvfSearcher:
             )
         return self.cert_pass1 == "high", self.cert_pass1 == "storage"
 
-    def _cert_tile_checked(self, k: int) -> int:
-        """Rows per tile of ``cert``: ``tilescan_tile``, or 128 shrunk while
-        k exceeds the tile count. A cluster-sorted layout is fine: the
-        selected tiles are gathered whole, so neighbours that share a tile
-        all become candidates."""
+    def _cert_tile_checked(self, k: int, what: str = "cert") -> int:
+        """Rows per tile of ``cert`` (and of ``tilescan``, named by
+        ``what``): ``tilescan_tile``, or 128 shrunk while k exceeds the tile
+        count. A cluster-sorted layout is fine for ``cert``: the selected
+        tiles are gathered whole, so neighbours that share a tile all
+        become candidates."""
         n_pad = int(self.emb.shape[0])
         t = int(self.tilescan_tile)
         if not t:
@@ -1089,7 +1381,7 @@ class DeviceIvfSearcher:
                 t //= 2
         if t < 2 or n_pad % t or (t & (t - 1)):
             raise ValidationError(
-                f"cert tile={t} invalid for n_pad={n_pad}: must be a "
+                f"{what} tile={t} invalid for n_pad={n_pad}: must be a "
                 "power of two >= 2 dividing the padded row count"
             )
         return t
@@ -1138,6 +1430,130 @@ class DeviceIvfSearcher:
         q = self._check_queries(queries)
         _, _, okq, margin = self._cert(q, self._spill_k(k), diagnostic=True)
         return float(okq.float().mean()), margin.cpu().numpy()
+
+    # -- packed-key scans (xbin, xbin8, tilescan) ---------------------------
+
+    def can_xbin(self, k: int = 10) -> bool:
+        """Whether ``xbin``/``xbin8`` take this array and k: a bin count that
+        divides the padded rows, holds k and fits the provenance budget
+        (``_xbin_bins``)."""
+        return _xbin_bins(int(self.emb.shape[0]), self._spill_k(k)) > 0
+
+    def can_tilescan(self, k: int = 10) -> bool:
+        """Whether ``tilescan`` takes this array and k
+        (``_tilescan_tile_checked``)."""
+        try:
+            self._tilescan_tile_checked(self._spill_k(k))
+        except ValidationError:
+            return False
+        return True
+
+    def _tilescan_tile_checked(self, k: int) -> int:
+        """Rows per tile of ``tilescan``: ``cert``'s tile rule, refused on a
+        cluster-sorted layout (a tile keeps only its best row, and sorted
+        rows put a cluster's neighbours in one tile, where the others are
+        lost for good), beyond the provenance budget and where k exceeds the
+        tile count."""
+        if self._row_cluster_sorted:
+            raise ValidationError(
+                "tilescan is ineligible on cluster-sorted layouts: "
+                "contiguous same-cluster neighbors fall into one tile and "
+                "only the tile argmin survives; use binscan/scan instead"
+            )
+        n_pad = int(self.emb.shape[0])
+        t = self._cert_tile_checked(k, what="tilescan")
+        if (t - 1).bit_length() > PROVENANCE_BITS_MAX:
+            raise ValidationError(
+                f"tilescan tile={t} spends {(t - 1).bit_length()} "
+                f"provenance bits (max {PROVENANCE_BITS_MAX}): too few "
+                "value mantissa bits for reliable selection"
+            )
+        if not 0 < k <= n_pad // t:
+            raise ValidationError(
+                f"tilescan ineligible: k={k} exceeds the {n_pad // t} "
+                "tiles (each contributes one candidate)"
+            )
+        return t
+
+    def _xbin_bins_checked(self, k: int) -> int:
+        """Bins of ``xbin``/``xbin8``: ``xbin_bins`` checked, or
+        ``_xbin_bins`` (``_checked_bins``)."""
+        return _checked_bins(int(self.emb.shape[0]), k, int(self.xbin_bins), "xbin_bins")
+
+    def _xbin(self, q, k: int, int8: bool):
+        l_bins = self._xbin_bins_checked(k)
+        chunk = _xbin_auto_chunk(q.shape[0], int(self.emb.shape[0]), l_bins,
+                                 self.xbin_chunk_groups)
+        if int8:
+            e8, sc = self._xbin8_arrays()
+            return _exact_xbin8_impl(
+                q, e8, sc, self.emb_sq, self._i8_ref(), k, l_bins,
+                overfetch=self.scan_overfetch, chunk_groups=chunk,
+            )
+        return _exact_xbin_impl(
+            q, self.emb, self.emb_sq, k, l_bins, score_dtype=self.approx_score_dtype,
+            overfetch=self.scan_overfetch, chunk_groups=chunk, emb_ref=self._ref(),
+        )
+
+    def _tilescan(self, q, k: int):
+        return _exact_tilescan_impl(
+            q, self.emb, self.emb_sq, k, tile=self._tilescan_tile_checked(k),
+            chunk_rows=self.tilescan_chunk_rows, overfetch=self.scan_overfetch,
+            emb_ref=self._ref(),
+        )
+
+    # -- the loops' re-score --------------------------------------------------
+
+    def _hbm_bytes(self) -> int:
+        """Device memory the loops' re-score policy reasons against:
+        ``PQVECTOR_TPU_HBM_GB`` GiB when set, else the card's total memory
+        (fixed per card; reading it needs no synchronisation), else the JAX
+        package's default of 16 GiB (the CPU)."""
+        env = os.environ.get("PQVECTOR_TPU_HBM_GB")
+        if env:
+            return int(float(env) * 2**30)
+        if self.device.type == "cuda":
+            return int(torch.cuda.get_device_properties(self.device).total_memory)
+        return 16 * 2**30
+
+    def _loop_defer_rescore(self) -> bool:
+        """Whether ``search_loop``/``exact_loop`` hold the f32 copy out of
+        their repetitions (``loop_rescore``): each then selects 2k at
+        storage precision and only the last one's winners are re-scored
+        against the copy. ``auto`` defers where the storage, the copy and a
+        second copy of each (the JAX package's loop carries them) pass 3/4
+        of the device memory, as the JAX package decides."""
+        if self._emb_ref is None:
+            return False
+        if self.loop_rescore != "auto":
+            if self.loop_rescore not in ("body", "defer"):
+                raise ValidationError("loop_rescore must be 'auto', 'body' or 'defer'")
+            return self.loop_rescore == "defer"
+        n_pad, d = int(self.emb.shape[0]), int(self.emb.shape[1])
+        live = 2 * n_pad * d * (4 + self.emb.dtype.itemsize)
+        return live > 0.75 * self._hbm_bytes()
+
+    # -- the weather-routed scan (autoscan) ----------------------------------
+
+    def scan_route(self, queries, k: int = 10, *, budget_s: float = 1.0,
+                   force: bool = False) -> str:
+        """The mode ``autoscan`` resolves to: ``scan`` while the weather
+        report (``probe_weather`` on at most 256 of the queries, or
+        ``weather_prober``) is healthy, ``binscan`` (K7) while it reports
+        degraded; ``scan`` always where binscan cannot serve the shape. A
+        report holds for ``weather_ttl_s`` seconds; ``force`` probes anew."""
+        if not self.can_binscan(k):
+            return "scan"
+        now = time.monotonic()
+        if force or self._weather is None or now - self._weather[0] > self.weather_ttl_s:
+            prober = self.weather_prober
+            if prober is None:
+                from .autotune import probe_weather as prober
+            q = queries if isinstance(queries, torch.Tensor) else np.asarray(
+                queries, np.float32)
+            rep = prober(self, q[: min(256, len(q))], k, budget_s=budget_s)
+            self._weather = (now, rep)
+        return "binscan" if self._weather[1].degraded else "scan"
 
     # -- over-fetch modes (scan, approx, compact) --------------------------
 
@@ -1221,8 +1637,17 @@ class DeviceIvfSearcher:
         the binned-min scan K7, whose selection misses only on cross-tile
         bin collisions. ``cert`` is the certified-exact two-pass scan (K9,
         see ``_exact_cert_impl``), exact like ``stream``; ``approx`` the
-        chunked scan with over-fetch and f32 re-score."""
+        chunked scan with over-fetch and f32 re-score; ``xbin``, ``xbin8`` and
+        ``tilescan`` the packed-key scans in plain torch
+        (``_exact_xbin_impl``, ``_exact_xbin8_impl``,
+        ``_exact_tilescan_impl``)."""
         q = self._check_queries(queries)
+        d2, ids = self._exact_raw(q, k, mode)
+        return d2.sqrt(), self._map_ids(d2, ids)
+
+    def _exact_raw(self, q, k: int, mode: str):
+        """``_exact_impl`` on checked queries, before the square roots and
+        the id map -> (d2 [B, k], layout ids [B, k])."""
         if k <= 0:
             raise ValidationError("k must be > 0")
         if mode == "auto":
@@ -1245,11 +1670,13 @@ class DeviceIvfSearcher:
             d2, ids = self._cert(q, k)
         elif mode == "approx":
             d2, ids = self._scan(q, k)
-        elif mode in _NOT_PORTED:
-            raise ValidationError(f"exact mode '{mode}' is not ported")
+        elif mode in ("xbin", "xbin8"):
+            d2, ids = self._xbin(q, k, int8=mode == "xbin8")
+        elif mode == "tilescan":
+            d2, ids = self._tilescan(q, k)
         else:
             raise ValidationError(f"Unknown exact mode '{mode}'")
-        return d2.sqrt(), self._map_ids(d2, ids)
+        return d2, ids
 
     def _unsorted_auto(self, batch: int, nprobe: int) -> str:
         """``auto``'s route on a layout in file order: K6 (``pallas``) or
@@ -1281,9 +1708,16 @@ class DeviceIvfSearcher:
         scan the batch's probed-union tiles, capped (K8). ``masked`` is the
         masked full scan in plain torch and ``approx`` the same scan with
         over-fetch extraction; ``compact`` gathers the probed-union tiles
-        (K10) and extracts over that block; ``scan`` and ``cert`` ignore
-        nprobe: the over-fetch full scan and the certified-exact scan (K9)."""
+        (K10) and extracts over that block; ``scan``, ``cert``, ``xbin``,
+        ``xbin8`` and ``tilescan`` ignore nprobe: the over-fetch full scan,
+        the certified-exact scan (K9) and the packed-key scans."""
         q = self._check_queries(queries)
+        d2, ids = self._search_raw(q, k, nprobe, mode)
+        return d2.sqrt(), self._map_ids(d2, ids)
+
+    def _search_raw(self, q, k: int, nprobe: int, mode: str):
+        """``_search_impl`` on checked queries, before the square roots and
+        the id map -> (d2 [B, k], layout ids [B, k])."""
         if k <= 0:
             raise ValidationError("k must be > 0")
         if nprobe <= 0:
@@ -1351,11 +1785,13 @@ class DeviceIvfSearcher:
             d2, ids = self._scan(q, k)
         elif mode == "cert":
             d2, ids = self._cert(q, k)
-        elif mode in _NOT_PORTED:
-            raise ValidationError(f"search mode '{mode}' is not ported")
+        elif mode in ("xbin", "xbin8"):
+            d2, ids = self._xbin(q, k, int8=mode == "xbin8")
+        elif mode == "tilescan":
+            d2, ids = self._tilescan(q, k)
         else:
             raise ValidationError(f"Unknown search mode '{mode}'")
-        return d2.sqrt(), self._map_ids(d2, ids)
+        return d2, ids
 
     def _search_loop_impl(self, queries, k: int, nprobe: int, reps: int = 16,
                           mode: str = "auto"):
@@ -1365,28 +1801,51 @@ class DeviceIvfSearcher:
         to hide its dispatch latency; here each is a plain call. The modes
         are the JAX loop's catalogue: not ``gather``, which has no chained
         loop there, so that a loop never times another path than the one
-        it names."""
+        it names. The re-score follows ``_loop_defer_rescore``."""
         if reps <= 0:
             raise ValidationError("reps must be > 0")
-        if mode in _NOT_PORTED:
-            raise ValidationError(f"search_loop mode '{mode}' is not ported")
         if mode not in _SEARCH_LOOP_MODES:
             raise ValidationError(f"Unknown search_loop mode '{mode}'")
-        for _ in range(reps):
-            out = self._search_impl(queries, k, nprobe, mode)
-        return out
+        return self._loop(queries, k, reps, mode,
+                          lambda q, kk: self._search_raw(q, kk, nprobe, mode))
 
     def _exact_loop_impl(self, queries, k: int, reps: int = 16, mode: str = "auto"):
         """``reps`` exact scans of the same batch -> the last one's result."""
         if reps <= 0:
             raise ValidationError("reps must be > 0")
-        if mode in _NOT_PORTED:
-            raise ValidationError(f"exact_loop mode '{mode}' is not ported")
         if mode not in _EXACT_LOOP_MODES:
             raise ValidationError(f"Unknown exact_loop mode '{mode}'")
-        for _ in range(reps):
-            out = self._exact_impl(queries, k, mode)
-        return out
+        return self._loop(queries, k, reps, mode,
+                          lambda q, kk: self._exact_raw(q, kk, mode))
+
+    def _loop(self, queries, k: int, reps: int, mode: str, run):
+        """``run(q, k)`` ``reps`` times -> the last result, finished. Where
+        ``_loop_defer_rescore`` holds, every repetition selects
+        ``min(2k, n_pad)`` with the f32 copy held back (``_ref`` gives None,
+        so each re-scores against the storage rows) and the last one's
+        winners are re-scored once against the copy, as the JAX package's
+        loops do (``_refine_and_sort`` after its ``lax.scan``)."""
+        q = self._check_queries(queries)
+        if k <= 0:
+            raise ValidationError("k must be > 0")
+        defer_k = 0
+        if self._loop_defer_rescore():
+            if mode == "cert":
+                raise ValidationError(
+                    "mode='cert' needs the f32 reference inside the loop "
+                    "body, but this array is in the deferred-re-score regime; "
+                    "use another mode or a single-call exact/search(mode='cert')"
+                )
+            defer_k, k = k, min(2 * k, int(self.emb.shape[0]))
+        self._hold_ref = bool(defer_k)
+        try:
+            for _ in range(reps):
+                d2, ids = run(q, k)
+        finally:
+            self._hold_ref = False
+        if defer_k:
+            d2, ids = _refine(q, self._emb_ref, d2, ids, defer_k)
+        return d2.sqrt(), self._map_ids(d2, ids)
 
     # ------------------------------------------------------------------
     # Public entry points. The impls select over the static layout; the
@@ -1404,25 +1863,37 @@ class DeviceIvfSearcher:
             and self._delta is None
         )
 
+    def _autoscan(self, queries, k: int, mode: str, exact_path: bool) -> str:
+        """``mode``, with ``autoscan`` resolved by ``scan_route`` (``scan`` is
+        ``approx`` on the exact paths)."""
+        if mode != "autoscan":
+            return mode
+        mode = self.scan_route(queries, k)
+        return "approx" if exact_path and mode == "scan" else mode
+
     def exact(self, queries, k: int, mode: str = "auto"):
         """Exact brute-force top-k (see ``_exact_impl`` for the modes)."""
+        mode = self._autoscan(queries, k, mode, exact_path=True)
         d, ids = self._exact_impl(queries, self._spill_k(k), mode)
         return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
 
     def search(self, queries, k: int, nprobe: int, mode: str = "auto"):
         """IVF top-k (see ``_search_impl`` for the mode catalogue)."""
+        mode = self._autoscan(queries, k, mode, exact_path=False)
         d, ids = self._search_impl(queries, self._spill_k(k), nprobe, mode)
         return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
 
     def search_loop(self, queries, k: int, nprobe: int, reps: int = 16,
                     mode: str = "auto"):
         """``reps`` IVF searches of the same batch (see ``_search_loop_impl``)."""
+        mode = self._autoscan(queries, k, mode, exact_path=False)
         d, ids = self._search_loop_impl(queries, self._spill_k(k), nprobe,
                                         reps=reps, mode=mode)
         return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
 
     def exact_loop(self, queries, k: int, reps: int = 16, mode: str = "auto"):
         """``reps`` exact scans of the same batch."""
+        mode = self._autoscan(queries, k, mode, exact_path=True)
         d, ids = self._exact_loop_impl(queries, self._spill_k(k), reps=reps, mode=mode)
         return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
 

@@ -171,15 +171,25 @@ def test_loops_match_jax_loops(mode):
 
 
 @pytest.mark.parametrize("mode", ["xbin", "xbin8", "tilescan", "autoscan"])
-def test_unported_modes_raise(mode):
+def test_packed_key_and_autoscan_modes_match_jax(mode):
+    """The modes the port once refused serve every entry point with the
+    JAX package's results (``autoscan`` under one injected weather report
+    in both, which routes to ``binscan`` here)."""
+    from pqvector_tpu.query.autotune import WeatherReport as JWeatherReport
+    from pqvector_tpu_torch.query.autotune import WeatherReport
+
     x, q = _data()
-    _, ts = _pair(x)
-    with pytest.raises(ValidationError, match="not ported"):
-        ts.search(q, 5, 3, mode)
-    with pytest.raises(ValidationError, match="not ported"):
-        ts.exact(q, 5, mode)
-    with pytest.raises(ValidationError, match="not ported"):
-        ts.search_loop(q, 5, 3, reps=1, mode=mode)
+    js, ts = _pair(x)
+    for s, report in ((js, JWeatherReport), (ts, WeatherReport)):
+        s.weather_prober = lambda searcher, qq, k, budget_s=1.0, r=report: r(
+            floor_qps=1.0, extract_qps=0.1, extract_frac=0.1, degraded=True,
+            batch=len(qq), k=k)
+    _assert_same(ts.search(q, 5, 3, mode), js.search(q, 5, 3, mode), x, q)
+    _assert_same(ts.exact(q, 5, mode), js.exact(q, 5, mode), x, q)
+    _assert_same(ts.search_loop(q, 5, 3, reps=1, mode=mode),
+                 js.search_loop(q, 5, 3, reps=1, mode=mode), x, q)
+    _assert_same(ts.exact_loop(q, 5, reps=2, mode=mode),
+                 js.exact_loop(q, 5, reps=2, mode=mode), x, q)
 
 
 def test_loops_reject_bad_arguments():
@@ -199,6 +209,8 @@ def test_copy_searcher_knobs_carries_every_knob():
     js.approx_recall_target, js.approx_score_dtype = 0.9, jnp.bfloat16
     js.scan_overfetch, js.tilescan_tile, js.cert_fetch_tiles = 33, 64, 5
     js.cert_pass1, js.cert_pass2, js.compact_slack = "storage", "scan", 2.0
+    js.xbin_bins, js.xbin_chunk_groups, js.tilescan_chunk_rows = 256, 2, 1024
+    js.loop_rescore, js.weather_ttl_s = "defer", 60.0
     copy_searcher_knobs(js, ts)
     for name in SEARCHER_KNOBS:
         if name != "approx_score_dtype":
@@ -225,7 +237,10 @@ def test_search_loop_refuses_gather_as_the_jax_package_does():
         js.exact_loop(q, 5, reps=1, mode="gather")
     with pytest.raises(ValidationError, match="Unknown exact_loop mode 'gather'"):
         ts.exact_loop(q, 5, reps=1, mode="gather")
-    for mode in sorted(tdev._SEARCH_LOOP_MODES - {"bincompact", "bincompact8"}):
+    # tilescan refuses a cluster-sorted layout, in both packages
+    for mode in sorted(tdev._SEARCH_LOOP_MODES - {"bincompact", "bincompact8", "tilescan"}):
         ts.search_loop(q, 5, 3, reps=1, mode=mode)
-    for mode in sorted(tdev._EXACT_LOOP_MODES):
+    with pytest.raises(ValidationError, match="cluster-sorted"):
+        ts.search_loop(q, 5, 3, reps=1, mode="tilescan")
+    for mode in sorted(tdev._EXACT_LOOP_MODES - {"tilescan"}):
         ts.exact_loop(q, 5, reps=1, mode=mode)

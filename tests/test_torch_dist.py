@@ -6,8 +6,7 @@ inputs go through the JAX package on the eight virtual CPU devices of
 ``tests/conftest.py`` and through the port on ``make_mesh(8,
 device="cpu")``, a one-process mesh that names the CPU eight times. Each
 twin holds the port to the JAX package's result and to the JAX test's own
-assertions. The JAX package's ``xbin`` and ``xbin8`` scans are not ported:
-their twins check that the port raises ``ValidationError``.
+assertions.
 
 Tolerances: ids equal; f32 distances within rtol 1e-5, atol 1e-5;
 centroids within 2e-5 (sums added in another order); bf16 storage at the
@@ -351,15 +350,30 @@ def test_distributed_scan_matches_exact_and_jax(jmesh, mesh, data, idx0, exact64
     _same(do, jd.search_scan(queries, k=4, overfetch=8))
 
 
-def test_distributed_xbin_is_not_ported(mesh, data, idx0):
-    _, index = idx0
+def test_distributed_xbin_matches_exact_and_jax(jmesh, mesh, data, idx0, exact64):
+    """One tile group a shard (the auto bins are the shard's rows): the
+    selection is collision-free, so the ids are the sharded exact
+    searcher's and the JAX package's, chained too; explicit bins with the
+    chunked accumulator give valid rows, the JAX package's; a bin count that
+    does not divide the shard's rows raises in both."""
+    jindex, index = idx0
+    rng = np.random.default_rng(5)
+    queries = rng.standard_normal((5, 8)).astype(np.float32)
+    de, ie = exact64[1].search(queries, k=4)
     td = dist.DistributedIvfSearcher(index, data, mesh=mesh, tile=64)
-    assert not td.can_xbin(4)
-    queries = data[:5]
-    with pytest.raises(ValidationError, match="not ported"):
-        td.search_xbin(queries, k=4)
-    with pytest.raises(ValidationError, match="not ported"):
-        td.search_xbin(queries, k=4, l_bins=td._rows_per_dev // 2, chunk_groups=1)
+    jd = jdist.DistributedIvfSearcher(jindex, data, mesh=jmesh, tile=64)
+    assert td.can_xbin(4) and jd.can_xbin(4)
+    got = td.search_xbin(queries, k=4)
+    np.testing.assert_array_equal(got[1], ie)
+    np.testing.assert_allclose(got[0], de, rtol=1e-5, atol=1e-5)
+    _same(got, jd.search_xbin(queries, k=4))
+    np.testing.assert_array_equal(td.search_xbin(queries, k=4, reps=2)[1], ie)
+    lb = td._rows_per_dev // 2
+    got = td.search_xbin(queries, k=4, l_bins=lb, chunk_groups=1)
+    assert all(0 <= g < data.shape[0] for g in got[1].ravel().tolist() if g >= 0)
+    _same(got, jd.search_xbin(queries, k=4, l_bins=lb, chunk_groups=1))
+    with pytest.raises(ValidationError):
+        td.search_xbin(queries, k=4, l_bins=7)
 
 
 def test_cluster_axis_matches_the_row_sharded_path(data, idx1, ivf8):
@@ -588,14 +602,34 @@ def test_distributed_spilled_loop_and_scan(jmesh, mesh, data, idx0):
     _distinct_originals(scan[1], len(data))
 
 
-def test_distributed_xbin8_is_not_ported(data, spilled8, exact64):
-    _, sp, base = spilled8
-    queries = data[:5]
-    for s in (base, sp):
-        with pytest.raises(ValidationError, match="not ported"):
-            s.search_xbin8(queries, k=4)
-        with pytest.raises(ValidationError, match="not ported"):
-            s.search_xbin8(queries, k=4, reps=2)
+def test_distributed_xbin8_recall_exact_distances_and_jax(jmesh, mesh, data, idx0, exact64):
+    """The sharded int8 scan: recall against the sharded exact searcher,
+    exact distances for the ids it returns (each shard re-scores), the JAX
+    package's ids, chained too."""
+    jindex, index = idx0
+    rng = np.random.default_rng(5)
+    queries = rng.standard_normal((5, 8)).astype(np.float32)
+    _, ie = exact64[1].search(queries, k=4)
+    td = dist.DistributedIvfSearcher(index, data, mesh=mesh, tile=64)
+    jd = jdist.DistributedIvfSearcher(jindex, data, mesh=jmesh, tile=64)
+    d8, i8 = td.search_xbin8(queries, k=4)
+    _same((d8, i8), jd.search_xbin8(queries, k=4))
+    assert _hits(i8, ie) / ie.size >= 0.9
+    for b in range(len(queries)):
+        want = np.sqrt(((data[i8[b]] - queries[b]) ** 2).sum(1))
+        np.testing.assert_allclose(d8[b], want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(td.search_xbin8(queries, k=4, reps=2)[1], i8)
+
+
+def test_distributed_spilled_xbin8_dedups_as_jax(data, spilled8):
+    """On the spilled layout the sharded int8 scan drops duplicate ids and
+    gives the JAX package's ids."""
+    jsp, sp, _ = spilled8
+    queries = data[[7, 70]] + 0.01
+    assert sp.can_xbin(4) == jsp.can_xbin(4)
+    got = sp.search_xbin8(queries, k=4)
+    _same(got, jsp.search_xbin8(queries, k=4))
+    _distinct_originals(got[1], len(data))
 
 
 def test_distributed_bincompact_calibration(jmesh, mesh, data, idx0):

@@ -172,12 +172,12 @@ def test_dynamic_on_spilled_searcher(setup):
     _assert_same(got, js.exact(q, 3), _rows(x, q[:1]), q)
 
 
-@pytest.mark.parametrize("mode", ["approx", "scan", "binscan", "binscan8"])
+@pytest.mark.parametrize("mode", ["approx", "xbin", "xbin8", "scan", "binscan", "binscan8"])
 def test_scan_modes_respect_dynamic_state(setup, mode):
-    """The nprobe-free serving modes also exclude tombstones and merge
-    deltas: the filter and merge live in the shared finalize, not per mode
-    (the JAX test's ``xbin``/``xbin8`` are not ported; the port's full
-    scans stand in)."""
+    """The nprobe-free serving modes (the JAX test's ``approx``, ``xbin`` and
+    ``xbin8``, and the port's other full scans) also exclude tombstones and
+    merge deltas: the filter and merge live in the shared finalize, not per
+    mode."""
     x, _, _, q = setup
     js, ts = _pair(setup, row_tile=128)
     victim = int(ts.exact(q, 3)[1].numpy()[0, 0])

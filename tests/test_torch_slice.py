@@ -6,8 +6,9 @@ serves the same index and rows, and every ported mode is compared with the
 JAX package's: exact ``auto``/``stream``/``pallas``/``binscan``/``binscan8``/
 ``cert``/``approx``, search ``auto``/``stream``/``pallas``/``gather``/
 ``binscan``/``binscan8``/``bincompact``/``bincompact8``/``cert``/``scan``/
-``approx``/``masked``/``compact`` and the loops, at f32 and at bf16 with the
-f32 re-score,
+``approx``/``masked``/``compact``, both ``xbin``/``xbin8``/``autoscan``
+(``tilescan`` refuses the sorted layout in both) and the loops, at f32 and
+at bf16 with the f32 re-score,
 and the layout in file order through K6. The rows lie on a 1/4 grid with
 |x| <= 4, so bf16 stores them exactly and bf16 selection can be held to the same ids (data whose
 neighbours lie closer than bf16's 2^-8 would select differently; that is
@@ -152,12 +153,34 @@ def test_more_k_than_candidates(searchers):
 
 
 @pytest.mark.parametrize("mode", ["xbin", "xbin8", "tilescan", "autoscan"])
-def test_unported_modes_raise(searchers, mode):
-    _, ts, q = searchers
-    with pytest.raises(pqvector_tpu_torch.ValidationError, match="not ported"):
-        ts.search(q, K, NPROBE, mode)
-    with pytest.raises(pqvector_tpu_torch.ValidationError):
-        ts.exact(q, K, mode)
+def test_slice11_modes_match_jax(searchers, mode):
+    """The packed-key scans and ``autoscan`` (under one injected degraded
+    weather report in both packages, so K7's ``binscan``) on the file, as
+    the JAX package serves them; ``tilescan`` refuses this cluster-sorted
+    layout in both."""
+    from pqvector_tpu.errors import ValidationError as JValidationError
+    from pqvector_tpu.query.autotune import WeatherReport as JWeatherReport
+    from pqvector_tpu_torch.query.autotune import WeatherReport
+
+    js, ts = searchers[:2]
+    q = searchers[2]
+    for s, report in ((js, JWeatherReport), (ts, WeatherReport)):
+        s._weather = None
+        s.weather_prober = lambda searcher, qq, k, budget_s=1.0, r=report: r(
+            floor_qps=1.0, extract_qps=0.1, extract_frac=0.1, degraded=True,
+            batch=len(qq), k=k)
+    try:
+        if mode == "tilescan":
+            with pytest.raises(ValidationError, match="cluster-sorted"):
+                ts.search(q, K, NPROBE, mode)
+            with pytest.raises(JValidationError, match="cluster-sorted"):
+                js.search(q, K, NPROBE, mode)
+            return
+        assert_match(ts.search(q, K, NPROBE, mode), js.search(q, K, NPROBE, mode), q)
+        assert_match(ts.exact(q, K, mode), js.exact(q, K, mode), q)
+    finally:
+        js.weather_prober = ts.weather_prober = None
+        js._weather = ts._weather = None
 
 
 @pytest.mark.parametrize(
