@@ -17,8 +17,8 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    than tiles, tiles of 2 to 2048 rows, all-pad tiles, repeated and
    unordered selections; for K9 and K5 also what their 128 x 128 score tile
    makes awkward: B = 129 and 257, d = 8, 96, 100, 136 on both back ends,
-   k = 128 at 128 queries; for K1 and K2, which run on the same tile, d = 3
-   and 100, 1 to 4096 centroids, B = 1 to 4096 and four splits of the rows;
+   k = 128 at 128 queries; for K1 (f32 and bf16 rows) and K2, which run on
+   the same tile, d = 3 and 100, 1 to 4096 centroids, B = 1 to 4096 and four splits of the rows;
    for K4 and K3 on that tile also a last tile whose last chunks are all pad
    rows, a tile of 64 chunks, unsorted slots, 1 to 300 clusters a tile, three
    splits of the active tiles, and their counters of scored tiles and chunks
@@ -165,11 +165,34 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    shards of the card (recall, exact distances, ms a batch).
    ``scripts/torch_slice11_check.py`` runs this phase alone.
 
+12. Slice 12, launch counts from 0: on the phase-3 file the bf16- and
+   int8-wire staged builds equal, byte for byte, the f32 build of the rows
+   each wire rounds on the host (``_cast_bf16``; ``_dequant_i8`` of
+   ``_encode_int8``), and K1's bf16-row form gives K1 f32's ids over the
+   widened rows (0 differ); then the reference's default build workload
+   (BASELINE.md config 6): a seeded 1M x 1024 file (4.1 GB) built in place
+   with IVF-1000, 20 iterations, seed 42, on the f32, bf16 and int8 wires
+   and on the bf16 wire with ``assign_backend("host")``, each with its
+   seconds, ``stage`` split, peak device memory and co-assignment with the
+   f32 build (>= 0.98); the bf16 build twice (identical bytes); the host
+   build's centroids bit-equal to the device build's, its ids equal K1 f32
+   over the exact rows but at near ties (the host path printed: native or
+   numpy margins, f32 or bf16 GEMM, AMX-BF16); K1's bf16-row form at 1M x
+   1024 x 1000 equal to K1 f32 over the widened rows (0 differ) and to its
+   plain version but at near ties, timed beside K1 f32, the plain version,
+   blocked ``mm`` + ``argmin`` and its bound; recall@100 of sorted bf16
+   searchers (f32 copy) on the f32- and bf16-wire indexes at k = 100,
+   nprobe 16, B = 256 against the K2 truth; the four ``examples/torch_*.py``
+   as subprocesses on their default 10k x 64 dataset, on the card and with
+   ``--device cpu``: the same ids. ``scripts/torch_slice12_check.py`` runs
+   this phase alone.
+
 The last lines are the tiles and chunks K4, K3 and K6 scored of those a
-full walk scores, the front doors' line, slice 9's, slice 10's and slice
-11's lines, the script's, phase 10's and phase 11's seconds, the kernels'
-JSON (with each kernel's launches in phases 9, 10 and 11), the card's name
-and power limit, and ``{"ok": true, "device": {...}}``.
+full walk scores, the front doors' line, slice 9's, slice 10's, slice 11's
+and slice 12's lines, the script's, phase 10's, phase 11's and phase 12's
+seconds, the kernels' JSON (with each kernel's launches in phases 9 to 12;
+K1's bf16-row form under ``bf16_``), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1132,9 +1155,17 @@ def phase2_small_k1_k2(torch, ka, st):
               f"K1 small n={n} d={d} k={kc}: {int((got != want).sum())} ids differ")
         check(int(got.max()) < base.shape[0], f"K1 small n={n} d={d} k={kc}: a tie did "
               "not go to the lowest index")
+        # the bf16-row form: grid values are exact in bf16, so the same ids
+        x16 = x.bfloat16()
+        g16, w16 = ka.assign_rows(x16, cent), ka.assign_rows_plain(x16, cent)
+        torch.cuda.synchronize()
+        check(torch.equal(g16, w16) and torch.equal(g16, got),
+              f"K1 bf16 small n={n} d={d} k={kc}: {int((g16 != w16).sum())} ids differ "
+              "from plain")
         cases += 1
     log(f"phase 2a K1, score tile: {cases} cases (n 1..1001, d 3..128, 1..4096 "
-        "centroids, each centroid repeated): ids equal to the plain version")
+        "centroids, each centroid repeated), f32 rows and bf16 rows: ids equal to the "
+        "plain version")
     cases = mma = 0
     for n, tile, k, d, b in ((5000, 256, 128, 72, 128), (3000, 1024, 10, 96, 65),
                              (3000, 1024, 10, 100, 256), (700, 64, 10, 8, 13),
@@ -3138,6 +3169,351 @@ def phase11(torch, pqt, _build, ds, path, emb_np, queries, q, truth, index, chos
     return out
 
 
+# --------------------------------------------------------------------------
+# Slice 12: the build's transfer wires, K1 on bf16 rows, the host assignment,
+# the examples
+
+#: The reference's default build workload (BASELINE.md config 6,
+#: benches/index_build.rs): 1M x 1024, n_clusters = sqrt(n), 20 iterations.
+WIDE_ROWS, WIDE_DIM, WIDE_CLUSTERS = 1_000_000, 1024, 1000
+WIRE_BUILDS = (("f32", "float32", "device"), ("bf16", "bfloat16", "device"),
+               ("int8", "int8", "device"), ("bf16_host", "bfloat16", "host"))
+EXAMPLES = ("torch_build_index", "torch_topk_search", "torch_sql_query", "torch_serving")
+#: The least adjusted Rand index a wire build's partition has with the f32
+#: build's. Random row pairs cannot tell a fault: at k = 1000 two independent
+#: partitions agree on ~1 - 2/1000 of them. The index is ~0 for independent
+#: partitions (the shuffled one below shows the gate can fail) and ~0.25 for
+#: one that keeps each of the data's 256 modes but splits it four ways at
+#: random.
+ARI_LIMIT = 0.5
+
+
+def labels_of(index):
+    lab = np.empty(index.total_rows, np.int64)
+    for c in range(index.n_clusters):
+        lab[index.cluster_rows(c)] = c
+    return lab
+
+
+def coassignment(a, b, seed=12, pairs=1_000_000):
+    """The share of seeded random row pairs on which partitions ``a`` and
+    ``b`` agree about being in one cluster (``tests/test_streaming.py``'s
+    measure), and the share of the pairs ``a`` puts together (each row
+    with the next row of its list) that ``b`` keeps together."""
+    p = np.random.default_rng(seed).integers(0, len(a), (pairs, 2))
+    rand = float(((a[p[:, 0]] == a[p[:, 1]]) == (b[p[:, 0]] == b[p[:, 1]])).mean())
+    order = np.argsort(a, kind="stable")
+    same = a[order[1:]] == a[order[:-1]]
+    kept = float((b[order[1:]] == b[order[:-1]])[same].mean())
+    return rand, kept
+
+
+def adjusted_rand(a, b):
+    """The adjusted Rand index of partitions ``a`` and ``b`` (labels in
+    [0, k)): 1 when equal, ~0 when independent, whatever k is."""
+    k = int(max(a.max(), b.max())) + 1
+    pairs = lambda c: float((c * (c - 1.0) / 2.0).sum())  # noqa: E731
+    both = pairs(np.bincount(a.astype(np.int64) * k + b, minlength=k * k).astype(np.float64))
+    pa = pairs(np.bincount(a, minlength=k).astype(np.float64))
+    pb = pairs(np.bincount(b, minlength=k).astype(np.float64))
+    expected = pa * pb / (len(a) * (len(a) - 1.0) / 2.0)
+    return (both - expected) / ((pa + pb) / 2.0 - expected)
+
+
+def bf16_launched(_build, before, wire, backend, what):
+    """Check that a build launched K1's bf16-row form exactly when it
+    assigns bf16 rows on the card (the bf16 wire, the device assignment)."""
+    n = _build.LAUNCHES["K1_bf16"] - before
+    want = wire == "bfloat16" and backend == "device"
+    check(n > 0 if want else n == 0,
+          f"phase 12 {what}: {n} launches of K1's bf16-row form")
+    return n
+
+
+def phase12_rounding(torch, pqt, _build, tb, ka, path, emb_np, dev, out):
+    """On the phase-3 file: each wire's staged build equals, byte for byte,
+    the f32 build of the rows that wire rounds on the host; K1's bf16-row
+    form at 1M x 128 x 1024 gives K1 f32's ids over the widened rows (a
+    hold, not counted as the path's launches)."""
+    from pqvector_tpu_torch.types import Embeddings
+
+    codes, scales = tb._encode_int8(emb_np)
+    rounded = {
+        "bfloat16": tb._bf16_tensor(tb._cast_bf16(emb_np)).float().numpy(),
+        "int8": tb._dequant_i8(torch.from_numpy(codes), torch.from_numpy(scales)).numpy(),
+    }
+    del codes, scales
+    for wire, rows in rounded.items():
+        before = _build.LAUNCHES["K1_bf16"]
+        t0 = time.perf_counter()
+        got = tb.build_ivf_index_staged(
+            path, "embedding", pqt.IvfBuildConfig(n_clusters=N_CLUSTERS, transfer_dtype=wire),
+            device=dev)
+        secs = time.perf_counter() - t0
+        launches = bf16_launched(_build, before, wire, "device", f"{wire} wire 1M x {DIM}")
+        before = _build.LAUNCHES["K1_bf16"]
+        want = pqt.build_ivf_index(Embeddings(rows, DIM),
+                                   pqt.IvfBuildConfig(n_clusters=N_CLUSTERS), device=dev)
+        bf16_launched(_build, before, "float32", "device", f"f32 build of the {wire} rows")
+        check(got.to_bytes() == want.to_bytes(),
+              f"phase 12 the {wire} wire's staged build is not the f32 build of its rows")
+        out[f"{wire}_staged_1m128"] = {"s": secs, "k1_bf16_launches": launches}
+        log(f"phase 12 {wire} wire, 1M x {DIM}: staged build ({secs:.2f} s) equals the f32 "
+            f"build of the host-rounded rows byte for byte, SHA-256 "
+            + hashlib.sha256(got.to_bytes()).hexdigest()[:16])
+        if wire == "bfloat16":
+            uncounted(_build, lambda: phase12_k1_narrow(torch, ka, emb_np, got.centroids,
+                                                        dev, out))
+    torch.cuda.empty_cache()
+
+
+def phase12_k1_narrow(torch, ka, emb_np, centroids, dev, out):
+    """K1's bf16-row form at 1M x 128 x 1024: ids equal to K1 f32 over the
+    widened rows bit for bit, timed beside K1 f32 (widening included)."""
+    x16 = torch.from_numpy(emb_np).to(dev).bfloat16()
+    c = torch.from_numpy(centroids).to(dev)
+    ids16, ids32 = ka.assign_rows(x16, c), ka.assign_rows(x16.float(), c)
+    torch.cuda.synchronize()
+    differ = int((ids16 != ids32).sum())
+    check(differ == 0, f"phase 12 K1 bf16 1M x {DIM}: {differ} ids differ from K1 f32")
+    out["k1_bf16_1m128"] = {"differ": differ,
+                            "ms": time_ms(lambda: ka.assign_rows(x16, c)),
+                            "f32_ms": time_ms(lambda: ka.assign_rows(x16.float(), c))}
+    log(f"phase 12 K1 bf16 rows 1M x {DIM} x {N_CLUSTERS}: ids equal to K1 f32 over "
+        f"the widened rows (0 differ); {out['k1_bf16_1m128']['ms']:.3f} ms, K1 f32 "
+        f"(widening included) {out['k1_bf16_1m128']['f32_ms']:.3f} ms")
+
+
+def phase12_k1(torch, ka, xw, centroids, card):
+    """K1's bf16-row form at 1M x 1024 x 1000 (the bf16 wire's resident
+    rows against its build's centroids): ids equal K1 f32 over the widened
+    rows bit for bit, the plain version's equal but at near ties; timed
+    beside K1 f32, the plain version and the blocked ``mm`` + ``argmin``."""
+    x16 = xw.bfloat16()
+    c = torch.from_numpy(centroids).to(xw.device)
+    got, want = ka.assign_rows(x16, c), ka.assign_rows(x16.float(), c)
+    torch.cuda.synchronize()
+    differ = int((got != want).sum())
+    check(differ == 0, f"phase 12 K1 bf16 1M x {WIDE_DIM}: {differ} ids differ from K1 f32")
+    plain = ka.assign_rows_plain(x16, c)
+    tie_rows, gap = assign_near_ties(torch, x16.float(), c, got, plain, "phase 12 K1 bf16")
+    del got, want, plain
+    cn = (c * c).sum(1)
+    block = 131072
+
+    def library():
+        for lo in range(0, x16.shape[0], block):
+            torch.argmin(cn[None, :] - 2.0 * torch.mm(x16[lo : lo + block].float(), c.T),
+                         dim=1)
+
+    n, d, k = x16.shape[0], x16.shape[1], c.shape[0]
+    res = {"differ_from_f32": differ, "plain_near_tie_rows": tie_rows, "max_abs_err": gap,
+           "ms": time_ms(lambda: ka.assign_rows(x16, c)),
+           "f32_ms": time_ms(lambda: ka.assign_rows(xw, c)),
+           "plain_ms": time_ms(lambda: ka.assign_rows_plain(x16, c), reps=3),
+           "library_ms": time_ms(library, reps=3)}
+    res.update(bound_of(nbytes_of(x16, c) + n * 4, 2.0 * n * k * d, "fp32"))
+    log(f"phase 12 K1 bf16 rows {n} x {d} x {k}: ids equal to K1 f32 over the widened "
+        f"rows (0 differ), {tie_rows} near-tie rows differ from plain; kernel "
+        f"{res['ms']:.3f} ms (K1 f32 on the f32 rows {res['f32_ms']:.3f}), plain "
+        f"{res['plain_ms']:.3f}, blocked mm + argmin {res['library_ms']:.3f}, bound "
+        f"{res['bound_ms']:.3f} ms ({res['bound_by']}) on {card}")
+    return res
+
+
+def phase12_examples(torch, data_dir, out):
+    """The examples as subprocesses on their default 10k x 64 dataset, once
+    on the card and once with ``--device cpu``, each in a directory of its
+    own: the lines with ids must be equal."""
+    import re
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import torch_common
+
+    root = os.path.join(data_dir, "examples")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    src = os.path.join(root, "example.parquet")
+    torch_common.generate_default(src)
+    keep = re.compile(r"^\s*row=|ids|^\d+\s+\d+\s+item-\d+$")
+    lines, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        d = os.path.join(root, device)
+        os.makedirs(d)
+        shutil.copy(src, os.path.join(d, "example.parquet"))
+        env = dict(os.environ, PQ_VECTOR_SOURCE=os.path.join(d, "example.parquet"),
+                   PQ_VECTOR_INDEXED=os.path.join(d, "example_indexed.parquet"))
+        t0 = time.perf_counter()
+        for name in EXAMPLES:
+            proc = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "examples", f"{name}.py"),
+                 "--device", device], env=env, cwd=os.path.join(ROOT, "examples"),
+                capture_output=True, text=True, timeout=300)
+            check(proc.returncode == 0, f"phase 12 {name} --device {device} failed:\n"
+                  f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+            lines[device, name] = [x for x in proc.stdout.splitlines() if keep.search(x)]
+        secs[device] = time.perf_counter() - t0
+    for name in EXAMPLES[1:]:
+        check(lines["cuda", name] and lines["cuda", name] == lines["cpu", name],
+              f"phase 12 {name}: the card's ids differ from the CPU's:\n"
+              f"{lines['cuda', name]}\n{lines['cpu', name]}")
+    out["examples"] = {"id_lines": sum(len(lines["cuda", n]) for n in EXAMPLES),
+                       "seconds": secs}
+    log(f"phase 12 examples: {', '.join(EXAMPLES)} on the card and on the CPU "
+        f"({secs['cuda']:.1f} s / {secs['cpu']:.1f} s): the same "
+        f"{out['examples']['id_lines']} lines of ids")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase12(torch, pqt, _build, ds, ka, path, emb_np, data_dir, card, device="cuda:0"):
+    """Slice 12: the wires on the phase-3 file, then the reference's default
+    build workload (a seeded 1M x 1024 file, IVF-1000) built in place four
+    ways, launch counts from 0: f32, bf16 and int8 wires on the card, and
+    the bf16 wire with the host assignment; the bf16 build again (the same
+    bytes); the host build's centroids against the device build's; recall
+    of sorted searchers on the f32- and bf16-wire indexes; the examples on
+    the card and on the CPU."""
+    from pqvector_tpu_torch.index import build as tb
+    from pqvector_tpu_torch.io.native import load as native_load
+    from pqvector_tpu_torch.io.reader import read_embedding_column
+    from pqvector_tpu_torch.utils.profiling import drain_stages
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    out = {}
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    phase12_rounding(torch, pqt, _build, tb, ka, path, emb_np, dev, out)
+
+    wide = os.path.join(data_dir, f"wide_{WIDE_ROWS}x{WIDE_DIM}.parquet")
+    t0 = time.perf_counter()
+    ds.generate_dataset(wide, WIDE_ROWS, WIDE_DIM)
+    out["write_s"] = time.perf_counter() - t0
+    log(f"phase 12 wrote {wide} ({os.path.getsize(wide) / 1e9:.2f} GB) in "
+        f"{out['write_s']:.1f} s")
+    t0 = time.perf_counter()
+    emb_w = read_embedding_column(wide, "embedding").data
+    log(f"phase 12 read the column back in {time.perf_counter() - t0:.1f} s")
+
+    builds, labels = {}, {}
+    for label, wire, backend in WIRE_BUILDS + (("bf16_again", "bfloat16", "device"),):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        drain_stages()
+        before = _build.LAUNCHES["K1_bf16"]
+        t0 = time.perf_counter()
+        idx = (pqt.IndexBuilder(wide, "embedding", device=dev).transfer_dtype(wire)
+               .assign_backend(backend).build_inplace())
+        secs = time.perf_counter() - t0
+        bf16_launches = bf16_launched(_build, before, wire, backend, label)
+        stages = dict(drain_stages())
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(idx.n_clusters == WIDE_CLUSTERS and idx.total_rows == WIDE_ROWS,
+              f"phase 12 {label}: index of {idx.n_clusters} clusters, {idx.total_rows} rows")
+        check(np.isfinite(idx.centroids).all(), f"phase 12 {label}: centroids not finite")
+        builds[label] = idx
+        labels[label] = labels_of(idx)
+        rec = {"s": secs, "stages": stages, "peak_bytes": peak,
+               "peak_over_start_bytes": peak - base, "k1_bf16_launches": bf16_launches}
+        if label != "f32":
+            rec["coassign_random_pairs"], rec["coassign_kept_together"] = coassignment(
+                labels["f32"], labels[label])
+            rec["adjusted_rand"] = adjusted_rand(labels["f32"], labels[label])
+            rec["same_label"] = float((labels["f32"] == labels[label]).mean())
+            check(rec["coassign_random_pairs"] >= 0.98,
+                  f"phase 12 {label}: co-assignment {rec['coassign_random_pairs']:.4f}")
+            check(rec["adjusted_rand"] >= ARI_LIMIT,
+                  f"phase 12 {label}: adjusted Rand index {rec['adjusted_rand']:.4f} with "
+                  f"the f32 build, under {ARI_LIMIT}")
+        out[f"build_{label}"] = rec
+        log(f"phase 12 build_inplace {WIDE_ROWS} x {WIDE_DIM}, IVF-{WIDE_CLUSTERS}, "
+            f"wire {wire}, assign {backend}: {secs:.2f} s; peak device memory "
+            f"{peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} over the start); stages "
+            + ", ".join(f"{k_} {v:.3f} s" for k_, v in stages.items())
+            + ("" if label == "f32" else
+               f"; co-assignment with f32 {rec['coassign_random_pairs']:.5f} (random pairs), "
+               f"{rec['coassign_kept_together']:.5f} (pairs f32 puts together), adjusted "
+               f"Rand index {rec['adjusted_rand']:.5f}, same label {rec['same_label']:.5f}"))
+    shuffled = np.random.default_rng(12).permutation(labels["bf16"])
+    out["planted_shuffled"] = {
+        "coassign_random_pairs": coassignment(labels["f32"], shuffled)[0],
+        "adjusted_rand": adjusted_rand(labels["f32"], shuffled)}
+    check(out["planted_shuffled"]["adjusted_rand"] < ARI_LIMIT,
+          "phase 12 the shuffled bf16 partition passes the adjusted Rand gate")
+    log(f"phase 12 planted fault, the bf16 build's labels shuffled over the rows: "
+        f"co-assignment with f32 {out['planted_shuffled']['coassign_random_pairs']:.5f} "
+        f"(random pairs, gate 0.98 passed all the same), adjusted Rand index "
+        f"{out['planted_shuffled']['adjusted_rand']:.5f} (under {ARI_LIMIT}: the gate fails it)")
+    check(builds["bf16_again"].to_bytes() == builds["bf16"].to_bytes(),
+          "phase 12 two bf16-wire builds gave different index bytes")
+    log("phase 12 two bf16-wire builds: identical index bytes, SHA-256 "
+        + hashlib.sha256(builds["bf16"].to_bytes()).hexdigest()[:16])
+
+    host, devb = builds["bf16_host"], builds["bf16"]
+    check(np.array_equal(host.centroids, devb.centroids),
+          "phase 12 the host-assign build's centroids differ from the device build's")
+    lib = native_load()
+    host_path = {
+        "gemm": tb.resolve_host_gemm("bfloat16"), "amx_bf16": tb._host_amx_bf16(),
+        "native": lib is not None and hasattr(lib, "pqv_assign_margin_bf16"),
+    }
+    xw = torch.from_numpy(emb_w).to(dev)
+    c = torch.from_numpy(host.centroids).to(dev)
+    exact_ids = uncounted(_build, lambda: ka.assign_rows(xw, c))
+    host_ids = torch.from_numpy(labels["bf16_host"].astype(np.int32)).to(dev)
+    differ, gap = assign_near_ties(torch, xw, c, host_ids, exact_ids,
+                                   "phase 12 host assignment against K1 f32")
+    rounding = int((labels["bf16_host"] != labels["bf16"]).sum())
+    out["host_assign"] = {"path": host_path, "differ_from_k1_f32": differ, "max_gap": gap,
+                          "differ_from_bf16_device": rounding}
+    log(f"phase 12 host assignment ({'native' if host_path['native'] else 'numpy'} margins, "
+        f"{host_path['gemm']} GEMM, AMX-BF16 {'present' if host_path['amx_bf16'] else 'absent'}"
+        f"): centroids bit-equal to the device build's; {differ} rows differ from K1 f32 "
+        f"over the exact rows, all near ties (max gap {gap:.3g}); {rounding} rows differ "
+        f"from the bf16 device build (it assigns the rounded rows)")
+    del exact_ids, host_ids, c
+    k1 = uncounted(_build, lambda: phase12_k1(torch, ka, xw, devb.centroids, card))
+    del xw
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(emb_w[rng.integers(0, WIDE_ROWS, BATCH)] + 0.05 * rng.standard_normal(
+        (BATCH, WIDE_DIM)).astype(np.float32)).to(dev)
+    truth_s = pqt.DeviceIvfSearcher(builds["f32"], emb_w, row_tile=ROW_TILE,
+                                    cluster_sorted=True, device=dev)
+    truth = truth_s.exact(q, 100, "stream")[1].cpu().numpy()
+    del truth_s
+    torch.cuda.empty_cache()
+    for label in ("f32", "bf16"):
+        s = pqt.DeviceIvfSearcher(builds[label], emb_w, dtype=torch.bfloat16,
+                                  row_tile=ROW_TILE, cluster_sorted=True, device=dev)
+        d, ids = s.search(q, 100, 16, "auto")
+        check(bool(torch.isfinite(d).all()), f"phase 12 {label}: empty slots")
+        out[f"recall_at_100_{label}_wire"] = ds.recall_at_k(truth, ids.cpu().numpy())
+        out[f"search_ms_{label}_wire"] = time_ms(lambda: s.search(q, 100, 16, "auto"), reps=5)
+        log(f"phase 12 sorted bf16 searcher (f32 copy) on the {label}-wire index: "
+            f"recall@100 {out[f'recall_at_100_{label}_wire']:.4f} at k=100, nprobe 16, "
+            f"B={BATCH} against the K2 truth; {out[f'search_ms_{label}_wire']:.3f} ms/batch")
+        del s
+        torch.cuda.empty_cache()
+    del builds, emb_w
+    os.remove(wide)
+    phase12_examples(torch, data_dir, out)
+    out["launches"] = {k_: v for k_, v in _build.LAUNCHES.items() if v}
+    for name in ("K1", "K1_bf16", "K2", "K4"):
+        check(out["launches"].get(name, 0) > 0, f"{name} was not launched in phase 12")
+    wire_builds = sum(rec.get("k1_bf16_launches", 0) for rec in out.values()
+                      if isinstance(rec, dict))
+    check(out["launches"]["K1_bf16"] == wire_builds,
+          f"phase 12 K1_bf16 launches {out['launches']['K1_bf16']}, not the bf16 wire "
+          f"builds' {wire_builds}")
+    k1["phase12_launches"] = out["launches"]["K1_bf16"]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12 launches {out['launches']}; {out['seconds']:.1f} s on {card}")
+    return out, k1
+
+
 def write_rows(ds, data_dir):
     """Phase 3's rows: the seeded 1M x 128 file written as Parquet under
     ``data_dir`` (made anew) and read back, and the 256 seeded queries.
@@ -3457,6 +3833,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     main8 = phase8(torch, pqt, _build, ds, emb_np, queries, truth_np, index.to_bytes(),
                    data_dir, card)
+    torch.cuda.empty_cache()
+    main12, k1_bf16 = phase12(torch, pqt, _build, ds, ka, path, emb_np, data_dir, card)
+    results["K1"].update({f"bf16_{key}": v for key, v in k1_bf16.items()})
 
     kernels = []
     for name, (fn, source, replaces) in KERNELS.items():
@@ -3470,6 +3849,7 @@ def main() -> None:
             "phase9_launches": main9["launches"].get(name, 0),
             "phase10_launches": main10["launches"].get(name, 0),
             "phase11_launches": main11["launches"].get(name, 0),
+            "phase12_launches": main12["launches"].get(name, 0),
         })
     log("main path: " + json.dumps({"build_s": build_s, "nprobe": chosen,
                                     "recall_at_10": recall, "search_ms": search_ms,
@@ -3485,8 +3865,10 @@ def main() -> None:
     log("slice 9 path: " + json.dumps(main9))
     log("slice 10 path: " + json.dumps(main10))
     log("slice 11 path: " + json.dumps(main11))
+    log("slice 12 path: " + json.dumps(main12))
     log(f"chip_smoke.py: {time.perf_counter() - t_script:.1f} s, phase 10 "
-        f"{main10['seconds']:.1f} s, phase 11 {main11['seconds']:.1f} s")
+        f"{main10['seconds']:.1f} s, phase 11 {main11['seconds']:.1f} s, phase 12 "
+        f"{main12['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ embeddings (``DeviceIvfSearcher``), and has the reference's two front doors:
 the standalone ``TopkBuilder`` and the SQL engine (``engine.Session``, whose
 ``ORDER BY array_distance(col, [q]) LIMIT k`` rewrite reads only candidate
 rows). ``python -m pqvector_tpu_torch`` is its command line. It imports
-neither JAX nor the JAX package.
+neither JAX nor the JAX package. Its kernels compile at first CUDA use and
+are cached on disk across processes (``utils/cache.py``).
 
 fp32 selection scores must be IEEE fp32: TF32 keeps about three decimal
 digits, which reorders near neighbours on clustered data, so importing the
@@ -18,6 +19,10 @@ import torch as _torch
 
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+
+from .utils.cache import enable_compilation_cache as _enable_cache  # noqa: E402
+
+_enable_cache()
 
 from .builder import IndexBuilder  # noqa: E402
 from .errors import (  # noqa: E402

@@ -17,10 +17,10 @@ Extensions beyond reference parity, as in the JAX package:
   Parquet-batch chunks (in-place mode, larger-than-memory data),
 * ``metric("cosine")``.
 
-``transfer_dtype`` and ``assign_backend`` keep the JAX package's names:
-"auto"/"float32" and "auto"/"device" are what a card on the local bus runs;
-the TPU tunnel's ``bfloat16``/``int8`` wires and the host assignment raise
-``ValidationError`` as not ported.
+* ``transfer_dtype``: the dtype the rows take to the device ("float32",
+  "bfloat16", "int8"; the index is that of the rounded rows),
+* ``assign_backend("host")``: the staged build's full assignment on the
+  host, only the training sample sent to the device.
 """
 
 from __future__ import annotations
@@ -93,28 +93,25 @@ class IndexBuilder:
         return self
 
     def transfer_dtype(self, dtype: str) -> "IndexBuilder":
-        """Host->device dtype of the build: "auto" and "float32" (the same
-        thing here); the JAX package's "bfloat16" and "int8" tunnel wires
-        are not ported."""
+        """Host->device dtype of the build's rows ("auto" | "float32" |
+        "bfloat16" | "int8"; "auto" is float32). bfloat16 rounds each
+        element to nearest even (2^-8 relative) and keeps the resident
+        matrix in bf16, half the device memory; int8 is symmetric per-row
+        quantization (~2^-7). The rounding moves only the partition:
+        searches re-score at storage precision. Deterministic either way."""
         if dtype not in ("auto", "float32", "bfloat16", "int8"):
             raise ValidationError(f"Unsupported transfer dtype '{dtype}'")
-        if dtype not in ("auto", "float32"):
-            raise ValidationError(
-                f"IndexBuilder.transfer_dtype is not ported for '{dtype}'"
-            )
         self._transfer_dtype = dtype
         return self
 
     def assign_backend(self, backend: str) -> "IndexBuilder":
-        """Where the full-data assignment runs: "auto" and "device" (the
-        same thing here); the JAX package's "host" assignment is not
-        ported."""
+        """Where the staged build's full-data assignment runs ("auto" |
+        "device" | "host"; "auto" is device). "host" sends only the
+        training sample to the device and assigns the decoded f32 rows on
+        the host (BLAS sgemm, or a certified bf16 matmul on AMX). The
+        in-memory and streaming builds ignore it."""
         if backend not in ("auto", "device", "host"):
             raise ValidationError(f"Unsupported assign backend '{backend}'")
-        if backend not in ("auto", "device"):
-            raise ValidationError(
-                f"IndexBuilder.assign_backend is not ported for '{backend}'"
-            )
         self._assign_backend = backend
         return self
 

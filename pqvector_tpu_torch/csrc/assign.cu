@@ -25,6 +25,12 @@
 // order with __fmaf_rn from zero, then __fmaf_rn(-2, sum, |c|^2), bit for
 // bit what a sequential fmaf loop gives. Nothing rounds through TF32.
 //
+// The bf16-row form (pqv_assign_bf16) reads x as bf16, the resident matrix
+// of a build under the bf16 wire, and widens each element to f32 as it is
+// staged (WideningFmaTile); the centroids stay f32. Widening is exact, so its
+// ids are those of the f32 form over x.float(), bit for bit, with no f32
+// copy of x.
+//
 // What bounds it on the H100: the fp32 FMAs of the CUDA cores, 2 n k d
 // operations against 67 TFLOP/s. At 16 words loaded per 64 FMAs the
 // shared-memory pipe is as busy as the FMA pipe, so the loop runs at about
@@ -100,9 +106,9 @@ constexpr int assign_smem() {
   return 1024 + kAssignStages * Tile::kStageBytes + 2 * kTR * 4;
 }
 
-template <class Tile>
+template <class Tile, class Operands>
 __global__ void __launch_bounds__(kThreads, 2)
-    assign_kernel(TileOperands<float> op, const float* __restrict__ c_norm, int k,
+    assign_kernel(Operands op, const float* __restrict__ c_norm, int k,
                   int* __restrict__ out) {
   extern __shared__ char dyn[];
   char* ring = align_ring(dyn);
@@ -122,6 +128,19 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 using AssignTile = FmaTile<float, 8>;
+using AssignTileBf16 = WideningFmaTile<__nv_bfloat16, 8>;
+
+template <class Tile, class Operands>
+int launch_assign(Operands op, const float* c_norm, int k, int* out, void* stream) {
+  auto kernel = assign_kernel<Tile, Operands>;
+  constexpr int smem = assign_smem<Tile>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<ceil_div(op.B, Tile::kQueries), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(op, c_norm, k, out);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace pqv
 
@@ -131,15 +150,19 @@ extern "C" int pqv_assign(const float* x, const float* c, const float* c_norm,
   using namespace pqv;
   if (n <= 0) return 0;
   if (k < 1) return (int)cudaErrorInvalidValue;
-  TileOperands<float> op = {x, c, n, d};
-  auto kernel = assign_kernel<AssignTile>;
-  constexpr int smem = assign_smem<AssignTile>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<ceil_div(n, AssignTile::kQueries), kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(op, c_norm, k, out);
-  return (int)cudaGetLastError();
+  return launch_assign<AssignTile>(TileOperands<float>{x, c, n, d}, c_norm, k, out, stream);
+}
+
+// K1's bf16-row form: x [n, d] bf16 (uint16 bits), c [k, d] f32, c_norm [k]
+// f32 -> out [n] int32; the ids of pqv_assign over the rows widened to f32.
+extern "C" int pqv_assign_bf16(const void* x, const float* c, const float* c_norm,
+                               int n, int d, int k, int* out, void* stream) {
+  using namespace pqv;
+  if (n <= 0) return 0;
+  if (k < 1) return (int)cudaErrorInvalidValue;
+  return launch_assign<AssignTileBf16>(
+      WideningOperands<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(x), c, n, d},
+      c_norm, k, out, stream);
 }
 
 // Dynamic shared memory of K1's launch, for the wrapper's own reckoning.

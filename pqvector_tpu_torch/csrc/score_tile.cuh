@@ -92,6 +92,15 @@ struct TileOperands {
   int B, d;
 };
 
+// The same with queries of their own type Q and f32 rows: K1's bf16-row form,
+// whose data rows are the queries and whose centroids are the rows.
+template <typename Q>
+struct WideningOperands {
+  const Q* q;
+  const float* emb;
+  int B, d;
+};
+
 // ------------------------------------------------------------ fp32, FMA
 
 // Stage `ROWS` rows x 16 dimensions of `src` transposed: dst[dim][row], row
@@ -203,6 +212,22 @@ struct FmaTile : PatchLayout<NQ> {
 #pragma unroll
         for (int j = 0; j < NQ; ++j) acc[i][j] = __fmaf_rn(xr[i], qr[j], acc[i][j]);
     }
+  }
+};
+
+// FmaTile<float, NQ> over WideningOperands<Q>: the rows are staged as
+// FmaTile's, the queries widened to f32 in registers on the way in (exact for
+// bf16), so the sums are FmaTile's own on the widened values, bit for bit.
+template <typename Q, int NQ>
+struct WideningFmaTile : FmaTile<float, NQ> {
+  using Base = FmaTile<float, NQ>;
+
+  __device__ __forceinline__ void load(char* stage, const WideningOperands<Q>& op, int q0,
+                                       int r0, int row_end, int d0) const {
+    float* s = reinterpret_cast<float*>(stage);
+    stage_transposed<float, kTR, Base::kXS>(s, op.emb, r0, row_end, d0, op.d);
+    stage_transposed<Q, Base::kQueries, Base::kQS>(s + Base::kDims * Base::kXS, op.q, q0,
+                                                   op.B, d0, op.d);
   }
 };
 
@@ -414,11 +439,11 @@ struct MmaTile {
 // chunks of kTR rows through a ring of STAGES stages at `ring`. The epilogue
 // sees `epi.begin(r0, slot)` before a chunk's first slice (at least one
 // __syncthreads() follows before `chunk`) and `epi.chunk(tile, r0, slot)`
-// once its sums are complete; slot alternates 0, 1.
-template <int STAGES, class Tile, class Epilogue>
-__device__ __forceinline__ void walk_rows(Tile& tile,
-                                          const TileOperands<typename Tile::Storage>& op,
-                                          int q0, int row_begin, int row_end, char* ring,
+// once its sums are complete; slot alternates 0, 1. `op` is what the tile's
+// load takes: TileOperands of its storage, or WideningOperands.
+template <int STAGES, class Tile, class Operands, class Epilogue>
+__device__ __forceinline__ void walk_rows(Tile& tile, const Operands& op, int q0,
+                                          int row_begin, int row_end, char* ring,
                                           Epilogue& epi) {
   const int nk = (op.d + Tile::kDims - 1) / Tile::kDims;
   const int nchunks = (row_end - row_begin + kTR - 1) / kTR;

@@ -203,9 +203,10 @@ def assign_clusters(
 ) -> np.ndarray:
     """Nearest-centroid assignment for all rows, the final inverted-list
     pass (pq-vector src/ivf/index.rs:193-206): K1 on the card, the plain
-    assign on the CPU, numpy ids out. ``block_rows`` stands where the JAX
-    package has it; K1 masks the ragged last block itself and needs no
-    padding to a block."""
+    assign on the CPU, numpy ids out. A bf16 tensor (a build's resident
+    matrix under the bf16 wire) is read as it is, by K1's bf16-row form.
+    ``block_rows`` stands where the JAX package has it; K1 masks the ragged
+    last block itself and needs no padding to a block."""
     del block_rows
     return _k1.assign_clusters(x, centroids, device=device)
 

@@ -199,6 +199,17 @@ def load() -> ctypes.CDLL | None:
                 ctypes.c_void_p,  # bias |c|^2 (float32*, [k])
                 ctypes.c_void_p,  # out assignments (int32*, [n])
             ]
+        if hasattr(lib, "pqv_assign_margin_bf16"):
+            lib.pqv_assign_margin_bf16.restype = ctypes.c_int
+            lib.pqv_assign_margin_bf16.argtypes = [
+                ctypes.c_void_p,  # scores (bf16 bits, [n,k] row-major)
+                ctypes.c_int64,  # n rows
+                ctypes.c_int64,  # k centroids
+                ctypes.c_void_p,  # bias |c|^2 (float32*, [k])
+                ctypes.c_void_p,  # envelope (float32*, [n])
+                ctypes.c_void_p,  # out assignments (int32*, [n])
+                ctypes.c_void_p,  # out ambiguous (uint8*, [n])
+            ]
         _lib = lib
         return _lib
 

@@ -1136,7 +1136,7 @@ def _read_row_group_arrow(path, i: int, column: EmbeddingColumn, dst):
 
 def decode_row_groups(path, row_groups, leaf_idx: int, leaf: SchemaLeaf,
                       out=None, workers: int = DECODE_WORKERS,
-                      column: EmbeddingColumn | None = None):
+                      column: EmbeddingColumn | None = None, post=None):
     """Yield each row group's vector column as [rows, dim] f32 through the
     native chunk decoder, in row-group order, ``workers`` row groups at a
     time: each thread reads its chunk's bytes and decodes them (both
@@ -1150,7 +1150,10 @@ def decode_row_groups(path, row_groups, leaf_idx: int, leaf: SchemaLeaf,
     the last one. A row group the decoder declines (or every one, without
     the native library) is read by pyarrow on the worker when ``column``
     names it, and yields None otherwise (the caller falls back); stopping
-    early cancels what is queued."""
+    early cancels what is queued. ``post(i, matrix)``, where given, runs on
+    the worker after the decode and its result is yielded in the matrix's
+    place (the staged build's wire encode); what it raises reaches the
+    caller."""
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1178,7 +1181,7 @@ def decode_row_groups(path, row_groups, leaf_idx: int, leaf: SchemaLeaf,
             got = decode_rg_matrix_from_buf(buf, rg, leaf_idx, leaf, out=dst)
         if got is None and column is not None:
             got = _read_row_group_arrow(path, i, column, dst)
-        return got
+        return got if post is None else post(i, got)
 
     pool = ThreadPoolExecutor(max(1, workers))
     try:

@@ -1,2 +1,7 @@
-"""Shared host utilities: stage timers and profiler traces, and the
-fault-aware allocation of large host matrices."""
+"""Shared host utilities: stage timers and profiler traces, the
+fault-aware allocation of large host matrices, and the kernels' disk
+cache."""
+
+from .cache import enable_compilation_cache
+
+__all__ = ["enable_compilation_cache"]

@@ -323,14 +323,21 @@ def test_from_parquet_source_key_when_the_file_cannot_be_stated(indexed, monkeyp
 @pytest.mark.parametrize("method,args", [
     ("transfer_dtype", ("bfloat16",)), ("assign_backend", ("host",)),
 ])
-def test_unported_builder_methods_raise_by_name(indexed, method, args):
-    """The JAX builder has them (it must not raise AttributeError either);
-    the TPU tunnel's bf16 wire and the host assignment are not ported."""
+def test_unported_builder_methods_raise_by_name(indexed, tmp_path, method, args):
+    """Both builders have them, and both are ported: the port's
+    ``build_inplace`` under the bf16 wire or the host assignment writes the
+    JAX package's file bytes; a value neither takes raises by name."""
     path, _, _ = indexed
-    assert callable(getattr(pqvector_tpu.IndexBuilder(path, "embedding"), method))
-    builder = pqvector_tpu_torch.IndexBuilder(path, "embedding", device="cpu")
-    with pytest.raises(ValidationError, match=f"{method} is not ported"):
-        getattr(builder, method)(*args)
+    j_path, t_path = tmp_path / "j.parquet", tmp_path / "t.parquet"
+    shutil.copy(path, j_path)
+    shutil.copy(path, t_path)
+    jb = getattr(pqvector_tpu.IndexBuilder(j_path, "embedding").n_clusters(KC), method)(*args)
+    tb = pqvector_tpu_torch.IndexBuilder(t_path, "embedding", device="cpu").n_clusters(KC)
+    assert getattr(tb, method)(*args) is tb
+    assert tb.build_inplace().to_bytes() == jb.build_inplace().to_bytes()
+    assert t_path.read_bytes() == j_path.read_bytes()
+    with pytest.raises(ValidationError, match="Unsupported"):
+        getattr(tb, method)("float16")
 
 
 @pytest.mark.parametrize("method", ["cluster_sorted", "streaming", "build_new"])

@@ -4,8 +4,8 @@ CPU: ``index/streaming.py`` (batches, streamed assignment, streamed sample),
 ``build_inplace`` through it, with the native chunk decoder under the
 column read and the native footer append.
 
-Twins of ``tests/test_streaming.py`` (without its bf16 wire, which is not
-ported) and of ``test_staged_matches_unstaged`` and
+Twins of ``tests/test_streaming.py`` (its bf16 wire in
+``tests/test_torch_wires.py``) and of ``test_staged_matches_unstaged`` and
 ``test_staged_full_sample_branch`` of ``tests/test_staged_build.py``.
 Tolerance: none. Assignments, sampled rows and index bytes are equal.
 """
@@ -111,18 +111,23 @@ def test_builder_streaming_mode_matches_jax(tmp_path, metric):
 
 
 def test_transfer_dtype_and_assign_backend_resolution():
-    """"auto" is float32 and device; the tunnel's wires and the host assign
-    are not ported, by name."""
+    """"auto" is float32 and device, as in the JAX package off the TPU;
+    every other value passes through, as it does there."""
+    from pqvector_tpu.index.build import resolve_assign_backend as j_backend
+    from pqvector_tpu.index.build import resolve_transfer_dtype as j_wire
+
+    for wire in ("auto", "float32", "bfloat16", "int8"):
+        assert resolve_transfer_dtype(IvfBuildConfig(transfer_dtype=wire)) == j_wire(
+            JConfig(transfer_dtype=wire))
+    for backend in ("auto", "device", "host"):
+        assert resolve_assign_backend(IvfBuildConfig(assign_backend=backend)) == j_backend(
+            JConfig(assign_backend=backend))
     assert resolve_transfer_dtype(IvfBuildConfig()) == "float32"
-    assert resolve_transfer_dtype(IvfBuildConfig(transfer_dtype="float32")) == "float32"
     assert resolve_assign_backend(IvfBuildConfig()) == "device"
-    assert resolve_assign_backend(IvfBuildConfig(assign_backend="device")) == "device"
-    with pytest.raises(ValidationError, match="bfloat16' is not ported"):
-        resolve_transfer_dtype(IvfBuildConfig(transfer_dtype="bfloat16"))
-    with pytest.raises(ValidationError, match="host' is not ported"):
-        resolve_assign_backend(IvfBuildConfig(assign_backend="host"))
     with pytest.raises(ValidationError, match="transfer_dtype"):
         IvfBuildConfig(transfer_dtype="float16")
+    with pytest.raises(ValidationError, match="assign_backend"):
+        IvfBuildConfig(assign_backend="gpu")
 
 
 def _data(n=4000, d=24, seed=3):
