@@ -71,7 +71,8 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    within the certificate's envelope of its plain version, K5's merge equal
    to K2's, K4's merge and K3 equal to each other and to K3's plain version
    up to near-ties, K1 against 4096 centroids equal to its plain version up
-   to near-ties).
+   to near-ties and timed beside ``mm`` + ``argmin`` over 131,072-row blocks,
+   uncounted).
 8. The front doors on the same rows, rewritten with an offset index and
    8-row pages so the page-exact reader serves candidate reads, and
    indexed in place (K1; index bytes equal phase 3's): 64 of the queries,
@@ -168,8 +169,9 @@ package. Phases, in order; any failure exits non-zero and prints no result:
 12. Slice 12, launch counts from 0: on the phase-3 file the bf16- and
    int8-wire staged builds equal, byte for byte, the f32 build of the rows
    each wire rounds on the host (``_cast_bf16``; ``_dequant_i8`` of
-   ``_encode_int8``), and K1's bf16-row form gives K1 f32's ids over the
-   widened rows (0 differ); then the reference's default build workload
+   ``_encode_int8``), and K1's bf16-row form (the screen and its re-score)
+   gives K1 f32's ids over the widened rows (0 differ); then the reference's
+   default build workload
    (BASELINE.md config 6): a seeded 1M x 1024 file (4.1 GB) built in place
    with IVF-1000, 20 iterations, seed 42, on the f32, bf16 and int8 wires
    and on the bf16 wire with ``assign_backend("host")``, each with its
@@ -178,9 +180,18 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    build's centroids bit-equal to the device build's, its ids equal K1 f32
    over the exact rows but at near ties (the host path printed: native or
    numpy margins, f32 or bf16 GEMM, AMX-BF16); K1's bf16-row form at 1M x
-   1024 x 1000 equal to K1 f32 over the widened rows (0 differ) and to its
-   plain version but at near ties, timed beside K1 f32, the plain version,
-   blocked ``mm`` + ``argmin`` and its bound; recall@100 of sorted bf16
+   1024 x 1000 (and 1M x 128 x 1024) equal to K1 f32 over the widened rows
+   (0 differ) and to its plain version but at near ties, its certified rows
+   K1 f32's, planted exact and one-ulp ties all uncertified and re-scored to
+   K1 f32's ids, the screen's observed error within its bound and, row by
+   row, within the tensor-core model's bound (also on planted rows whose
+   products span 2^24 in every k16 step), the share of rows it leaves
+   uncertified, timed beside K1 f32, the FMA form, the screen alone, the
+   plain version, blocked ``mm`` + ``argmin``, the function's bound (2nkd at
+   the bf16 tensor rate) and each form's floor; on data that is all ties
+   the probe sends the call to the FMA form (0 ids differ, timed beside the
+   FMA form and the unprobed screen); the bf16 wire's builds must take the
+   screen; recall@100 of sorted bf16
    searchers (f32 copy) on the f32- and bf16-wire indexes at k = 100,
    nprobe 16, B = 256 against the K2 truth; the four ``examples/torch_*.py``
    as subprocesses on their default 10k x 64 dataset, on the card and with
@@ -191,7 +202,8 @@ The last lines are the tiles and chunks K4, K3 and K6 scored of those a
 full walk scores, the front doors' line, slice 9's, slice 10's, slice 11's
 and slice 12's lines, the script's, phase 10's, phase 11's and phase 12's
 seconds, the kernels' JSON (with each kernel's launches in phases 9 to 12;
-K1's bf16-row form under ``bf16_``), the card's name and power limit, and
+K1's bf16-row form under ``bf16_``: its route, phase 12's screen and
+re-score launches, uncertified share, times, bound and floors), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -994,7 +1006,7 @@ def phase6(torch, pqt, _build, ds, Embeddings, dev, cp, compact_select, tm, sc, 
     out["slice3"] = phase7b(torch, ds, cp, compact_select, s, q256, truth_pair)
     out["score_tile"] = deep_score_tile(torch, tm, sc, st, s, q256)
     out["masked"] = deep_masked(torch, sc, st, s, q256)
-    out["assign"] = deep_assign(torch, ka, s)
+    out["assign"] = uncounted(_build, lambda: deep_assign(torch, ka, s))
     del s
     gc.collect()
     torch.cuda.empty_cache()
@@ -1155,17 +1167,20 @@ def phase2_small_k1_k2(torch, ka, st):
               f"K1 small n={n} d={d} k={kc}: {int((got != want).sum())} ids differ")
         check(int(got.max()) < base.shape[0], f"K1 small n={n} d={d} k={kc}: a tie did "
               "not go to the lowest index")
-        # the bf16-row form: grid values are exact in bf16, so the same ids
+        # the bf16-row forms: grid values are exact in bf16, so the same ids; the
+        # screen certifies no row (every one ties) and the re-score decides
         x16 = x.bfloat16()
-        g16, w16 = ka.assign_rows(x16, cent), ka.assign_rows_plain(x16, cent)
-        torch.cuda.synchronize()
-        check(torch.equal(g16, w16) and torch.equal(g16, got),
-              f"K1 bf16 small n={n} d={d} k={kc}: {int((g16 != w16).sum())} ids differ "
-              "from plain")
+        w16 = ka.assign_rows_plain(x16, cent)
+        for route in ("fma", "screen") if d % 8 == 0 else ("fma",):
+            g16 = ka._assign_cuda(x16, cent, route=route)
+            torch.cuda.synchronize()
+            check(torch.equal(g16, w16) and torch.equal(g16, got),
+                  f"K1 bf16 {route} small n={n} d={d} k={kc}: {int((g16 != w16).sum())} "
+                  "ids differ from plain")
         cases += 1
     log(f"phase 2a K1, score tile: {cases} cases (n 1..1001, d 3..128, 1..4096 "
-        "centroids, each centroid repeated), f32 rows and bf16 rows: ids equal to the "
-        "plain version")
+        "centroids, each centroid repeated), f32 rows and bf16 rows (the FMA form, and "
+        "the screen where d % 8 == 0): ids equal to the plain version")
     cases = mma = 0
     for n, tile, k, d, b in ((5000, 256, 128, 72, 128), (3000, 1024, 10, 96, 65),
                              (3000, 1024, 10, 100, 256), (700, 64, 10, 8, 13),
@@ -1612,9 +1627,9 @@ def assign_near_ties(torch, x, c, got, want, what):
 
 def deep_assign(torch, ka, s):
     """K1 at the 10M x 96 rung's shapes (the sorted searcher's f32 copy
-    against its 4096 centroids): held to the plain version, timed. The
-    ``mm`` + ``argmin`` chain would need a 164 GB score matrix here, so the
-    blocked plain version is the only other form."""
+    against its 4096 centroids): held to the plain version, timed beside it
+    and beside ``mm`` + ``argmin`` over blocks of 131,072 rows (one call over
+    all rows would need a 164 GB score matrix)."""
     x, c = s._ref(), s.centroids
     got, want = ka.assign_rows(x, c), ka.assign_rows_plain(x, c)
     torch.cuda.synchronize()
@@ -1623,12 +1638,19 @@ def deep_assign(torch, ka, s):
     res = {"differ": differ, "max_abs_err": gap,
            "ms": time_ms(lambda: ka.assign_rows(x, c), reps=3),
            "plain_ms": time_ms(lambda: ka.assign_rows_plain(x, c), reps=1)}
+    cn = (c * c).sum(1)
+
+    def library(block=131072):
+        for lo in range(0, x.shape[0], block):
+            torch.argmin(cn[None, :] - 2.0 * torch.mm(x[lo : lo + block], c.T), dim=1)
+
+    res["library_ms"] = time_ms(library, reps=3)
     res.update(bound_of(nbytes_of(x, c) + x.shape[0] * 4,
                         2.0 * x.shape[0] * c.shape[0] * x.shape[1], "fp32"))
     log(f"phase 7b K1 {x.shape[0]} x {x.shape[1]}, {c.shape[0]} centroids: {differ} "
         f"near-tie rows differ from plain; kernel {res['ms']:.3f} ms, plain (blocks of "
-        f"8192 rows) {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.3f} ms "
-        f"({res['bound_by']})")
+        f"8192 rows) {res['plain_ms']:.3f} ms, blocked mm + argmin {res['library_ms']:.3f} "
+        f"ms, bound {res['bound_ms']:.3f} ms ({res['bound_by']})")
     return res
 
 
@@ -3262,43 +3284,201 @@ def phase12_rounding(torch, pqt, _build, tb, ka, path, emb_np, dev, out):
             f"build of the host-rounded rows byte for byte, SHA-256 "
             + hashlib.sha256(got.to_bytes()).hexdigest()[:16])
         if wire == "bfloat16":
-            uncounted(_build, lambda: phase12_k1_narrow(torch, ka, emb_np, got.centroids,
-                                                        dev, out))
+            uncounted(_build, lambda: phase12_k1_narrow(torch, ka, _build, emb_np,
+                                                        got.centroids, dev, out))
     torch.cuda.empty_cache()
 
 
-def phase12_k1_narrow(torch, ka, emb_np, centroids, dev, out):
-    """K1's bf16-row form at 1M x 128 x 1024: ids equal to K1 f32 over the
-    widened rows bit for bit, timed beside K1 f32 (widening included)."""
-    x16 = torch.from_numpy(emb_np).to(dev).bfloat16()
-    c = torch.from_numpy(centroids).to(dev)
-    ids16, ids32 = ka.assign_rows(x16, c), ka.assign_rows(x16.float(), c)
+def screen_held(torch, ka, x16, c, want, what):
+    """K1's screen alone on ``x16`` against ``c``: every certified row's id
+    must be K1 f32's (``want``); over the first 65,536 rows, the largest
+    |screen value - float64 value| of the picked centroid over |x| max |c|,
+    beside alpha / max |c|, the bound the certificate allows the screen's
+    side (each row held to alpha |x| + beta). -> dict."""
+    cn = (c * c).sum(1).contiguous()
+    ids, flags, vals = ka.screen(x16, c, cn, values=True)
+    cert = flags.bool()
+    wrong = int((ids[cert] != want[cert]).sum())
+    check(wrong == 0, f"{what}: {wrong} certified rows differ from K1 f32")
+    m = min(x16.shape[0], 65536)
+    x64, c64 = x16[:m].double(), c.double()
+    b = ids[:m].long()
+    exact = cn.double()[b] - 2.0 * (x64 * c64[b]).sum(1)
+    xn, cmax = x64.norm(dim=1), float(c64.norm(dim=1).max())
+    err = (vals[:m].double() - exact).abs()
+    rel = float((err / (xn * cmax)).max())
+    _, alpha, beta = ka.screen_coefficients(c, cn, ka.split_bf16x3(c))
+    bound = alpha / cmax
+    check(bool((err <= alpha * xn + beta).all()),
+          f"{what}: the screen's error {rel:.3g} over its bound {bound:.3g}")
+    return {"uncertified_share": 1.0 - float(cert.float().mean()),
+            "screen_max_rel_err": rel, "screen_rel_bound": bound,
+            "model_max_ratio": model_held(torch, ka, x16[:m], c, cn, ids[:m], vals[:m], what)}
+
+
+def model_held(torch, ka, x16, c, cn, ids, vals, what):
+    """Every row's screen value against the tensor-core model's bound from
+    that row's own products (``screen_value_bound``), 8,192 rows at a time.
+    -> the largest error over its bound, which must not exceed 1."""
+    pieces = ka.split_bf16x3(c)
+    worst = 0.0
+    for lo in range(0, x16.shape[0], 8192):
+        exact, bound = ka.screen_value_bound(x16[lo : lo + 8192], pieces, cn,
+                                             ids[lo : lo + 8192])
+        ratio = (vals[lo : lo + 8192].double() - exact).abs() / bound
+        worst = max(worst, float(ratio.max()))
+    check(worst <= 1.0, f"{what}: a screen value {worst:.3g} times the model's bound")
+    return worst
+
+
+def screen_edge(torch, ka, x16, c, what):
+    """The screen's tensor-core model at its edge, at the main path's
+    (d, k): 8,192 seeded rows whose 16 products in every k16 step span 2^24
+    (elements +-m 2^-e, m in [1, 2), e from 0 to 24 across the step) against
+    seeded normal centroids of ``c``'s shape. Every screen value within the
+    model's bound from its row's products; certified ids and the route's ids
+    K1 f32's over the widened rows. -> dict."""
+    n, d, k, dev = 8192, x16.shape[1], c.shape[0], x16.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    scale = torch.exp2(-torch.round(torch.arange(16, device=dev) * 24.0 / 15.0)).repeat(d // 16)
+    sign = torch.randint(0, 2, (n, d), device=dev, generator=gen) * 2.0 - 1.0
+    xe = (sign * (1.0 + torch.rand(n, d, device=dev, generator=gen)) * scale).bfloat16()
+    ce = torch.randn(k, d, device=dev, generator=gen)
+    cn = (ce * ce).sum(1).contiguous()
+    ids, flags, vals = ka.screen(xe, ce, cn, values=True)
+    want = ka.assign_rows(xe.float(), ce)
+    cert = flags.bool()
+    differ = int((ka.assign_rows(xe, ce) != want).sum())
+    wrong = int((ids[cert] != want[cert]).sum())
+    check(differ == 0 and wrong == 0, f"{what}: edge rows: {differ} ids and {wrong} "
+          "certified ids differ from K1 f32")
+    return {"rows": n, "uncertified_share": 1.0 - float(cert.float().mean()),
+            "model_max_ratio": model_held(torch, ka, xe, ce, cn, ids, vals, f"{what} edge")}
+
+
+def planted_ties(torch, ka, x16, c, want, what):
+    """Planted near ties at K1 f32's own shapes: centroid 0 appended again
+    (every row nearest to it ties exactly between two ids) and centroid 1
+    appended with its last coordinate one ulp away (the two values of a row
+    nearest to it differ by an ulp or so). The rows nearest to either must
+    all come out uncertified and, through the re-score, K1 f32's ids over the
+    widened rows (the exact ties the lower id). -> dict."""
+    nudged = c[1:2].clone()
+    nudged[0, -1] = torch.nextafter(nudged[0, -1],
+                                    torch.tensor(np.inf, dtype=c.dtype, device=c.device))
+    cp = torch.cat([c, c[0:1], nudged])
+    rows = torch.nonzero((want == 0) | (want == 1)).flatten()[:8192]
+    xp = x16.index_select(0, rows)
+    cnp = (cp * cp).sum(1).contiguous()
+    flags = ka.screen(xp, cp, cnp)[1]
+    got, ref = ka.assign_rows(xp, cp), ka.assign_rows(xp.float(), cp)
     torch.cuda.synchronize()
-    differ = int((ids16 != ids32).sum())
-    check(differ == 0, f"phase 12 K1 bf16 1M x {DIM}: {differ} ids differ from K1 f32")
-    out["k1_bf16_1m128"] = {"differ": differ,
-                            "ms": time_ms(lambda: ka.assign_rows(x16, c)),
-                            "f32_ms": time_ms(lambda: ka.assign_rows(x16.float(), c))}
-    log(f"phase 12 K1 bf16 rows 1M x {DIM} x {N_CLUSTERS}: ids equal to K1 f32 over "
-        f"the widened rows (0 differ); {out['k1_bf16_1m128']['ms']:.3f} ms, K1 f32 "
-        f"(widening included) {out['k1_bf16_1m128']['f32_ms']:.3f} ms")
+    differ = int((got != ref).sum())
+    certified = int(flags.sum())
+    check(rows.numel() > 0 and differ == 0 and certified == 0,
+          f"{what}: {differ} of {rows.numel()} planted near-tie rows differ from K1 f32, "
+          f"{certified} certified")
+    check(bool((got[want[rows] == 0] == 0).all()), f"{what}: a planted tie left id 0")
+    return {"rows": int(rows.numel()), "uncertified": int(rows.numel()) - certified,
+            "differ_from_f32": differ}
 
 
-def phase12_k1(torch, ka, xw, centroids, card):
-    """K1's bf16-row form at 1M x 1024 x 1000 (the bf16 wire's resident
-    rows against its build's centroids): ids equal K1 f32 over the widened
-    rows bit for bit, the plain version's equal but at near ties; timed
-    beside K1 f32, the plain version and the blocked ``mm`` + ``argmin``."""
-    x16 = xw.bfloat16()
-    c = torch.from_numpy(centroids).to(xw.device)
-    got, want = ka.assign_rows(x16, c), ka.assign_rows(x16.float(), c)
+def k1_bf16_held(torch, ka, _build, x16, c, what):
+    """K1's bf16-row form on ``x16`` against ``c`` through the path's route:
+    ids equal K1 f32's over the widened rows, the screen's share, and this
+    hold's own launches (``hold_launches``, not the path's). -> (dict, K1
+    f32's ids)."""
+    ka.reset_screen_counts()
+    before = dict(_build.LAUNCHES)
+    got = ka.assign_rows(x16, c)
+    launches = {key: _build.LAUNCHES[key] - before[key]
+                for key in ("K1_bf16", "K1_bf16_screen", "K1_bf16_rescore")}
+    want = ka.assign_rows(x16.float(), c)
     torch.cuda.synchronize()
     differ = int((got != want).sum())
-    check(differ == 0, f"phase 12 K1 bf16 1M x {WIDE_DIM}: {differ} ids differ from K1 f32")
+    check(differ == 0, f"{what}: {differ} ids differ from K1 f32")
+    route = ka.bf16_route(x16.shape[1], c.shape[0], x16.data_ptr())
+    check((launches["K1_bf16_screen"] > 0) == (route == "screen"),
+          f"{what}: route {route}, launches {launches}")
+    return {"differ": differ, "route": route, "hold_launches": launches,
+            "uncertified": ka.SCREENED["uncertified"], "rows": ka.SCREENED["rows"],
+            "fma_after_probe": ka.SCREENED["fma_after_probe"]}, want
+
+
+def all_ties(torch, ka, x16, c, what):
+    """The route on data that is all ties: ``c`` with every even centroid
+    copied over the odd one after it, so that every row's two best values
+    are equal and no row can be certified. Ids equal K1 f32's over the
+    widened rows; the probe must send the call to the FMA form. Timed
+    through the route, the FMA form, and the screen without the probe
+    (every row screened, then every row re-scored). -> dict."""
+    ct = c.clone()
+    ct[1::2] = c[0 : c.shape[0] // 2 * 2 : 2]
+    ka.reset_screen_counts()
+    got = ka.assign_rows(x16, ct)
+    sent = ka.SCREENED["fma_after_probe"]
+    want = ka.assign_rows(x16.float(), ct)
+    unprobed = ka._assign_cuda(x16, ct, route="screen", probe=0)
+    torch.cuda.synchronize()
+    differ = int((got != want).sum()) + int((unprobed != want).sum())
+    check(differ == 0 and sent == 1, f"{what}: all ties: {differ} ids differ from K1 f32, "
+          f"{sent} calls sent to the FMA form by the probe")
+    del got, want, unprobed
+    return {"ms": time_ms(lambda: ka.assign_rows(x16, ct), reps=5),
+            "fma_ms": time_ms(lambda: ka._assign_cuda(x16, ct, route="fma"), reps=5),
+            "screen_unprobed_ms": time_ms(
+                lambda: ka._assign_cuda(x16, ct, route="screen", probe=0), reps=5)}
+
+
+def phase12_k1_narrow(torch, ka, _build, emb_np, centroids, dev, out):
+    """K1's bf16-row form at 1M x 128 x 1024: ids equal to K1 f32 over the
+    widened rows bit for bit, planted near ties uncertified, timed beside K1
+    f32 (widening included) and each route."""
+    x16 = torch.from_numpy(emb_np).to(dev).bfloat16()
+    c = torch.from_numpy(centroids).to(dev)
+    what = f"phase 12 K1 bf16 1M x {DIM}"
+    res, want = k1_bf16_held(torch, ka, _build, x16, c, what)
+    res.update(screen_held(torch, ka, x16, c, want, what))
+    res["planted"] = planted_ties(torch, ka, x16, c, want, what)
+    res["edge"] = screen_edge(torch, ka, x16, c, what)
+    cn = (c * c).sum(1).contiguous()
+    res.update(ms=time_ms(lambda: ka.assign_rows(x16, c)),
+               f32_ms=time_ms(lambda: ka.assign_rows(x16.float(), c)),
+               fma_ms=time_ms(lambda: ka._assign_cuda(x16, c, route="fma")),
+               screen_ms=time_ms(lambda: ka.screen(x16, c, cn)))
+    out["k1_bf16_1m128"] = res
+    log(f"phase 12 K1 bf16 rows 1M x {DIM} x {N_CLUSTERS} ({res['route']}): ids equal to "
+        f"K1 f32 over the widened rows (0 differ), {res['uncertified']} of {res['rows']} rows "
+        f"uncertified, the hold's launches {res['hold_launches']}; planted near ties "
+        f"{res['planted']}; screen error {res['screen_max_rel_err']:.3g} of |x| max|c| (bound "
+        f"{res['screen_rel_bound']:.3g}), at most {res['model_max_ratio']:.3g} of the "
+        f"model's bound a row; rows at the model's edge {res['edge']}; "
+        f"{res['ms']:.3f} ms, K1 f32 (widening included) "
+        f"{res['f32_ms']:.3f}, FMA form {res['fma_ms']:.3f}, screen alone "
+        f"{res['screen_ms']:.3f} ms")
+
+
+def phase12_k1(torch, ka, _build, xw, centroids, card):
+    """K1's bf16-row form at 1M x 1024 x 1000 (the bf16 wire's resident
+    rows against its build's centroids): ids equal K1 f32 over the widened
+    rows bit for bit, the plain version's equal but at near ties, planted
+    near ties uncertified and re-scored; the screen's uncertified share and
+    error beside its bound; timed beside K1 f32, the FMA form, the screen
+    alone, the plain version and the blocked ``mm`` + ``argmin``."""
+    x16 = xw.bfloat16()
+    c = torch.from_numpy(centroids).to(xw.device)
+    what = f"phase 12 K1 bf16 1M x {WIDE_DIM}"
+    res, want = k1_bf16_held(torch, ka, _build, x16, c, what)
     plain = ka.assign_rows_plain(x16, c)
-    tie_rows, gap = assign_near_ties(torch, x16.float(), c, got, plain, "phase 12 K1 bf16")
-    del got, want, plain
-    cn = (c * c).sum(1)
+    tie_rows, gap = assign_near_ties(torch, x16.float(), c, want, plain, "phase 12 K1 bf16")
+    res.update(screen_held(torch, ka, x16, c, want, what))
+    res["planted"] = planted_ties(torch, ka, x16, c, want, what)
+    res["edge"] = screen_edge(torch, ka, x16, c, what)
+    del want, plain
+    res["all_ties"] = all_ties(torch, ka, x16, c, what)
+    hold = res.pop("hold_launches")
+    cn = (c * c).sum(1).contiguous()
     block = 131072
 
     def library():
@@ -3307,17 +3487,36 @@ def phase12_k1(torch, ka, xw, centroids, card):
                          dim=1)
 
     n, d, k = x16.shape[0], x16.shape[1], c.shape[0]
-    res = {"differ_from_f32": differ, "plain_near_tie_rows": tie_rows, "max_abs_err": gap,
-           "ms": time_ms(lambda: ka.assign_rows(x16, c)),
-           "f32_ms": time_ms(lambda: ka.assign_rows(xw, c)),
-           "plain_ms": time_ms(lambda: ka.assign_rows_plain(x16, c), reps=3),
-           "library_ms": time_ms(library, reps=3)}
-    res.update(bound_of(nbytes_of(x16, c) + n * 4, 2.0 * n * k * d, "fp32"))
-    log(f"phase 12 K1 bf16 rows {n} x {d} x {k}: ids equal to K1 f32 over the widened "
-        f"rows (0 differ), {tie_rows} near-tie rows differ from plain; kernel "
-        f"{res['ms']:.3f} ms (K1 f32 on the f32 rows {res['f32_ms']:.3f}), plain "
-        f"{res['plain_ms']:.3f}, blocked mm + argmin {res['library_ms']:.3f}, bound "
-        f"{res['bound_ms']:.3f} ms ({res['bound_by']}) on {card}")
+    res.update({"differ_from_f32": res.pop("differ"), "plain_near_tie_rows": tie_rows,
+                "max_abs_err": gap,
+                "ms": time_ms(lambda: ka.assign_rows(x16, c)),
+                "f32_ms": time_ms(lambda: ka.assign_rows(xw, c)),
+                "fma_ms": time_ms(lambda: ka._assign_cuda(x16, c, route="fma")),
+                "screen_ms": time_ms(lambda: ka.screen(x16, c, cn)),
+                "plain_ms": time_ms(lambda: ka.assign_rows_plain(x16, c), reps=3),
+                "library_ms": time_ms(library, reps=3)})
+    # The function's bound: its bytes, and 2nkd operations at the card's
+    # fastest rate for these products (bf16 tensor cores). Each form's own
+    # floor beside it: the FMA form's 2nkd fp32 FMAs, the screen's 3 x 2nkd
+    # tensor operations on the three pieces.
+    res.update(bound_of(nbytes_of(x16, c) + n * 4, 2.0 * n * k * d, "bf16"))
+    res["fma_floor_ms"] = bound_of(nbytes_of(x16, c) + n * 4, 2.0 * n * k * d,
+                                   "fp32")["bound_ms"]
+    res["screen_floor_ms"] = bound_of(nbytes_of(x16) + 3 * k * d * 2 + n * 5,
+                                      3 * 2.0 * n * k * d, "bf16")["bound_ms"]
+    log(f"phase 12 K1 bf16 rows {n} x {d} x {k} ({res['route']}): ids equal to K1 f32 over "
+        f"the widened rows (0 differ), {tie_rows} near-tie rows differ from plain; "
+        f"{res['uncertified']} of {n} rows uncertified ({res['uncertified_share']:.5f} in the "
+        f"screen alone), the hold's launches {hold}; planted near ties {res['planted']}; "
+        f"screen error {res['screen_max_rel_err']:.3g} of |x| max|c| (bound "
+        f"{res['screen_rel_bound']:.3g}), at most {res['model_max_ratio']:.3g} of the "
+        f"model's bound a row; rows at the model's edge {res['edge']}; {res['ms']:.3f} ms "
+        f"(K1 f32 on the f32 rows {res['f32_ms']:.3f}, FMA form {res['fma_ms']:.3f}, screen "
+        f"alone {res['screen_ms']:.3f}), plain {res['plain_ms']:.3f}, blocked mm + argmin "
+        f"{res['library_ms']:.3f}, bound {res['bound_ms']:.3f} ms ({res['bound_by']}, bf16 "
+        f"tensor rate), the FMA form's floor {res['fma_floor_ms']:.3f} ms (fp32), the "
+        f"screen's {res['screen_floor_ms']:.3f} ms (3 x 2nkd); all ties (every centroid "
+        f"twice) {res['all_ties']} on {card}")
     return res
 
 
@@ -3473,7 +3672,7 @@ def phase12(torch, pqt, _build, ds, ka, path, emb_np, data_dir, card, device="cu
         f"over the exact rows, all near ties (max gap {gap:.3g}); {rounding} rows differ "
         f"from the bf16 device build (it assigns the rounded rows)")
     del exact_ids, host_ids, c
-    k1 = uncounted(_build, lambda: phase12_k1(torch, ka, xw, devb.centroids, card))
+    k1 = uncounted(_build, lambda: phase12_k1(torch, ka, _build, xw, devb.centroids, card))
     del xw
     torch.cuda.empty_cache()
 
@@ -3508,7 +3707,11 @@ def phase12(torch, pqt, _build, ds, ka, path, emb_np, data_dir, card, device="cu
     check(out["launches"]["K1_bf16"] == wire_builds,
           f"phase 12 K1_bf16 launches {out['launches']['K1_bf16']}, not the bf16 wire "
           f"builds' {wire_builds}")
+    check(out["launches"].get("K1_bf16_screen", 0) > 0,
+          "phase 12: the bf16 wire's builds did not take K1's screen")
     k1["phase12_launches"] = out["launches"]["K1_bf16"]
+    for key in ("K1_bf16_screen", "K1_bf16_rescore"):
+        k1[f"phase12_{key}_launches"] = out["launches"].get(key, 0)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 12 launches {out['launches']}; {out['seconds']:.1f} s on {card}")
     return out, k1

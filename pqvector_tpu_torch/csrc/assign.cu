@@ -16,25 +16,92 @@
 // ascending order and takes a new one only on a strict <, so ties keep the
 // lowest centroid index, as jnp.argmin does. A block writes its 128 ids
 // and nothing else: no score reaches shared or device memory, and no
-// second launch merges anything. x is staged once per chunk (k / 128
-// times, from L2 after the first); the centroids (512 KB at 1024 x 128)
-// stay L2-resident. Centroids past k are masked by index; rows past n are
-// zero-filled and never written.
+// second launch merges anything. x is staged once per chunk, k / 128
+// times: from L2 after the first where the resident blocks' rows fit it
+// (264 blocks x 128 rows hold 17 MB of f32 x at d = 128), from device
+// memory again at d = 1024 (67 MB of bf16 x). The centroids (512 KB at
+// 1024 x 128) stay L2-resident. Centroids past k are masked by index; rows
+// past n are zero-filled and never written.
 //
 // Scores are IEEE fp32: every sum adds its products in ascending dimension
 // order with __fmaf_rn from zero, then __fmaf_rn(-2, sum, |c|^2), bit for
 // bit what a sequential fmaf loop gives. Nothing rounds through TF32.
 //
-// The bf16-row form (pqv_assign_bf16) reads x as bf16, the resident matrix
-// of a build under the bf16 wire, and widens each element to f32 as it is
-// staged (WideningFmaTile); the centroids stay f32. Widening is exact, so its
-// ids are those of the f32 form over x.float(), bit for bit, with no f32
-// copy of x.
-//
 // What bounds it on the H100: the fp32 FMAs of the CUDA cores, 2 n k d
 // operations against 67 TFLOP/s. At 16 words loaded per 64 FMAs the
 // shared-memory pipe is as busy as the FMA pipe, so the loop runs at about
 // half that peak, the rate of the library's own fp32 product on this card.
+//
+// K1 on bf16 rows (the resident matrix of a build under the bf16 wire) must
+// give the ids of the f32 form over x.float(), bit for bit. Two kernels:
+//
+// The FMA form (pqv_assign_bf16, Bf16RowFmaTile): the f32 form's patch and
+//   sums over the rows widened into its stages (exact), so its ids are the
+//   f32 form's by construction. Rows are copied raw by 16-byte cp.async (d %
+//   8 == 0) and widened once they land, else element by element; the
+//   running argmin waits in shared memory between chunks (SharedArgminFold),
+//   which keeps the walk within 128 registers.
+//
+// The screen (pqv_assign_bf16_screen, ScreenTile + Argmin2Fold): the wrapper
+//   splits each f32 centroid into three bf16 pieces, hi = bf16(c), mid =
+//   bf16(c - hi), lo = bf16(c - hi - mid); hi + mid + lo == c exactly for
+//   |c| >= 2^-110 (3 x 8 significant bits cover 24). The tensor cores sum
+//   x.hi + x.mid + x.lo: every product of two bf16 values is exact in fp32;
+//   only the sums round. The epilogue keeps per row the best approximate
+//   value v1 (with its id) and the second-best v2, and writes the id and a
+//   flag: certified when v2 - v1 > 2 E(x). Then K1's f32 form gives the same
+//   id. The proof, with u = 2^-24, u' = 2^-23, g(m, u) = m u / (1 - m u), t(c)
+//   = x.c exactly and V(c) = |c|^2 - 2 t(c) (|c|^2 the f32 c_norm both forms
+//   read):
+//   - f32 form: its sum s_f takes d roundings, the j-th of the partial sum
+//     s_j, each off by at most u |s_j|; so |s_f - t| <= u / (1 - d u) sum_j
+//     |t_j| (t_j the exact partial sums), and sum_j |t_j| <= sum_i (d - i)
+//     |x_i c_i| <= X_w C (Cauchy-Schwarz), where X_w >= |((d - i) x_i)_i|_2
+//     (i from 0) and C >= max_c |c|_2. Its value v_f = RN(|c|^2 - 2 s_f)
+//     then has |v_f - V| <= 2 g X_w C + u (CN + 2 X C + 2 g X_w C), g = u /
+//     (1 - d u), X >= |x|_2, CN >= max |c|^2.
+//   - screen: a stage adds its 3 x 64 exact products a (row, centroid) from
+//     zero in 12 steps of 16 on the tensor cores, whose rounding is not IEEE:
+//     lo's 4 steps, then mid's, then hi's. Whatever order and grouping a
+//     step takes inside, count it as 17 roundings (16 additions and the
+//     result's) that the running sum passes through, each off by at most u'
+//     of the magnitude it rounds, truncation included (NVIDIA's tensor cores
+//     truncate: Fasi, Higham, Mikaitis and Pranesh, "Numerical behavior of
+//     NVIDIA tensor cores", PeerJ Comput. Sci. 7:e330, 2021, measured on V100,
+//     T4 and A100). This model is assumed, not proven, for sm_90 wgmma on bf16
+//     with fp32 accumulation; the proof holds as far as it does. What supports
+//     it on the card: chip_smoke.py holds the screen's value of every row,
+//     row by row, to the model's own bound from that row's products
+//     (kernels/assign.py: screen_value_bound), on rows whose products span
+//     2^24 within each k16 step (screen_edge) and on the phase-12 rows
+//     (screen_held, also against alpha X + beta). A product then
+//     passes through at most 68 roundings if it is hi's, 136 if mid's, 204
+//     if lo's, so a stage's sum is off by at most
+//     g(68, u') S_hi + g(136, u') S_mid + g(204, u') S_lo, S_p the sum of
+//     |x_i p_i| over the stage, and S_p <= X |p|_2 over all stages. The
+//     stages' sums are added in IEEE fp32 (g_n = g(n_st, u), n_st = ceil(d /
+//     64)). So |s_s - t'| <= e_s X with e_s = (g(68, u') H + g(136, u') M +
+//     g(204, u') L)(1 + g_n) + g_n (1 + g(204, u')) P, where t' = sum_i x_i
+//     (hi_i + mid_i + lo_i), H, M, L >= the largest norm of each piece and P
+//     >= max_c || |hi| + |mid| + |lo| ||_2; and |t' - t| <= X R, R >= max_c
+//     |c - hi - mid - lo|_2 (0 unless a piece underflowed). So |v_s - V| <= 2
+//     e_s X + 2 X R + u (CN + 2 X C + 2 e_s X + 2 X R).
+//   - Underflow adds at most 2^-126 a product or sum of the tensor cores
+//     (flushed to zero) and 2^-150 an fmaf: eta <= 4 (d + 1 + 386 n_st)
+//     2^-126 in all, doubled by the -2.
+//   So E(x) = alpha_w X_w + alpha X + beta bounds |v_f - v_s| for every
+//   centroid, with alpha_w = 2 g C (1 + u), alpha = 4 u C + 2 (1 + u)(e_s +
+//   R) and beta = 2 u CN + eta (kernels/assign.py: screen_coefficients). If
+//   v2 - v1 > 2 E, every other centroid c has v_f(c) >= v_s(c) - E >= v2 - E
+//   > v1 + E >= v_f(b): K1's f32 form picks b, strictly, with no tie. X and
+//   X_w are summed in double from the bf16 values (exact squares) and rounded
+//   up by 2^-30, E is taken 2^-20 high, and the test runs in double, so its
+//   own roundings cannot turn it. A tie (v1 == v2), a NaN or an infinity
+//   anywhere fails it. The wrapper gathers the rows that are not certified,
+//   runs the FMA form over them and scatters their ids.
+//   What bounds the screen: 3 x 2 n k d tensor operations against 989
+//   TFLOP/s, and the stages' copies from L2 (x once, the pieces three
+//   times a chunk); one block an SM (three 64 KB stages).
 #include <math.h>
 
 #include "score_tile.cuh"
@@ -128,7 +195,198 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 using AssignTile = FmaTile<float, 8>;
-using AssignTileBf16 = WideningFmaTile<__nv_bfloat16, 8>;
+template <bool kVec>
+using AssignTileBf16 = Bf16RowFmaTile<kVec, kAssignStages>;
+
+// ArgminFold with its running (score, centroid) a row kept in shared memory
+// between chunks ([kPerThread][kThreads] each), so that the walk holds 16
+// registers fewer: the bf16-row FMA form's stage work then fits the 128
+// registers of two blocks an SM without spilling.
+template <class Tile>
+struct SharedArgminFold : ArgminFold<Tile> {
+  using Base = ArgminFold<Tile>;
+  float* sbest;
+  int* sbest_i;
+
+  __device__ __forceinline__ void fetch_state() {
+#pragma unroll
+    for (int jq = 0; jq < Tile::kPerThread; ++jq) {
+      Base::best[jq] = sbest[jq * kThreads + threadIdx.x];
+      Base::best_i[jq] = sbest_i[jq * kThreads + threadIdx.x];
+    }
+  }
+  __device__ __forceinline__ void chunk(const Tile& t, int r0, int slot) {
+    fetch_state();
+    Base::chunk(t, r0, slot);
+#pragma unroll
+    for (int jq = 0; jq < Tile::kPerThread; ++jq) {
+      sbest[jq * kThreads + threadIdx.x] = Base::best[jq];
+      sbest_i[jq * kThreads + threadIdx.x] = Base::best_i[jq];
+    }
+  }
+  __device__ __forceinline__ void write(const Tile& t, int q0, int n, int* out) {
+    fetch_state();
+    Base::write(t, q0, n, out);
+  }
+};
+
+template <bool kVec>
+constexpr int assign_bf16_smem() {
+  return assign_smem<AssignTileBf16<kVec>>() + 2 * 8 * kThreads * 4;
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+    assign_bf16_kernel(WideningOperands<__nv_bfloat16> op, const float* __restrict__ c_norm,
+                       int k, int* __restrict__ out) {
+  using Tile = AssignTileBf16<kVec>;
+  extern __shared__ char dyn[];
+  char* ring = align_ring(dyn);
+  Tile t;
+  t.ring = ring;
+  SharedArgminFold<Tile> epi;
+  epi.c_norm = c_norm;
+  epi.norms = reinterpret_cast<float*>(ring + kAssignStages * Tile::kStageBytes);
+  epi.sbest = epi.norms + 2 * kTR;
+  epi.sbest_i = reinterpret_cast<int*>(epi.sbest + Tile::kPerThread * kThreads);
+  epi.k = k;
+#pragma unroll
+  for (int jq = 0; jq < Tile::kPerThread; ++jq) {  // a thread's own slots: no barrier
+    epi.sbest[jq * kThreads + threadIdx.x] = INFINITY;
+    epi.sbest_i[jq * kThreads + threadIdx.x] = 0;
+  }
+  const int q0 = blockIdx.x * Tile::kQueries;
+  walk_rows<kAssignStages>(t, op, q0, 0, k, ring, epi);
+  epi.write(t, q0, op.B, out);
+}
+
+template <bool kVec>
+int launch_assign_bf16(WideningOperands<__nv_bfloat16> op, const float* c_norm, int k,
+                       int* out, void* stream) {
+  auto kernel = assign_bf16_kernel<kVec>;
+  constexpr int smem = assign_bf16_smem<kVec>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<ceil_div(op.B, 128), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      op, c_norm, k, out);
+  return (int)cudaGetLastError();
+}
+
+// The screen's epilogue: per owned row, the best value with its id and the
+// second-best value over every chunk (a tie makes them equal); at the end the
+// lanes that share a row are joined, and the row's id is written with its
+// certificate (assign.cu's header).
+template <class Tile>
+struct Argmin2Fold : ArgminFold<Tile> {
+  using ArgminFold<Tile>::best;
+  using ArgminFold<Tile>::best_i;
+  using ArgminFold<Tile>::norms;
+  using ArgminFold<Tile>::k;
+  float second[Tile::kPerThread];
+
+  __device__ __forceinline__ void chunk(const Tile& t, int r0, int slot) {
+    const float* cn = norms + slot * kTR;
+#pragma unroll
+    for (int g = 0; g < Tile::kGroups; ++g) {
+#pragma unroll
+      for (int l = 0; l < Tile::kRun; ++l) {
+        const int r = t.row_base(g) + l;
+        const int ci = r0 + r;
+        const float s = cn[r];
+        if (ci < k) {
+#pragma unroll
+          for (int jq = 0; jq < Tile::kPerThread; ++jq) {
+            const float v = __fmaf_rn(-2.f, t.value(g, l, jq), s);
+            if (v < best[jq]) {
+              second[jq] = best[jq];
+              best[jq] = v;
+              best_i[jq] = ci;
+            } else if (v < second[jq]) {
+              second[jq] = v;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void write(const Tile& t, const SplitOperands& op, int q0,
+                                        double alpha_w, double alpha, double beta,
+                                        int* out, uint8_t* flags, float* value) {
+#pragma unroll
+    for (int jq = 0; jq < Tile::kPerThread; ++jq) {
+      float b = best[jq], s2 = second[jq];
+      int bi = best_i[jq];
+#pragma unroll
+      for (int x = 0; x < Tile::kXor; ++x) {
+        const float ob = __shfl_xor_sync(kFull, b, 1 << x);
+        const int oi = __shfl_xor_sync(kFull, bi, 1 << x);
+        const float os = __shfl_xor_sync(kFull, s2, 1 << x);
+        const bool take = (ob < b) | ((ob == b) & (oi < bi));
+        s2 = fminf(fminf(s2, os), take ? b : ob);
+        b = take ? ob : b;
+        bi = take ? oi : bi;
+      }
+      // |x|^2 and sum_i ((d - i) x_i)^2 of the row in double (exact squares),
+      // a quarter of the row in each of its lanes.
+      const int row = q0 + t.query(jq);
+      double ss = 0.0, sw = 0.0;
+      if (row < op.B) {
+        const uint4* p = reinterpret_cast<const uint4*>(op.q + (size_t)row * op.d);
+        for (int i = t.row_lane(); i < op.d / 8; i += 1 << Tile::kXor) {
+          const uint4 v = p[i];
+          const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const double lo = __uint_as_float(w[e] << 16);
+            const double hi = __uint_as_float(w[e] & 0xffff0000u);
+            const double wlo = (double)(op.d - 8 * i - 2 * e) * lo;
+            const double whi = (double)(op.d - 8 * i - 2 * e - 1) * hi;
+            ss = fma(lo, lo, fma(hi, hi, ss));
+            sw = fma(wlo, wlo, fma(whi, whi, sw));
+          }
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < Tile::kXor; ++x) {
+        ss += __shfl_xor_sync(kFull, ss, 1 << x);
+        sw += __shfl_xor_sync(kFull, sw, 1 << x);
+      }
+      const double xn = sqrt(ss) * (1.0 + 0x1p-30), xw = sqrt(sw) * (1.0 + 0x1p-30);
+      const double e = (alpha_w * xw + alpha * xn + beta) * (1.0 + 0x1p-20);
+      const bool certified = (double)s2 - (double)b > 2.0 * e;
+      if (t.row_lane() == 0 && row < op.B) {
+        out[row] = bi;
+        flags[row] = certified;
+        if (value) value[row] = b;
+      }
+    }
+  }
+};
+
+// One block an SM: three 64 KB stages, and the registers of two sums.
+__global__ void __launch_bounds__(kThreads, 1)
+    screen_kernel(SplitOperands op, const float* __restrict__ c_norm, double alpha_w,
+                  double alpha, double beta, int* __restrict__ out,
+                  uint8_t* __restrict__ flags, float* __restrict__ value) {
+  extern __shared__ char dyn[];
+  char* ring = align_ring(dyn);
+  ScreenTile t;
+  Argmin2Fold<ScreenTile> epi;
+  epi.c_norm = c_norm;
+  epi.norms = reinterpret_cast<float*>(ring + kAssignStages * ScreenTile::kStageBytes);
+  epi.k = op.k;
+#pragma unroll
+  for (int jq = 0; jq < ScreenTile::kPerThread; ++jq) {
+    epi.best[jq] = INFINITY;
+    epi.second[jq] = INFINITY;
+    epi.best_i[jq] = 0;
+  }
+  const int q0 = blockIdx.x * ScreenTile::kQueries;
+  walk_rows<kAssignStages>(t, op, q0, 0, op.k, ring, epi);
+  epi.write(t, op, q0, alpha_w, alpha, beta, out, flags, value);
+}
 
 template <class Tile, class Operands>
 int launch_assign(Operands op, const float* c_norm, int k, int* out, void* stream) {
@@ -153,17 +411,50 @@ extern "C" int pqv_assign(const float* x, const float* c, const float* c_norm,
   return launch_assign<AssignTile>(TileOperands<float>{x, c, n, d}, c_norm, k, out, stream);
 }
 
-// K1's bf16-row form: x [n, d] bf16 (uint16 bits), c [k, d] f32, c_norm [k]
-// f32 -> out [n] int32; the ids of pqv_assign over the rows widened to f32.
+// K1's bf16-row form on the CUDA cores: x [n, d] bf16 (uint16 bits), c [k, d]
+// f32, c_norm [k] f32 -> out [n] int32; the ids of pqv_assign over the rows
+// widened to f32.
 extern "C" int pqv_assign_bf16(const void* x, const float* c, const float* c_norm,
                                int n, int d, int k, int* out, void* stream) {
   using namespace pqv;
   if (n <= 0) return 0;
   if (k < 1) return (int)cudaErrorInvalidValue;
-  return launch_assign<AssignTileBf16>(
-      WideningOperands<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(x), c, n, d},
-      c_norm, k, out, stream);
+  const WideningOperands<__nv_bfloat16> op{static_cast<const __nv_bfloat16*>(x), c, n, d};
+  if (d % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    return launch_assign_bf16<true>(op, c_norm, k, out, stream);
+  return launch_assign_bf16<false>(op, c_norm, k, out, stream);
+}
+
+// K1's screen: x [n, d] bf16, pieces [3, k, d] bf16 (hi, mid, lo), c_norm
+// [k] f32, the certificate's alpha_w, alpha and beta -> out [n] int32, flags [n]
+// uint8 (1: certified, the id is pqv_assign's over the widened rows) and,
+// where value is not null, value [n] f32: the screen's value of the id. Needs
+// d % 8 == 0 and 16-byte aligned x and pieces.
+extern "C" int pqv_assign_bf16_screen(const void* x, const void* pieces,
+                                      const float* c_norm, int n, int d, int k,
+                                      double alpha_w, double alpha, double beta, int* out,
+                                      unsigned char* flags, float* value, void* stream) {
+  using namespace pqv;
+  if (n <= 0) return 0;
+  if (k < 1 || d % 8 != 0 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(pieces)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = assign_smem<ScreenTile>();
+  cudaError_t err = cudaFuncSetAttribute(
+      screen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const SplitOperands op{static_cast<const __nv_bfloat16*>(x),
+                         static_cast<const __nv_bfloat16*>(pieces), n, d, k};
+  screen_kernel<<<ceil_div(n, ScreenTile::kQueries), kThreads, smem,
+                  static_cast<cudaStream_t>(stream)>>>(op, c_norm, alpha_w, alpha, beta, out,
+                                                           flags, value);
+  return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory of K1's launch, for the wrapper's own reckoning.
 extern "C" int pqv_assign_smem() { return pqv::assign_smem<pqv::AssignTile>(); }
+
+// The same for the bf16-row forms: the FMA form (screen 0) or the screen (1).
+extern "C" int pqv_assign_bf16_smem(int screen) {
+  return screen ? pqv::assign_smem<pqv::ScreenTile>() : pqv::assign_bf16_smem<true>();
+}

@@ -26,8 +26,10 @@
 //   to its transposed place (a row stride of 132 floats keeps those writes
 //   and the 16-byte reads free of bank conflicts), which also takes any row
 //   alignment (d = 3). bf16 storage that the tensor cores cannot take is
-//   widened in registers on the way in. Every sum adds its products in
-//   ascending dimension order with __fmaf_rn, from a zero start.
+//   widened in registers on the way in. K1's bf16 data rows (Bf16RowFmaTile)
+//   are copied raw by 16-byte cp.async and widened into place once they land.
+//   Every sum adds its products in ascending dimension order with
+//   __fmaf_rn, from a zero start.
 //
 // Dp4aTile, int8 codes on the CUDA cores (K7 and K8). FmaTile's patch and
 //   stages, with 4-code words in place of floats: a stage holds 16 words (64
@@ -43,7 +45,9 @@
 //   XOR applied to the destination. Dimensions past d and rows past the end
 //   are zero-filled by the copy (src-size 0), so d = 96 or 8 need no second
 //   code path. It needs 16-byte aligned rows: d % 8 == 0. The products are
-//   exact; only the order of the fp32 additions is the hardware's.
+//   exact; only the order of the fp32 additions is the hardware's. K1's
+//   screen (ScreenTile) stages each query slice once beside three bf16
+//   pieces of the f32 centroids and sums a stage's products apart.
 //
 // With queries as M a thread of the warpgroup holds two queries and, of the
 // chunk's rows, 16 groups of 2 consecutive ones, a group's neighbours in the
@@ -99,6 +103,14 @@ struct WideningOperands {
   const Q* q;
   const float* emb;
   int B, d;
+};
+
+// K1's screen: bf16 queries [B, d] (K1's data rows) and the centroids split
+// into three bf16 pieces, pieces [3][k][d] (hi, mid, lo: hi + mid + lo == c).
+struct SplitOperands {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* pieces;
+  int B, d, k;
 };
 
 // ------------------------------------------------------------ fp32, FMA
@@ -215,19 +227,60 @@ struct FmaTile : PatchLayout<NQ> {
   }
 };
 
-// FmaTile<float, NQ> over WideningOperands<Q>: the rows are staged as
-// FmaTile's, the queries widened to f32 in registers on the way in (exact for
-// bf16), so the sums are FmaTile's own on the widened values, bit for bit.
-template <typename Q, int NQ>
-struct WideningFmaTile : FmaTile<float, NQ> {
-  using Base = FmaTile<float, NQ>;
+// FmaTile<float, 8> over WideningOperands<bf16>: K1's bf16-row form on the
+// CUDA cores. The f32 rows (K1's centroids) are staged as FmaTile's; each
+// thread copies 8 dimensions of one bf16 query (one of K1's data rows) raw
+// into a third area of the stage with one 16-byte cp.async, and once its own
+// copies have landed (arrived(), before the walk's barrier) widens them into
+// FmaTile's transposed query area. FmaTile::mma then reads f32 as it does for
+// K1 f32: the sums are its own on the widened values (exact), bit for bit.
+// kVec: the rows are 16-byte aligned (d % 8 == 0 and an aligned base); else
+// each element is read and widened on its own as the stage is filled.
+// STAGES is the walk's: arrived() follows the ring's slots itself.
+template <bool kVec, int STAGES>
+struct Bf16RowFmaTile : FmaTile<float, 8> {
+  using Base = FmaTile<float, 8>;
+  using Storage = __nv_bfloat16;
+  static constexpr int kStageBytes = Base::kStageBytes + kQueries * kDims * 2;
 
-  __device__ __forceinline__ void load(char* stage, const WideningOperands<Q>& op, int q0,
-                                       int r0, int row_end, int d0) const {
+  char* ring;    // the walk's ring
+  int next = 0;  // its slot whose queries arrived() widens next
+
+  __device__ __forceinline__ void load(char* stage, const WideningOperands<Storage>& op,
+                                       int q0, int r0, int row_end, int d0) const {
     float* s = reinterpret_cast<float*>(stage);
-    stage_transposed<float, kTR, Base::kXS>(s, op.emb, r0, row_end, d0, op.d);
-    stage_transposed<Q, Base::kQueries, Base::kQS>(s + Base::kDims * Base::kXS, op.q, q0,
-                                                   op.B, d0, op.d);
+    stage_transposed<float, kTR, kXS>(s, op.emb, r0, row_end, d0, op.d);
+    if constexpr (kVec) {
+      const int qi = threadIdx.x >> 1, h = threadIdx.x & 1;
+      const bool ok = q0 + qi < op.B && d0 + 8 * h < op.d;
+      const Storage* p = op.q + (size_t)(q0 + qi) * op.d + d0 + 8 * h;
+      cp_async16(smem_u32(stage + Base::kStageBytes + 16 * threadIdx.x), ok ? p : op.q, ok);
+    } else {
+      float* o = s + kDims * kXS;
+#pragma unroll 1
+      for (int e = threadIdx.x; e < kQueries * kDims; e += kThreads) {
+        const int qi = e & (kQueries - 1), dim = e >> 7;
+        const bool ok = q0 + qi < op.B && d0 + dim < op.d;
+        o[dim * kQS + qi] = ok ? to_f32(op.q[(size_t)(q0 + qi) * op.d + d0 + dim]) : 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void arrived() {
+    if constexpr (kVec) {
+      char* stage = ring + next * kStageBytes;
+      next = next + 1 == STAGES ? 0 : next + 1;
+      const uint4 v = *reinterpret_cast<const uint4*>(stage + Base::kStageBytes +
+                                                      16 * threadIdx.x);
+      float* o = reinterpret_cast<float*>(stage) + kDims * kXS +
+                 8 * (threadIdx.x & 1) * kQS + (threadIdx.x >> 1);
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o[2 * e * kQS] = __uint_as_float(w[e] << 16);
+        o[(2 * e + 1) * kQS] = __uint_as_float(w[e] & 0xffff0000u);
+      }
+    }
   }
 };
 
@@ -433,6 +486,62 @@ struct MmaTile {
   }
 };
 
+// MmaTile's layout over SplitOperands: K1's screen. A stage holds 64
+// dimensions of the 128 queries once and of the chunk's 128 centroids three
+// times, one swizzled block per piece (64 KB: three stages take one block an
+// SM). Each stage's 3 x 64 products a (query, centroid) are summed from zero on
+// the tensor cores into `part` (12 wgmma, the three pieces against the one
+// staged query slice, lo first and hi last), then added to `acc` in IEEE fp32:
+// the certificate of assign.cu bounds one stage's hardware sum, where the hi
+// products pass through the last 4 steps only, not one sum of all 3d.
+struct ScreenTile : MmaTile {
+  static constexpr int kStageBytes = 4 * 128 * 128;  // queries, then hi, mid, lo
+
+  float part[64];
+
+  __device__ __forceinline__ void load(char* stage, const SplitOperands& op, int q0, int r0,
+                                       int row_end, int d0) const {
+    const uint32_t s = smem_u32(stage);
+    stage_swizzled(s, op.q, q0, op.B, d0, op.d);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      stage_swizzled(s + (p + 1) * 128 * 128, op.pieces + (size_t)p * op.k * op.d, r0,
+                     row_end, d0, op.d);
+  }
+
+  // acc (+)= the stage's dimensions of the three pieces; `left` = d - d0.
+  __device__ __forceinline__ void mma(const char* stage, bool first, int left) {
+    const uint32_t s = smem_u32(stage);
+    const uint64_t a = wgmma_desc(s + (threadIdx.x >> 7) * (64 * 128));
+    const int steps = left >= kDims ? kDims / 16 : (left + 15) / 16;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(part[i])::"memory");
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    if (steps == kDims / 16) {  // a whole stage: the 12 wgmma unrolled
+#pragma unroll
+      for (int p = 2; p >= 0; --p) {  // lo, mid, hi: the large products go in last
+        const uint64_t b = wgmma_desc(s + (p + 1) * 128 * 128);
+#pragma unroll
+        for (int ks = 0; ks < kDims / 16; ++ks)
+          wgmma_m64n128k16(part, a + 2 * ks, b + 2 * ks, p < 2 || ks > 0);
+      }
+    } else {
+#pragma unroll
+      for (int p = 2; p >= 0; --p) {
+        const uint64_t b = wgmma_desc(s + (p + 1) * 128 * 128);
+        for (int ks = 0; ks < steps; ++ks)
+          wgmma_m64n128k16(part, a + 2 * ks, b + 2 * ks, p < 2 || ks > 0);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(part[i])::"memory");
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = first ? part[i] : __fadd_rn(acc[i], part[i]);
+  }
+};
+
 // ------------------------------------------------------------ the walk
 
 // Score rows [row_begin, row_end) against queries q0 .. q0 + kQueries - 1 in
@@ -440,7 +549,7 @@ struct MmaTile {
 // sees `epi.begin(r0, slot)` before a chunk's first slice (at least one
 // __syncthreads() follows before `chunk`) and `epi.chunk(tile, r0, slot)`
 // once its sums are complete; slot alternates 0, 1. `op` is what the tile's
-// load takes: TileOperands of its storage, or WideningOperands.
+// load takes: TileOperands of its storage, WideningOperands or SplitOperands.
 template <int STAGES, class Tile, class Operands, class Epilogue>
 __device__ __forceinline__ void walk_rows(Tile& tile, const Operands& op, int q0,
                                           int row_begin, int row_end, char* ring,

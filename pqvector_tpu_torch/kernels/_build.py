@@ -33,16 +33,22 @@ NVCC_FLAGS = [
 #: K4 masked local, K5 exact per-tile, K6 masked per-tile, K7 binned scan,
 #: K8 binned scan over selected tiles, K9 tile min, K10 tile gather, K11 tile
 #: gather by bulk copies) since the last ``reset_launches``; "K1_bf16" counts
-#: those of K1's launches that took its bf16-row form.
-LAUNCHES: dict[str, int] = {**{f"K{i}": 0 for i in range(1, 12)}, "K1_bf16": 0}
+#: those of K1's launches that took a bf16-row form: the screen
+#: ("K1_bf16_screen"), the FMA form over the rows the screen left uncertified
+#: ("K1_bf16_rescore") and the FMA form over all rows.
+LAUNCHES: dict[str, int] = {**{f"K{i}": 0 for i in range(1, 12)}, "K1_bf16": 0,
+                            "K1_bf16_screen": 0, "K1_bf16_rescore": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 _SIGNATURES = {
     "pqv_assign": [_P, _P, _P, _I, _I, _I, _P, _P],
     "pqv_assign_bf16": [_P, _P, _P, _I, _I, _I, _P, _P],
     "pqv_assign_smem": [],
+    "pqv_assign_bf16_screen": [_P, _P, _P, _I, _I, _I, _D, _D, _D, _P, _P, _P, _P],
+    "pqv_assign_bf16_smem": [_I],
     "pqv_stream_exact_topk": [_P, _P, _P] + [_I] * 7 + [_P] * 6,
     "pqv_stream_exact_topk_smem": [_I] * 3,
     "pqv_stream_masked_topk": [_P] * 7 + [_I] * 11 + [_P] * 7,

@@ -57,9 +57,15 @@ def stage_bytes(backend: str, queries: int) -> int:
     """One stage of the ring: 64 dimensions of 128 queries and 128 rows in
     bf16, or 16 dimensions (``"dp4a"``: 16 four-code words) of the queries
     and rows in 4-byte elements, transposed with a 4-element pad per
-    dimension."""
+    dimension. K1's bf16-row forms: ``"screen"``, 64 dimensions of the 128
+    queries and of three bf16 pieces of the 128 centroids; ``"fma_bf16"``,
+    the ``"fma"`` stage and the queries' 16 dimensions raw in bf16."""
     if backend == "wgmma":
         return 2 * 128 * 128
+    if backend == "screen":
+        return 4 * 128 * 128
+    if backend == "fma_bf16":
+        return stage_bytes("fma", queries) + queries * 16 * 2
     return 16 * ((CHUNK_ROWS + 4) + (queries + 4)) * 4
 
 
@@ -77,7 +83,8 @@ def smem_bytes(kernel: str, backend: str, queries: int, k: int = 0, words: int =
     "K3", "K2", "K1", "K7" or "K8"): the ring and the norms; for K5, K4, K6,
     K3 and K2 the lists ([k][queries] f32 + i32) and the score dump, for K9
     one carried minimum per query, for K7 and K8 the row scales of two
-    chunks; K1's running argmin and K7's bins live in registers. K4 and K3
+    chunks; K1's running argmin lives in registers (in shared memory between
+    chunks for its bf16-row FMA form) and K7's bins too. K4 and K3
     add 64 bytes of flags and, with a probe table of ``words`` 32-bit words a
     query (``table_words``), the staged slots of two chunks, the slot sets of
     their quarters and the table; K6 with its table (``words`` = kc_pad / 32,
@@ -99,6 +106,8 @@ def smem_bytes(kernel: str, backend: str, queries: int, k: int = 0, words: int =
         return total
     if kernel == "K9":
         return total + 128 * 4  # a long tile's minimum so far, per query
+    if kernel == "K1" and backend == "fma_bf16":
+        return total + 2 * 8 * THREADS * 4  # each thread's 8 running (score, id)
     return total
 
 

@@ -5,6 +5,7 @@ PyTorch port on one Hopper GPU.
 
     python3 scripts/torch_score_tile_check.py [--rows 1000000] [--no-ptxas]
         [--time-only] [--package-root DIR] [--digest-file FILE] [--modes M]
+        [--sweep] [--share-sweep]
 
 Needs a card, nvcc and the repo root as the working directory. It
 1. compiles the four sources once more with ``-Xptxas -v`` and prints
@@ -18,8 +19,8 @@ Needs a card, nvcc and the repo root as the working directory. It
    K2 at k = 1, 10, 100 and 128 and at B = 1; K1 against 1024 centroids)
    beside one PyTorch chain for the same function, with CUDA events (median
    of 10), builds IVF-1024 over ``--rows`` x 128 seeded mixture rows (K1 in
-   every Lloyd step) and prints a SHA-256 of K1's ids, of K2's f32 distances
-   and ids and of the index bytes;
+   every Lloyd step) and prints a SHA-256 of K1's ids (f32 rows, and the same
+   rows in bf16), of K2's f32 distances and ids and of the index bytes;
 5. with ``--modes M``: times K4 and K3 on those cluster-sorted rows (tiles of
    1024 rows, the M mode centres as centroids, nprobe 8) at B = 1, 16, 64, 256
    and 4096, k = 10 and 100, in f32 and bf16, prints the share of tiles and
@@ -34,6 +35,19 @@ Needs a card, nvcc and the repo root as the working directory. It
    plain torch code in this script, so two versions of the package get the
    same tensors.
 
+6. with ``--sweep``: K1 at 1M x d x 1000, d = 32 .. 1024, on seeded
+   mixture rows and k-means centroids: K1 f32, the bf16 rows through the
+   FMA form, the screen (with the share it leaves uncertified) and the
+   default route, and the blocked ``mm`` + ``argmin``, beside the function's
+   bound and each form's floor (this sets ``assign.SCREEN_MIN_DIM``);
+7. with ``--share-sweep``: K1's bf16 rows at 1M x d x 1000, d = 64, 96,
+   128, 512 and 1024, with 0, 125, 250, 375 and 500 pairs of centroids made equal
+   (every row nearest to a pair ties, so the share the screen leaves
+   uncertified rises to 1): the FMA form over all rows, the screen without
+   its probe (then the re-score of what it leaves), the default route (with
+   the probe) and the screen alone, and the share at which the first two
+   cross (this sets ``assign.RESCORE_BREAK_EVEN``).
+
 A short first call after touching the CUDA sources; ``chip_smoke.py`` is the
 full run. ``--time-only`` skips steps 2 and 3. ``--package-root DIR`` takes
 ``pqvector_tpu_torch`` from another checkout (say, an earlier commit unpacked
@@ -47,8 +61,8 @@ the top-k lists take more replacements.
 names, fails where one differs, and adds the new names to FILE (a version
 that computes another function under an old name renames its digest, as the
 index bytes were when the k-means++ seeds changed): run parent, change, change, parent
-with one file and the f32 outputs of K1, K2, K3, K4 and K6 and the f32 and
-int8 key tables of K7 and K8 are held bit for bit.
+with one file and the f32 outputs of K1 (and its ids on bf16 rows), K2, K3, K4
+and K6 and the f32 and int8 key tables of K7 and K8 are held bit for bit.
 """
 
 from __future__ import annotations
@@ -78,7 +92,8 @@ def ptxas_report(_build) -> None:
         for i, line in enumerate(lines):
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m and re.search(r"tile_min_kernel|exact_topk_kernel|stream_exact_kernel|"
-                               r"assign_kernel|masked_local_kernel|stream_masked_kernel|"
+                               r"assign_kernel|assign_bf16_kernel|screen_kernel|"
+                               r"masked_local_kernel|stream_masked_kernel|"
                                r"binscan_kernel|masked_topk_kernel", m.group(1)):
                 kernel = re.search(r"\d+([a-z_]+_kernel)", m.group(1))
                 tile = re.search(r"(FmaTile\w+?EE|Dp4aTile\w+?EE|MmaTile)", m.group(1))
@@ -109,6 +124,8 @@ def check_shared_memory(lib) -> None:
             words = score_tile.table_words("K4", backend, nq, k, 256)
             assert score_tile.smem_bytes("K4", backend, nq, k, words) <= score_tile.SMEM_LIMIT
     assert lib.pqv_assign_smem() == score_tile.smem_bytes("K1", "fma", 128)
+    assert lib.pqv_assign_bf16_smem(0) == score_tile.smem_bytes("K1", "fma_bf16", 128)
+    assert lib.pqv_assign_bf16_smem(1) == score_tile.smem_bytes("K1", "screen", 128)
     for backend, nq in (("fma", 64), ("wgmma", 128)):
         for k in (1, 10, 128):
             for kc_pad in (128, 1152, 4224):
@@ -130,6 +147,8 @@ def main() -> None:
     ap.add_argument("--package-root", default=None)
     ap.add_argument("--digest-file", default=None)
     ap.add_argument("--modes", type=int, default=0)
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--share-sweep", action="store_true")
     args = ap.parse_args()
     if args.package_root:
         sys.path.insert(0, os.path.abspath(args.package_root))
@@ -227,6 +246,18 @@ def main() -> None:
                         reps=5)
     print(f"K1 {n} x {d}, 1024 centroids: {int((got != want).sum())} ids differ from "
           f"plain, kernel {ms:.3f} ms, mm + argmin {lib_ms:.3f} ms")
+    x16 = x[:n].bfloat16()
+    got16 = ka.assign_rows(x16, cent)
+    differ = int((got16 != ka.assign_rows(x16.float(), cent)).sum())
+    digests["K1 bf16 rows"] = digest(got16)
+    ms16 = cs.time_ms(lambda: ka.assign_rows(x16, cent))
+    print(f"K1 bf16 rows {n} x {d}, 1024 centroids: {differ} ids differ from K1 f32 over "
+          f"the widened rows, {ms16:.3f} ms")
+    del x16, got16
+    if args.sweep:
+        k1_sweep(torch, cs, ka)
+    if args.share_sweep:
+        k1_share_sweep(torch, cs, ka)
     import pqvector_tpu_torch as pqt
     from pqvector_tpu_torch import datasets as ds
     from pqvector_tpu_torch.types import Embeddings
@@ -407,6 +438,108 @@ def binned_section(torch, cs, bs, x, sq, digests) -> None:
                 print(f"{what} {name} tile={tile} expand={expand} rows={rows} B={b}: "
                       f"{ms:.3f} ms, bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}), "
                       f"mm + scatter_reduce(amin) {lib}")
+
+
+def sweep_data(torch, d, n=1_000_000, k=1000):
+    """Seeded 256-mode mixture rows [n, d] on the card (the phase-12
+    generator's shape), rounded to bf16, and k-means centroids trained on
+    50,000 of them. -> (bf16 rows, f32 centroids)."""
+    from pqvector_tpu_torch.index.kmeans import KMeansParams, k_means
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    modes = torch.from_numpy(np.random.default_rng(1234).uniform(-1, 1, (256, d)).astype(
+        np.float32)).to(dev)
+    xw = modes[torch.randint(0, 256, (n,), device=dev, generator=gen)] + 0.15 * torch.randn(
+        n, d, device=dev, generator=gen)
+    sample = xw[torch.randperm(n, device=dev, generator=gen)[:50_000]]
+    cent = torch.from_numpy(k_means(sample, KMeansParams(n_clusters=k), device=dev)[0]).to(dev)
+    return xw.bfloat16(), cent
+
+
+def k1_sweep(torch, cs, ka) -> None:
+    """K1 at 1M x d x 1000 for d = 32 .. 1024 on ``sweep_data``: K1 f32 on
+    the widened rows, the bf16 rows through each route (the screen with its
+    share of rows left uncertified) and the default one, the blocked ``mm`` +
+    ``argmin``, and the function's bound (2nkd at the bf16 tensor rate) beside
+    each form's floor (2nkd fp32 FMAs; the screen's 3 x 2nkd)."""
+    n, k, block = 1_000_000, 1000, 131072
+    routes = hasattr(ka, "bf16_route")  # a package from before the screen has one form
+    for d in (32, 64, 96, 128, 256, 512, 768, 1024):
+        x16, cent = sweep_data(torch, d, n, k)
+        xw = x16.float()
+        cn = (cent * cent).sum(1)
+
+        def library():
+            for lo in range(0, n, block):
+                torch.argmin(cn[None, :] - 2.0 * torch.mm(x16[lo : lo + block].float(), cent.T),
+                             dim=1)
+
+        want = ka.assign_rows(xw, cent)
+        res = {"K1 f32": cs.time_ms(lambda: ka.assign_rows(xw, cent), reps=5),
+               "bf16 default": cs.time_ms(lambda: ka.assign_rows(x16, cent), reps=5)}
+        differ = int((ka.assign_rows(x16, cent) != want).sum())
+        share = "one form"
+        if routes:
+            for route in ("fma", "screen"):
+                got = ka._assign_cuda(x16, cent, route=route)
+                differ += int((got != want).sum())
+                res[f"bf16 {route}"] = cs.time_ms(
+                    lambda: ka._assign_cuda(x16, cent, route=route), reps=5)
+            flags = ka.screen(x16, cent, cn.contiguous())[1]
+            share = f"{1.0 - float(flags.float().mean()):.5f} uncertified"
+        res["mm + argmin"] = cs.time_ms(library, reps=3)
+        ops = 2.0 * n * k * d
+        print(f"K1 sweep 1M x {d} x {k}: " + ", ".join(f"{key} {v:.3f} ms" for key, v in
+                                                       res.items())
+              + f"; {differ} ids differ from K1 f32; screen {share}; bound "
+              f"{max(ops / 989e12, (x16.numel() * 2 + cent.numel() * 4 + n * 4) / 3.35e12) * 1e3:.3f}"
+              f" ms, floors fp32 {ops / 67e12 * 1e3:.3f} ms, screen {3 * ops / 989e12 * 1e3:.3f}"
+              f" ms; " + cs.card_line())
+        del x16, xw, cent, want
+        torch.cuda.empty_cache()
+
+
+def k1_share_sweep(torch, cs, ka) -> None:
+    """K1's bf16 rows at 1M x d x 1000 on ``sweep_data`` with m pairs of
+    centroids made equal (centroid 2i + 1 := centroid 2i for i < m): the FMA
+    form, the screen without its probe and the default route, with the share
+    the screen leaves uncertified; then the share where the unprobed screen
+    and the FMA form cross, by linear interpolation between the sweep's
+    points (``assign.RESCORE_BREAK_EVEN`` comes from it)."""
+    n, k = 1_000_000, 1000
+    for d in (64, 96, 128, 512, 1024):
+        x16, cent = sweep_data(torch, d, n, k)
+        points = []
+        for m in (0, 125, 250, 375, 500):
+            ct = cent.clone()
+            ct[1 : 2 * m : 2] = cent[0 : 2 * m : 2]
+            want = ka.assign_rows(x16.float(), ct)
+            ka.reset_screen_counts()
+            got = ka._assign_cuda(x16, ct, route="screen", probe=0)
+            share = ka.SCREENED["uncertified"] / n
+            ka.reset_screen_counts()
+            differ = int((got != want).sum()) + int((ka.assign_rows(x16, ct) != want).sum())
+            sent = ka.SCREENED["fma_after_probe"]
+            res = {"fma": cs.time_ms(lambda: ka._assign_cuda(x16, ct, route="fma"), reps=5),
+                   "screen unprobed": cs.time_ms(
+                       lambda: ka._assign_cuda(x16, ct, route="screen", probe=0), reps=5),
+                   "default": cs.time_ms(lambda: ka.assign_rows(x16, ct), reps=5),
+                   "screen alone": cs.time_ms(
+                       lambda: ka.screen(x16, ct, (ct * ct).sum(1).contiguous()), reps=5)}
+            points.append((share, res["screen unprobed"] - res["fma"]))
+            print(f"K1 share sweep 1M x {d} x {k}, {m} equal pairs: uncertified {share:.5f}, "
+                  + ", ".join(f"{key} {v:.3f} ms" for key, v in res.items())
+                  + f"; the probe sent it to the FMA form: {bool(sent)}; {differ} ids differ "
+                  f"from K1 f32; " + cs.card_line())
+            del ct, want, got
+        cross = next((s0 + (s1 - s0) * -g0 / (g1 - g0) for (s0, g0), (s1, g1)
+                      in zip(points, points[1:]) if g0 < 0 <= g1), None)
+        print(f"K1 share sweep 1M x {d} x {k}: the unprobed screen and the FMA form cross at "
+              f"an uncertified share of {cross}")
+        del x16, cent
+        torch.cuda.empty_cache()
 
 
 def digest(*tensors) -> str:

@@ -15,7 +15,20 @@ lanes) go through the JAX kernel and the wrapper on the CPU here, and
 through the kernel on the card against the plain version: ids equal on grid
 data, and on continuous data equal wherever the two best scores differ by
 more than 1e-5 relative.
+
+K1 on bf16 rows has two forms on the card, the FMA form and the screen
+(``bf16_route``): the centroids split into three bf16 pieces
+(``split_bf16x3``), tensor-core scores, and a certificate
+(``screen_coefficients``, derived in ``csrc/assign.cu``) that keeps a row's
+id only where the f32 form must give the same one. Here: the split is exact,
+both halves of the bound hold against float64 on seeded and
+cancellation-heavy data, the plain screen (``assign_rows_screened_plain``)
+gives the plain version's ids and the JAX kernel's off near ties, and planted
+ties are never certified. On the card both forms give K1 f32's ids over the
+widened rows at awkward shapes.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -23,10 +36,16 @@ import torch
 
 from pqvector_tpu.kernels.assign import assign_clusters_pallas
 from pqvector_tpu_torch.kernels import _build
+from pqvector_tpu_torch.kernels import assign as ka
+from pqvector_tpu_torch.kernels import score_tile
 from pqvector_tpu_torch.kernels.assign import (
     assign_clusters,
     assign_rows,
     assign_rows_plain,
+    assign_rows_screened_plain,
+    bf16_route,
+    screen_coefficients,
+    split_bf16x3,
 )
 
 
@@ -155,3 +174,381 @@ def test_kernel_equals_plain_on_card_at_awkward_shapes(cuda_device, n, d, k):
     assert _build.LAUNCHES["K1"] == before + 1
     assert torch.equal(got, assign_rows_plain(xt, ct))
     assert int(got.max()) < distinct
+
+
+# ---------------------------------------------------------------- K1 on bf16 rows: the screen
+
+U, U2 = 2.0**-24, 2.0**-23
+
+
+def _f32_bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+def test_split_is_exact_bit_for_bit():
+    """hi + mid + lo == c in f32 over seeded normals, values on and one f32
+    ulp either side of the midpoints between neighbouring bf16 values (where
+    the first cast rounds to even), negatives and zeros (-0 comes back +0)."""
+    rng = np.random.default_rng(21)
+    normals = rng.standard_normal(4096).astype(np.float32) * np.float32(2.0) ** rng.integers(
+        -60, 60, 4096).astype(np.float32)
+    base = torch.from_numpy(rng.standard_normal(512).astype(np.float32)).bfloat16()
+    nxt = (base.view(torch.int16) + 1).view(torch.bfloat16)
+    mids = (base.float() + nxt.float()) / 2  # exact: 9 significant bits
+    edges = torch.cat([mids, torch.nextafter(mids, torch.full_like(mids, np.inf)),
+                       torch.nextafter(mids, torch.full_like(mids, -np.inf))])
+    c = torch.cat([torch.from_numpy(normals), -torch.from_numpy(normals), edges,
+                   torch.zeros(8), -torch.zeros(8)]).reshape(-1, 8)
+    pieces = split_bf16x3(c)
+    assert pieces.dtype == torch.bfloat16 and pieces.shape == (3, *c.shape)
+    back = (pieces[0].float() + pieces[1].float()) + pieces[2].float()
+    np.testing.assert_array_equal(_f32_bits(back.numpy() + 0.0), _f32_bits(c.numpy() + 0.0))
+    # each piece is at most half a bf16 spacing of what it leaves
+    assert bool((pieces[1].float().abs() <= c.abs() * 2.0**-8).all())
+
+
+def test_split_below_the_range_leaves_a_residual_that_the_bound_counts():
+    """Under |c| = 2^-110 the last piece falls below bf16's least subnormal
+    (2^-133): the sum misses c, by less than 2^-133, and
+    ``screen_coefficients`` adds twice that residual's norm to alpha."""
+    c = torch.tensor([[2.0**-120 * (1 + 2.0**-20), 1.0], [3.0, 2.0**-115 * 1.75 + 2.0**-138]],
+                     dtype=torch.float32)
+    pieces = split_bf16x3(c)
+    back = (pieces[0].float() + pieces[1].float()) + pieces[2].float()
+    miss = (c.double() - back.double()).abs()
+    assert float(miss.max()) > 0.0 and float(miss.max()) < 2.0**-133
+    cn = (c * c).sum(1)
+    _, alpha, _ = screen_coefficients(c, cn, pieces)
+    exact = torch.tensor([[0.5, 1.0], [3.0, 1.0]])
+    _, alpha0, _ = screen_coefficients(exact, (exact * exact).sum(1), split_bf16x3(exact))
+    assert alpha >= 2.0 * float(miss.norm(dim=1).max())
+    assert split_bf16x3(exact)[2].abs().max() == 0 and alpha0 > 0
+
+
+def _gamma(m, u):
+    return m * u / (1 - m * u)
+
+
+def _fma_dot_f32(x, c):
+    """K1 f32's sum: sequential fmaf from zero over the dimensions, for
+    every (row, centroid) pair; x [p, d] and c [p, d] float32. The products
+    of a bf16 value and an f32 value are exact in f64."""
+    s = np.zeros(x.shape[0], np.float32)
+    for i in range(x.shape[1]):
+        s = (x[:, i].astype(np.float64) * c[:, i].astype(np.float64)
+             + s.astype(np.float64)).astype(np.float32)
+    return s
+
+
+def _screen_dot_f32(x, pieces):
+    """The screen's sum under one instance of its model: a stage's 192
+    exact products added in f32 from zero, lo's first and hi's last, the
+    stages added in f32."""
+    acc = np.zeros(x.shape[0], np.float32)
+    for d0 in range(0, x.shape[1], 64):
+        part = np.zeros(x.shape[0], np.float32)
+        for p in (2, 1, 0):
+            for i in range(d0, min(d0 + 64, x.shape[1])):
+                part = part + x[:, i] * pieces[p][:, i]
+        acc = acc + part
+    return acc
+
+
+def _exact_dot(x, c):
+    return np.array([math.fsum(a * b) for a, b in zip(x.astype(np.float64),
+                                                       c.astype(np.float64))])
+
+
+@pytest.mark.parametrize("d", [128, 1024])
+@pytest.mark.parametrize("data", ["seeded", "cancelling"])
+def test_error_bound_holds_against_float64(d, data):
+    """Both halves of the certificate's E against float64: the f32 form's
+    value (sequential fmaf) within E_f, the screen's (the three-piece sum)
+    within E_s, for every (row, centroid) pair, and E_f + E_s within
+    ``alpha_w X_w + alpha X + beta``. Cancelling data: pairs of dimensions,
+    scaled over 2^-10 .. 2^10, whose products nearly cancel, so x.c is small
+    beside sum |x_i c_i|."""
+    rng = np.random.default_rng(d + len(data))
+    n, k = 24, 16
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    if data == "cancelling":  # dimension 2j + 1 nearly undoes dimension 2j
+        scale = np.repeat(2.0 ** rng.uniform(-10, 10, d // 2), 2).astype(np.float32)
+        x = np.abs(x) * scale
+        x[:, 1::2] = x[:, ::2]
+        c = np.abs(c) * scale
+        c[:, 1::2] = -c[:, ::2] * (1 + 2.0**-12 * rng.standard_normal((k, d // 2))).astype(
+            np.float32)
+    x = torch.from_numpy(x).bfloat16().float().numpy()
+    ct = torch.from_numpy(c)
+    pieces = split_bf16x3(ct).float().numpy()
+    cn = (ct * ct).sum(1)
+    alpha_w, alpha, beta = screen_coefficients(ct, cn, split_bf16x3(ct))
+    rows, cols = np.meshgrid(np.arange(n), np.arange(k), indexing="ij")
+    rows, cols = rows.ravel(), cols.ravel()
+    xp, cp = x[rows], c[cols]
+    t = _exact_dot(xp, cp)
+    V = cn.double().numpy()[cols] - 2.0 * t
+    cnp = cn.numpy()[cols]
+    v_f = (cnp.astype(np.float64) - 2.0 * _fma_dot_f32(xp, cp)).astype(np.float32)
+    v_s = (cnp.astype(np.float64) - 2.0 * _screen_dot_f32(
+        xp, [pc[cols] for pc in pieces])).astype(np.float32)
+    x64 = x.astype(np.float64)
+    X = np.linalg.norm(x64, axis=1)[rows]
+    X_w = np.linalg.norm(x64 * np.arange(d, 0, -1), axis=1)[rows]
+    C = float(np.linalg.norm(c.astype(np.float64), axis=1).max())
+    P = float(np.linalg.norm(np.abs(pieces).sum(0).astype(np.float64), axis=1).max())
+    H, M, L = (float(np.linalg.norm(pc.astype(np.float64), axis=1).max()) for pc in pieces)
+    CN = float(cn.double().max())
+    g = U / (1 - d * U)
+    g_n = _gamma(-(-d // 64), U)
+    e = ((_gamma(68, U2) * H + _gamma(136, U2) * M + _gamma(204, U2) * L) * (1 + g_n)
+         + g_n * (1 + _gamma(204, U2)) * P)
+    e_f = 2 * g * X_w * C + U * (CN + 2 * X * C + 2 * g * X_w * C)
+    e_s = 2 * e * X + U * (CN + 2 * X * C + 2 * e * X)
+    assert (np.abs(v_f - V) <= e_f).all()
+    assert (np.abs(v_s - V) <= e_s).all()
+    assert (e_f + e_s <= alpha_w * X_w + alpha * X + beta).all()
+    if data == "cancelling":  # the data does cancel: x.c far below sum |x_i c_i|
+        assert np.median(np.abs(t) / (np.abs(xp) * np.abs(cp)).sum(1)) < 0.2
+
+
+@pytest.mark.parametrize("n,d,k", [(300, 128, 64), (200, 1024, 50), (513, 96, 130)])
+def test_screened_plain_equals_plain_and_pallas(n, d, k):
+    """The plain screen on bf16 rows gives ``assign_rows_plain``'s ids on
+    every row, and the JAX kernel's on the widened rows wherever the two
+    best float64 scores differ by more than 1e-5 relative; most rows are
+    certified."""
+    x, c = _blobs(n, d, k, seed=n + d)
+    x16 = torch.from_numpy(x).bfloat16()
+    ct = torch.from_numpy(c)
+    ids, cert = assign_rows_screened_plain(x16, ct)
+    assert ids.dtype == torch.int32 and cert.dtype == torch.bool
+    assert torch.equal(ids, assign_rows_plain(x16, ct))
+    xw = x16.float().numpy()
+    want = assign_clusters_pallas(xw, c, tile=128, interpret=True)
+    s = (c.astype(np.float64) ** 2).sum(1)[None, :] - 2.0 * xw.astype(np.float64) @ c.T.astype(
+        np.float64)
+    two = np.sort(s, axis=1)[:, :2]
+    clear = two[:, 1] - two[:, 0] > 1e-5 * (np.abs(two[:, 0]) + (xw.astype(np.float64) ** 2).sum(1))
+    np.testing.assert_array_equal(ids.numpy()[clear], want[clear])
+    assert float(cert.float().mean()) > 0.9
+
+
+def test_planted_ties_are_uncertified_and_take_the_lowest_id():
+    """Rows equidistant from two centroids (a centroid repeated) and rows
+    whose two best f32 values differ by at most one ulp (a centroid moved
+    by one ulp in one coordinate) are never certified; the repeated ones go
+    to the lowest id."""
+    rng = np.random.default_rng(8)
+    d, k = 128, 40
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    c[7] = c[3]  # 3 and 7 tie for every row
+    c[11] = c[5]
+    c[11, -1] = np.nextafter(c[5, -1], np.float32(np.inf))  # 5 and 11 one ulp apart
+    x = np.concatenate([c[3] + 0.01 * rng.standard_normal((20, d)),
+                        c[5] + 0.01 * rng.standard_normal((20, d)),
+                        rng.standard_normal((60, d))]).astype(np.float32)
+    x16 = torch.from_numpy(x).bfloat16()
+    ct = torch.from_numpy(c)
+    ids, cert = assign_rows_screened_plain(x16, ct)
+    assert (ids[:20] == 3).all() and not cert[:20].any()
+    near = ids[20:40]
+    assert ((near == 5) | (near == 11)).all() and not cert[20:40].any()
+    assert torch.equal(ids, assign_rows_plain(x16, ct))
+    assert cert[40:].float().mean() > 0.9
+
+
+@pytest.mark.parametrize("d,k,addresses,want", [
+    (1024, 1000, (0, 4096), "screen"), (128, 1024, (16,), "screen"),
+    (128, 128, (0,), "screen"), (120, 1000, (0,), "screen"), (1024, 127, (0,), "screen"),
+    (1020, 1000, (0,), "fma"), (96, 4096, (0,), "screen"), (3, 1000, (0,), "fma"),
+    (1024, 1000, (0, 8), "fma"), (1024, 1, (0,), "screen"), (64, 1000, (0,), "screen"),
+    (56, 1000, (0,), "fma"), (32, 4096, (0,), "fma"),
+])
+def test_bf16_route_is_a_rule_on_shapes(d, k, addresses, want):
+    """The screen where d % 8 == 0, d >= SCREEN_MIN_DIM and every array is
+    16-byte aligned, whatever k; the FMA form otherwise."""
+    assert ka.SCREEN_MIN_DIM == 64
+    assert bf16_route(d, k, *addresses) == want
+
+
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 300, 512, 1024, 4096])
+def test_rescore_all_is_the_break_even_rule(d):
+    """After the probe, the FMA form takes every row exactly where more of
+    the probed rows were left uncertified than ``RESCORE_BREAK_EVEN`` allows
+    at d: linear between its points, from ``SCREEN_MIN_DIM`` up, the last
+    point's share beyond it."""
+    dims, shares = zip(*ka.RESCORE_BREAK_EVEN)
+    assert dims == tuple(sorted(dims)) and dims[0] == ka.SCREEN_MIN_DIM
+    assert all(0.0 <= v < 1.0 for v in shares) and ka.PROBE_ROWS == 65536
+    assert ka.RESCORE_BREAK_EVEN == ((64, 0.08), (96, 0.25), (128, 0.32), (512, 0.66),
+                                     (1024, 0.71))
+    share = float(np.interp(d, dims, shares))
+    probed = ka.PROBE_ROWS
+    cut = math.floor(share * probed)
+    assert not ka.rescore_all(cut, probed, d)
+    assert ka.rescore_all(cut + 1, probed, d) and ka.rescore_all(probed, probed, d)
+
+
+def _edge_rows(n, d, k, seed):
+    """Rows whose 16 products in every k16 step span 2^24 (elements +-m
+    2^-e, m in [1, 2), e from 0 to 24 across the step), and seeded normal
+    centroids: the edge of the screen's tensor-core model."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    scale = torch.exp2(-torch.round(torch.arange(16) * 24.0 / 15.0)).repeat(d // 16)
+    sign = torch.randint(0, 2, (n, d), generator=gen) * 2.0 - 1.0
+    x16 = (sign * (1.0 + torch.rand(n, d, generator=gen)) * scale).bfloat16()
+    return x16, torch.randn(k, d, generator=gen)
+
+
+@pytest.mark.parametrize("d", [128, 1024])
+@pytest.mark.parametrize("data", ["edge", "seeded"])
+def test_plain_screen_values_within_the_model_bound(d, data):
+    """``screen_value_bound`` is the model's bound row by row: the plain
+    screen's values (f32 matmuls, an instance of the model) stay within it
+    for every (row, centroid) pair, on rows at the model's edge and on
+    seeded blobs; the bound is tight enough to mean something (its mean
+    under 1e-4 of |x| max|c|) and the exact value it returns is float64's."""
+    if data == "edge":
+        x16, c = _edge_rows(64, d, 24, seed=d)
+    else:
+        x, cn_ = _blobs(64, d, 24, seed=d)
+        x16, c = torch.from_numpy(x).bfloat16(), torch.from_numpy(cn_)
+    cn = (c * c).sum(1)
+    values = ka.screen_values_plain(x16, c)
+    pieces = split_bf16x3(c)
+    for j in range(c.shape[0]):
+        ids = torch.full((x16.shape[0],), j)
+        exact, bound = ka.screen_value_bound(x16, pieces, cn, ids)
+        assert bool(((values[:, j].double() - exact).abs() <= bound).all())
+        want = cn.double()[j] - 2.0 * torch.from_numpy(_exact_dot(
+            x16.float().numpy(), np.repeat(c[j : j + 1].numpy(), x16.shape[0], 0)))
+        assert torch.allclose(exact, want, rtol=0, atol=1e-9 * float(want.abs().max()))
+        scale = x16.double().norm(dim=1) * float(c.double().norm(dim=1).max())
+        assert float((bound / scale).mean()) < 1e-4
+
+
+def test_bf16_forms_shared_memory():
+    """The FMA form's stage is K1 f32's and the rows' raw bf16 (32 bytes a
+    row), beside each thread's 8 running (score, id) pairs; two blocks fit
+    an SM. The screen's stage holds the rows once and three pieces of the
+    centroids (64 KB): one block an SM."""
+    fma = score_tile.smem_bytes("K1", "fma_bf16", 128)
+    assert fma == score_tile.smem_bytes("K1", "fma", 128) + 3 * 128 * 32 + 8 * 256 * 8
+    assert 2 * (fma + 1024) <= score_tile.SMEM_PER_SM
+    screen = score_tile.smem_bytes("K1", "screen", 128)
+    assert screen == 1024 + 3 * 65536 + 1024 <= score_tile.SMEM_LIMIT
+    assert score_tile.wave_blocks(screen) == score_tile.SM_COUNT
+
+
+def test_bf16_rows_on_cpu_launch_nothing_and_count_no_screen():
+    x16 = torch.from_numpy(_blobs(300, 128, 130, seed=4)[0]).bfloat16()
+    c = torch.from_numpy(_blobs(300, 128, 130, seed=4)[1])
+    before, screened = dict(_build.LAUNCHES), dict(ka.SCREENED)
+    assert torch.equal(assign_rows(x16, c), assign_rows_plain(x16, c))
+    assert _build.LAUNCHES == before and ka.SCREENED == screened
+
+
+@pytest.mark.parametrize("case", ["cpu", "f32 rows", "f64 norms", "width", "strided"])
+def test_screen_rejects_what_it_cannot_take(case):
+    """The screen runs on the card only, on contiguous bf16 rows against f32
+    centroids and their f32 norms of one width; it raises on anything else
+    before it reaches the library."""
+    x = torch.zeros(4, 16, dtype=torch.bfloat16)
+    c = torch.zeros(3, 16)
+    cn = torch.zeros(3)
+    if case == "f32 rows":
+        x = x.float()
+    elif case == "f64 norms":
+        cn = cn.double()
+    elif case == "width":
+        c = torch.zeros(3, 8)
+    elif case == "strided":
+        x = torch.zeros(4, 32, dtype=torch.bfloat16)[:, ::2]
+    with pytest.raises(ValueError):
+        ka.screen(x, c, cn)
+
+
+@pytest.mark.cuda
+def test_bf16_forms_shared_memory_agree_with_sources(cuda_device):
+    lib = _build.load()
+    assert lib.pqv_assign_bf16_smem(0) == score_tile.smem_bytes("K1", "fma_bf16", 128)
+    assert lib.pqv_assign_bf16_smem(1) == score_tile.smem_bytes("K1", "screen", 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fma", "screen"])
+@pytest.mark.parametrize("n,d,k", [(1, 3, 1), (1001, 3, 1000), (1, 8, 1), (1001, 8, 1000),
+                                   (1001, 96, 1), (1, 96, 1000), (1001, 1024, 1000),
+                                   (1, 1024, 1), (257, 1024, 1000)])
+def test_bf16_forms_equal_k1_f32_on_card(cuda_device, route, n, d, k):
+    """Both bf16-row forms give K1 f32's ids over the widened rows, bit for
+    bit, on continuous data and on grid data whose rows all tie (every
+    centroid repeated): the screen certifies none of those, the re-score
+    takes the lowest id. Launches: one screen and at most one re-score, or
+    one FMA form."""
+    if route == "screen" and d % 8:
+        pytest.skip("the screen takes d % 8 == 0 only")
+    x, c = _blobs(n, d, k, seed=n + d + k)
+    gx, gc, distinct = _grid_blobs(n, d, k, seed=n + d)
+    for xs, cs_ in ((x, c), (gx, gc)):
+        x16 = torch.from_numpy(xs).to(cuda_device).bfloat16()
+        ct = torch.from_numpy(cs_).to(cuda_device)
+        before = dict(_build.LAUNCHES)
+        got = ka._assign_cuda(x16, ct, route=route)
+        torch.cuda.synchronize()
+        made = {key: _build.LAUNCHES[key] - before[key] for key in before}
+        if route == "fma":
+            assert made["K1_bf16"] == 1 and made["K1_bf16_screen"] == 0
+        else:
+            assert made["K1_bf16_screen"] == 1 and made["K1_bf16_rescore"] <= 1
+            assert made["K1_bf16"] == 1 + made["K1_bf16_rescore"]
+        assert torch.equal(got, assign_rows(x16.float(), ct))
+    assert int(got.max()) < distinct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(128, 1024), (1024, 1000)])
+def test_screen_values_within_the_model_bound_on_card(cuda_device, d, k):
+    """At the edge of the model (``_edge_rows``): every screen value on the
+    card within ``screen_value_bound`` of its row's products; certified ids
+    and the route's ids are K1 f32's over the widened rows."""
+    x16, c = (t.to(cuda_device) for t in _edge_rows(4096, d, k, seed=d))
+    cn = (c * c).sum(1).contiguous()
+    ids, flags, values = ka.screen(x16, c, cn, values=True)
+    exact, bound = ka.screen_value_bound(x16, split_bf16x3(c), cn, ids)
+    assert bool(((values.double() - exact).abs() <= bound).all())
+    want = assign_rows(x16.float(), c)
+    assert torch.equal(ids[flags.bool()], want[flags.bool()])
+    assert torch.equal(assign_rows(x16, c), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+def test_probe_routes_by_the_share_it_reads_on_card(cuda_device, ties):
+    """A call of more than 2 ``PROBE_ROWS`` rows screens the probe first: on
+    blobs the screen then takes the rest (two screens, at most one
+    re-score); where every centroid is repeated (every row ties) the probe
+    sends the call to the FMA form over all rows (one screen, one FMA form,
+    no re-score). The ids are K1 f32's either way."""
+    n, d, k = 2 * ka.PROBE_ROWS + 1000, 128, 64
+    x, c = _blobs(n, d, k // 2 if ties else k, seed=14)
+    if ties:
+        c = np.repeat(c, 2, axis=0)
+    x16 = torch.from_numpy(x).to(cuda_device).bfloat16()
+    ct = torch.from_numpy(c).to(cuda_device)
+    ka.reset_screen_counts()
+    before = dict(_build.LAUNCHES)
+    got = assign_rows(x16, ct)
+    torch.cuda.synchronize()
+    made = {key: _build.LAUNCHES[key] - before[key] for key in before}
+    if ties:
+        assert made["K1_bf16_screen"] == 1 and made["K1_bf16_rescore"] == 0
+        assert made["K1_bf16"] == 2 and ka.SCREENED["fma_after_probe"] == 1
+        assert ka.SCREENED["rows"] == ka.SCREENED["uncertified"] == ka.PROBE_ROWS
+    else:
+        assert made["K1_bf16_screen"] == 2 and made["K1_bf16_rescore"] <= 1
+        assert ka.SCREENED["fma_after_probe"] == 0 and ka.SCREENED["rows"] == n
+    assert torch.equal(got, assign_rows(x16.float(), ct))

@@ -24,7 +24,12 @@ from pqvector_tpu.types import Embeddings as JEmbeddings
 from pqvector_tpu_torch import ValidationError
 from pqvector_tpu_torch.index import build as tb
 from pqvector_tpu_torch.kernels import _build
-from pqvector_tpu_torch.kernels.assign import assign_clusters, assign_rows, assign_rows_plain
+from pqvector_tpu_torch.kernels.assign import (
+    assign_clusters,
+    assign_rows,
+    assign_rows_plain,
+    bf16_route,
+)
 from pqvector_tpu_torch.types import Embeddings
 
 WIRES = ["bfloat16", "int8"]
@@ -512,14 +517,18 @@ def cuda_device():
                                    (4097, 1024, 1000)])
 def test_k1_bf16_kernel_equals_plain_on_card(cuda_device, n, d, k):
     """The bf16-row form of K1 against its plain version and against the
-    f32 form over the widened rows: ids equal bit for bit."""
+    f32 form over the widened rows: ids equal bit for bit. It is one launch
+    of the FMA form, or one of the screen and at most one re-score."""
     x = _bf16_rows(n, d, seed=d).to(cuda_device)
     c = torch.from_numpy(np.random.default_rng(k).standard_normal((k, d)).astype(
         np.float32)).to(cuda_device)
     before = dict(_build.LAUNCHES)
     got = assign_rows(x, c)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["K1_bf16"] == before["K1_bf16"] + 1
+    made = {key: _build.LAUNCHES[key] - before[key] for key in before}
+    screened = made["K1_bf16_screen"]
+    assert screened == (bf16_route(d, k, x.data_ptr()) == "screen")
+    assert made["K1_bf16"] == 1 + screened * made["K1_bf16_rescore"]
     assert torch.equal(got, assign_rows_plain(x, c))
     assert torch.equal(got, assign_rows(x.float(), c))
 
