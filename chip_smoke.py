@@ -33,7 +33,9 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    function where there is one, and the bound: the least time the card
    could take for the call's bytes and operations. K9, K5, K4, K3 and K2
    are timed on the f32 and on the bf16 array, K2 also at k = 100; K10 and
-   K11 also in turns with ``index_select``, 10 rounds.
+   K11 also on the device alone (queued behind a sleep kernel, so the host's
+   launch time is hidden), with their share of the bound, and in turns with
+   ``index_select``, 10 rounds.
 3. The main path at the bench's default configuration: a seeded 1M x 128
    Parquet file, ``IndexBuilder(...).n_clusters(1024).build_inplace()`` on
    the card, exact truth from K2 on an f32 searcher, and an nprobe sweep of
@@ -1287,21 +1289,32 @@ def phase2_masked_score_tile(torch, st, sc):
 
 
 def phase2_small_gather(torch, cp):
-    """K10 and K11 against the plain gather at small awkward shapes: bit-equal."""
+    """K10 and K11 against the plain gather at small awkward shapes and at
+    the edges of their 16 KB items (``kItem`` in ``csrc/compact.cu``):
+    bit-equal."""
     dev = torch.device(DEVICE)
     cases = dma = 0
     rng = np.random.default_rng(5)
-    for ctile, d in ((512, 96), (128, 3), (4, 96), (2, 3), (64, 128), (1, 5)):
-        nt = 37
-        for dt in (torch.float32, torch.bfloat16):
+    both = (torch.float32, torch.bfloat16)
+    shapes = [(ctile, d, both, 37)
+              for ctile, d in ((512, 96), (128, 3), (4, 96), (2, 3), (64, 128), (1, 5))]
+    # a tile's rows just under, just over one and just over two 16 KB items;
+    # norms larger than an item (ctile 4100: 16,400 bytes)
+    shapes += [(4, 1023, (torch.float32,), 37), (4, 1025, (torch.float32,), 37),
+               (4, 2049, (torch.float32,), 37), (8, 1023, (torch.bfloat16,), 37),
+               (8, 1025, (torch.bfloat16,), 37), (4100, 4, both, 9)]
+    for ctile, d, dtypes, nt in shapes:
+        for dt in dtypes:
             E = torch.from_numpy(rng.standard_normal((nt * ctile, d)).astype(np.float32))
             E = E.to(dev).to(dt)
             S = torch.from_numpy(rng.standard_normal(nt * ctile).astype(np.float32)).to(dev)
             sels = (
                 np.array([nt - 1]),  # cap = 1
+                np.array([2, 0, 1]),  # cap 3, below both grids
                 np.arange(nt),  # cap = nt
                 rng.permutation(nt)[:11],  # out of order
-                np.array([3, 3, 0, 36, 3, 0]),  # repeats
+                np.array([3, 3, 0, nt - 1, 3, 0]),  # repeats
+                np.full(nt, 5),  # one tile, cap times
             )
             for sel_np in sels:
                 sel = torch.from_numpy(sel_np.astype(np.int32)).to(dev)
@@ -1318,9 +1331,10 @@ def phase2_small_gather(torch, cp):
                 check(took == int(cp.dma_eligible(E, S, ctile)),
                       f"K11 small ctile={ctile} d={d}: launch rule broken")
                 dma += took
-    log(f"phase 2a K10/K11: {cases} cases (cap 1 and nt, repeats, out of order, "
-        f"d 3..128, ctile 1..512, f32/bf16): bit-equal; {dma} went through K11's "
-        "bulk copies, the rest (tiles of no multiple of 16 bytes) through K10")
+    log(f"phase 2a K10/K11: {cases} cases (cap 1, 3 and nt, repeats, one tile cap times, "
+        f"out of order, d 3..2049, ctile 1..4100, f32/bf16, tiles and norms at the edges "
+        f"of 16 KB items): bit-equal; {dma} went through K11's bulk copies, the rest "
+        "(tiles of no multiple of 16 bytes) through K10")
 
 
 def tile_min_envelope(q, emb_sq, d):
@@ -1400,17 +1414,23 @@ def gather_check(torch, cp, emb, emb_sq, sel, ctile, results, what):
         res = {
             "max_abs_err": 0.0,
             "ms": time_ms(lambda: fn(emb, emb_sq, sel, ctile)),
+            "device_ms": device_ms(lambda: fn(emb, emb_sq, sel, ctile)),
             "plain_ms": time_ms(lambda: cp.tile_gather_plain(emb, emb_sq, sel, ctile)),
             "library_ms": time_ms(library),
+            "library_device_ms": device_ms(library),
         }
         res.update(bound_of(moved, 0.0, "fp32"))
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        res["device_bound_share"] = res["bound_ms"] / res["device_ms"]
         res["path_launches"] = 1  # the checked call above; the timed ones do not count
         results[name] = res
         log(f"{what} {name}: cap={sel.numel()} of {nt} tiles of {ctile} rows, "
             f"{moved / 2e6:.1f} MB copied, bit-equal; kernel {res['ms']:.3f} ms "
-            f"({moved / res['ms'] / 1e9:.2f} TB/s read + write), plain "
-            f"{res['plain_ms']:.3f} ms, index_select {res['library_ms']:.3f} ms, "
-            f"bound {res['bound_ms']:.3f} ms")
+            f"({moved / res['ms'] / 1e9:.2f} TB/s read + write, "
+            f"{res['bound_share']:.1%} of the bound), on the device alone "
+            f"{res['device_ms']:.3f} ms ({res['device_bound_share']:.1%}); plain "
+            f"{res['plain_ms']:.3f} ms, index_select {res['library_ms']:.3f} ms "
+            f"(device {res['library_device_ms']:.3f}), bound {res['bound_ms']:.3f} ms")
     # Whether K10 and K11 really lose to index_select: the three in turns.
     rounds = interleaved_ms((lambda: cp.tile_gather(emb, emb_sq, sel, ctile),
                              lambda: cp.tile_gather_dma(emb, emb_sq, sel, ctile), library))
@@ -1427,6 +1447,27 @@ def gather_check(torch, cp, emb, emb_sq, sel, ctile, results, what):
         f"{results['K11']['vs_index_select']['median']:.3f} "
         f"({results['K11']['vs_index_select']['min']:.3f}-"
         f"{results['K11']['vs_index_select']['max']:.3f})")
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Median device time of ``fn()``: each call is queued behind a ~1 ms
+    sleep kernel, so the host's time to launch it is hidden (``time_ms``
+    counts it when the card waits on the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def interleaved_ms(fns, rounds=10, calls=5):

@@ -65,7 +65,7 @@ _SIGNATURES = {
     "pqv_tile_min": [_P] * 3 + [_I] * 7 + [_P] * 2,
     "pqv_tile_min_smem": [_I] * 2,
     "pqv_tile_gather": [_P] * 5 + [_I, _L, _L, _I, _I, _P],
-    "pqv_tile_gather_dma": [_P] * 5 + [_I, _L, _L, _I, _P],
+    "pqv_tile_gather_dma": [_P] * 5 + [_I, _L, _L, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -7,6 +7,11 @@ Counterpart of ``pqvector_tpu/kernels/compact.py``: ``pallas_tile_gather``
 bit; ``sel`` may repeat tiles and need not be sorted. On CUDA tensors they
 launch the hand-written kernels of ``csrc/compact.cu``; on CPU tensors they
 run ``tile_gather_plain``.
+
+Both kernels copy the same items, cut in ``csrc/compact.cu``: each array's
+tiles in items of at most 16 KB, a tile larger than that into slices and
+smaller tiles several whole to an item. K10 runs a block an item; K11 a ring
+of stages an SM that walks them.
 """
 
 from __future__ import annotations
@@ -15,12 +20,6 @@ import torch
 
 from . import _build
 from .scan_topk import check_cuda_operands
-
-#: Blocks K11 launches at most: one ring of stages fits each of the H100's
-#: 132 SMs.
-_DMA_BLOCKS = 132
-#: Bytes of one stage of K11's ring (kStageBytes in csrc/compact.cu).
-_DMA_STAGE = 16384
 
 
 def _check_args(emb, emb_sq, sel, ctile: int) -> None:
@@ -68,8 +67,10 @@ def tile_gather(emb, emb_sq, sel, ctile: int):
 
     ``emb`` [n_pad, d] f32 or bf16, ``emb_sq`` [n_pad] f32, ``sel`` [cap]
     int32 tile ids in [0, n_pad / ctile). Any ``ctile`` dividing ``n_pad``
-    goes through the kernel: it copies 16-byte words where a tile's bytes
-    and the addresses allow, 4- or 2-byte words otherwise."""
+    goes through the kernel: a block copies each item of up to 16 KB, each
+    thread holding four loads before it stores; it copies 16-byte words
+    where a tile's bytes and the addresses allow, 4- or 2-byte words
+    otherwise."""
     _check_args(emb, emb_sq, sel, ctile)
     if emb.device.type == "cpu":
         return tile_gather_plain(emb, emb_sq, sel, ctile)
@@ -98,7 +99,9 @@ def dma_eligible(emb, emb_sq, ctile: int) -> bool:
 def tile_gather_dma(emb, emb_sq, sel, ctile: int):
     """K11: the gather of ``tile_gather`` through the card's asynchronous
     copy engine (bulk copies device memory -> shared memory -> device memory
-    on a ring of eight stages; no thread touches the data).
+    on a ring of eight 16 KB stages a block, one block an SM, loads from a
+    producer warp and stores from a consumer lane; no thread touches the
+    data).
 
     The engine moves multiples of 16 bytes between addresses that are
     multiples of 16. Where a tile's bytes in ``emb`` or in ``emb_sq``
@@ -115,12 +118,9 @@ def tile_gather_dma(emb, emb_sq, sel, ctile: int):
     emb_c, sq_c = _outputs(emb, emb_sq, sel, ctile)
     seg = ctile * emb.shape[1] * emb.element_size()
     seg_sq = ctile * 4
-    cap = sel.numel()
-    items = cap * (-(-seg // _DMA_STAGE) + -(-seg_sq // _DMA_STAGE))
     rc = lib.pqv_tile_gather_dma(
         emb.data_ptr(), emb_sq.data_ptr(), sel.data_ptr(), emb_c.data_ptr(),
-        sq_c.data_ptr(), cap, seg, seg_sq, min(items, _DMA_BLOCKS),
-        _build.stream_ptr(),
+        sq_c.data_ptr(), sel.numel(), seg, seg_sq, _build.stream_ptr(),
     )
     _build.check(rc, "pqv_tile_gather_dma")
     _build.LAUNCHES["K11"] += 1

@@ -41,7 +41,13 @@ SELS = {
 
 @pytest.mark.parametrize("sel", SELS.values(), ids=SELS.keys())
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("ctile,d", [(128, 96), (128, 128), (4, 3), (256, 16)])
+@pytest.mark.parametrize(
+    "ctile,d",
+    [(128, 96), (128, 128), (4, 3), (256, 16),
+     # a tile's rows (f32; bf16 at half) just under and just over the
+     # kernels' 16 KB items
+     (4, 1023), (4, 1025)],
+)
 @pytest.mark.parametrize("port,ref", [(tile_gather, pallas_tile_gather),
                                       (tile_gather_dma, pallas_tile_gather_dma)],
                          ids=["K10", "K11"])
@@ -148,18 +154,29 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ctile,d", [(512, 96), (2048, 128), (4, 3), (1, 5)])
+@pytest.mark.parametrize(
+    "ctile,d",
+    [(512, 96), (2048, 128), (4, 3), (1, 5),
+     # a tile's rows (f32; bf16 at half) just over, just under and just over
+     # two 32 KB, four and eight of the kernels' 16 KB items; norms just over
+     # an item, two items and four
+     (4, 2049), (4, 2047), (4, 4097), (4100, 4), (8196, 4), (16384, 3)],
+)
 def test_kernels_match_plain_on_card(cuda_device, ctile, d, dtype):
     x, sq = _arrays(40, ctile, d, seed=d)
     emb = torch.from_numpy(x).to(cuda_device).to(dtype)
     sqt = torch.from_numpy(sq).to(cuda_device)
-    sel = torch.tensor([39, 0, 7, 7, 3], dtype=torch.int32, device=cuda_device)
-    want = tile_gather_plain(emb, sqt, sel, ctile)
-    before = dict(_build.LAUNCHES)
-    for fn in (tile_gather, tile_gather_dma):
-        got = fn(emb, sqt, sel, ctile)
-        torch.cuda.synchronize()
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    sels = ([39, 0, 7, 7, 3],  # out of order, a repeat
+            [39],  # cap 1
+            [7] * 40)  # one tile, cap times
     dma = int(dma_eligible(emb, sqt, ctile))
-    assert _build.LAUNCHES["K11"] == before["K11"] + dma
-    assert _build.LAUNCHES["K10"] == before["K10"] + 2 - dma
+    for sel_list in sels:
+        sel = torch.tensor(sel_list, dtype=torch.int32, device=cuda_device)
+        want = tile_gather_plain(emb, sqt, sel, ctile)
+        before = dict(_build.LAUNCHES)
+        for fn in (tile_gather, tile_gather_dma):
+            got = fn(emb, sqt, sel, ctile)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert _build.LAUNCHES["K11"] == before["K11"] + dma
+        assert _build.LAUNCHES["K10"] == before["K10"] + 2 - dma
