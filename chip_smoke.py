@@ -35,14 +35,21 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    are timed on the f32 and on the bf16 array, K2 also at k = 100; K10 and
    K11 also on the device alone (queued behind a sleep kernel, so the host's
    launch time is hidden), with their share of the bound, and in turns with
-   ``index_select``, 10 rounds.
+   ``index_select``, 10 rounds. K1 on f32 rows from d = 128 is its f32-row
+   screen and ``pqv_assign`` over the rows it leaves (``f32_route``): on
+   the small cases (also seeded normal rows), at 1M x 128 x 1024 and in the
+   IVF-1024 build, whose bytes must equal the build through ``pqv_assign``
+   alone (the parent's K1), its ids are ``pqv_assign``'s; the screen alone
+   is its own kernel entry, timed, its error held to the certificate's
+   bound and, row by row, to the tensor-core model's.
 3. The main path at the bench's default configuration: a seeded 1M x 128
    Parquet file, ``IndexBuilder(...).n_clusters(1024).build_inplace()`` on
    the card, exact truth from K2 on an f32 searcher, and an nprobe sweep of
    IVF ``search`` (K4) on a bf16 searcher with an f32 re-score copy until
    recall@10 >= 0.95; K3 must return K4's ids; exact k = 100 through K2
    must match the plain scan; search QPS at B = 256 through K4 and K3.
-4. Coverage: K1-K4 were launched during phase 3.
+4. Coverage: K1-K4 and, where ``f32_route`` takes it at d = 128, K1's
+   f32-row screen were launched during phase 3.
 5. Slice 2's path on the same file and index: a bf16 searcher in file
    order (f32 re-score copy) serves ``search(..., "pallas")`` through K6 in
    an nprobe sweep to recall@10 >= 0.95, ``exact(..., "pallas")`` through
@@ -119,8 +126,9 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    (same bytes; pyarrow reads it), ``cluster_sorted().build_new`` (same
    centroids and list sizes, rows in ``index.row_ids`` order, served by
    ``from_parquet`` at phase 3's recall at nprobe 8) and
-   ``streaming(131072).build_inplace`` (one seed, identical bytes; K1 once
-   per batch; recall at nprobe 8 within 0.01 of phase 3's).
+   ``streaming(131072).build_inplace`` (one seed, identical bytes, also to
+   the build through ``pqv_assign`` alone; K1 once per batch; recall at
+   nprobe 8 within 0.01 of phase 3's).
 
 10. Slice 10 (``dist/``) on the phase-3 rows and index, launch counts from
    0, on ``make_mesh(4, device="cuda:0")`` (four shards of one card; also
@@ -178,7 +186,9 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    with IVF-1000, 20 iterations, seed 42, on the f32, bf16 and int8 wires
    and on the bf16 wire with ``assign_backend("host")``, each with its
    seconds, ``stage`` split, peak device memory and co-assignment with the
-   f32 build (>= 0.98); the bf16 build twice (identical bytes); the host
+   f32 build (>= 0.98); the bf16 build twice (identical bytes); the f32,
+   bf16 and int8 builds again through ``pqv_assign`` alone, the parent's
+   K1 on f32 rows (identical bytes); the host
    build's centroids bit-equal to the device build's, its ids equal K1 f32
    over the exact rows but at near ties (the host path printed: native or
    numpy margins, f32 or bf16 GEMM, AMX-BF16); K1's bf16-row form at 1M x
@@ -190,7 +200,9 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    products span 2^24 in every k16 step), the share of rows it leaves
    uncertified, timed beside K1 f32, the FMA form, the screen alone, the
    plain version, blocked ``mm`` + ``argmin``, the function's bound (2nkd at
-   the bf16 tensor rate) and each form's floor; on data that is all ties
+   the bf16 tensor rate) and each form's floor; the same holds for K1's
+   f32-row route on the f32 rows against the f32 build's centroids, beside
+   ``pqv_assign`` over every row; on data that is all ties
    the probe sends the call to the FMA form (0 ids differ, timed beside the
    FMA form and the unprobed screen); the bf16 wire's builds must take the
    screen; recall@100 of sorted bf16
@@ -228,6 +240,8 @@ RECALL_TARGET = 0.95
 KERNELS = {
     "K1": ("assign", "pqvector_tpu_torch/csrc/assign.cu",
            "pqvector_tpu/kernels/assign.py:45"),
+    "K1_f32_screen": ("assign_f32_screen", "pqvector_tpu_torch/csrc/assign.cu",
+                      "pqvector_tpu/kernels/assign.py:45"),
     "K2": ("stream_exact_topk", "pqvector_tpu_torch/csrc/stream_topk.cu",
            "pqvector_tpu/kernels/stream_topk.py:239"),
     "K3": ("stream_masked_topk", "pqvector_tpu_torch/csrc/stream_topk.cu",
@@ -1144,6 +1158,24 @@ def phase2_score_tile(torch, tm, sc):
         f"version; {mma} on wgmma")
 
 
+def f32_screen_cases(torch, ka, pairs_of_inputs, what):
+    """K1's f32-row route (the screen, then ``pqv_assign`` over what it
+    leaves), unprobed and through the probe, against ``pqv_assign`` over
+    every row: ids equal; the screen's certified ids equal too."""
+    for x, c in pairs_of_inputs:
+        want = ka._assign_cuda(x, c, route="fma")
+        cn = (c * c).sum(1).contiguous()
+        got = ka._assign_cuda(x, c, route="screen", probe=0)
+        ids, flags = ka.screen(x, c, cn)[:2]
+        probed = ka._assign_cuda(x, c, route="screen", probe=max(1, x.shape[0] // 3))
+        torch.cuda.synchronize()
+        cert = flags.bool()
+        check(torch.equal(got, want) and torch.equal(probed, want)
+              and torch.equal(ids[cert], want[cert]),
+              f"K1 f32 screen {what}: {int((got != want).sum())} ids, "
+              f"{int((ids[cert] != want[cert]).sum())} certified ids differ from pqv_assign")
+
+
 def phase2_small_k1_k2(torch, ka, st):
     """K1 and K2 on the score tile against their plain versions on 1/4-grid
     data (every score exact, many ties), equal bit for bit: for K1 widths
@@ -1179,10 +1211,19 @@ def phase2_small_k1_k2(torch, ka, st):
             check(torch.equal(g16, w16) and torch.equal(g16, got),
                   f"K1 bf16 {route} small n={n} d={d} k={kc}: {int((g16 != w16).sum())} "
                   "ids differ from plain")
+        # the f32-row screen: grid rows tie everywhere and split into one piece;
+        # seeded normal rows split into three and tie nowhere (their own
+        # generator: the grid cases keep their data)
+        if d % 8 == 0:
+            nrng = np.random.default_rng(16 + cases)
+            xn = torch.from_numpy(nrng.standard_normal((n, d)).astype(np.float32)).to(dev)
+            cn_ = torch.from_numpy(nrng.standard_normal((kc, d)).astype(np.float32)).to(dev)
+            f32_screen_cases(torch, ka, ((x, cent), (xn, cn_)), f"small n={n} d={d} k={kc}")
         cases += 1
     log(f"phase 2a K1, score tile: {cases} cases (n 1..1001, d 3..128, 1..4096 "
         "centroids, each centroid repeated), f32 rows and bf16 rows (the FMA form, and "
-        "the screen where d % 8 == 0): ids equal to the plain version")
+        "the screens where d % 8 == 0, the f32-row screen also on seeded normal rows): "
+        "ids equal to the plain version and to pqv_assign")
     cases = mma = 0
     for n, tile, k, d, b in ((5000, 256, 128, 72, 128), (3000, 1024, 10, 96, 65),
                              (3000, 1024, 10, 100, 256), (700, 64, 10, 8, 13),
@@ -2484,6 +2525,7 @@ def phase9_builds(torch, pqt, _build, ds, path, emb_np, q, truth_np, index, r8,
     )
     from pqvector_tpu_torch.io.embed import read_index_from_parquet
     from pqvector_tpu_torch.io.reader import extract_embeddings, read_embedding_column
+    from pqvector_tpu_torch.kernels import assign as ka
     from pqvector_tpu_torch.types import EmbeddingColumn
     from pqvector_tpu_torch.utils.profiling import drain_stages
 
@@ -2563,11 +2605,23 @@ def phase9_builds(torch, pqt, _build, ds, path, emb_np, q, truth_np, index, r8,
     out["streaming_s"] = time.perf_counter() - t0
     ib = builder(pb_).streaming(131072).build_inplace()
     check(ia.to_bytes() == ib.to_bytes(), "two streaming builds with one seed differ")
-    n_batches = sum(1 for _ in iter_embedding_batches(pa_, col, 131072))
-    before = _build.LAUNCHES["K1"]
+    sizes = [len(b) for b in iter_embedding_batches(pa_, col, 131072)]
+    n_batches = len(sizes)
+    before = dict(_build.LAUNCHES)
     assign = assign_clusters_streaming(pa_, col, ia.centroids, 131072, device=dev)
-    check(_build.LAUNCHES["K1"] - before == n_batches,
-          f"K1 ran {_build.LAUNCHES['K1'] - before} times for {n_batches} batches")
+    made = {k_: _build.LAUNCHES[k_] - before[k_]
+            for k_ in ("K1", "K1_f32_screen", "K1_f32_rescore")}
+    # one K1 call a batch: the f32-row screen and pqv_assign over the rows it
+    # leaves, or pqv_assign alone, by f32_route
+    screened = sum(ka.f32_route(m, DIM, N_CLUSTERS, 0) == "screen" for m in sizes)
+    check(made["K1_f32_screen"] == screened
+          and made["K1"] == n_batches + made["K1_f32_rescore"],
+          f"K1 launches {made} for {n_batches} batches, {screened} of them screened")
+    with k1_f32_fma(ka):
+        ip = builder(copy("stream_p.parquet")).streaming(131072).build_inplace()
+    check(ip.to_bytes() == ia.to_bytes(), "the streaming build differs from the one "
+          "through pqv_assign over every f32 row (the parent's K1)")
+    os.remove(os.path.join(data_dir, "stream_p.parquet"))
     check(type(ia).from_assignments(ia.centroids, assign).to_bytes() == ia.to_bytes(),
           "the streamed assignment is not the streaming build's")
     ss = pqt.DeviceIvfSearcher(ia, emb_np, dtype=torch.bfloat16, row_tile=ROW_TILE,
@@ -3330,41 +3384,71 @@ def phase12_rounding(torch, pqt, _build, tb, ka, path, emb_np, dev, out):
     torch.cuda.empty_cache()
 
 
-def screen_held(torch, ka, x16, c, want, what):
-    """K1's screen alone on ``x16`` against ``c``: every certified row's id
-    must be K1 f32's (``want``); over the first 65,536 rows, the largest
-    |screen value - float64 value| of the picked centroid over |x| max |c|,
-    beside alpha / max |c|, the bound the certificate allows the screen's
-    side (each row held to alpha |x| + beta). -> dict."""
+def k1_fma(ka, x, c):
+    """``pqv_assign`` over every row of ``x`` (bf16 rows widened): K1 f32 as
+    the parent of the f32-row screen computed it, the reference of both
+    screens."""
+    return ka._assign_cuda(x.float(), c, route="fma")
+
+
+class k1_f32_fma:
+    """Within the block K1 takes ``pqv_assign`` over every f32 row, as it did
+    before the f32-row screen: the builds made in it are the parent's."""
+
+    def __init__(self, ka):
+        self.ka = ka
+
+    def __enter__(self):
+        self.saved = self.ka.f32_route
+        self.ka.f32_route = lambda *args: "fma"
+
+    def __exit__(self, *exc):
+        self.ka.f32_route = self.saved
+
+
+def screen_held(torch, ka, x, c, want, what):
+    """K1's screen alone on ``x`` (bf16 or f32 rows) against ``c``: every
+    certified row's id must be K1 f32's (``want``); over the first 65,536
+    rows, the largest |screen value - float64 value| of the picked centroid
+    over |x| max |c|, beside the most the certificate allows the screen's
+    side over |x| max |c| (each row held to its own: alpha |x| + beta for
+    bf16 rows, alpha |x| + a_h |xh| + a_m |xm| + a_r |xr| + beta for f32
+    rows). -> dict."""
     cn = (c * c).sum(1).contiguous()
-    ids, flags, vals = ka.screen(x16, c, cn, values=True)
+    ids, flags, vals = ka.screen(x, c, cn, values=True)
     cert = flags.bool()
     wrong = int((ids[cert] != want[cert]).sum())
     check(wrong == 0, f"{what}: {wrong} certified rows differ from K1 f32")
-    m = min(x16.shape[0], 65536)
-    x64, c64 = x16[:m].double(), c.double()
+    m = min(x.shape[0], 65536)
+    x64, c64 = x[:m].double(), c.double()
     b = ids[:m].long()
     exact = cn.double()[b] - 2.0 * (x64 * c64[b]).sum(1)
     xn, cmax = x64.norm(dim=1), float(c64.norm(dim=1).max())
     err = (vals[:m].double() - exact).abs()
     rel = float((err / (xn * cmax)).max())
-    _, alpha, beta = ka.screen_coefficients(c, cn, ka.split_bf16x3(c))
-    bound = alpha / cmax
-    check(bool((err <= alpha * xn + beta).all()),
+    coef = ka._coefficients(x, c, cn, ka.split_bf16x3(c))
+    norms = ka._row_norms(x[:m])
+    side = coef[1] * norms[:, 0]
+    if x.dtype == torch.float32:
+        side = side + sum(a * norms[:, 2 + j] for j, a in enumerate(coef[2:5]))
+    beta = coef[2] if x.dtype == torch.bfloat16 else coef[5]
+    bound = float((side / (xn * cmax)).max())
+    check(bool((err <= side + beta).all()),
           f"{what}: the screen's error {rel:.3g} over its bound {bound:.3g}")
     return {"uncertified_share": 1.0 - float(cert.float().mean()),
             "screen_max_rel_err": rel, "screen_rel_bound": bound,
-            "model_max_ratio": model_held(torch, ka, x16[:m], c, cn, ids[:m], vals[:m], what)}
+            "screen_max_abs_err": float(err.max()),
+            "model_max_ratio": model_held(torch, ka, x[:m], c, cn, ids[:m], vals[:m], what)}
 
 
-def model_held(torch, ka, x16, c, cn, ids, vals, what):
+def model_held(torch, ka, x, c, cn, ids, vals, what):
     """Every row's screen value against the tensor-core model's bound from
     that row's own products (``screen_value_bound``), 8,192 rows at a time.
     -> the largest error over its bound, which must not exceed 1."""
     pieces = ka.split_bf16x3(c)
     worst = 0.0
-    for lo in range(0, x16.shape[0], 8192):
-        exact, bound = ka.screen_value_bound(x16[lo : lo + 8192], pieces, cn,
+    for lo in range(0, x.shape[0], 8192):
+        exact, bound = ka.screen_value_bound(x[lo : lo + 8192], pieces, cn,
                                              ids[lo : lo + 8192])
         ratio = (vals[lo : lo + 8192].double() - exact).abs() / bound
         worst = max(worst, float(ratio.max()))
@@ -3372,23 +3456,23 @@ def model_held(torch, ka, x16, c, cn, ids, vals, what):
     return worst
 
 
-def screen_edge(torch, ka, x16, c, what):
+def screen_edge(torch, ka, x, c, what):
     """The screen's tensor-core model at its edge, at the main path's
-    (d, k): 8,192 seeded rows whose 16 products in every k16 step span 2^24
-    (elements +-m 2^-e, m in [1, 2), e from 0 to 24 across the step) against
-    seeded normal centroids of ``c``'s shape. Every screen value within the
-    model's bound from its row's products; certified ids and the route's ids
-    K1 f32's over the widened rows. -> dict."""
-    n, d, k, dev = 8192, x16.shape[1], c.shape[0], x16.device
+    (d, k) and ``x``'s dtype: 8,192 seeded rows whose 16 products in every
+    k16 step span 2^24 (elements +-m 2^-e, m in [1, 2), e from 0 to 24
+    across the step) against seeded normal centroids of ``c``'s shape. Every
+    screen value within the model's bound from its row's products; certified
+    ids and the route's ids K1 f32's (over the widened rows). -> dict."""
+    n, d, k, dev = 8192, x.shape[1], c.shape[0], x.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(14)
     scale = torch.exp2(-torch.round(torch.arange(16, device=dev) * 24.0 / 15.0)).repeat(d // 16)
     sign = torch.randint(0, 2, (n, d), device=dev, generator=gen) * 2.0 - 1.0
-    xe = (sign * (1.0 + torch.rand(n, d, device=dev, generator=gen)) * scale).bfloat16()
+    xe = (sign * (1.0 + torch.rand(n, d, device=dev, generator=gen)) * scale).to(x.dtype)
     ce = torch.randn(k, d, device=dev, generator=gen)
     cn = (ce * ce).sum(1).contiguous()
     ids, flags, vals = ka.screen(xe, ce, cn, values=True)
-    want = ka.assign_rows(xe.float(), ce)
+    want = k1_fma(ka, xe, ce)
     cert = flags.bool()
     differ = int((ka.assign_rows(xe, ce) != want).sum())
     wrong = int((ids[cert] != want[cert]).sum())
@@ -3398,7 +3482,7 @@ def screen_edge(torch, ka, x16, c, what):
             "model_max_ratio": model_held(torch, ka, xe, ce, cn, ids, vals, f"{what} edge")}
 
 
-def planted_ties(torch, ka, x16, c, want, what):
+def planted_ties(torch, ka, x, c, want, what):
     """Planted near ties at K1 f32's own shapes: centroid 0 appended again
     (every row nearest to it ties exactly between two ids) and centroid 1
     appended with its last coordinate one ulp away (the two values of a row
@@ -3410,10 +3494,10 @@ def planted_ties(torch, ka, x16, c, want, what):
                                     torch.tensor(np.inf, dtype=c.dtype, device=c.device))
     cp = torch.cat([c, c[0:1], nudged])
     rows = torch.nonzero((want == 0) | (want == 1)).flatten()[:8192]
-    xp = x16.index_select(0, rows)
+    xp = x.index_select(0, rows)
     cnp = (cp * cp).sum(1).contiguous()
     flags = ka.screen(xp, cp, cnp)[1]
-    got, ref = ka.assign_rows(xp, cp), ka.assign_rows(xp.float(), cp)
+    got, ref = ka.assign_rows(xp, cp), k1_fma(ka, xp, cp)
     torch.cuda.synchronize()
     differ = int((got != ref).sum())
     certified = int(flags.sum())
@@ -3425,29 +3509,33 @@ def planted_ties(torch, ka, x16, c, want, what):
             "differ_from_f32": differ}
 
 
-def k1_bf16_held(torch, ka, _build, x16, c, what):
-    """K1's bf16-row form on ``x16`` against ``c`` through the path's route:
-    ids equal K1 f32's over the widened rows, the screen's share, and this
-    hold's own launches (``hold_launches``, not the path's). -> (dict, K1
-    f32's ids)."""
+def k1_held(torch, ka, _build, x, c, what):
+    """K1 on ``x`` (bf16 or f32 rows) against ``c`` through the path's
+    route: ids equal K1 f32's (``pqv_assign`` over every row, widened), the
+    screen's share, and this hold's own launches (``hold_launches``, not the
+    path's). -> (dict, K1 f32's ids)."""
+    bf16 = x.dtype == torch.bfloat16
+    keys = ("K1_bf16", "K1_bf16_screen", "K1_bf16_rescore") if bf16 else (
+        "K1", "K1_f32_screen", "K1_f32_rescore")
+    tag = "" if bf16 else "f32_"
     ka.reset_screen_counts()
     before = dict(_build.LAUNCHES)
-    got = ka.assign_rows(x16, c)
-    launches = {key: _build.LAUNCHES[key] - before[key]
-                for key in ("K1_bf16", "K1_bf16_screen", "K1_bf16_rescore")}
-    want = ka.assign_rows(x16.float(), c)
+    got = ka.assign_rows(x, c)
+    launches = {key: _build.LAUNCHES[key] - before[key] for key in keys}
+    want = k1_fma(ka, x, c)
     torch.cuda.synchronize()
     differ = int((got != want).sum())
     check(differ == 0, f"{what}: {differ} ids differ from K1 f32")
-    route = ka.bf16_route(x16.shape[1], c.shape[0], x16.data_ptr())
-    check((launches["K1_bf16_screen"] > 0) == (route == "screen"),
+    route = (ka.bf16_route(x.shape[1], c.shape[0], x.data_ptr()) if bf16
+             else ka.f32_route(*x.shape, c.shape[0], x.data_ptr()))
+    check((launches[keys[1]] > 0) == (route == "screen"),
           f"{what}: route {route}, launches {launches}")
     return {"differ": differ, "route": route, "hold_launches": launches,
-            "uncertified": ka.SCREENED["uncertified"], "rows": ka.SCREENED["rows"],
-            "fma_after_probe": ka.SCREENED["fma_after_probe"]}, want
+            "uncertified": ka.SCREENED[tag + "uncertified"], "rows": ka.SCREENED[tag + "rows"],
+            "fma_after_probe": ka.SCREENED[tag + "fma_after_probe"]}, want
 
 
-def all_ties(torch, ka, x16, c, what):
+def all_ties(torch, ka, x, c, what):
     """The route on data that is all ties: ``c`` with every even centroid
     copied over the odd one after it, so that every row's two best values
     are equal and no row can be certified. Ids equal K1 f32's over the
@@ -3457,19 +3545,19 @@ def all_ties(torch, ka, x16, c, what):
     ct = c.clone()
     ct[1::2] = c[0 : c.shape[0] // 2 * 2 : 2]
     ka.reset_screen_counts()
-    got = ka.assign_rows(x16, ct)
-    sent = ka.SCREENED["fma_after_probe"]
-    want = ka.assign_rows(x16.float(), ct)
-    unprobed = ka._assign_cuda(x16, ct, route="screen", probe=0)
+    got = ka.assign_rows(x, ct)
+    sent = ka.SCREENED[("" if x.dtype == torch.bfloat16 else "f32_") + "fma_after_probe"]
+    want = k1_fma(ka, x, ct)
+    unprobed = ka._assign_cuda(x, ct, route="screen", probe=0)
     torch.cuda.synchronize()
     differ = int((got != want).sum()) + int((unprobed != want).sum())
     check(differ == 0 and sent == 1, f"{what}: all ties: {differ} ids differ from K1 f32, "
           f"{sent} calls sent to the FMA form by the probe")
     del got, want, unprobed
-    return {"ms": time_ms(lambda: ka.assign_rows(x16, ct), reps=5),
-            "fma_ms": time_ms(lambda: ka._assign_cuda(x16, ct, route="fma"), reps=5),
+    return {"ms": time_ms(lambda: ka.assign_rows(x, ct), reps=5),
+            "fma_ms": time_ms(lambda: ka._assign_cuda(x, ct, route="fma"), reps=5),
             "screen_unprobed_ms": time_ms(
-                lambda: ka._assign_cuda(x16, ct, route="screen", probe=0), reps=5)}
+                lambda: ka._assign_cuda(x, ct, route="screen", probe=0), reps=5)}
 
 
 def phase12_k1_narrow(torch, ka, _build, emb_np, centroids, dev, out):
@@ -3479,7 +3567,7 @@ def phase12_k1_narrow(torch, ka, _build, emb_np, centroids, dev, out):
     x16 = torch.from_numpy(emb_np).to(dev).bfloat16()
     c = torch.from_numpy(centroids).to(dev)
     what = f"phase 12 K1 bf16 1M x {DIM}"
-    res, want = k1_bf16_held(torch, ka, _build, x16, c, what)
+    res, want = k1_held(torch, ka, _build, x16, c, what)
     res.update(screen_held(torch, ka, x16, c, want, what))
     res["planted"] = planted_ties(torch, ka, x16, c, want, what)
     res["edge"] = screen_edge(torch, ka, x16, c, what)
@@ -3510,7 +3598,7 @@ def phase12_k1(torch, ka, _build, xw, centroids, card):
     x16 = xw.bfloat16()
     c = torch.from_numpy(centroids).to(xw.device)
     what = f"phase 12 K1 bf16 1M x {WIDE_DIM}"
-    res, want = k1_bf16_held(torch, ka, _build, x16, c, what)
+    res, want = k1_held(torch, ka, _build, x16, c, what)
     plain = ka.assign_rows_plain(x16, c)
     tie_rows, gap = assign_near_ties(torch, x16.float(), c, want, plain, "phase 12 K1 bf16")
     res.update(screen_held(torch, ka, x16, c, want, what))
@@ -3558,6 +3646,55 @@ def phase12_k1(torch, ka, _build, xw, centroids, card):
         f"tensor rate), the FMA form's floor {res['fma_floor_ms']:.3f} ms (fp32), the "
         f"screen's {res['screen_floor_ms']:.3f} ms (3 x 2nkd); all ties (every centroid "
         f"twice) {res['all_ties']} on {card}")
+    return res
+
+
+def phase12_k1_f32(torch, ka, _build, xw, centroids, card):
+    """K1's f32-row route at 1M x 1024 x 1000 (the wide file's f32 rows
+    against the f32 build's centroids): ids equal to ``pqv_assign``'s over
+    every row bit for bit, planted near ties uncertified and re-scored, the
+    screen's uncertified share and error beside its bound and, row by row,
+    the model's, rows at the model's edge, all ties through the probe; timed
+    beside ``pqv_assign`` over every row, the screen alone and the blocked
+    ``mm`` + ``argmin``, with the function's bound and each form's floor."""
+    c = torch.from_numpy(centroids).to(xw.device)
+    what = f"phase 12 K1 f32 1M x {WIDE_DIM}"
+    res, want = k1_held(torch, ka, _build, xw, c, what)
+    res.update(screen_held(torch, ka, xw, c, want, what))
+    res["planted"] = planted_ties(torch, ka, xw, c, want, what)
+    res["edge"] = screen_edge(torch, ka, xw, c, what)
+    del want
+    res["all_ties"] = all_ties(torch, ka, xw, c, what)
+    hold = res.pop("hold_launches")
+    cn = (c * c).sum(1).contiguous()
+    n, d, k = xw.shape[0], xw.shape[1], c.shape[0]
+    block = 131072
+
+    def library():
+        for lo in range(0, n, block):
+            torch.argmin(cn[None, :] - 2.0 * torch.mm(xw[lo : lo + block], c.T), dim=1)
+
+    res.update({"ms": time_ms(lambda: ka.assign_rows(xw, c)),
+                "fma_ms": time_ms(lambda: ka._assign_cuda(xw, c, route="fma")),
+                "screen_ms": time_ms(lambda: ka.screen(xw, c, cn)),
+                "library_ms": time_ms(library, reps=3)})
+    ops = 2.0 * n * k * d
+    res.update(bound_of(nbytes_of(xw, c) + n * 4, ops, "bf16"))
+    res["fma_floor_ms"] = bound_of(nbytes_of(xw, c) + n * 4, ops, "fp32")["bound_ms"]
+    res["screen_floor_ms"] = bound_of(nbytes_of(xw) + 2 * k * d * 2 + n * 5, 3 * ops,
+                                      "bf16")["bound_ms"]
+    log(f"phase 12 K1 f32 rows {n} x {d} x {k} ({res['route']}): ids equal to pqv_assign "
+        f"over every row (0 differ); {res['uncertified']} of {n} rows uncertified "
+        f"({res['uncertified_share']:.5f} in the screen alone), the hold's launches {hold}; "
+        f"planted near ties {res['planted']}; screen error {res['screen_max_rel_err']:.3g} "
+        f"of |x| max|c| (bound {res['screen_rel_bound']:.3g}), at most "
+        f"{res['model_max_ratio']:.3g} of the model's bound a row; rows at the model's edge "
+        f"{res['edge']}; {res['ms']:.3f} ms (pqv_assign over every row {res['fma_ms']:.3f}, "
+        f"screen alone {res['screen_ms']:.3f}), blocked mm + argmin {res['library_ms']:.3f}, "
+        f"bound {res['bound_ms']:.3f} ms ({res['bound_by']}, bf16 tensor rate), the FMA "
+        f"form's floor {res['fma_floor_ms']:.3f} ms (fp32), the screen's "
+        f"{res['screen_floor_ms']:.3f} ms (3 x 2nkd); all ties (every centroid twice) "
+        f"{res['all_ties']} on {card}")
     return res
 
 
@@ -3675,6 +3812,20 @@ def phase12(torch, pqt, _build, ds, ka, path, emb_np, data_dir, card, device="cu
                f"; co-assignment with f32 {rec['coassign_random_pairs']:.5f} (random pairs), "
                f"{rec['coassign_kept_together']:.5f} (pairs f32 puts together), adjusted "
                f"Rand index {rec['adjusted_rand']:.5f}, same label {rec['same_label']:.5f}"))
+    # the device builds again with pqv_assign over every f32 row, K1 as the
+    # parent of the f32-row screen computed it: the same bytes
+    parent = [label for label, _, backend in WIRE_BUILDS if backend == "device"]
+    for label, wire, backend in WIRE_BUILDS:
+        if backend != "device":
+            continue
+        with k1_f32_fma(ka):  # a hold, not the path's launches
+            idx = uncounted(_build, lambda: pqt.IndexBuilder(wide, "embedding", device=dev)
+                            .transfer_dtype(wire).assign_backend(backend).build_inplace())
+        check(idx.to_bytes() == builds[label].to_bytes(), f"phase 12 {label}: the build "
+              "differs from the one through pqv_assign over every f32 row (the parent's K1)")
+    log(f"phase 12 the {', '.join(parent)} builds again through pqv_assign over every f32 "
+        "row (the parent's K1): identical index bytes, SHA-256 " + ", ".join(
+            hashlib.sha256(builds[label].to_bytes()).hexdigest()[:16] for label in parent))
     shuffled = np.random.default_rng(12).permutation(labels["bf16"])
     out["planted_shuffled"] = {
         "coassign_random_pairs": coassignment(labels["f32"], shuffled)[0],
@@ -3714,6 +3865,8 @@ def phase12(torch, pqt, _build, ds, ka, path, emb_np, data_dir, card, device="cu
         f"from the bf16 device build (it assigns the rounded rows)")
     del exact_ids, host_ids, c
     k1 = uncounted(_build, lambda: phase12_k1(torch, ka, _build, xw, devb.centroids, card))
+    k1_f32 = uncounted(_build, lambda: phase12_k1_f32(torch, ka, _build, xw,
+                                                      builds["f32"].centroids, card))
     del xw
     torch.cuda.empty_cache()
 
@@ -3750,12 +3903,15 @@ def phase12(torch, pqt, _build, ds, ka, path, emb_np, data_dir, card, device="cu
           f"builds' {wire_builds}")
     check(out["launches"].get("K1_bf16_screen", 0) > 0,
           "phase 12: the bf16 wire's builds did not take K1's screen")
+    check(out["launches"].get("K1_f32_screen", 0) > 0
+          or ka.f32_route(WIDE_ROWS, WIDE_DIM, WIDE_CLUSTERS, 0) != "screen",
+          "phase 12: the builds did not take K1's f32-row screen")
     k1["phase12_launches"] = out["launches"]["K1_bf16"]
-    for key in ("K1_bf16_screen", "K1_bf16_rescore"):
+    for key in ("K1_bf16_screen", "K1_bf16_rescore", "K1_f32_screen", "K1_f32_rescore"):
         k1[f"phase12_{key}_launches"] = out["launches"].get(key, 0)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 12 launches {out['launches']}; {out['seconds']:.1f} s on {card}")
-    return out, k1
+    return out, k1, k1_f32
 
 
 def write_rows(ds, data_dir):
@@ -3884,6 +4040,13 @@ def main() -> None:
     index_a = pqt.build_ivf_index(Embeddings(emb_np, DIM), config, device=dev)
     torch.cuda.synchronize()
     log(f"phase 2b reference build on the card: {time.perf_counter() - t0:.2f} s")
+    with k1_f32_fma(ka):
+        index_p = pqt.build_ivf_index(Embeddings(emb_np, DIM), config, device=dev)
+    check(index_p.to_bytes() == index_a.to_bytes(), "phase 2b: the build through K1's "
+          "f32-row screen differs from the build through pqv_assign alone (the parent's K1)")
+    log("phase 2b the same build with pqv_assign over every f32 row (the parent's K1): "
+        "identical index bytes, SHA-256 " + hashlib.sha256(index_p.to_bytes()).hexdigest()[:16])
+    del index_p
     xt = torch.from_numpy(emb_np).to(dev)
     ct = torch.from_numpy(index_a.centroids).to(dev)
     got, want = ka.assign_rows(xt, ct), ka.assign_rows_plain(xt, ct)
@@ -3898,22 +4061,58 @@ def main() -> None:
         sw = cn[w_np[r]] - 2 * xr @ c64[w_np[r]]
         k1_err = max(k1_err, abs(sg - sw))
         check(abs(sg - sw) <= 1e-5 * (xr @ xr + cn.max()), f"K1 row {r}: no tie")
+    fma = k1_fma(ka, xt, ct)
+    route = ka.f32_route(ROWS, DIM, N_CLUSTERS, xt.data_ptr())
+    check(torch.equal(got, fma), f"phase 2b K1 f32 ({route}): "
+          f"{int((got != fma).sum())} ids differ from pqv_assign")
     results["K1"] = {
         "max_abs_err": k1_err,
         "ms": time_ms(lambda: ka.assign_rows(xt, ct)),
         "plain_ms": time_ms(lambda: ka.assign_rows_plain(xt, ct)),
+        "f32_route": route,
+        "f32_fma_ms": time_ms(lambda: ka._assign_cuda(xt, ct, route="fma")),
     }
-    log(f"phase 2b K1 1M x 128, k=1024: {diff.size} near-tie rows differ; "
-        f"kernel {results['K1']['ms']:.3f} ms, plain {results['K1']['plain_ms']:.3f} ms")
+    log(f"phase 2b K1 1M x 128, k=1024 ({route}): ids equal to pqv_assign's, {diff.size} "
+        f"near-tie rows differ from plain; {results['K1']['ms']:.3f} ms, pqv_assign over "
+        f"every row {results['K1']['f32_fma_ms']:.3f} ms, plain "
+        f"{results['K1']['plain_ms']:.3f} ms")
     cn32 = (ct * ct).sum(1)
+    ops = 2.0 * ROWS * N_CLUSTERS * DIM
+    # The function's bound: its bytes, and 2nkd operations at the card's
+    # fastest rate for these products (bf16 tensor cores); beside it the
+    # FMA form's floor (2nkd fp32 FMAs) and the screen's (3 x 2nkd tensor
+    # operations on the pieces, its rows and pieces read once).
     results["K1"].update(
-        bound_of(nbytes_of(xt, ct) + ROWS * 4, 2.0 * ROWS * N_CLUSTERS * DIM, "fp32"),
+        bound_of(nbytes_of(xt, ct) + ROWS * 4, ops, "bf16"),
+        f32_fma_floor_ms=bound_of(nbytes_of(xt, ct) + ROWS * 4, ops, "fp32")["bound_ms"],
         library_ms=time_ms(lambda: torch.argmin(cn32[None, :] - 2.0 * (xt @ ct.T), dim=1),
                            reps=5),
     )
+    screen_bytes = nbytes_of(xt) + 2 * N_CLUSTERS * DIM * 2 + ROWS * 5
+    held = screen_held(torch, ka, xt, ct, fma, "phase 2b K1 f32 screen")
+    results["K1_f32_screen"] = {
+        "max_abs_err": held["screen_max_abs_err"],
+        "ms": time_ms(lambda: ka.screen(xt, ct, cn32.contiguous())),
+        "plain_ms": time_ms(lambda: ka.assign_rows_screened_plain(xt, ct), reps=3),
+        # the function's bound, K1's; the screen's own floor beside it
+        **bound_of(nbytes_of(xt, ct) + ROWS * 4, ops, "bf16"),
+        "f32_screen_floor_ms": bound_of(screen_bytes, 3 * ops, "bf16")["bound_ms"],
+        "library_ms": results["K1"]["library_ms"],
+        **{f"f32_{key}": v for key, v in held.items()},
+    }
+    results["K1"]["f32_screen_floor_ms"] = results["K1_f32_screen"]["f32_screen_floor_ms"]
     log(f"phase 2b K1: bound {results['K1']['bound_ms']:.3f} ms "
-        f"({results['K1']['bound_by']}), mm + argmin {results['K1']['library_ms']:.3f} ms")
-    del xt, got, want, cn32
+        f"({results['K1']['bound_by']}, bf16 tensor rate), the FMA form's floor "
+        f"{results['K1']['f32_fma_floor_ms']:.3f} ms, mm + argmin "
+        f"{results['K1']['library_ms']:.3f} ms; the f32-row screen alone "
+        f"{results['K1_f32_screen']['ms']:.3f} ms (floor "
+        f"{results['K1_f32_screen']['f32_screen_floor_ms']:.3f} ms, plain "
+        f"{results['K1_f32_screen']['plain_ms']:.3f} ms): {held['uncertified_share']:.5f} "
+        f"of rows uncertified, certified ids pqv_assign's, error "
+        f"{held['screen_max_rel_err']:.3g} of |x| max|c| (bound "
+        f"{held['screen_rel_bound']:.3g}), at most {held['model_max_ratio']:.3g} of the "
+        "model's bound a row")
+    del xt, got, want, cn32, fma
 
     s32 = pqt.DeviceIvfSearcher(index_a, emb_np, row_tile=ROW_TILE,
                                 cluster_sorted=True, device=dev)
@@ -4048,7 +4247,9 @@ def main() -> None:
     launches = dict(_build.LAUNCHES)
 
     # ---- phase 4 ---------------------------------------------------------
-    for name in ("K1", "K2", "K3", "K4"):
+    main_kernels = ("K1", "K2", "K3", "K4") + (
+        ("K1_f32_screen",) if ka.f32_route(ROWS, DIM, N_CLUSTERS, 0) == "screen" else ())
+    for name in main_kernels:
         check(launches[name] > 0, f"{name} was not launched on the main path")
     log(f"phase 4 launches on the main path: {launches}")
 
@@ -4078,8 +4279,10 @@ def main() -> None:
     main8 = phase8(torch, pqt, _build, ds, emb_np, queries, truth_np, index.to_bytes(),
                    data_dir, card)
     torch.cuda.empty_cache()
-    main12, k1_bf16 = phase12(torch, pqt, _build, ds, ka, path, emb_np, data_dir, card)
+    main12, k1_bf16, k1_f32 = phase12(torch, pqt, _build, ds, ka, path, emb_np, data_dir,
+                                      card)
     results["K1"].update({f"bf16_{key}": v for key, v in k1_bf16.items()})
+    results["K1"].update({f"f32_wide_{key}": v for key, v in k1_f32.items()})
 
     kernels = []
     for name, (fn, source, replaces) in KERNELS.items():

@@ -102,6 +102,57 @@
 //   What bounds the screen: 3 x 2 n k d tensor operations against 989
 //   TFLOP/s, and the stages' copies from L2 (x once, the pieces three
 //   times a chunk); one block an SM (three 64 KB stages).
+//
+// K1 on f32 rows has the same two routes (kernels/assign.py: f32_route): the
+// f32 form above over every row, or the screen over f32 rows
+// (pqv_assign_f32_screen, ScreenTileF32 + Argmin2Fold) and the f32 form over
+// the rows it leaves uncertified, gathered a bounded block at a time. The
+// statement it proves is the same: certified => pqv_assign's id, strictly,
+// with no tie.
+//   - The rows are copied raw (f32) and split as they land into bf16 pieces
+//     (split_step): x = xh + xm + xr exactly, xh = RN_bf16(x), xm =
+//     RN_bf16(x - xh), each 0 where it would be under 2^-126 (no subnormal
+//     row piece reaches the tensor cores), and xr = x - xh - xm (exact in
+//     fp32; about 2^-18 |x|). No full-size copy of the pieces exists.
+//   - A stage sums, from zero, the products of three pairs in this order
+//     (screen_pair_*): xm.hi, xh.mid, xh.hi, 4 k16 steps each. t' = xh.(hi
+//     + mid) + xm.hi exactly. What the pairs leave out is t - t' = xh.(c -
+//     hi - mid) + xm.(c - hi) + xr.c, so |t - t'| <= X_h D_2 + X_m D_1 + X_r
+//     C (Cauchy-Schwarz, row piece by row piece), X_h, X_m, X_r >= the
+//     norms of the row's own pieces, D_j >= max_c |c - (the first j centroid
+//     pieces)|_2.
+//   - The tensor cores: the pair added j-th from the end of a stage passes
+//     through at most 17 x 4 j roundings of u' (the bf16-row screen's model
+//     and its assumption, above: 68 for xh.hi, 136 for xh.mid, 204 for
+//     xm.hi), and over all stages its products sum to at most X_p C_q (C_q
+//     >= max_c |c_q|_2, H and M). With the stages added in fp32, |s_s - t'|
+//     <= X_h ((1 + g_n)(g(68, u') H + g(136, u') M) + g_n P_2) + X_m ((1 +
+//     g_n) g(204, u') H + g_n P_1), P_j >= max_c || |hi| (+ |mid|) ||_2
+//     bounding the magnitude of the stage sums (g_n (1 + g(204, u')) as for
+//     bf16 rows).
+//   - So |s_s - t| <= e(x) = X_h b_h + X_m b_m + X_r C, with b_h and b_m the
+//     two brackets plus D_2 and D_1, and as for bf16 rows E(x) = alpha_w X_w
+//     + alpha X + a_h X_h + a_m X_m + a_r X_r + beta, alpha_w = 2 g C (1 +
+//     u), alpha = 4 u C, a_p = 2 (1 + u) b_p, a_r = 2 (1 + u) C, beta = 2 u CN
+//     + eta, eta = 4 (d + 1 + 386 n_st) 2^-126 (kernels/assign.py:
+//     screen_coefficients_f32). X and X_w come from the f32 values, the X_p
+//     from the pieces split again in the epilogue, all summed in double and
+//     rounded up by 2^-30.
+//   - The rounding bounds hold only where no sum of either form overflows.
+//     Every partial sum and value lies within CN + 2.1 X C, so a row is
+//     certified only where also X <= x_limit = (2^127 - CN) / (2.5 C).
+//   The pairs left out cost about 3 x 2^-18 X C beside K1 f32's own alpha_w
+//   X_w, about d 2^-24 X C, so f32 rows leave more rows uncertified than
+//   bf16 rows at small d (2.6% against 1.6% at d = 128, 15.6% against 13.4%
+//   at 1024). Six pairs (adding xl.hi, xm.mid, xh.lo, with a third piece of
+//   both) take the loss to 2^-26 but were slower at every d from 32 to 1024
+//   on the H100 (scripts/torch_score_tile_check.py --sweep).
+//   What bounds the screen over f32 rows: 3 x 2 n k d tensor operations, and
+//   the copies: 4 bytes a row value a chunk (the rows of the resident blocks
+//   outgrow L2 at d = 1024, so they come from device memory each chunk) and
+//   the hi and mid pieces of every chunk from L2; one block an SM (three 64
+//   KB stages). The split of a stage runs while the tensor cores take the
+//   stage before it (walk_rows_lagged).
 #include <math.h>
 
 #include "score_tile.cuh"
@@ -273,6 +324,15 @@ int launch_assign_bf16(WideningOperands<__nv_bfloat16> op, const float* c_norm, 
   return (int)cudaGetLastError();
 }
 
+// The f32-row screen's certificate (kernels/assign.py: screen_coefficients_f32):
+// E = alpha_w X_w + alpha X + a[0] X_h + a[1] X_m + a[2] X_rest + beta, X_h,
+// X_m, X_rest >= the norms of the row's pieces xh, xm and of what they leave
+// (xl + xr); a row is certified where the gap exceeds 2 E and X <= x_limit
+// (no sum of either form can overflow).
+struct CertF32 {
+  double alpha_w, alpha, a[3], beta, x_limit;
+};
+
 // The screen's epilogue: per owned row, the best value with its id and the
 // second-best value over every chunk (a tie makes them equal); at the end the
 // lanes that share a row are joined, and the row's id is written with its
@@ -311,23 +371,31 @@ struct Argmin2Fold : ArgminFold<Tile> {
     }
   }
 
+  // The best value b with its id bi and the second-best s2 of owned row jq,
+  // joined over the lanes that share the row.
+  __device__ __forceinline__ void join(int jq, float& b, float& s2, int& bi) const {
+    b = best[jq], s2 = second[jq];
+    bi = best_i[jq];
+#pragma unroll
+    for (int x = 0; x < Tile::kXor; ++x) {
+      const float ob = __shfl_xor_sync(kFull, b, 1 << x);
+      const int oi = __shfl_xor_sync(kFull, bi, 1 << x);
+      const float os = __shfl_xor_sync(kFull, s2, 1 << x);
+      const bool take = (ob < b) | ((ob == b) & (oi < bi));
+      s2 = fminf(fminf(s2, os), take ? b : ob);
+      b = take ? ob : b;
+      bi = take ? oi : bi;
+    }
+  }
+
   __device__ __forceinline__ void write(const Tile& t, const SplitOperands& op, int q0,
                                         double alpha_w, double alpha, double beta,
                                         int* out, uint8_t* flags, float* value) {
 #pragma unroll
     for (int jq = 0; jq < Tile::kPerThread; ++jq) {
-      float b = best[jq], s2 = second[jq];
-      int bi = best_i[jq];
-#pragma unroll
-      for (int x = 0; x < Tile::kXor; ++x) {
-        const float ob = __shfl_xor_sync(kFull, b, 1 << x);
-        const int oi = __shfl_xor_sync(kFull, bi, 1 << x);
-        const float os = __shfl_xor_sync(kFull, s2, 1 << x);
-        const bool take = (ob < b) | ((ob == b) & (oi < bi));
-        s2 = fminf(fminf(s2, os), take ? b : ob);
-        b = take ? ob : b;
-        bi = take ? oi : bi;
-      }
+      float b, s2;
+      int bi;
+      join(jq, b, s2, bi);
       // |x|^2 and sum_i ((d - i) x_i)^2 of the row in double (exact squares),
       // a quarter of the row in each of its lanes.
       const int row = q0 + t.query(jq);
@@ -363,6 +431,67 @@ struct Argmin2Fold : ArgminFold<Tile> {
       }
     }
   }
+  // The same for f32 rows (CertF32): X, X_w and the norms of the row's
+  // pieces xh, xm and of what they leave (split_step, as the stages split
+  // them) summed in double, a quarter of the row in each of its lanes, eight
+  // 16-byte loads in flight; the squares of f32 values are exact there, the
+  // weighted ones off by 2^-53 each, which the round-up by 2^-30 covers.
+  __device__ __forceinline__ void write(const Tile& t, const SplitOperandsF32& op, int q0,
+                                        const CertF32& cf, int* out, uint8_t* flags,
+                                        float* value) {
+    constexpr int kLanes = 1 << Tile::kXor, kBatch = 8;
+#pragma unroll
+    for (int jq = 0; jq < Tile::kPerThread; ++jq) {
+      float b, s2;
+      int bi;
+      join(jq, b, s2, bi);
+      const int row = q0 + t.query(jq);
+      double ss = 0.0, sw = 0.0, sp[3] = {0.0, 0.0, 0.0};
+      if (row < op.B) {
+        const float4* p = reinterpret_cast<const float4*>(op.q + (size_t)row * op.d);
+        for (int i0 = t.row_lane(); i0 < op.d / 4; i0 += kLanes * kBatch) {
+          float4 v4[kBatch];
+#pragma unroll
+          for (int j = 0; j < kBatch; ++j)
+            if (i0 + kLanes * j < op.d / 4) v4[j] = p[i0 + kLanes * j];
+#pragma unroll
+          for (int j = 0; j < kBatch; ++j) {
+            const int i = i0 + kLanes * j;
+            if (i >= op.d / 4) break;
+            const float v[4] = {v4[j].x, v4[j].y, v4[j].z, v4[j].w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float pc[3];
+              pc[2] = split_step(split_step(v[e], pc[0]), pc[1]);
+              const double x = v[e], w = (double)(op.d - 4 * i - e) * x;
+              ss = fma(x, x, ss);
+              sw = fma(w, w, sw);
+#pragma unroll
+              for (int q = 0; q < 3; ++q) sp[q] = fma((double)pc[q], (double)pc[q], sp[q]);
+            }
+          }
+        }
+      }
+      for (int x = 0; x < Tile::kXor; ++x) {
+        ss += __shfl_xor_sync(kFull, ss, 1 << x);
+        sw += __shfl_xor_sync(kFull, sw, 1 << x);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) sp[j] += __shfl_xor_sync(kFull, sp[j], 1 << x);
+      }
+      constexpr double up = 1.0 + 0x1p-30;
+      const double xn = sqrt(ss) * up;
+      double e = cf.alpha_w * (sqrt(sw) * up) + cf.alpha * xn + cf.beta;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) e += cf.a[j] * (sqrt(sp[j]) * up);
+      e *= 1.0 + 0x1p-20;
+      const bool certified = (double)s2 - (double)b > 2.0 * e && xn <= cf.x_limit;
+      if (t.row_lane() == 0 && row < op.B) {
+        out[row] = bi;
+        flags[row] = certified;
+        if (value) value[row] = b;
+      }
+    }
+  }
 };
 
 // One block an SM: three 64 KB stages, and the registers of two sums.
@@ -386,6 +515,35 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = blockIdx.x * ScreenTile::kQueries;
   walk_rows<kAssignStages>(t, op, q0, 0, op.k, ring, epi);
   epi.write(t, op, q0, alpha_w, alpha, beta, out, flags, value);
+}
+
+// The screen over f32 rows: one block an SM (192 KB of ring).
+__global__ void __launch_bounds__(kThreads, 1)
+    screen_f32_kernel(SplitOperandsF32 op, const float* __restrict__ c_norm, CertF32 cf,
+                      int* __restrict__ out, uint8_t* __restrict__ flags,
+                      float* __restrict__ value) {
+  using Tile = ScreenTileF32;
+  extern __shared__ char dyn[];
+  char* ring = align_ring(dyn);
+  Tile t;
+  t.ring = ring;
+  Argmin2Fold<Tile> epi;
+  epi.c_norm = c_norm;
+  epi.norms = reinterpret_cast<float*>(ring + Tile::kStages * Tile::kStageBytes);
+  epi.k = op.k;
+#pragma unroll
+  for (int jq = 0; jq < Tile::kPerThread; ++jq) {
+    epi.best[jq] = INFINITY;
+    epi.second[jq] = INFINITY;
+    epi.best_i[jq] = 0;
+  }
+  const int q0 = blockIdx.x * Tile::kQueries;
+  walk_rows_lagged<Tile::kStages>(t, op, q0, 0, op.k, ring, epi);
+  epi.write(t, op, q0, cf, out, flags, value);
+}
+
+constexpr int screen_f32_smem() {
+  return 1024 + ScreenTileF32::kStages * ScreenTileF32::kStageBytes + 2 * kTR * 4;
 }
 
 template <class Tile, class Operands>
@@ -457,4 +615,45 @@ extern "C" int pqv_assign_smem() { return pqv::assign_smem<pqv::AssignTile>(); }
 // The same for the bf16-row forms: the FMA form (screen 0) or the screen (1).
 extern "C" int pqv_assign_bf16_smem(int screen) {
   return screen ? pqv::assign_smem<pqv::ScreenTile>() : pqv::assign_bf16_smem<true>();
+}
+
+// K1's screen over f32 rows: x [n, d] f32, pieces [3, k, d] bf16 (hi, mid, lo;
+// the screen reads hi and mid), c_norm [k] f32, coef (host memory) the
+// certificate's alpha_w, alpha, a_h, a_m, a_rest, beta and x_limit -> out [n]
+// int32, flags [n] uint8 (1: certified, the id is pqv_assign's) and, where
+// value is not null, value [n] f32: the screen's value of the id. Needs d % 8
+// == 0 and 16-byte aligned x and pieces.
+extern "C" int pqv_assign_f32_screen(const float* x, const void* pieces,
+                                     const float* c_norm, int n, int d, int k,
+                                     const double* coef, int* out, unsigned char* flags,
+                                     float* value, void* stream) {
+  using namespace pqv;
+  if (n <= 0) return 0;
+  if (k < 1 || d % 8 != 0 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(pieces)) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = screen_f32_smem();
+  cudaError_t err = cudaFuncSetAttribute(
+      screen_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const SplitOperandsF32 op{x, static_cast<const __nv_bfloat16*>(pieces), n, d, k};
+  const CertF32 cf{coef[0], coef[1], {coef[2], coef[3], coef[4]}, coef[5], coef[6]};
+  screen_f32_kernel<<<ceil_div(n, ScreenTileF32::kQueries), kThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(op, c_norm, cf, out, flags,
+                                                               value);
+  return (int)cudaGetLastError();
+}
+
+// The same for the f32-row screen.
+extern "C" int pqv_assign_f32_screen_smem() { return pqv::screen_f32_smem(); }
+
+// The pairs (row piece, centroid piece) the f32-row screen sums, in its order,
+// into row[j], centroid[j] (room for 8 each) -> how many: the host's
+// certificate (kernels/assign.py: F32_SCREEN_PAIRS) is held to them.
+extern "C" int pqv_assign_f32_screen_pairs(int* row, int* centroid) {
+  for (int j = 0; j < pqv::kScreenPairs; ++j) {
+    row[j] = pqv::screen_pair_row(j);
+    centroid[j] = pqv::screen_pair_centroid(j);
+  }
+  return pqv::kScreenPairs;
 }

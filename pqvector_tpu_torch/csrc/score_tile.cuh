@@ -47,7 +47,9 @@
 //   code path. It needs 16-byte aligned rows: d % 8 == 0. The products are
 //   exact; only the order of the fp32 additions is the hardware's. K1's
 //   screen (ScreenTile) stages each query slice once beside three bf16
-//   pieces of the f32 centroids and sums a stage's products apart.
+//   pieces of the f32 centroids and sums a stage's products apart; its
+//   screen over f32 rows (ScreenTileF32) copies the query slice raw, splits
+//   it into two bf16 pieces in place and walks with walk_rows_lagged.
 //
 // With queries as M a thread of the warpgroup holds two queries and, of the
 // chunk's rows, 16 groups of 2 consecutive ones, a group's neighbours in the
@@ -109,6 +111,13 @@ struct WideningOperands {
 // into three bf16 pieces, pieces [3][k][d] (hi, mid, lo: hi + mid + lo == c).
 struct SplitOperands {
   const __nv_bfloat16* q;
+  const __nv_bfloat16* pieces;
+  int B, d, k;
+};
+
+// K1's screen over f32 rows: f32 queries [B, d] and the same centroid pieces.
+struct SplitOperandsF32 {
+  const float* q;
   const __nv_bfloat16* pieces;
   int B, d, k;
 };
@@ -388,6 +397,39 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
          (1ull << 62);
 }
 
+// d = A[64 x 16] B[128 x 16]^T, bf16 operands from shared memory: the first
+// step of a sum from zero, which reads nothing of d, so that d need not hold
+// a value (nor a register) between two sums.
+__device__ __forceinline__ void wgmma_m64n128k16_first(float (&d)[64], uint64_t a,
+                                                       uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]),
+        "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]),
+        "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]),
+        "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]),
+        "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]),
+        "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]),
+        "=f"(d[47]), "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]), "=f"(d[56]),
+        "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]),
+        "=f"(d[62]), "=f"(d[63])
+      : "l"(a), "l"(b)
+      : "memory");
+}
+
 // d (+)= A[64 x 16] B[128 x 16]^T, bf16 operands from shared memory.
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
                                                  uint64_t b, int accumulate) {
@@ -542,6 +584,142 @@ struct ScreenTile : MmaTile {
   }
 };
 
+// One step of K1's split of an f32 row value v into bf16 pieces: the piece
+// RN_bf16(v), or 0 where that is under 2^-126 (no subnormal piece reaches the
+// tensor cores: it stays in what is left), and what is left, v - piece, exact
+// in fp32. Three steps give xh, xm, xl and the residual xr, x == xh + xm + xl
+// + xr exactly; kernels/assign.py: split_f32_rows is the same in plain torch.
+__device__ __forceinline__ float split_step(float v, float& piece) {
+  float p = __bfloat162float(__float2bfloat16_rn(v));
+  if (fabsf(p) < 0x1p-126f) p = 0.f;  // a NaN stays
+  piece = p;
+  return __fsub_rn(v, p);
+}
+
+// The bf16 bits of two pieces, each exactly a bf16 value: even index low.
+__device__ __forceinline__ uint32_t pack_pieces(float lo, float hi) {
+  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
+}
+
+// The pairs (row piece, centroid piece) K1's f32-row screen sums, in the order
+// the tensor cores add them, the small products first: xm.hi, xh.mid, xh.hi
+// (0 is xh / hi, 1 xm / mid). xl meets nothing, nor does the centroids' lo
+// piece. The host computes the certificate from its own copy,
+// kernels/assign.py: F32_SCREEN_PAIRS, and checks it against these
+// (pqv_assign_f32_screen_pairs) before a launch.
+constexpr int kScreenPairs = 3;
+__host__ __device__ constexpr int screen_pair_row(int j) { return j == 0 ? 1 : 0; }
+__host__ __device__ constexpr int screen_pair_centroid(int j) { return j == 1 ? 1 : 0; }
+
+// ScreenTile's layout over SplitOperandsF32: K1's screen over f32 rows. A
+// stage holds 64 dimensions of two bf16 pieces of the 128 rows (xh, xm) and
+// of the chunk's 128 centroids (hi, mid), each a swizzled 16 KB block. The
+// rows arrive raw: a thread copies the 32 bytes of 8 f32 values by two
+// 16-byte cp.async into its own slot of the xh and the xm block, and once
+// they have landed (arrived(), before the walk's barrier) splits them in
+// registers and writes the pieces over them; no thread touches another's
+// slot, so no barrier is added. No full-size copy of the rows in pieces
+// exists anywhere. issue() starts the stage's 3 x 4 wgmma into `part` from
+// zero (the order of screen_pair_*) and returns; retire() waits for them and
+// adds `part` to `acc` in IEEE fp32, as ScreenTile does. walk_rows_lagged
+// splits the next stage while the tensor cores run.
+struct ScreenTileF32 : MmaTile {
+  static constexpr int kBlock = 128 * 128;  // one swizzled piece block
+  static constexpr int kStageBytes = 4 * kBlock;  // xh, xm, then hi, mid
+  static constexpr int kStages = 3;
+
+  float part[64];
+  char* ring;    // the walk's ring
+  int next = 0;  // its slot whose rows arrived() splits next
+
+  __device__ __forceinline__ void load(char* stage, const SplitOperandsF32& op, int q0,
+                                       int r0, int row_end, int d0) const {
+    const uint32_t s = smem_u32(stage);
+    const int c = threadIdx.x & 7, rb = threadIdx.x >> 3;
+    const bool col_ok = d0 + 8 * c < op.d;
+    const float* p = op.q + (size_t)(q0 + rb) * op.d + d0 + 8 * c;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rb + 32 * i;  // r & 7 == rb & 7
+      const bool ok = col_ok && q0 + r < op.B;
+      const uint32_t slot = r * 128 + ((c ^ (rb & 7)) << 4);
+      const float* src = ok ? p + (size_t)32 * i * op.d : op.q;
+      cp_async16(s + slot, src, ok);
+      cp_async16(s + kBlock + slot, ok ? src + 4 : op.q, ok);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      stage_swizzled(s + (2 + q) * kBlock, op.pieces + (size_t)q * op.k * op.d, r0, row_end,
+                     d0, op.d);
+  }
+
+  __device__ __forceinline__ void arrived() {
+    char* stage = ring + next * kStageBytes;
+    next = next + 1 == kStages ? 0 : next + 1;
+    const int c = threadIdx.x & 7, rb = threadIdx.x >> 3;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      char* slot = stage + (rb + 32 * i) * 128 + ((c ^ (rb & 7)) << 4);
+      const float4 a = *reinterpret_cast<const float4*>(slot);
+      const float4 b = *reinterpret_cast<const float4*>(slot + kBlock);
+      const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      float h[8], m[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) split_step(split_step(v[e], h[e]), m[e]);
+      *reinterpret_cast<uint4*>(slot) =
+          make_uint4(pack_pieces(h[0], h[1]), pack_pieces(h[2], h[3]),
+                     pack_pieces(h[4], h[5]), pack_pieces(h[6], h[7]));
+      *reinterpret_cast<uint4*>(slot + kBlock) =
+          make_uint4(pack_pieces(m[0], m[1]), pack_pieces(m[2], m[3]),
+                     pack_pieces(m[4], m[5]), pack_pieces(m[6], m[7]));
+    }
+    // the pieces were written through the generic proxy; wgmma reads through
+    // the asynchronous one
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+
+  // Start part = the stage's 3 pairs of pieces; `left` = d - d0.
+  __device__ __forceinline__ void issue(const char* stage, int left) {
+    const uint32_t s = smem_u32(stage);
+    const uint32_t half = (threadIdx.x >> 7) * (64 * 128);
+    const int steps = left >= kDims ? kDims / 16 : (left + 15) / 16;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    if (steps == kDims / 16) {  // a whole stage: the 12 wgmma unrolled
+#pragma unroll
+      for (int j = 0; j < kScreenPairs; ++j) {
+        const uint64_t a = wgmma_desc(s + screen_pair_row(j) * kBlock + half);
+        const uint64_t b = wgmma_desc(s + (2 + screen_pair_centroid(j)) * kBlock);
+#pragma unroll
+        for (int ks = 0; ks < kDims / 16; ++ks) {
+          if (j == 0 && ks == 0)
+            wgmma_m64n128k16_first(part, a, b);
+          else
+            wgmma_m64n128k16(part, a + 2 * ks, b + 2 * ks, 1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kScreenPairs; ++j) {
+        const uint64_t a = wgmma_desc(s + screen_pair_row(j) * kBlock + half);
+        const uint64_t b = wgmma_desc(s + (2 + screen_pair_centroid(j)) * kBlock);
+        if (j == 0) wgmma_m64n128k16_first(part, a, b);
+        for (int ks = j == 0 ? 1 : 0; ks < steps; ++ks)
+          wgmma_m64n128k16(part, a + 2 * ks, b + 2 * ks, 1);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+
+  // Wait for the issued stage and add it: acc = part where `first`.
+  __device__ __forceinline__ void retire(bool first) {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(part[i])::"memory");
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = first ? part[i] : __fadd_rn(acc[i], part[i]);
+  }
+};
+
 // ------------------------------------------------------------ the walk
 
 // Score rows [row_begin, row_end) against queries q0 .. q0 + kQueries - 1 in
@@ -584,6 +762,60 @@ __device__ __forceinline__ void walk_rows(Tile& tile, const Operands& op, int q0
       slot = slot + 1 == STAGES ? 0 : slot + 1;
     }
     epi.chunk(tile, r0, c & 1);
+  }
+  cp_async_wait<0>();
+}
+
+// walk_rows for a tile whose products run while the next slice is prepared
+// (ScreenTileF32): slice s's wgmma are issued after the barrier and retired
+// in the next step, after the next slice has arrived() and before the
+// barrier that lets the fetch reuse slice s's stage. A chunk's epilogue runs
+// once its last slice is retired, so in the next chunk's first step (before
+// that chunk's first retire overwrites acc) or after the loop.
+template <int STAGES, class Tile, class Operands, class Epilogue>
+__device__ __forceinline__ void walk_rows_lagged(Tile& tile, const Operands& op, int q0,
+                                                 int row_begin, int row_end, char* ring,
+                                                 Epilogue& epi) {
+  const int nk = (op.d + Tile::kDims - 1) / Tile::kDims;
+  const int nchunks = (row_end - row_begin + kTR - 1) / kTR;
+  int lc = 0, lk = 0, lslot = 0;  // next slice to load, and its stage
+  auto fetch = [&]() {
+    if (lc < nchunks) {
+      tile.load(ring + lslot * Tile::kStageBytes, op, q0, row_begin + lc * kTR, row_end,
+                lk * Tile::kDims);
+      if (++lk == nk) {
+        lk = 0;
+        ++lc;
+      }
+    }
+    cp_async_commit();
+    lslot = lslot + 1 == STAGES ? 0 : lslot + 1;
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) fetch();
+  int slot = 0;
+  bool pending = false, pending_first = false;
+  for (int c = 0; c < nchunks; ++c) {
+    const int r0 = row_begin + c * kTR;
+    epi.begin(r0, c & 1);
+    for (int kb = 0; kb < nk; ++kb) {
+      cp_async_wait<STAGES - 2>();
+      tile.arrived();
+      if (pending) {
+        tile.retire(pending_first);
+        if (kb == 0) epi.chunk(tile, r0 - kTR, (c - 1) & 1);
+      }
+      __syncthreads();  // the slice is visible; the stage read last is free
+      fetch();
+      tile.issue(ring + slot * Tile::kStageBytes, op.d - kb * Tile::kDims);
+      pending = true;
+      pending_first = kb == 0;
+      slot = slot + 1 == STAGES ? 0 : slot + 1;
+    }
+  }
+  if (pending) {
+    tile.retire(pending_first);
+    epi.chunk(tile, row_begin + (nchunks - 1) * kTR, (nchunks - 1) & 1);
   }
   cp_async_wait<0>();
 }

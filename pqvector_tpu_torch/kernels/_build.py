@@ -35,9 +35,12 @@ NVCC_FLAGS = [
 #: gather by bulk copies) since the last ``reset_launches``; "K1_bf16" counts
 #: those of K1's launches that took a bf16-row form: the screen
 #: ("K1_bf16_screen"), the FMA form over the rows the screen left uncertified
-#: ("K1_bf16_rescore") and the FMA form over all rows.
+#: ("K1_bf16_rescore") and the FMA form over all rows; "K1_f32_screen" and
+#: "K1_f32_rescore" those of K1's launches on f32 rows that took the f32-row
+#: screen and ``pqv_assign`` over the rows it left uncertified.
 LAUNCHES: dict[str, int] = {**{f"K{i}": 0 for i in range(1, 12)}, "K1_bf16": 0,
-                            "K1_bf16_screen": 0, "K1_bf16_rescore": 0}
+                            "K1_bf16_screen": 0, "K1_bf16_rescore": 0,
+                            "K1_f32_screen": 0, "K1_f32_rescore": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +52,9 @@ _SIGNATURES = {
     "pqv_assign_smem": [],
     "pqv_assign_bf16_screen": [_P, _P, _P, _I, _I, _I, _D, _D, _D, _P, _P, _P, _P],
     "pqv_assign_bf16_smem": [_I],
+    "pqv_assign_f32_screen": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "pqv_assign_f32_screen_smem": [],
+    "pqv_assign_f32_screen_pairs": [_P, _P],
     "pqv_stream_exact_topk": [_P, _P, _P] + [_I] * 7 + [_P] * 6,
     "pqv_stream_exact_topk_smem": [_I] * 3,
     "pqv_stream_masked_topk": [_P] * 7 + [_I] * 11 + [_P] * 7,

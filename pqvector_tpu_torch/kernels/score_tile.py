@@ -59,10 +59,12 @@ def stage_bytes(backend: str, queries: int) -> int:
     and rows in 4-byte elements, transposed with a 4-element pad per
     dimension. K1's bf16-row forms: ``"screen"``, 64 dimensions of the 128
     queries and of three bf16 pieces of the 128 centroids; ``"fma_bf16"``,
-    the ``"fma"`` stage and the queries' 16 dimensions raw in bf16."""
+    the ``"fma"`` stage and the queries' 16 dimensions raw in bf16. Its
+    f32-row screen, ``"screen_f32"``: 64 dimensions of two bf16 pieces of
+    the rows (staged raw in f32, split in place) and of the centroids."""
     if backend == "wgmma":
         return 2 * 128 * 128
-    if backend == "screen":
+    if backend in ("screen", "screen_f32"):
         return 4 * 128 * 128
     if backend == "fma_bf16":
         return stage_bytes("fma", queries) + queries * 16 * 2

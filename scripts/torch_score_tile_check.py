@@ -93,9 +93,10 @@ def ptxas_report(_build) -> None:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m and re.search(r"tile_min_kernel|exact_topk_kernel|stream_exact_kernel|"
                                r"assign_kernel|assign_bf16_kernel|screen_kernel|"
+                               r"screen_f32_kernel|"
                                r"masked_local_kernel|stream_masked_kernel|"
                                r"binscan_kernel|masked_topk_kernel", m.group(1)):
-                kernel = re.search(r"\d+([a-z_]+_kernel)", m.group(1))
+                kernel = re.search(r"\d+([a-z][a-z0-9_]*_kernel)", m.group(1))
                 tile = re.search(r"(FmaTile\w+?EE|Dp4aTile\w+?EE|MmaTile)", m.group(1))
                 used = " ".join(l.strip() for l in lines[i + 1 : i + 4])
                 used = used.replace("ptxas info    : ", "")
@@ -104,6 +105,7 @@ def ptxas_report(_build) -> None:
 
 
 def check_shared_memory(lib) -> None:
+    from pqvector_tpu_torch.kernels import assign as ka
     from pqvector_tpu_torch.kernels import score_tile
 
     for backend, nq in (("fma", 64), ("fma", 128), ("wgmma", 128)):
@@ -126,6 +128,8 @@ def check_shared_memory(lib) -> None:
     assert lib.pqv_assign_smem() == score_tile.smem_bytes("K1", "fma", 128)
     assert lib.pqv_assign_bf16_smem(0) == score_tile.smem_bytes("K1", "fma_bf16", 128)
     assert lib.pqv_assign_bf16_smem(1) == score_tile.smem_bytes("K1", "screen", 128)
+    assert lib.pqv_assign_f32_screen_smem() == score_tile.smem_bytes("K1", "screen_f32", 128)
+    assert ka.kernel_pairs(lib) == ka.F32_SCREEN_PAIRS, ka.kernel_pairs(lib)
     for backend, nq in (("fma", 64), ("wgmma", 128)):
         for k in (1, 10, 128):
             for kc_pad in (128, 1152, 4224):
@@ -442,8 +446,8 @@ def binned_section(torch, cs, bs, x, sq, digests) -> None:
 
 def sweep_data(torch, d, n=1_000_000, k=1000):
     """Seeded 256-mode mixture rows [n, d] on the card (the phase-12
-    generator's shape), rounded to bf16, and k-means centroids trained on
-    50,000 of them. -> (bf16 rows, f32 centroids)."""
+    generator's shape) and k-means centroids trained on 50,000 of them.
+    -> (f32 rows, the same rows rounded to bf16, f32 centroids)."""
     from pqvector_tpu_torch.index.kmeans import KMeansParams, k_means
 
     dev = torch.device("cuda")
@@ -455,30 +459,60 @@ def sweep_data(torch, d, n=1_000_000, k=1000):
         n, d, device=dev, generator=gen)
     sample = xw[torch.randperm(n, device=dev, generator=gen)[:50_000]]
     cent = torch.from_numpy(k_means(sample, KMeansParams(n_clusters=k), device=dev)[0]).to(dev)
-    return xw.bfloat16(), cent
+    return xw, xw.bfloat16(), cent
+
+
+def f32_routes(torch, cs, ka, xf, cent, want, res):
+    """The f32-row forms on ``xf``: ``pqv_assign`` over every row, the screen
+    without its probe (then the re-score) and the screen alone, into ``res``
+    (ms) -> (ids that differ from ``want``, the screen's uncertified share;
+    None for a package without the f32-row screen)."""
+    if not hasattr(ka, "f32_route"):
+        return 0, None
+    cn = (cent * cent).sum(1).contiguous()
+    res["f32 fma"] = cs.time_ms(lambda: ka._assign_cuda(xf, cent, route="fma"), reps=5)
+    got = ka._assign_cuda(xf, cent, route="screen", probe=0)
+    ids, flags = ka.screen(xf, cent, cn)[:2]
+    cert = flags.bool()
+    differ = int((got != want).sum()) + int((ids[cert] != want[cert]).sum())
+    res["f32 screen"] = cs.time_ms(lambda: ka._assign_cuda(xf, cent, route="screen", probe=0),
+                                   reps=5)
+    res["f32 screen alone"] = cs.time_ms(lambda: ka.screen(xf, cent, cn), reps=5)
+    return differ, 1.0 - float(cert.float().mean())
 
 
 def k1_sweep(torch, cs, ka) -> None:
-    """K1 at 1M x d x 1000 for d = 32 .. 1024 on ``sweep_data``: K1 f32 on
-    the widened rows, the bf16 rows through each route (the screen with its
-    share of rows left uncertified) and the default one, the blocked ``mm`` +
-    ``argmin``, and the function's bound (2nkd at the bf16 tensor rate) beside
-    each form's floor (2nkd fp32 FMAs; the screen's 3 x 2nkd)."""
+    """K1 at 1M x d x 1000 for d = 32 .. 1024 on ``sweep_data``: on the f32
+    rows K1's default route (the package's own), ``pqv_assign`` over every
+    row and the f32-row screen (unprobed, and alone, with the share it leaves
+    uncertified) beside the blocked ``mm`` + ``argmin``;
+    on the bf16 rows each route (the screen with its share) and the default
+    one beside the blocked ``mm`` + ``argmin`` of the widened rows; the
+    function's bound (2nkd at the bf16 tensor rate) beside each form's floor
+    (2nkd fp32 FMAs; the screens' 3 x 2nkd). This sets
+    ``assign.SCREEN_MIN_DIM`` and ``F32_SCREEN_MIN_DIM``."""
     n, k, block = 1_000_000, 1000, 131072
     routes = hasattr(ka, "bf16_route")  # a package from before the screen has one form
     for d in (32, 64, 96, 128, 256, 512, 768, 1024):
-        x16, cent = sweep_data(torch, d, n, k)
+        xf, x16, cent = sweep_data(torch, d, n, k)
         xw = x16.float()
         cn = (cent * cent).sum(1)
 
-        def library():
+        def library(rows):
             for lo in range(0, n, block):
-                torch.argmin(cn[None, :] - 2.0 * torch.mm(x16[lo : lo + block].float(), cent.T),
+                torch.argmin(cn[None, :] - 2.0 * torch.mm(rows[lo : lo + block].float(), cent.T),
                              dim=1)
 
+        want_f = ka._assign_cuda(xf, cent, route="fma") if hasattr(ka, "f32_route") else \
+            ka.assign_rows(xf, cent)
+        res = {"K1 f32": cs.time_ms(lambda: ka.assign_rows(xf, cent), reps=5)}
+        differ_f = int((ka.assign_rows(xf, cent) != want_f).sum())
+        more, share_f = f32_routes(torch, cs, ka, xf, cent, want_f, res)
+        differ_f += more
+        res["f32 mm + argmin"] = cs.time_ms(lambda: library(xf), reps=3)
+        del want_f
         want = ka.assign_rows(xw, cent)
-        res = {"K1 f32": cs.time_ms(lambda: ka.assign_rows(xw, cent), reps=5),
-               "bf16 default": cs.time_ms(lambda: ka.assign_rows(x16, cent), reps=5)}
+        res["bf16 default"] = cs.time_ms(lambda: ka.assign_rows(x16, cent), reps=5)
         differ = int((ka.assign_rows(x16, cent) != want).sum())
         share = "one form"
         if routes:
@@ -489,29 +523,34 @@ def k1_sweep(torch, cs, ka) -> None:
                     lambda: ka._assign_cuda(x16, cent, route=route), reps=5)
             flags = ka.screen(x16, cent, cn.contiguous())[1]
             share = f"{1.0 - float(flags.float().mean()):.5f} uncertified"
-        res["mm + argmin"] = cs.time_ms(library, reps=3)
+        res["mm + argmin"] = cs.time_ms(lambda: library(x16), reps=3)
         ops = 2.0 * n * k * d
         print(f"K1 sweep 1M x {d} x {k}: " + ", ".join(f"{key} {v:.3f} ms" for key, v in
                                                        res.items())
-              + f"; {differ} ids differ from K1 f32; screen {share}; bound "
+              + f"; {differ_f} f32-row ids differ from pqv_assign, f32-row screen "
+              f"{share_f} uncertified; {differ} bf16-row ids differ from K1 f32; "
+              f"bf16-row screen {share}; bound "
               f"{max(ops / 989e12, (x16.numel() * 2 + cent.numel() * 4 + n * 4) / 3.35e12) * 1e3:.3f}"
-              f" ms, floors fp32 {ops / 67e12 * 1e3:.3f} ms, screen {3 * ops / 989e12 * 1e3:.3f}"
+              f" ms, floors fp32 {ops / 67e12 * 1e3:.3f} ms, screens {3 * ops / 989e12 * 1e3:.3f}"
               f" ms; " + cs.card_line())
-        del x16, xw, cent, want
+        del xf, x16, xw, cent, want
         torch.cuda.empty_cache()
 
 
 def k1_share_sweep(torch, cs, ka) -> None:
-    """K1's bf16 rows at 1M x d x 1000 on ``sweep_data`` with m pairs of
-    centroids made equal (centroid 2i + 1 := centroid 2i for i < m): the FMA
-    form, the screen without its probe and the default route, with the share
-    the screen leaves uncertified; then the share where the unprobed screen
-    and the FMA form cross, by linear interpolation between the sweep's
-    points (``assign.RESCORE_BREAK_EVEN`` comes from it)."""
+    """K1 at 1M x d x 1000 on ``sweep_data`` with m pairs of centroids made
+    equal (centroid 2i + 1 := centroid 2i for i < m): on the bf16 rows the
+    FMA form, the screen without its probe and the default route, with the
+    share the screen leaves uncertified; on the f32 rows ``pqv_assign``, the
+    f32-row screen without its probe and the default route; then the share
+    where each unprobed screen and its FMA form cross, by linear
+    interpolation between the sweep's points (``assign.RESCORE_BREAK_EVEN``
+    and ``RESCORE_BREAK_EVEN_F32`` come from it)."""
     n, k = 1_000_000, 1000
+    f32 = hasattr(ka, "f32_route")
     for d in (64, 96, 128, 512, 1024):
-        x16, cent = sweep_data(torch, d, n, k)
-        points = []
+        xf, x16, cent = sweep_data(torch, d, n, k)
+        points, points_f = [], []
         for m in (0, 125, 250, 375, 500):
             ct = cent.clone()
             ct[1 : 2 * m : 2] = cent[0 : 2 * m : 2]
@@ -529,17 +568,36 @@ def k1_share_sweep(torch, cs, ka) -> None:
                    "screen alone": cs.time_ms(
                        lambda: ka.screen(x16, ct, (ct * ct).sum(1).contiguous()), reps=5)}
             points.append((share, res["screen unprobed"] - res["fma"]))
+            line = ""
+            if f32:
+                want_f = ka._assign_cuda(xf, ct, route="fma")
+                differ_f, share_f = f32_routes(torch, cs, ka, xf, ct, want_f, res)
+                ka.reset_screen_counts()
+                differ_f += int((ka.assign_rows(xf, ct) != want_f).sum())
+                sent_f = ka.SCREENED["f32_fma_after_probe"]
+                res["f32 default"] = cs.time_ms(lambda: ka.assign_rows(xf, ct), reps=5)
+                points_f.append((share_f, res["f32 screen"] - res["f32 fma"]))
+                line = (f"; f32 rows: uncertified {share_f:.5f}, the probe sent it to "
+                        f"pqv_assign: {bool(sent_f)}, {differ_f} ids differ from pqv_assign")
+                del want_f
             print(f"K1 share sweep 1M x {d} x {k}, {m} equal pairs: uncertified {share:.5f}, "
                   + ", ".join(f"{key} {v:.3f} ms" for key, v in res.items())
                   + f"; the probe sent it to the FMA form: {bool(sent)}; {differ} ids differ "
-                  f"from K1 f32; " + cs.card_line())
+                  f"from K1 f32{line}; " + cs.card_line())
             del ct, want, got
-        cross = next((s0 + (s1 - s0) * -g0 / (g1 - g0) for (s0, g0), (s1, g1)
-                      in zip(points, points[1:]) if g0 < 0 <= g1), None)
         print(f"K1 share sweep 1M x {d} x {k}: the unprobed screen and the FMA form cross at "
-              f"an uncertified share of {cross}")
-        del x16, cent
+              f"an uncertified share of {crossing(points)}"
+              + (f"; on f32 rows the unprobed f32-row screen and pqv_assign at "
+                 f"{crossing(points_f)}" if points_f else ""))
+        del xf, x16, cent
         torch.cuda.empty_cache()
+
+
+def crossing(points):
+    """The share at which (share, screen ms - FMA ms) points cross zero, by
+    linear interpolation; None where they do not."""
+    return next((s0 + (s1 - s0) * -g0 / (g1 - g0) for (s0, g0), (s1, g1)
+                 in zip(points, points[1:]) if g0 < 0 <= g1), None)
 
 
 def digest(*tensors) -> str:

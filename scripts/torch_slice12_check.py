@@ -8,8 +8,10 @@ functions (``write_rows``: the seeded 1M x 128 rows written and read back as
 Parquet; ``build_inplace`` of IVF-1024 on the card), holds K1's f32 and
 bf16-row forms to their plain versions on phase 2a's small grid cases, then
 runs phase 12: the wires on that file, the 1M x 1024 builds (f32, bf16,
-int8, bf16 with the host assignment, bf16 again), K1's bf16-row form at
-1M x 1024 x 1000, the host assignment against K1 f32, recall@100 of sorted
+int8, bf16 with the host assignment, bf16 again; the device ones again
+through ``pqv_assign`` alone, the same bytes), K1's bf16-row form and its
+f32-row route at 1M x 1024 x 1000, the host assignment against K1 f32,
+recall@100 of sorted
 searchers on the f32- and bf16-wire indexes, and the examples on the card
 and the CPU. Then, unless ``--no-cache-check``, three fresh processes load
 the kernel library: one under ``PQVECTOR_TPU_NO_COMPILE_CACHE=1`` (a cold
@@ -81,12 +83,13 @@ def main() -> None:
         cs.phase2_small_k1_k2(torch, ka, st)
         pqt.IndexBuilder(path, "embedding", device=dev).n_clusters(
             cs.N_CLUSTERS).build_inplace()
-        out, k1 = cs.phase12(torch, pqt, _build, ds, ka, path, emb_np, data_dir, card,
-                             device=dev)
+        out, k1, k1_f32 = cs.phase12(torch, pqt, _build, ds, ka, path, emb_np, data_dir,
+                                     card, device=dev)
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
     print("slice 12 path: " + json.dumps(out))
     print("K1 bf16 rows: " + json.dumps(k1))
+    print("K1 f32 rows: " + json.dumps(k1_f32))
     if "--no-cache-check" not in sys.argv:
         print("kernel cache: " + json.dumps(cache_check()))
     print(card)
