@@ -10,8 +10,11 @@ plain versions); ``search`` without ``--device-mode`` is host code and uses
 no device.
 ``build --output`` writes an indexed copy (``--cluster-sorted`` groups its
 rows by cluster); ``build --transfer-dtype bfloat16`` rounds the rows to
-bf16 on their way to the device. Errors of the input exit with code 1 and
-one line on stderr.
+bf16 on their way to the device. With ``PQVECTOR_TPU_TRACE_DIR`` set,
+``build`` and ``search --device-mode`` run inside ``utils.profiling.
+device_trace``, which writes ``trace.json`` there: the device's kernels and
+copies and the program's spans on one clock. Errors of the input exit with
+code 1 and one line on stderr.
 """
 
 from __future__ import annotations
@@ -60,6 +63,13 @@ def cmd_info(args) -> int:
 
 
 def cmd_build(args) -> int:
+    from .utils.profiling import device_trace
+
+    with device_trace():
+        return _build(args)
+
+
+def _build(args) -> int:
     from .builder import IndexBuilder
 
     builder = IndexBuilder(args.path, args.column, device=_device(args))
@@ -93,11 +103,13 @@ def cmd_search(args) -> int:
         # full scan, "auto" the measured-best exact-selection kernel (see
         # DeviceIvfSearcher.search).
         from .query.device import DeviceIvfSearcher
+        from .utils.profiling import device_trace
 
-        searcher = DeviceIvfSearcher.from_parquet(args.path, device=_device(args))
-        dists, ids = searcher.search(
-            query[None, :], args.k, args.nprobe, mode=args.device_mode
-        )
+        with device_trace():
+            searcher = DeviceIvfSearcher.from_parquet(args.path, device=_device(args))
+            dists, ids = searcher.search(
+                query[None, :], args.k, args.nprobe, mode=args.device_mode
+            )
         for i, d in zip(ids[0].cpu().numpy(), dists[0].cpu().numpy()):
             if i >= 0:
                 print(f"{int(i)}\t{float(d):.6f}")

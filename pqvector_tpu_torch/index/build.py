@@ -32,6 +32,7 @@ import torch
 
 from .._device import resolve_device
 from ..errors import FormatError, ValidationError
+from ..kernels.assign import screen_counts
 from ..types import Embeddings
 from .ivf import IvfIndex
 from .kmeans import (
@@ -374,7 +375,7 @@ def build_ivf_index(
         with stage("build.train"):
             centroids, _ = k_means(sample, params, device=device)
     # Like the reference, always a fresh full-data pass (:193-206).
-    with stage("build.assign"):
+    with stage("build.assign", counters=screen_counts):
         assignments = assign_clusters(x, centroids, device=device)
     return IvfIndex.from_assignments(centroids, assignments)
 
@@ -434,6 +435,7 @@ def _upload_column(path, embedding_column, batch_rows: int,
         embedding_dim_hint,
         embedding_leaf_meta,
     )
+    from ..utils import profiling
     from .streaming import iter_embedding_batches
 
     lm = None
@@ -490,13 +492,19 @@ def _upload_column(path, embedding_column, batch_rows: int,
                          scales=sslots[i % workers][:rows].numpy())
         return part
 
+    parent = profiling.current()
+
+    def decode_span():  # on a worker: one a row group, under the caller's stage
+        return profiling.stage("build.decode", parent=parent, drain=False)
+
     row = 0
     if wire == "float32":
         chunks = decode_row_groups(path, rgs, leaf_idx, leaf, out=slot, workers=workers,
-                                   column=embedding_column)
+                                   column=embedding_column, span=decode_span)
     else:
         chunks = decode_row_groups(path, rgs, leaf_idx, leaf, out=scratch_of,
-                                   workers=workers, column=embedding_column, post=encode)
+                                   workers=workers, column=embedding_column, post=encode,
+                                   span=decode_span)
     with contextlib.closing(chunks):
         for i, _ in enumerate(chunks):  # row group i is in its slot
             rows = rgs[i].num_rows
@@ -574,7 +582,7 @@ def build_ivf_index_staged(
             idx = sample_indices_host(config.seed ^ 0x5A5A5A5A, n, sample_size)
             sample = upcast_norm(x[torch.as_tensor(idx, device=x.device)])
         centroids, _ = k_means(sample, params, device=device)
-    with stage("build.assign"):
+    with stage("build.assign", counters=screen_counts):
         xa = upcast_norm(x) if normalize else x  # K1 reads bf16 rows itself
         assignments = assign_clusters(xa, centroids, device=device)
     return IvfIndex.from_assignments(centroids, assignments)

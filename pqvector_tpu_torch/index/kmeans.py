@@ -31,6 +31,7 @@ from .._device import resolve_device
 from ..errors import ValidationError
 from ..kernels import assign as _k1
 from ..kernels.assign import assign_rows
+from ..utils.profiling import stage
 from ._threefry import kmeans_pp_scalars_from_key, prng_key, split
 
 _INIT_SAMPLE_CAP = 50_000  # pq-vector src/ivf/index.rs:332
@@ -189,10 +190,13 @@ def k_means(
         idx = sample_indices_host(params.seed ^ 0x3C3C3C3C, n, init_sample_size)
         init_sample = x[torch.as_tensor(idx, device=x.device)]
 
-    centroids0 = _kmeans_pp_init(init_sample, init_key(params.seed), k)
+    with stage("build.train.seed", drain=False):
+        centroids0 = _kmeans_pp_init(init_sample, init_key(params.seed), k)
     block = min(params.block_rows, max(256, n))
-    centroids, assign = _lloyd(x, centroids0, params.max_iters, block, k)
-    return centroids.cpu().numpy(), assign.cpu().numpy()
+    # to the host read: the device work seeding left queued is waited for here
+    with stage("build.train.lloyd", drain=False):
+        centroids, assign = _lloyd(x, centroids0, params.max_iters, block, k)
+        return centroids.cpu().numpy(), assign.cpu().numpy()
 
 
 def assign_clusters(

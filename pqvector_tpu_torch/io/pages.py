@@ -1136,7 +1136,7 @@ def _read_row_group_arrow(path, i: int, column: EmbeddingColumn, dst):
 
 def decode_row_groups(path, row_groups, leaf_idx: int, leaf: SchemaLeaf,
                       out=None, workers: int = DECODE_WORKERS,
-                      column: EmbeddingColumn | None = None, post=None):
+                      column: EmbeddingColumn | None = None, post=None, span=None):
     """Yield each row group's vector column as [rows, dim] f32 through the
     native chunk decoder, in row-group order, ``workers`` row groups at a
     time: each thread reads its chunk's bytes and decodes them (both
@@ -1153,7 +1153,8 @@ def decode_row_groups(path, row_groups, leaf_idx: int, leaf: SchemaLeaf,
     early cancels what is queued. ``post(i, matrix)``, where given, runs on
     the worker after the decode and its result is yielded in the matrix's
     place (the staged build's wire encode); what it raises reaches the
-    caller."""
+    caller. ``span()``, where given, makes the context manager each
+    worker runs a row group's whole job in (the staged build's trace span)."""
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1164,6 +1165,12 @@ def decode_row_groups(path, row_groups, leaf_idx: int, leaf: SchemaLeaf,
     np.cumsum([rg.num_rows for rg in row_groups], out=starts[1:])
 
     def job(i):
+        if span is None:
+            return work(i)
+        with span():
+            return work(i)
+
+    def work(i):
         rg = row_groups[i]
         if callable(out):
             dst = out(i)

@@ -112,6 +112,13 @@ def reset_screen_counts() -> None:
         SCREENED[key] = 0
 
 
+def screen_counts() -> dict[str, int]:
+    """Rows screened and rows left uncertified, bf16 and f32 rows together:
+    the counters of the build's ``build.assign`` stage."""
+    return {"k1.rows": SCREENED["rows"] + SCREENED["f32_rows"],
+            "k1.uncertified": SCREENED["uncertified"] + SCREENED["f32_uncertified"]}
+
+
 def assign_rows_plain(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """[n, d] f32 or bf16 x [k, d] f32 -> [n] int32, in plain torch."""
     c_norm = (centroids * centroids).sum(dim=1)

@@ -21,10 +21,13 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import _build, score_tile
 
 POS_INF = 3.0e38  # pad and masked rows, as in the kernels
 MAX_K = 128  # largest k a kernel's top-k list holds
+#: The counters of ``check_stats``' two entries, as the trace names them.
+K4_COUNTERS = ("k4.tiles", "k4.chunks")
 
 
 def select_lex(d: torch.Tensor, ids: torch.Tensor, k: int):
@@ -220,25 +223,31 @@ def masked_local_scan(qf, emb, emb_sq, local_cluster, lmask, k: int, tile: int,
     f32. The kernel runs on the score tile of ``csrc/score_tile.cuh`` (fp32
     FMA or wgmma by ``score_tile.pick_backend``) and scores only the chunks
     that hold a row some query of the block probes (``scored_chunks``);
-    ``stats`` (``check_stats``) counts them, on CUDA tensors only."""
-    check_scan_args(qf, emb, emb_sq, k, tile)
-    nt = emb.shape[0] // tile
-    if local_cluster.dtype != torch.int32 or local_cluster.shape != (emb.shape[0],):
-        raise TypeError("local_cluster must be int32 [n_pad]")
-    if (lmask.dtype != torch.float32 or lmask.dim() != 3 or lmask.shape[2] < 1
-            or lmask.shape[:2] != (nt, qf.shape[0])):
-        raise TypeError("lmask must be float32 [nt, B, cmax]")
-    if emb.device.type == "cpu":
-        return masked_local_scan_plain(qf, emb, emb_sq, local_cluster, lmask, k, tile)
-    check_cuda_operands(
-        q=qf, emb=emb, emb_sq=emb_sq, local_cluster=local_cluster, lmask=lmask
-    )
-    backend, _, words, _ = masked_geometry("K4", qf, emb, k, lmask.shape[2])
-    return _launch_tile_topk(
-        "K4", "pqv_masked_local_topk", qf, emb, emb_sq, k, tile,
-        ptrs=(local_cluster, lmask), ints=(lmask.shape[2],),
-        flags=(int(backend == "wgmma"), words, check_stats(stats, emb.device)),
-    )
+    ``stats`` (``check_stats``) counts them, on CUDA tensors only; without
+    it, while tracing is on, the trace's ``k4`` counter does
+    (``profiling.device_counter``)."""
+    with profiling.span("search.scan"):
+        check_scan_args(qf, emb, emb_sq, k, tile)
+        nt = emb.shape[0] // tile
+        if local_cluster.dtype != torch.int32 or local_cluster.shape != (emb.shape[0],):
+            raise TypeError("local_cluster must be int32 [n_pad]")
+        if (lmask.dtype != torch.float32 or lmask.dim() != 3 or lmask.shape[2] < 1
+                or lmask.shape[:2] != (nt, qf.shape[0])):
+            raise TypeError("lmask must be float32 [nt, B, cmax]")
+        if emb.device.type == "cpu":
+            return masked_local_scan_plain(qf, emb, emb_sq, local_cluster, lmask, k, tile)
+        check_cuda_operands(
+            q=qf, emb=emb, emb_sq=emb_sq, local_cluster=local_cluster, lmask=lmask
+        )
+        backend, queries, words, _ = masked_geometry("K4", qf, emb, k, lmask.shape[2])
+        if stats is None and profiling.tracing_on():
+            pairs = nt * -(-qf.shape[0] // queries) * -(-tile // score_tile.CHUNK_ROWS)
+            stats = profiling.device_counter("k4", K4_COUNTERS, emb.device, pairs)
+        return _launch_tile_topk(
+            "K4", "pqv_masked_local_topk", qf, emb, emb_sq, k, tile,
+            ptrs=(local_cluster, lmask), ints=(lmask.shape[2],),
+            flags=(int(backend == "wgmma"), words, check_stats(stats, emb.device)),
+        )
 
 
 def exact_scan_plain(qf, emb, emb_sq, k, tile):
@@ -273,17 +282,18 @@ def exact_scan(qf, emb, emb_sq, k: int, tile: int):
     ``masked_local_scan``. The kernel runs on the score tile of
     ``csrc/score_tile.cuh``: fp32 FMA for f32 storage, wgmma for bf16 storage
     with ``d % 8 == 0`` (``score_tile.pick_backend``)."""
-    check_scan_args(qf, emb, emb_sq, k, tile)
-    if emb.device.type == "cpu":
-        return exact_scan_plain(qf, emb, emb_sq, k, tile)
-    check_cuda_operands(q=qf, emb=emb, emb_sq=emb_sq)
-    backend = score_tile.pick_backend(
-        emb.dtype, emb.shape[1], qf.data_ptr(), emb.data_ptr()
-    )
-    return _launch_tile_topk(
-        "K5", "pqv_exact_topk", qf, emb, emb_sq, k, tile,
-        flags=(int(backend == "wgmma"),),
-    )
+    with profiling.span("search.scan"):
+        check_scan_args(qf, emb, emb_sq, k, tile)
+        if emb.device.type == "cpu":
+            return exact_scan_plain(qf, emb, emb_sq, k, tile)
+        check_cuda_operands(q=qf, emb=emb, emb_sq=emb_sq)
+        backend = score_tile.pick_backend(
+            emb.dtype, emb.shape[1], qf.data_ptr(), emb.data_ptr()
+        )
+        return _launch_tile_topk(
+            "K5", "pqv_exact_topk", qf, emb, emb_sq, k, tile,
+            flags=(int(backend == "wgmma"),),
+        )
 
 
 def masked_scan_plain(qf, emb, emb_sq, row_cluster, mask, k, tile):
@@ -308,43 +318,46 @@ def masked_scan(qf, emb, emb_sq, row_cluster, mask, k: int, tile: int, stats=Non
     the mask through the rows' cluster ids; it scores the chunks
     ``masked_scan_chunks`` picks, and ``stats`` (``check_stats``) counts the
     (block, tile) and (block, chunk) pairs it scored, on CUDA tensors only."""
-    check_scan_args(qf, emb, emb_sq, k, tile)
-    if row_cluster.dtype != torch.int32 or row_cluster.shape != (emb.shape[0],):
-        raise TypeError("row_cluster must be int32 [n_pad]")
-    if mask.dtype != torch.float32 or mask.dim() != 2 or mask.shape[0] != qf.shape[0]:
-        raise TypeError("mask must be float32 [B, kc_pad]")
-    if emb.device.type == "cpu":
-        return masked_scan_plain(qf, emb, emb_sq, row_cluster, mask, k, tile)
-    if mask.shape[1] % 128:
-        raise ValueError("mask's kc_pad must be a multiple of 128")
-    check_cuda_operands(q=qf, emb=emb, emb_sq=emb_sq, row_cluster=row_cluster, mask=mask)
-    backend, queries, words, smem = masked_geometry("K6", qf, emb, k, mask.shape[1])
-    units = k6_units(qf.shape[0], emb.shape[0] // tile, smem, queries) if words else 0
-    return _launch_tile_topk(
-        "K6", "pqv_masked_topk", qf, emb, emb_sq, k, tile,
-        ptrs=(row_cluster, mask), ints=(mask.shape[1],),
-        flags=(int(backend == "wgmma"), units, check_stats(stats, emb.device)),
-    )
+    with profiling.span("search.scan"):
+        check_scan_args(qf, emb, emb_sq, k, tile)
+        if row_cluster.dtype != torch.int32 or row_cluster.shape != (emb.shape[0],):
+            raise TypeError("row_cluster must be int32 [n_pad]")
+        if mask.dtype != torch.float32 or mask.dim() != 2 or mask.shape[0] != qf.shape[0]:
+            raise TypeError("mask must be float32 [B, kc_pad]")
+        if emb.device.type == "cpu":
+            return masked_scan_plain(qf, emb, emb_sq, row_cluster, mask, k, tile)
+        if mask.shape[1] % 128:
+            raise ValueError("mask's kc_pad must be a multiple of 128")
+        check_cuda_operands(q=qf, emb=emb, emb_sq=emb_sq, row_cluster=row_cluster, mask=mask)
+        backend, queries, words, smem = masked_geometry("K6", qf, emb, k, mask.shape[1])
+        units = k6_units(qf.shape[0], emb.shape[0] // tile, smem, queries) if words else 0
+        return _launch_tile_topk(
+            "K6", "pqv_masked_topk", qf, emb, emb_sq, k, tile,
+            ptrs=(row_cluster, mask), ints=(mask.shape[1],),
+            flags=(int(backend == "wgmma"), units, check_stats(stats, emb.device)),
+        )
 
 
 def _refine(q, emb, best_d, best_i, out_k=None):
     """Direct-form f32 re-score of the winners, then an ascending sort under
     the (distance, id) order, trimmed to ``out_k``. Slots at or above the
     sentinel's half become +inf; NaNs become +inf."""
-    invalid = best_d >= POS_INF / 2
-    x = emb[best_i.clamp_min(0).long()].float()
-    diff = x - q[:, None, :]
-    d2 = (diff * diff).sum(dim=-1)
-    d2 = torch.where(invalid | torch.isnan(d2), torch.inf, d2)
-    return select_lex(d2, best_i, out_k or d2.shape[1])
+    with profiling.span("search.refine"):
+        invalid = best_d >= POS_INF / 2
+        x = emb[best_i.clamp_min(0).long()].float()
+        diff = x - q[:, None, :]
+        d2 = (diff * diff).sum(dim=-1)
+        d2 = torch.where(invalid | torch.isnan(d2), torch.inf, d2)
+        return select_lex(d2, best_i, out_k or d2.shape[1])
 
 
 def _final_merge(tile_d, tile_i, k):
     """[nt, B, k] per-tile winners -> [B, k] global."""
-    nt, b, kk = tile_d.shape
-    all_d = tile_d.permute(1, 0, 2).reshape(b, nt * kk)
-    all_i = tile_i.permute(1, 0, 2).reshape(b, nt * kk)
-    return select_lex(all_d, all_i, k)
+    with profiling.span("search.merge"):
+        nt, b, kk = tile_d.shape
+        all_d = tile_d.permute(1, 0, 2).reshape(b, nt * kk)
+        all_i = tile_i.permute(1, 0, 2).reshape(b, nt * kk)
+        return select_lex(all_d, all_i, k)
 
 
 def masked_local_topk(
@@ -356,8 +369,9 @@ def masked_local_topk(
     from .stream_topk import _probe_mask
 
     kc_pad = -(-(centroids.shape[0] + 1) // 128) * 128
-    mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe, kc_pad)
-    lmask = mask[:, tile_clusters.long()].permute(1, 0, 2).contiguous()
+    with profiling.span("search.probe"):
+        mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe, kc_pad)
+        lmask = mask[:, tile_clusters.long()].permute(1, 0, 2).contiguous()
     tile_d, tile_i = masked_local_scan(
         q.to(emb.dtype), emb, emb_sq, local_cluster, lmask, k, tile
     )
@@ -382,7 +396,8 @@ def masked_topk(
     from .stream_topk import _probe_mask
 
     kc_pad = -(-(centroids.shape[0] + 1) // 128) * 128
-    mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe, kc_pad)
+    with profiling.span("search.probe"):
+        mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe, kc_pad)
     tile_d, tile_i = masked_scan(
         q.to(emb.dtype), emb, emb_sq, row_cluster, mask, k, tile
     )

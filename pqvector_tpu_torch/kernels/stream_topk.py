@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import _build, score_tile
 from .scan_topk import (
     MAX_K,
@@ -137,10 +138,11 @@ def stream_exact_scan(qf, emb, emb_sq, k: int, tile: int):
     fp32 FMA for f32 storage, wgmma for bf16 storage with ``d % 8 == 0``
     (``score_tile.pick_backend``); its blocks own runs of rows, not tiles, so
     ``tile`` only has to divide ``n_pad``."""
-    check_scan_args(qf, emb, emb_sq, k, tile)
-    if emb.device.type == "cpu":
-        return stream_exact_scan_plain(qf, emb, emb_sq, k)
-    return _stream_exact_cuda(qf, emb, emb_sq, k)
+    with profiling.span("search.scan"):
+        check_scan_args(qf, emb, emb_sq, k, tile)
+        if emb.device.type == "cpu":
+            return stream_exact_scan_plain(qf, emb, emb_sq, k)
+        return _stream_exact_cuda(qf, emb, emb_sq, k)
 
 
 def stream_exact_topk(q, emb, emb_sq, k: int, tile: int, emb_ref=None):
@@ -249,24 +251,25 @@ def stream_masked_scan(qf, emb, emb_sq, local_cluster, tile_clusters, mask, sche
     carried across a block's run of active tiles; ``stats``
     (``scan_topk.check_stats``) counts the tiles and chunks it scored, on
     CUDA tensors only."""
-    check_scan_args(qf, emb, emb_sq, k, tile)
-    nt = emb.shape[0] // tile
-    if local_cluster.dtype != torch.int32 or local_cluster.shape != (emb.shape[0],):
-        raise TypeError("local_cluster must be int32 [n_pad]")
-    if (tile_clusters.dtype != torch.int32 or tile_clusters.dim() != 2
-            or tile_clusters.shape[0] != nt or tile_clusters.shape[1] < 1):
-        raise TypeError("tile_clusters must be int32 [nt, cmax]")
-    if mask.dtype != torch.float32 or mask.shape[0] != qf.shape[0]:
-        raise TypeError("mask must be float32 [B, kc_pad]")
-    if sched.dtype != torch.int32 or sched.shape != (nt + 1,):
-        raise TypeError("sched must be int32 [nt + 1]")
-    if emb.device.type == "cpu":
-        return stream_masked_scan_plain(
-            qf, emb, emb_sq, local_cluster, tile_clusters, mask, sched, k, tile
+    with profiling.span("search.scan"):
+        check_scan_args(qf, emb, emb_sq, k, tile)
+        nt = emb.shape[0] // tile
+        if local_cluster.dtype != torch.int32 or local_cluster.shape != (emb.shape[0],):
+            raise TypeError("local_cluster must be int32 [n_pad]")
+        if (tile_clusters.dtype != torch.int32 or tile_clusters.dim() != 2
+                or tile_clusters.shape[0] != nt or tile_clusters.shape[1] < 1):
+            raise TypeError("tile_clusters must be int32 [nt, cmax]")
+        if mask.dtype != torch.float32 or mask.shape[0] != qf.shape[0]:
+            raise TypeError("mask must be float32 [B, kc_pad]")
+        if sched.dtype != torch.int32 or sched.shape != (nt + 1,):
+            raise TypeError("sched must be int32 [nt + 1]")
+        if emb.device.type == "cpu":
+            return stream_masked_scan_plain(
+                qf, emb, emb_sq, local_cluster, tile_clusters, mask, sched, k, tile
+            )
+        return _stream_masked_cuda(
+            qf, emb, emb_sq, local_cluster, tile_clusters, mask, sched, k, tile, stats=stats
         )
-    return _stream_masked_cuda(
-        qf, emb, emb_sq, local_cluster, tile_clusters, mask, sched, k, tile, stats=stats
-    )
 
 
 def stream_masked_topk(
@@ -278,8 +281,9 @@ def stream_masked_topk(
     if k > MAX_K:
         raise ValueError(f"stream kernel supports k <= {MAX_K}")
     kc_pad = -(-(centroids.shape[0] + 1) // 128) * 128
-    mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe, kc_pad)
-    sched = _tile_schedule(mask, tile_clusters)
+    with profiling.span("search.probe"):
+        mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe, kc_pad)
+        sched = _tile_schedule(mask, tile_clusters)
     best_d, best_i = stream_masked_scan(
         q.to(emb.dtype), emb, emb_sq, local_cluster, tile_clusters, mask, sched,
         k, tile,

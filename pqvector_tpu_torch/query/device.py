@@ -90,6 +90,7 @@ from ..kernels.scan_topk import (
 from ..kernels.compact import tile_gather
 from ..kernels.stream_topk import _probe_mask, stream_exact_topk, stream_masked_topk
 from ..kernels.tilemin import tile_min
+from ..utils.profiling import span, staged
 
 #: The JAX package's loop catalogues (``_search_loop_impl``,
 #: ``_exact_loop_impl``). ``gather`` is not one: a loop that ran it would
@@ -218,25 +219,27 @@ def _ivf_topk_impl(q, centroids, c_sq, clusters, emb, emb_sq, k: int, nprobe: in
     b = q.shape[0]
     kf = k if emb_ref is None else 2 * k
     lmax = clusters.shape[1]
-    dist = c_sq[None, :] - 2.0 * (q @ centroids.T)
-    cids = torch.arange(centroids.shape[0], dtype=torch.int32, device=q.device)
-    _, probe = select_lex(dist, cids[None, :].expand_as(dist), nprobe)
-    cand = clusters[probe.long()].reshape(b, nprobe * lmax)
+    with span("search.probe"):
+        dist = c_sq[None, :] - 2.0 * (q @ centroids.T)
+        cids = torch.arange(centroids.shape[0], dtype=torch.int32, device=q.device)
+        _, probe = select_lex(dist, cids[None, :].expand_as(dist), nprobe)
+        cand = clusters[probe.long()].reshape(b, nprobe * lmax)
     c_pad = _round_up(cand.shape[1], tile)
-    if c_pad != cand.shape[1]:
-        fill = torch.full((b, c_pad - cand.shape[1]), emb.shape[0] - 1,
-                          dtype=cand.dtype, device=q.device)
-        cand = torch.cat([cand, fill], dim=1)
-    qf = q.to(emb.dtype).float()
-    best_d = torch.full((b, kf), torch.inf, device=q.device)
-    best_i = torch.full((b, kf), -1, dtype=torch.int32, device=q.device)
-    for lo in range(0, c_pad, tile):
-        ids_t = cand[:, lo : lo + tile]
-        xt = emb[ids_t.long()].float()  # [B, tile, d] gather
-        part = emb_sq[ids_t.long()] - 2.0 * torch.einsum("bd,btd->bt", qf, xt)
-        best_d, best_i = select_lex(
-            torch.cat([best_d, part], dim=1), torch.cat([best_i, ids_t], dim=1), kf
-        )
+    with span("search.scan"):
+        if c_pad != cand.shape[1]:
+            fill = torch.full((b, c_pad - cand.shape[1]), emb.shape[0] - 1,
+                              dtype=cand.dtype, device=q.device)
+            cand = torch.cat([cand, fill], dim=1)
+        qf = q.to(emb.dtype).float()
+        best_d = torch.full((b, kf), torch.inf, device=q.device)
+        best_i = torch.full((b, kf), -1, dtype=torch.int32, device=q.device)
+        for lo in range(0, c_pad, tile):
+            ids_t = cand[:, lo : lo + tile]
+            xt = emb[ids_t.long()].float()  # [B, tile, d] gather
+            part = emb_sq[ids_t.long()] - 2.0 * torch.einsum("bd,btd->bt", qf, xt)
+            best_d, best_i = select_lex(
+                torch.cat([best_d, part], dim=1), torch.cat([best_i, ids_t], dim=1), kf
+            )
     return _refine(q, emb if emb_ref is None else emb_ref, best_d, best_i, k)
 
 
@@ -853,6 +856,7 @@ class DeviceIvfSearcher:
     #: "bincompact"): overflow drops the least-probed tiles.
     compact_slack: float = 1.35
 
+    @staged("searcher.init")
     def __init__(
         self,
         index: IvfIndex,
@@ -1042,17 +1046,18 @@ class DeviceIvfSearcher:
     # ------------------------------------------------------------------
 
     def _check_queries(self, queries) -> torch.Tensor:
-        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
-        if q.dim() == 1:
-            q = q[None, :]
-        if q.dim() != 2 or q.shape[1] != self.dim:
-            raise ValidationError(
-                f"Query dimension mismatch: expected {self.dim}, got {tuple(q.shape)}"
-            )
-        if self.metric == "cosine":
-            norms = (q * q).sum(dim=1, keepdim=True).sqrt()
-            q = q / norms.clamp_min(1e-30)
-        return q.contiguous()
+        with span("search.upload"):
+            q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+            if q.dim() == 1:
+                q = q[None, :]
+            if q.dim() != 2 or q.shape[1] != self.dim:
+                raise ValidationError(
+                    f"Query dimension mismatch: expected {self.dim}, got {tuple(q.shape)}"
+                )
+            if self.metric == "cosine":
+                norms = (q * q).sum(dim=1, keepdim=True).sqrt()
+                q = q / norms.clamp_min(1e-30)
+            return q.contiguous()
 
     def _scan_tile(self) -> int:
         """Rows per scan-kernel tile: the largest divisor of ``row_tile``
@@ -1873,29 +1878,38 @@ class DeviceIvfSearcher:
 
     def exact(self, queries, k: int, mode: str = "auto"):
         """Exact brute-force top-k (see ``_exact_impl`` for the modes)."""
-        mode = self._autoscan(queries, k, mode, exact_path=True)
-        d, ids = self._exact_impl(queries, self._spill_k(k), mode)
-        return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
+        with span("search") as call:
+            call.count("rows", self.n)
+            mode = self._autoscan(queries, k, mode, exact_path=True)
+            d, ids = self._exact_impl(queries, self._spill_k(k), mode)
+            return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
 
     def search(self, queries, k: int, nprobe: int, mode: str = "auto"):
         """IVF top-k (see ``_search_impl`` for the mode catalogue)."""
-        mode = self._autoscan(queries, k, mode, exact_path=False)
-        d, ids = self._search_impl(queries, self._spill_k(k), nprobe, mode)
-        return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
+        with span("search") as call:
+            call.count("rows", self.n)
+            mode = self._autoscan(queries, k, mode, exact_path=False)
+            d, ids = self._search_impl(queries, self._spill_k(k), nprobe, mode)
+            return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
 
     def search_loop(self, queries, k: int, nprobe: int, reps: int = 16,
                     mode: str = "auto"):
         """``reps`` IVF searches of the same batch (see ``_search_loop_impl``)."""
-        mode = self._autoscan(queries, k, mode, exact_path=False)
-        d, ids = self._search_loop_impl(queries, self._spill_k(k), nprobe,
-                                        reps=reps, mode=mode)
-        return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
+        with span("search") as call:
+            call.count("rows", self.n)
+            mode = self._autoscan(queries, k, mode, exact_path=False)
+            d, ids = self._search_loop_impl(queries, self._spill_k(k), nprobe,
+                                            reps=reps, mode=mode)
+            return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
 
     def exact_loop(self, queries, k: int, reps: int = 16, mode: str = "auto"):
         """``reps`` exact scans of the same batch."""
-        mode = self._autoscan(queries, k, mode, exact_path=True)
-        d, ids = self._exact_loop_impl(queries, self._spill_k(k), reps=reps, mode=mode)
-        return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
+        with span("search") as call:
+            call.count("rows", self.n)
+            mode = self._autoscan(queries, k, mode, exact_path=True)
+            d, ids = self._exact_loop_impl(queries, self._spill_k(k), reps=reps,
+                                           mode=mode)
+            return (d, ids) if self._plain() else self._finalize(queries, d, ids, k)
 
     # ------------------------------------------------------------------
     # Dynamic updates: tombstone deletes + delta-buffer appends. The main
@@ -2020,10 +2034,11 @@ class DeviceIvfSearcher:
     def _finalize(self, queries, d, ids, k: int):
         """Tombstone filter -> delta merge -> spilled dedup -> trim
         (``_finalize_impl``), on the device."""
-        return _finalize_impl(
-            self._check_queries(queries), d, ids, self._deleted_dev, self._delta,
-            k, self._spill_dups,
-        )
+        with span("search.finalize"):
+            return _finalize_impl(
+                self._check_queries(queries), d, ids, self._deleted_dev, self._delta,
+                k, self._spill_dups,
+            )
 
     @classmethod
     def with_spill(

@@ -1,4 +1,4 @@
-"""Shared host utilities: stage timers and profiler traces, the
+"""Shared host utilities: spans, stages, counters and profiler traces, the
 fault-aware allocation of large host matrices, and the kernels' disk
 cache."""
 

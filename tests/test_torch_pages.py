@@ -251,12 +251,20 @@ def test_alloc_matches_jax(shape):
 
 def test_stage_timers_and_trace(tmp_path):
     tprofiling.drain_stages()
-    with tprofiling.stage("outer"):
+
+    def worker(parent):  # a worker's stage names its parent: it reaches the caller's list
+        with tprofiling.stage("external", parent=parent):
+            pass
+
+    with tprofiling.stage("outer") as outer:
         with tprofiling.stage("inner"):
             pass
-    tprofiling.add_stage_time("external", 0.25)
+        t = threading.Thread(target=worker, args=(outer,))
+        t.start()
+        t.join(timeout=10)
+        assert not t.is_alive()
     names = [n for n, _ in tprofiling.drain_stages()]
-    assert names == ["inner", "outer", "external"]
+    assert names == ["inner", "external", "outer"]
     assert tprofiling.drain_stages() == []
     with tprofiling.device_trace(None):  # no directory, no env: a no-op
         pass
