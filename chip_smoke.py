@@ -41,15 +41,22 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    IVF-1024 build, whose bytes must equal the build through ``pqv_assign``
    alone (the parent's K1), its ids are ``pqv_assign``'s; the screen alone
    is its own kernel entry, timed, its error held to the certificate's
-   bound and, row by row, to the tensor-core model's.
+   bound and, row by row, to the tensor-core model's. The cross-tile merge
+   (``csrc/merge.cu``) on K4's own 1M x 128 lists at k = 10 (bf16 and f32)
+   and k = 100 (bf16), on K5's (f32 and bf16) and on K6's: equal to the
+   ``select_lex`` chain it replaced (``final_merge_plain``) bit for bit,
+   its counters equal to ``merge_counts``; on K4's, timed on the device
+   alone and in turns with that chain. A scan kernel's merged result is
+   held to its plain version merged by that chain, with no hand-written
+   kernel on the plain side.
 3. The main path at the bench's default configuration: a seeded 1M x 128
    Parquet file, ``IndexBuilder(...).n_clusters(1024).build_inplace()`` on
    the card, exact truth from K2 on an f32 searcher, and an nprobe sweep of
    IVF ``search`` (K4) on a bf16 searcher with an f32 re-score copy until
    recall@10 >= 0.95; K3 must return K4's ids; exact k = 100 through K2
    must match the plain scan; search QPS at B = 256 through K4 and K3.
-4. Coverage: K1-K4 and, where ``f32_route`` takes it at d = 128, K1's
-   f32-row screen were launched during phase 3.
+4. Coverage: K1-K4, the merge and, where ``f32_route`` takes it at d =
+   128, K1's f32-row screen were launched during phase 3.
 5. Slice 2's path on the same file and index: a bf16 searcher in file
    order (f32 re-score copy) serves ``search(..., "pallas")`` through K6 in
    an nprobe sweep to recall@10 >= 0.95, ``exact(..., "pallas")`` through
@@ -262,6 +269,8 @@ KERNELS = {
             "pqvector_tpu/kernels/compact.py:133"),
     "K11": ("tile_gather_dma", "pqvector_tpu_torch/csrc/compact.cu",
             "pqvector_tpu/kernels/compact.py:76"),
+    "merge": ("final_merge", "pqvector_tpu_torch/csrc/merge.cu",
+              "pqvector_tpu/kernels/scan_topk.py:_final_merge (XLA, no Pallas kernel)"),
 }
 _BUILD = None  # pqvector_tpu_torch.kernels._build, once main has imported it
 DEEP_ROWS, DEEP_DIM, DEEP_CLUSTERS = 10_000_000, 96, 4096
@@ -681,9 +690,12 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
     xf, sqf = stored_f64(fo16.emb), fo16._pallas_emb_sq().cpu().numpy().astype(np.float64)
     m_args = (qf16, fo16.emb, fo16._pallas_emb_sq(), fo16.row_cluster, mask, K, tile)
     stats = torch.zeros(2, dtype=torch.int32, device=dev)
-    err, swaps = compare_topk(sc._final_merge(*sc.masked_scan(*m_args, stats=stats), K),
-                              sc._final_merge(*sc.masked_scan_plain(*m_args), K),
+    lists6 = sc.masked_scan(*m_args, stats=stats)
+    merge_held(torch, sc, lists6, K, f"phase 2b merge of K6's lists, nprobe={nprobe_2b}")
+    err, swaps = compare_topk(sc._final_merge(*lists6, K),
+                              sc.final_merge_plain(*sc.masked_scan_plain(*m_args), K),
                               q16, xf, sqf)
+    del lists6
     backend, queries, words, _ = sc.masked_geometry("K6", qf16, fo16.emb, K, kc_pad)
     rule = sc.masked_scan_chunks(mask, fo16.row_cluster, tile, queries, table=bool(words))
     want_stats = [int(rule.any(2).sum()), int(rule.sum())]
@@ -1305,7 +1317,7 @@ def phase2_masked_score_tile(torch, st, sc):
                   f"{want_stats}")
             args = (qf, E, S, L, TC, mask, sched, k, tile)
             w = st.stream_masked_scan_plain(*args)
-            check(torch.equal(w[1], sc._final_merge(*g, k)[1]),
+            check(torch.equal(w[1], sc.final_merge_plain(*g, k)[1]),
                   f"K3 {what}: the plain versions of K3 and K4 disagree")
             for units in (None, 1, 3):
                 stats.zero_()
@@ -1534,6 +1546,60 @@ def interleaved_ms(fns, rounds=10, calls=5):
     return out
 
 
+def merge_held(torch, sc, lists, k, what):
+    """The cross-tile merge kernel on one scan's per-tile lists ([nt, B,
+    kk]): held to ``final_merge_plain`` (the ``select_lex`` chain it
+    replaced) bit for bit, and its counters (one traced call) to
+    ``merge_counts``, which it returns."""
+    from pqvector_tpu_torch.utils import profiling
+
+    tile_d, tile_i = lists
+    profiling.clear_store()
+    with profiling.tracing():
+        got = sc._final_merge(tile_d, tile_i, k)
+    counters = profiling.read_store()["counters"]
+    profiling.clear_store()
+    want = sc.final_merge_plain(tile_d, tile_i, k)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+          and torch.equal(got[1], want[1]), f"{what}: the kernel differs from select_lex")
+    counts = sc.merge_counts(tile_d)
+    traced = (counters.get("merge.lists"), counters.get("merge.heads"))
+    check(traced == counts,
+          f"{what}: the kernel counted {traced} lists and heads, the rule {counts}")
+    log(f"{what}: {list(tile_d.shape)} lists, {100.0 * counts[0] / counts[1]:.2f}% with a "
+        "candidate head; equal to select_lex bit for bit, counters equal the rule")
+    return counts
+
+
+def merge_timed(torch, sc, lists, k, what):
+    """``merge_held`` on one scan's per-tile lists ([nt, B, kk]), then the
+    kernel timed on the device alone and in turns with the ``select_lex``
+    chain, beside its bound: the heads, at most min(k, n) entries of each
+    list that holds n candidates, and the output, each byte once."""
+    tile_d, tile_i = lists
+    nt, b, kk = tile_d.shape
+    counts = merge_held(torch, sc, lists, k, what)
+
+    def kernel():
+        return sc._final_merge(tile_d, tile_i, k)
+
+    def chain():
+        return sc.final_merge_plain(tile_d, tile_i, k)
+
+    turns = np.median(interleaved_ms([kernel, chain]), axis=0)
+    read = int((tile_d < sc.POS_INF).sum(-1).clamp(max=k).sum())
+    out = {"max_abs_err": 0.0, "ms": device_ms(kernel), "plain_ms": device_ms(chain),
+           "turns_ms": float(turns[0]), "turns_plain_ms": float(turns[1]),
+           "lists_pct": 100.0 * counts[0] / counts[1], "shape": [nt, b, kk]}
+    out["library_ms"] = out["plain_ms"]  # no one torch call keeps the (distance, id) order
+    out.update(bound_of(4 * nt * b + 8 * read + 8 * b * min(k, nt * kk), 0.0, "fp32"))
+    log(f"{what}: {read} entries to read at most; kernel {out['ms']:.4f} ms on the device, "
+        f"select_lex chain {out['plain_ms']:.4f} ms; in turns {out['turns_ms']:.4f} against "
+        f"{out['turns_plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
+
+
 def masked_library_ms(torch, qf, emb, sq, row_cluster, mask, k, reps=10):
     """The chain a user would write for a masked top-k: one product, the probe
     mask gathered through each row's cluster, ``topk``. It is what K3, K4
@@ -1586,8 +1652,9 @@ def masked_timed(torch, sc, st, qf, emb, sq, lcl, tc, mask, sched, row_cluster, 
     stats = torch.zeros(2, dtype=torch.int32, device=emb.device)
     g4 = sc.masked_local_scan(*a4, stats=stats)
     m4 = sc._final_merge(*g4, k)
-    del g4
     got4 = stats.tolist()
+    merge = merge_timed(torch, sc, g4, k, f"{what} merge")
+    del g4
     stats.zero_()
     g3 = st.stream_masked_scan(*a3, stats=stats)
     torch.cuda.synchronize()
@@ -1598,10 +1665,10 @@ def masked_timed(torch, sc, st, qf, emb, sq, lcl, tc, mask, sched, row_cluster, 
               f"rule says {want}")
     check(torch.equal(g3[1], m4[1]), f"{what}: K3's ids differ from K4's merged ids")
     w3 = st.stream_masked_scan_plain(*a3)
-    out = {"work": work}
+    out = {"work": work, "merge": merge}
     for name, got, wantp in (("K3", g3, w3), ("K4", m4, w3)):
         if name == "K4" and not deep:
-            wantp = sc._final_merge(*sc.masked_local_scan_plain(*a4), k)
+            wantp = sc.final_merge_plain(*sc.masked_local_scan_plain(*a4), k)
         if not deep:
             err, swaps = compare_topk(got, wantp, *stored)
         else:
@@ -4128,9 +4195,12 @@ def main() -> None:
         torch, st, q, s32.emb, s32._pallas_emb_sq(), 100, tile, "fp32",
         (q32, x32, sq32)).items()})
     e_args = (q, s32.emb, s32._pallas_emb_sq(), K, tile)
-    err, swaps = compare_topk(sc._final_merge(*sc.exact_scan(*e_args), K),
-                              sc._final_merge(*sc.exact_scan_plain(*e_args), K),
+    lists5 = sc.exact_scan(*e_args)
+    merge_held(torch, sc, lists5, K, "phase 2b merge of K5's f32 lists")
+    err, swaps = compare_topk(sc._final_merge(*lists5, K),
+                              sc.final_merge_plain(*sc.exact_scan_plain(*e_args), K),
                               q32, x32, sq32)
+    del lists5
     results["K5"] = {
         "max_abs_err": err,
         "ms": time_ms(lambda: sc.exact_scan(*e_args)),
@@ -4164,14 +4234,23 @@ def main() -> None:
                             sched, s32.row_cluster, K, tile, "fp32", (q32, x32, sq32),
                             f"phase 2b K3/K4 f32 nprobe={nprobe_2b}, cmax={cmax}")
     del x32
-    for name in ("K3", "K4"):
+    for name in ("K3", "K4", "merge"):
         results[name] = masked16[name]
         results[name].update({f"f32_{key}": v for key, v in masked32[name].items()})
+    lmask16 = mask[:, tc.long()].permute(1, 0, 2).contiguous()
+    lists100 = sc.masked_local_scan(qf16, s16.emb, s16._pallas_emb_sq(), lcl, lmask16, 100, tile)
+    results["merge"].update({f"k100_{key}": v for key, v in merge_timed(
+        torch, sc, lists100, 100, f"phase 2b merge of K4's bf16 k=100 lists, "
+        f"nprobe={nprobe_2b}").items()})
+    del lists100, lmask16
     masked_work = {"1M x 128 bf16": masked16["work"], "1M x 128 f32": masked32["work"]}
     b_args = (qf16, s16.emb, s16._pallas_emb_sq(), K, tile)
-    err, swaps = compare_topk(sc._final_merge(*sc.exact_scan(*b_args), K),
-                              sc._final_merge(*sc.exact_scan_plain(*b_args), K),
+    lists5 = sc.exact_scan(*b_args)
+    merge_held(torch, sc, lists5, K, "phase 2b merge of K5's bf16 lists")
+    err, swaps = compare_topk(sc._final_merge(*lists5, K),
+                              sc.final_merge_plain(*sc.exact_scan_plain(*b_args), K),
                               q16, x16, sq16)
+    del lists5
     sq_h = s16._pallas_emb_sq()
     res16 = {
         "max_abs_err": err,
@@ -4247,7 +4326,7 @@ def main() -> None:
     launches = dict(_build.LAUNCHES)
 
     # ---- phase 4 ---------------------------------------------------------
-    main_kernels = ("K1", "K2", "K3", "K4") + (
+    main_kernels = ("K1", "K2", "K3", "K4", "merge") + (
         ("K1_f32_screen",) if ka.f32_route(ROWS, DIM, N_CLUSTERS, 0) == "screen" else ())
     for name in main_kernels:
         check(launches[name] > 0, f"{name} was not launched on the main path")

@@ -37,10 +37,11 @@ NVCC_FLAGS = [
 #: ("K1_bf16_screen"), the FMA form over the rows the screen left uncertified
 #: ("K1_bf16_rescore") and the FMA form over all rows; "K1_f32_screen" and
 #: "K1_f32_rescore" those of K1's launches on f32 rows that took the f32-row
-#: screen and ``pqv_assign`` over the rows it left uncertified.
+#: screen and ``pqv_assign`` over the rows it left uncertified; "merge" the
+#: cross-tile merge of K4's, K5's and K6's per-tile lists.
 LAUNCHES: dict[str, int] = {**{f"K{i}": 0 for i in range(1, 12)}, "K1_bf16": 0,
                             "K1_bf16_screen": 0, "K1_bf16_rescore": 0,
-                            "K1_f32_screen": 0, "K1_f32_rescore": 0}
+                            "K1_f32_screen": 0, "K1_f32_rescore": 0, "merge": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,6 +73,7 @@ _SIGNATURES = {
     "pqv_tile_min_smem": [_I] * 2,
     "pqv_tile_gather": [_P] * 5 + [_I, _L, _L, _I, _I, _P],
     "pqv_tile_gather_dma": [_P] * 5 + [_I, _L, _L, _P],
+    "pqv_merge_lists": [_P, _P] + [_I] * 4 + [_P] * 4,
 }
 
 _lib: ctypes.CDLL | None = None

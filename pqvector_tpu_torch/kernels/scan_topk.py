@@ -9,9 +9,11 @@ through each row's cluster id). The per-tile scans are the hand-written
 kernels of ``csrc/scan_topk.cu`` on CUDA tensors (all three on the score
 tile of ``csrc/score_tile.cuh``; K4 and K6 score only the chunks their
 queries probe: ``scored_chunks``, ``masked_scan_chunks``) and the ``*_plain``
-functions on CPU tensors. The probe mask, the ``lmask`` gather, the
-cross-tile merge and the f32 re-score are plain torch, as they are XLA code
-outside the Pallas calls in the JAX package.
+functions on CPU tensors. The cross-tile merge is the hand-written kernel
+of ``csrc/merge.cu`` on CUDA tensors (``select_lex`` over the [B, nt·k]
+block on CPU tensors). The probe mask, the ``lmask`` gather and the f32
+re-score are plain torch, as they are XLA code outside the Pallas calls in
+the JAX package.
 
 Every selection orders on (distance, id): ties go to the lower row id, since
 ``torch.topk`` promises no order among ties.
@@ -28,6 +30,10 @@ POS_INF = 3.0e38  # pad and masked rows, as in the kernels
 MAX_K = 128  # largest k a kernel's top-k list holds
 #: The counters of ``check_stats``' two entries, as the trace names them.
 K4_COUNTERS = ("k4.tiles", "k4.chunks")
+#: The merge kernel's counters: (query, tile) lists whose head is a
+#: candidate (the only ones it may read past their head; it skips those
+#: whose head is already past its running k-th key), and list heads it tested.
+MERGE_COUNTERS = ("merge.lists", "merge.heads")
 
 
 def select_lex(d: torch.Tensor, ids: torch.Tensor, k: int):
@@ -351,13 +357,58 @@ def _refine(q, emb, best_d, best_i, out_k=None):
         return select_lex(d2, best_i, out_k or d2.shape[1])
 
 
+def final_merge_plain(tile_d, tile_i, k):
+    """The cross-tile merge in plain torch: ``select_lex`` over the [B, nt·kk]
+    block -> [B, min(k, nt·kk)]."""
+    nt, b, kk = tile_d.shape
+    all_d = tile_d.permute(1, 0, 2).reshape(b, nt * kk)
+    all_i = tile_i.permute(1, 0, 2).reshape(b, nt * kk)
+    return select_lex(all_d, all_i, k)
+
+
+def merge_counts(tile_d) -> tuple[int, int]:
+    """The merge kernel's counters (``MERGE_COUNTERS``) in plain torch: the
+    lists whose head is below the 3e38 sentinel, and the nt x B heads."""
+    return int((tile_d[:, :, 0] < POS_INF).sum()), tile_d.shape[0] * tile_d.shape[1]
+
+
 def _final_merge(tile_d, tile_i, k):
-    """[nt, B, k] per-tile winners -> [B, k] global."""
+    """[nt, B, kk] per-tile winners, each list ascending in distance ->
+    [B, min(k, nt·kk)] global, ascending under the (distance, id) order,
+    (+3e38, -1) where a query has fewer candidates. The kernel of
+    ``csrc/merge.cu`` on CUDA tensors reads only the lists whose head is a
+    candidate, and only up to the running k-th entry; it gives what
+    ``final_merge_plain`` gives, bit for bit; while tracing is on it adds
+    ``MERGE_COUNTERS`` to the trace's ``merge`` counter."""
     with profiling.span("search.merge"):
+        if tile_d.dtype != torch.float32 or tile_i.dtype != torch.int32:
+            raise TypeError("the merge takes float32 distances and int32 ids")
+        if tile_d.dim() != 3 or tile_i.shape != tile_d.shape or 0 in tile_d.shape[::2]:
+            raise ValueError(f"the merge takes two [nt, B, kk] lists, got "
+                             f"{tuple(tile_d.shape)} and {tuple(tile_i.shape)}")
         nt, b, kk = tile_d.shape
-        all_d = tile_d.permute(1, 0, 2).reshape(b, nt * kk)
-        all_i = tile_i.permute(1, 0, 2).reshape(b, nt * kk)
-        return select_lex(all_d, all_i, k)
+        if not (1 <= k <= MAX_K and kk <= MAX_K):
+            raise ValueError(f"the merge takes 1 <= k, kk <= {MAX_K}, got k {k}, kk {kk}")
+        if not (tile_d.is_contiguous() and tile_i.is_contiguous()):
+            raise ValueError("the merge's lists must be contiguous")
+        if tile_i.device != tile_d.device:
+            raise ValueError("the merge's lists must be on one device")
+        if tile_d.device.type == "cpu":
+            return final_merge_plain(tile_d, tile_i, k)
+        check_cuda_operands(tile_d=tile_d, tile_i=tile_i)
+        kout = min(k, nt * kk)
+        out_d = torch.empty((b, kout), dtype=torch.float32, device=tile_d.device)
+        out_i = torch.empty((b, kout), dtype=torch.int32, device=tile_d.device)
+        stats = profiling.device_counter("merge", MERGE_COUNTERS, tile_d.device, nt * b)
+        lib = _build.load()
+        rc = lib.pqv_merge_lists(
+            tile_d.data_ptr(), tile_i.data_ptr(), nt, b, kk, k,
+            check_stats(stats, tile_d.device), out_d.data_ptr(), out_i.data_ptr(),
+            _build.stream_ptr(),
+        )
+        _build.check(rc, "pqv_merge_lists")
+        _build.LAUNCHES["merge"] += 1
+        return out_d, out_i
 
 
 def masked_local_topk(

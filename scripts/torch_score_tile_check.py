@@ -216,7 +216,7 @@ def main() -> None:
               f"(B=1: {ms1:.3f} ms), einsum + amin {lib_ms:.3f} ms")
         qf = q.to(emb.dtype)
         g = sc._final_merge(*sc.exact_scan(qf, emb, sq, k, 1024), k)
-        w = sc._final_merge(*sc.exact_scan_plain(qf, emb, sq, k, 1024), k)
+        w = sc.final_merge_plain(*sc.exact_scan_plain(qf, emb, sq, k, 1024), k)
         err, swaps = cs.compare_topk(g, w, cs.stored_f64(qf), cs.stored_f64(emb),
                                      sq.cpu().numpy().astype(np.float64))
         ms = cs.time_ms(lambda: sc.exact_scan(qf, emb, sq, k, 1024))

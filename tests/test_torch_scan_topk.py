@@ -30,6 +30,7 @@ from pqvector_tpu.query.device import DeviceIvfSearcher as JSearcher
 from pqvector_tpu_torch.convert import searcher_state_from_reference
 from pqvector_tpu_torch.kernels import scan_topk as tsc
 from pqvector_tpu_torch.kernels.stream_topk import _probe_mask
+from test_torch_merge import SCAN_LIKE, scan_like_lists
 
 TILE = 256
 
@@ -261,6 +262,92 @@ def test_final_merge_matches_jax(k):
     want = jsc._final_merge(jnp.asarray(tile_d), jnp.asarray(tile_i), k)
     got = tsc._final_merge(torch.from_numpy(tile_d), torch.from_numpy(tile_i), k)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_LIKE))
+def test_final_merge_ids_match_jax(case):
+    """Ids and distances against the JAX package's merge, on lists laid out
+    as the scans write them, with ties across tiles: the reference's top-k
+    keeps the lower place in the [B, nt·k] block, which is the lower id
+    there, as the port's (distance, id) order does. The one order they do
+    not share is that of zeros: the reference's top-k puts -0.0 before
+    +0.0, the port takes them as equal and keeps the lower id (a scan
+    writes an exact zero distance as +0.0: |x|^2 - 2 q.x rounds to it). So
+    the reference is given the lists with the zeros' sign cleared, and the
+    port must return each winner's distance with the bits it was given.
+    ``tests/test_torch_merge.py`` holds the kernel to this plain merge on
+    the same lists."""
+    d, i = scan_like_lists(case)
+    k = d.shape[2]
+    want = jsc._final_merge(jnp.asarray(np.where(d == 0, np.float32(0), d)), jnp.asarray(i), k)
+    got = tsc._final_merge(torch.from_numpy(d), torch.from_numpy(i), k)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    bits = d.view(np.int32)
+    for q in range(d.shape[1]):
+        given = dict(zip(i[:, q].ravel().tolist(), bits[:, q].ravel().tolist()))
+        real = got[1][q] >= 0
+        assert got[0][q][real].view(torch.int32).tolist() == [
+            given[j] for j in got[1][q][real].tolist()]
+    if case == "signed zeros":
+        assert bool((got[0] == 0).any()) and bool(torch.signbit(got[0][got[0] == 0]).any())
+
+
+def _merge_lists(nt, b, kk, live):
+    """[nt, b, kk] lists: ``live`` [nt, b] bool lists hold 1 .. kk ascending
+    candidates, every other slot is empty (+3e38, -1)."""
+    rng = np.random.default_rng(nt * b + kk)
+    d = np.full((nt, b, kk), 3.0e38, np.float32)
+    i = np.full((nt, b, kk), -1, np.int32)
+    for t, q in zip(*np.nonzero(live)):
+        n = int(rng.integers(1, kk + 1))
+        d[t, q, :n] = np.sort(rng.integers(-3, 4, n)).astype(np.float32)
+        i[t, q, :n] = t * 1000 + rng.permutation(1000)[:n]
+    return torch.from_numpy(d), torch.from_numpy(i)
+
+
+_MERGE_OK = _merge_lists(4, 3, 5, np.ones((4, 3), bool))
+
+
+@pytest.mark.parametrize("lists,k,err", [
+    ((_MERGE_OK[0].double(), _MERGE_OK[1]), 5, TypeError),  # f64 distances
+    ((_MERGE_OK[0], _MERGE_OK[1].long()), 5, TypeError),  # i64 ids
+    ((_MERGE_OK[0][0], _MERGE_OK[1][0]), 5, ValueError),  # [B, kk]: no tile axis
+    ((_MERGE_OK[0], _MERGE_OK[1][:, :2]), 5, ValueError),  # shapes differ
+    ((_MERGE_OK[0][:0], _MERGE_OK[1][:0]), 5, ValueError),  # no tiles
+    (_MERGE_OK, 0, ValueError),
+    (_MERGE_OK, 129, ValueError),
+    ((_MERGE_OK[0].transpose(0, 1), _MERGE_OK[1].transpose(0, 1)), 5, ValueError),
+])
+def test_final_merge_refuses_what_the_kernel_cannot_take(lists, k, err):
+    """The wrapper's checks hold on every device, before the plain version."""
+    with pytest.raises(err):
+        tsc._final_merge(*lists, k)
+
+
+@pytest.mark.parametrize("nt,b,kk,case", [
+    (40, 6, 10, "sparse"),  # a few lists of each query hold candidates
+    (40, 6, 10, "empty queries"),  # queries 0 and 5 have none
+    (12, 4, 16, "dense"),  # every list does, as K5 writes them
+    (9, 3, 4, "none"),  # no query has a candidate
+])
+def test_merge_counts_rule(nt, b, kk, case):
+    """``merge_counts``: the lists whose head is a candidate, and nt x B
+    heads; the CPU merge stays ``select_lex`` over the [B, nt·kk] block."""
+    rng = np.random.default_rng(nt + b)
+    live = {"sparse": rng.random((nt, b)) < 0.1, "dense": np.ones((nt, b), bool),
+            "none": np.zeros((nt, b), bool)}.get(case)
+    if case == "empty queries":
+        live = rng.random((nt, b)) < 0.3
+        live[:, [0, 5]] = False
+    d, i = _merge_lists(nt, b, kk, live)
+    assert tsc.merge_counts(d) == (int(live.sum()), nt * b)
+    got = tsc._final_merge(d, i, kk)
+    want = tsc.select_lex(d.permute(1, 0, 2).reshape(b, -1), i.permute(1, 0, 2).reshape(b, -1),
+                          kk)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    empty = ~torch.from_numpy(live).any(0)
+    assert (got[1][empty] == -1).all() and (got[0][empty] == tsc.POS_INF).all()
 
 
 @pytest.mark.parametrize(
