@@ -43,6 +43,9 @@ from .scan_topk import (
 
 #: Rows per step of the plain scans: bounds their [B, rows] score block.
 _PLAIN_ROWS = 65536
+#: K3's trace counters (``profiling.device_counter``): the (block, tile) and
+#: (block, chunk) pairs it scored, as its ``stats`` counts them.
+K3_COUNTERS = ("k3.tiles", "k3.chunks")
 
 
 def scan_units(chunks: int, batch: int, queries: int = 128, wave: int = 264) -> int:
@@ -214,11 +217,13 @@ def _stream_masked_cuda(qf, emb, emb_sq, local_cluster, tile_clusters, mask,
     n_pad, d = emb.shape
     b = qf.shape[0]
     cmax = tile_clusters.shape[1]
+    nt = n_pad // tile
     backend, queries, words, smem = masked_geometry("K3", qf, emb, k, cmax)
+    if stats is None and profiling.tracing_on():
+        pairs = nt * -(-b // queries) * -(-tile // score_tile.CHUNK_ROWS)
+        stats = profiling.device_counter("k3", K3_COUNTERS, emb.device, pairs)
     if units is None:
-        units = masked_scan_units(
-            n_pad // tile, b, queries, score_tile.wave_blocks(smem)
-        )
+        units = masked_scan_units(nt, b, queries, score_tile.wave_blocks(smem))
     dev = emb.device
     part_d = torch.empty((units, b, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((units, b, k), dtype=torch.int32, device=dev)
@@ -250,7 +255,8 @@ def stream_masked_scan(qf, emb, emb_sq, local_cluster, tile_clusters, mask, sche
     ``score_tile.pick_backend``) with sorted lists, and K2's shared gate,
     carried across a block's run of active tiles; ``stats``
     (``scan_topk.check_stats``) counts the tiles and chunks it scored, on
-    CUDA tensors only."""
+    CUDA tensors only; without it, while tracing is on, the trace's ``k3``
+    counter does (``profiling.device_counter``, ``K3_COUNTERS``)."""
     with profiling.span("search.scan"):
         check_scan_args(qf, emb, emb_sq, k, tile)
         nt = emb.shape[0] // tile
