@@ -408,8 +408,8 @@ def phase2_small(torch, st, sc, ka):
             exact = (st.stream_exact_scan(qf, E, S, k, tile),
                      st.stream_exact_scan_plain(qf, E, S, k))
             mask = st._probe_mask(Q, C, (C * C).sum(1), 3, 20, 128)
-            sched = st._tile_schedule(mask, TC)
-            args = (qf, E, S, L, TC, mask, sched, k, tile)
+            probe = st._probe_ids(Q, C, (C * C).sum(1), 3, 20)
+            args = (qf, E, S, st._tile_offsets(L, TC, 20), probe, k)
             masked = (st.stream_masked_scan(*args), st.stream_masked_scan_plain(*args))
             lmask = mask[:, TC.long()].permute(1, 0, 2).contiguous()
             args = (qf, E, S, L, lmask, k, tile)
@@ -1034,6 +1034,7 @@ def phase6(torch, pqt, _build, ds, Embeddings, dev, cp, compact_select, tm, sc, 
     out["slice3"] = phase7b(torch, ds, cp, compact_select, s, q256, truth_pair)
     out["score_tile"] = deep_score_tile(torch, tm, sc, st, s, q256)
     out["masked"] = deep_masked(torch, sc, st, s, q256)
+    out["masked"]["k3_b4096"] = deep_k3_b4096(torch, st, s, q_dev)
     out["assign"] = uncounted(_build, lambda: deep_assign(torch, ka, s))
     del s
     gc.collect()
@@ -1269,10 +1270,11 @@ def phase2_masked_score_tile(torch, st, sc):
     a stage, n < k, a tile shorter than a chunk, a last tile whose last
     chunks are all pad rows, a tile of 64 chunks (two segments), rows in
     random order (unsorted slots) with 150 and with 300 clusters a tile (a
-    table of 5 words, and one too wide for shared memory), one cluster a
-    tile; K3 over three splits of the active tiles. The kernels' counters of
-    scored tiles and chunks must equal ``scored_chunks``' wherever a probe
-    table is held. -> cases."""
+    table of 5 words, and one too wide for shared memory; K4 only: K3 reads
+    a cluster's rows as one run of a sorted layout), one cluster a tile; K3
+    with its clusters cut into 1, 3 and the rule's segments. K4's counters
+    of scored tiles and chunks must equal ``scored_chunks``' wherever a probe
+    table is held, K3's of items and chunks ``scored_items``'. -> cases."""
     from pqvector_tpu_torch.kernels.score_tile import CHUNK_ROWS
 
     dev = torch.device(DEVICE)
@@ -1297,7 +1299,6 @@ def phase2_masked_score_tile(torch, st, sc):
             Q = torch.from_numpy(q).to(dev)
             qf = Q.to(dt)
             mask = st._probe_mask(Q, C, (C * C).sum(1), min(3, kc), min(20, kc), kc_pad)
-            sched = st._tile_schedule(mask, TC)
             lmask = mask[:, TC.long()].permute(1, 0, 2).contiguous()
             backend, queries, words, _ = sc.masked_geometry("K4", qf, E, k, tc.shape[1])
             want_chunks = sc.scored_chunks(lmask > 0.5, L, tile, queries)
@@ -1315,28 +1316,32 @@ def phase2_masked_score_tile(torch, st, sc):
             check(stats.tolist() == want_stats,
                   f"K4 {what}: scored {stats.tolist()} tiles and chunks, the rule says "
                   f"{want_stats}")
-            args = (qf, E, S, L, TC, mask, sched, k, tile)
-            w = st.stream_masked_scan_plain(*args)
-            check(torch.equal(w[1], sc.final_merge_plain(*g, k)[1]),
-                  f"K3 {what}: the plain versions of K3 and K4 disagree")
-            for units in (None, 1, 3):
-                stats.zero_()
-                g = st._stream_masked_cuda(*args, units=units, stats=stats)
-                torch.cuda.synchronize()
-                check(torch.equal(g[1], w[1]) and torch.equal(g[0], w[0]),
-                      f"K3 {what} units={units}: {int((g[1] != w[1]).sum())} ids differ "
-                      "from plain")
-                if words:
-                    check(stats.tolist() == want_stats,
-                          f"K3 {what} units={units}: scored {stats.tolist()}, the rule "
-                          f"says {want_stats}")
+            if not shuffle:  # K3 reads each cluster's rows as one run: sorted rows only
+                probe = st._probe_ids(Q, C, (C * C).sum(1), min(3, kc), min(20, kc))
+                offsets = st._tile_offsets(L, TC, kc)
+                args = (qf, E, S, offsets, probe, k)
+                w = st.stream_masked_scan_plain(*args)
+                check(torch.equal(w[1], sc.final_merge_plain(*g, k)[1]),
+                      f"K3 {what}: the plain versions of K3 and K4 disagree")
+                for segs in (None, 1, 3):
+                    stats.zero_()
+                    g = st._stream_masked_cuda(*args, segments=segs, stats=stats)
+                    torch.cuda.synchronize()
+                    check(torch.equal(g[1], w[1]) and torch.equal(g[0], w[0]),
+                          f"K3 {what} segments={segs}: {int((g[1] != w[1]).sum())} ids "
+                          "differ from plain")
+                    want3 = list(st.scored_items(
+                        offsets, probe, segs or st.masked_segments(probe.numel())))
+                    check(stats.tolist() == want3,
+                          f"K3 {what} segments={segs}: scored {stats.tolist()} items and "
+                          f"chunks, the work list says {want3}")
             cases += 1
             mma += backend == "wgmma"
             tableless += not words
     log(f"phase 2a K4/K3, score tile: {cases} cases (k 1..128, B 1..257, d 3..136, tile "
         f"64..8192, n < k, all-pad chunks, unsorted slots, 1..300 clusters a tile, "
-        f"f32/bf16, K3 over 3 splits each): ids and distances equal to the plain "
-        f"versions, scored tiles and chunks equal to the skip rule's; {mma} on wgmma, "
+        f"f32/bf16, K3 over 3 segment counts on sorted rows): ids and distances equal to "
+        f"the plain versions, scored tiles and chunks equal to the rules'; {mma} on wgmma, "
         f"{tableless} without a probe table in shared memory")
     return cases
 
@@ -1624,17 +1629,18 @@ def probed_work(torch, mask, row_cluster, d, esize):
     return rows * (d * esize + 8), 2.0 * pairs * d
 
 
-def masked_timed(torch, sc, st, qf, emb, sq, lcl, tc, mask, sched, row_cluster, k, tile,
+def masked_timed(torch, sc, st, qf, emb, sq, lcl, tc, mask, probe, row_cluster, k, tile,
                  kind, stored, what):
     """K3 and K4 on one array at one batch: each held to its plain version
     (``stored``: the float64 (queries, rows, norms) that judge near-ties),
-    K3's ids held to K4's merge, the kernels' counters of scored tiles and
-    chunks held to the skip rule's, and both timed beside the plain versions
-    and the product + gathered mask + ``topk`` chain, with their bounds.
-    With ``stored`` None (the 10M rung, where float64 copies and a [B, n]
-    score matrix do not fit the time) both are held on the card to K3's plain
-    version over the active tiles, distances within 1e-5 (|q|^2 + max
-    |x|^2), and only the kernels are timed.
+    K3's ids held to K4's merge, K4's counters of scored tiles and chunks
+    held to the skip rule's and K3's of items and chunks to its work list's,
+    and both timed beside the plain versions and the product + gathered mask
+    + ``topk`` chain, with their bounds. ``probe`` [B, nprobe] are the ids
+    ``mask`` sets. With ``stored`` None (the 10M rung, where float64 copies
+    and a [B, n] score matrix do not fit the time) both are held on the card
+    to K3's plain version over the probed clusters, distances within 1e-5
+    (|q|^2 + max |x|^2), and only the kernels are timed.
     -> {"K3": {...}, "K4": {...}, "work": {...}}."""
     deep = stored is None
     reps = 5 if deep else 10
@@ -1642,12 +1648,16 @@ def masked_timed(torch, sc, st, qf, emb, sq, lcl, tc, mask, sched, row_cluster, 
     nt, b = lmask.shape[0], qf.shape[0]
     backend, queries, words, _ = sc.masked_geometry("K4", qf, emb, k, tc.shape[1])
     chunks = sc.scored_chunks(lmask > 0.5, lcl, tile, queries)
-    work = {"backend": backend, "table_words": words, "active_tiles": int(sched[0]),
-            "tiles": nt, "block_tiles": chunks.shape[0] * chunks.shape[1],
+    offsets = st.cluster_offsets(row_cluster, int(row_cluster[-1]))  # the last row is a pad
+    k3_items, k3_chunks = st.scored_items(offsets, probe, st.masked_segments(probe.numel()))
+    work = {"backend": backend, "table_words": words, "tiles": nt,
+            "block_tiles": chunks.shape[0] * chunks.shape[1],
             "block_tiles_scored": int(chunks.any(2).sum()),
-            "block_chunks": chunks.numel(), "block_chunks_scored": int(chunks.sum())}
+            "block_chunks": chunks.numel(), "block_chunks_scored": int(chunks.sum()),
+            "k3_items": k3_items, "k3_chunks": k3_chunks,
+            "k3_rows_read_pct": 100.0 * k3_chunks * 128 / int(offsets[-1])}
     del chunks
-    a3 = (qf, emb, sq, lcl, tc, mask, sched, k, tile)
+    a3 = (qf, emb, sq, offsets, probe, k)
     a4 = (qf, emb, sq, lcl, lmask, k, tile)
     stats = torch.zeros(2, dtype=torch.int32, device=emb.device)
     g4 = sc.masked_local_scan(*a4, stats=stats)
@@ -1660,9 +1670,11 @@ def masked_timed(torch, sc, st, qf, emb, sq, lcl, tc, mask, sched, row_cluster, 
     torch.cuda.synchronize()
     if words:
         want = [work["block_tiles_scored"], work["block_chunks_scored"]]
-        check(got4 == want and stats.tolist() == want,
-              f"{what}: K4 scored {got4}, K3 {stats.tolist()} tiles and chunks; the skip "
-              f"rule says {want}")
+        check(got4 == want, f"{what}: K4 scored {got4} tiles and chunks; the skip rule "
+              f"says {want}")
+    check(stats.tolist() == [k3_items, k3_chunks],
+          f"{what}: K3 scored {stats.tolist()} items and chunks; the work list says "
+          f"{[k3_items, k3_chunks]}")
     check(torch.equal(g3[1], m4[1]), f"{what}: K3's ids differ from K4's merged ids")
     w3 = st.stream_masked_scan_plain(*a3)
     out = {"work": work, "merge": merge}
@@ -1689,7 +1701,7 @@ def masked_timed(torch, sc, st, qf, emb, sq, lcl, tc, mask, sched, row_cluster, 
         out["K4"]["plain_ms"] = time_ms(lambda: sc.masked_local_scan_plain(*a4))
         lib = masked_library_ms(torch, qf, emb, sq, row_cluster, mask, k, reps=5)
     row_bytes, ops = probed_work(torch, mask, row_cluster, emb.shape[1], emb.element_size())
-    out["K3"].update(bound_of(row_bytes + nbytes_of(qf, mask, tc, sched) + b * k * 8, ops, kind),
+    out["K3"].update(bound_of(row_bytes + nbytes_of(qf, probe, offsets) + b * k * 8, ops, kind),
                      library_ms=lib)
     out["K4"].update(bound_of(row_bytes + nbytes_of(qf, lmask) + nt * b * k * 8, ops, kind),
                      library_ms=lib)
@@ -1697,12 +1709,14 @@ def masked_timed(torch, sc, st, qf, emb, sq, lcl, tc, mask, sched, row_cluster, 
     def ms(value):
         return "not timed" if value is None else f"{value:.3f} ms"
 
-    log(f"{what}: {work['active_tiles']} of {nt} tiles active; blocks of {queries} queries on "
-        f"{backend} score {work['block_tiles_scored']} of {work['block_tiles']} (block, tile) "
-        f"pairs and {work['block_chunks_scored']} of {work['block_chunks']} (block, chunk) "
-        f"pairs. K3: {out['K3']['swaps']} near-tie swaps, max err {out['K3']['max_abs_err']:.3g}; "
-        f"kernel {out['K3']['ms']:.3f} ms, plain {ms(out['K3'].get('plain_ms'))}, bound "
-        f"{out['K3']['bound_ms']:.3f} ms ({out['K3']['bound_by']}). K4: {out['K4']['swaps']} "
+    log(f"{what}: K4's blocks of {queries} queries on {backend} score "
+        f"{work['block_tiles_scored']} of {work['block_tiles']} (block, tile) pairs and "
+        f"{work['block_chunks_scored']} of {work['block_chunks']} (block, chunk) pairs; K3 "
+        f"scores {k3_items} items, {k3_chunks} (item, chunk) pairs, "
+        f"{work['k3_rows_read_pct']:.1f}% of the rows. K3: {out['K3']['swaps']} near-tie "
+        f"swaps, max err {out['K3']['max_abs_err']:.3g}; kernel {out['K3']['ms']:.3f} ms, "
+        f"plain {ms(out['K3'].get('plain_ms'))}, bound {out['K3']['bound_ms']:.3f} ms "
+        f"({out['K3']['bound_by']}). K4: {out['K4']['swaps']} "
         f"near-tie swaps after the merge, max err {out['K4']['max_abs_err']:.3g}; kernel "
         f"{out['K4']['ms']:.3f} ms, plain {ms(out['K4'].get('plain_ms'))}, bound "
         f"{out['K4']['bound_ms']:.3f} ms ({out['K4']['bound_by']}). mm + gathered mask + topk "
@@ -1717,16 +1731,54 @@ def deep_masked(torch, sc, st, s, q, nprobe=4):
     lcl, tc, cmax = s._tile_cluster_table(tile)
     kc_pad = -(-(DEEP_CLUSTERS + 1) // 128) * 128
     mask = st._probe_mask(q, s.centroids, s.c_sq, nprobe, s._max_probe_bucket(nprobe), kc_pad)
-    sched = st._tile_schedule(mask, tc)
+    probe = st._probe_ids(q, s.centroids, s.c_sq, nprobe, s._max_probe_bucket(nprobe))
     sq = s._pallas_emb_sq()
     out = {"work": {}}
     for name, emb, kind in (("f32", s._ref(), "fp32"), ("bf16", s.emb, "bf16")):
-        res = masked_timed(torch, sc, st, q.to(emb.dtype), emb, sq, lcl, tc, mask, sched,
+        res = masked_timed(torch, sc, st, q.to(emb.dtype), emb, sq, lcl, tc, mask, probe,
                            s.row_cluster, K, tile, kind, None,
                            f"phase 7b K3/K4 {name} 10M x {DEEP_DIM}, nprobe={nprobe}, "
                            f"cmax={cmax}")
         out["work"][f"10M x {DEEP_DIM} {name}"] = res.pop("work")
         out[name] = res
+    return out
+
+
+def deep_k3_b4096(torch, st, s, q, nprobe=4):
+    """K3 alone at the ``deep10m.search.b4096`` cell's batch (B = 4096, nprobe
+    4) on the 10M x 96 rung's bf16 storage, where K4's [nt, B, cmax] local
+    mask would pass 256 MiB: held to its plain version (distances within
+    1e-5 (|q|^2 + max |x|^2), the same empty slots), its counters to the
+    work list's, and timed beside its bound."""
+    b = q.shape[0]
+    kc_pad = -(-(DEEP_CLUSTERS + 1) // 128) * 128
+    mask = st._probe_mask(q, s.centroids, s.c_sq, nprobe, s._max_probe_bucket(nprobe), kc_pad)
+    probe = st._probe_ids(q, s.centroids, s.c_sq, nprobe, s._max_probe_bucket(nprobe))
+    offsets = st.cluster_offsets(s.row_cluster, DEEP_CLUSTERS)
+    sq, qf = s._pallas_emb_sq(), q.to(s.emb.dtype)
+    a3 = (qf, s.emb, sq, offsets, probe, K)
+    stats = torch.zeros(2, dtype=torch.int32, device=q.device)
+    got = st.stream_masked_scan(*a3, stats=stats)
+    want = st.stream_masked_scan_plain(*a3)
+    items, chunks = st.scored_items(offsets, probe, st.masked_segments(probe.numel()))
+    what = f"phase 7b K3 bf16 10M x {DEEP_DIM}, B={b}, nprobe={nprobe}"
+    check(stats.tolist() == [items, chunks],
+          f"{what}: scored {stats.tolist()} items and chunks, the work list says "
+          f"{[items, chunks]}")
+    check(torch.equal(got[1] >= 0, want[1] >= 0), f"{what}: empty slots differ")
+    fin = sq[sq < 1e38]
+    tol = 1e-5 * float((qf.float() ** 2).sum(1).max() + fin.max())
+    real = want[1] >= 0
+    err = float((got[0] - want[0])[real].abs().max()) if bool(real.any()) else 0.0
+    check(err <= tol, f"{what}: distances differ from plain by {err}")
+    out = {"max_abs_err": err, "swaps": int((got[1] != want[1]).sum()), "items": items,
+           "chunks": chunks, "rows_read_pct": 100.0 * chunks * 128 / int(offsets[-1]),
+           "ms": time_ms(lambda: st.stream_masked_scan(*a3), reps=5)}
+    row_bytes, ops = probed_work(torch, mask, s.row_cluster, DEEP_DIM, 2)
+    out.update(bound_of(row_bytes + nbytes_of(qf, probe, offsets) + b * K * 8, ops, "bf16"))
+    log(f"{what}: {items} items, {chunks} (item, chunk) pairs ({out['rows_read_pct']:.1f}% of "
+        f"the rows), {out['swaps']} near-tie swaps, max err {err:.3g}; kernel "
+        f"{out['ms']:.3f} ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']})")
     return out
 
 
@@ -4224,14 +4276,14 @@ def main() -> None:
     mask = st._probe_mask(q, s16.centroids, s16.c_sq, nprobe_2b,
                           s16._max_probe_bucket(nprobe_2b),
                           -(-(N_CLUSTERS + 1) // 128) * 128)
-    sched = st._tile_schedule(mask, tc)
+    probe = st._probe_ids(q, s16.centroids, s16.c_sq, nprobe_2b, s16._max_probe_bucket(nprobe_2b))
     x16, sq16 = stored_f64(s16.emb), s16._pallas_emb_sq().cpu().numpy().astype(np.float64)
     q16 = stored_f64(qf16)
     masked16 = masked_timed(torch, sc, st, qf16, s16.emb, s16._pallas_emb_sq(), lcl, tc, mask,
-                            sched, s16.row_cluster, K, tile, "bf16", (q16, x16, sq16),
+                            probe, s16.row_cluster, K, tile, "bf16", (q16, x16, sq16),
                             f"phase 2b K3/K4 bf16 nprobe={nprobe_2b}, cmax={cmax}")
     masked32 = masked_timed(torch, sc, st, q, s32.emb, s32._pallas_emb_sq(), lcl, tc, mask,
-                            sched, s32.row_cluster, K, tile, "fp32", (q32, x32, sq32),
+                            probe, s32.row_cluster, K, tile, "fp32", (q32, x32, sq32),
                             f"phase 2b K3/K4 f32 nprobe={nprobe_2b}, cmax={cmax}")
     del x32
     for name in ("K3", "K4", "merge"):

@@ -32,25 +32,28 @@
 // peak); bf16 on wgmma, the list work and the 64-row score dumps between the
 // products; at k near 128 the replacements, each a pass over k entries.
 //
-// K3 is K2's stream with the probe test as epilogue work (MaskedLists in
-// topk_lists.cuh, which K4 shares). Block (u, g) owns up to 128 queries and
-// the active tiles u, u + U, ... of the device-side schedule (n_active, then
-// the active tile ids), so the host never waits for the probe mask, and its
-// lists (sorted, drained a query at a time by a whole warp) and the shared
-// gate live across that run. Before a tile it
-// builds its queries' probe table for the tile in shared memory from
-// mask[b, tc[tile, slot]], which is K4's local mask made in place, so no
-// [nt, B, cmax] buffer exists. It skips a tile that none of its own queries
-// probes (the schedule only says that some query of the batch does), copies
-// and multiplies only the 128-row chunks that hold a probed row, and dumps
-// and drains only the queries that probe a slot of a 64-row half. The gate
-// holds under a mask: a list holds only rows its query probes, so a row
-// above some full list's k-th entry is in no top-k of that query. U is
-// sized so that the launch is about one wave. What bounds it: as K4
-// (scan_topk.cu), the list work on the probed rows first, then the flags,
-// dumps and barriers of the scored halves and the per-tile tables, then the
-// walk; in f32 the fp32 FMAs of the scored chunks.
-#include "topk_lists.cuh"
+// K3 scans by probed cluster, not by query block (item_scan.cuh). The
+// clusters' rows are contiguous in the cluster-sorted layout (offsets[c] ..
+// offsets[c + 1]), so three small launches turn the batch's probe ids
+// [B, nprobe] into a work list on the device, with no copy to the host: a
+// count of the (query, slot) pairs each cluster gets (k3_count_kernel), then
+// one block (k3_plan_kernel) that scans the counts, lays the pairs out
+// cluster by cluster, and writes the items (cluster, group of at most 16 of
+// its queries, segment of its rows) with their row range, their pairs and
+// their segment, and opens the gates. The host sizes every buffer from B,
+// nprobe, the cluster count and `segs` alone. Persistent blocks of the scan
+// (stream_masked_kernel) take items from the list by atomicAdd, as many as
+// fit the card at once; each streams its rows once and scores them against
+// only its own queries. It writes each query's list to the partial slot of
+// its probe slot and segment, [nprobe * segs, B, k], and the partials are
+// merged as K2's are. So a row is read once for each group of 16 queries that
+// probes its cluster, not once for each 128-query block of the batch that
+// probes any cluster at all. What bounds it: the bytes of the probed rows,
+// then the barriers and dumps of a chunk and the first inserts of each
+// item's lists; in f32 the fp32 FMAs.
+#include <algorithm>
+
+#include "item_scan.cuh"
 
 namespace pqv {
 
@@ -100,52 +103,198 @@ int launch_stream_exact(const void* q, const void* emb, const float* emb_sq,
   return (int)cudaGetLastError();
 }
 
-template <class Tile, int STAGES, bool TABLE>
-__global__ void __launch_bounds__(kThreads, 2)
-    stream_masked_kernel(TileOperands<typename Tile::Storage> op,
-                         const float* __restrict__ emb_sq, const int* __restrict__ lcl,
-                         ProbeSource src, const int* __restrict__ sched,
-                         float* __restrict__ part_d, int* __restrict__ part_i, int* gate,
-                         int k, int tile, int words, int units, int nqb) {
-  extern __shared__ char dyn[];
-  char* ring = align_ring(dyn);
-  Tile t;
-  MaskedLists<Tile, true, TABLE> epi;
-  epi.layout(ring + STAGES * Tile::kStageBytes, emb_sq, k, words);
-  epi.clear();
-  const int unit = blockIdx.x / nqb;
-  const int q0 = (blockIdx.x % nqb) * Tile::kQueries;
-  epi.lcl = lcl;
-  epi.src = src;
-  epi.q0 = q0;
-  epi.gate = gate + q0;
-  const int n_active = sched[0];
-  for (int i = unit; i < n_active; i += units) {
-    const int tl = sched[1 + i];
-    if (epi.load_table(tl)) walk_masked_tile<STAGES>(t, op, q0, tl, tile, ring, epi);
-  }
-  __syncthreads();  // the lists are complete, also where the run scored no row
-  epi.write(part_d, part_i, unit, q0, op.B);
+// A pair p = b * nprobe + j of the probe ids belongs to its cluster, or to
+// the sentinel cluster C (no rows) where its id is out of range.
+__device__ __forceinline__ int cluster_of(int id, int C) {
+  return (unsigned)id < (unsigned)C ? id : C;
 }
 
-template <class Tile, int STAGES>
-int launch_stream_masked(const void* q, const void* emb, const float* emb_sq,
-                         const int* lcl, const ProbeSource& src, const int* sched,
-                         float* part_d, int* part_i, int* gate, int d, int k, int tile,
-                         int words, int units, cudaStream_t st) {
+// The count of pairs of each cluster, and each pair's rank among them.
+__global__ void k3_count_kernel(const int* __restrict__ probe, int P, int C,
+                                int* count, int* __restrict__ rank) {
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < P; p += gridDim.x * blockDim.x)
+    rank[p] = atomicAdd(count + cluster_of(probe[p], C), 1);
+}
+
+constexpr int kPlanThreads = 1024;
+
+// The rows of cluster c (none for the sentinel) in `parts` segments of `per`
+// chunks, at most `segs` and none empty, and its query groups.
+struct ClusterItems {
+  int begin, end, per, parts, groups;
+  __device__ __forceinline__ ClusterItems(const int* offsets, int C, int c, int n, int segs) {
+    begin = c < C ? offsets[c] : 0;
+    end = c < C ? offsets[c + 1] : 0;
+    const int chunks = (end - begin + kTR - 1) / kTR;
+    const int cut = min(segs, chunks);
+    per = chunks > 0 ? (chunks + cut - 1) / cut : 0;
+    parts = chunks > 0 ? (chunks + per - 1) / per : 1;
+    groups = (n + kItemQueries - 1) / kItemQueries;
+  }
+};
+
+// Exclusive prefix sum over the block of one value a thread -> (the sum of
+// the threads before this one, the block's total in `total`).
+__device__ __forceinline__ long long block_scan(long long v, long long* sums,
+                                                long long* total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  long long x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sums[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    long long s = sums[lane];  // kPlanThreads / 32 == 32 warps
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(kFull, s, o);
+      if (lane >= o) s += y;
+    }
+    sums[lane] = s;
+  }
+  __syncthreads();
+  *total = sums[31];
+  return x - v + (w > 0 ? sums[w - 1] : 0);
+}
+
+// One block: the work list from the counts. Thread t owns a run of
+// clusters; one scan gives each cluster the start of its pairs (low word)
+// and of its items (high word). Then every pair goes to its place, the
+// gates open and the list's length and cursor are set.
+__global__ void __launch_bounds__(kPlanThreads)
+    k3_plan_kernel(const int* __restrict__ offsets, const int* __restrict__ probe, int P,
+                   int C, int B, int segs, const int* __restrict__ count,
+                   const int* __restrict__ rank, int* pstart, int* __restrict__ pairs,
+                   int4* __restrict__ items, int* head, int* __restrict__ gate) {
+  __shared__ long long sums[32];
+  const int nc = C + 1;
+  const int run = (nc + kPlanThreads - 1) / kPlanThreads;
+  const int c0 = min(nc, (int)threadIdx.x * run), c1 = min(nc, c0 + run);
+  long long mine = 0;
+  for (int c = c0; c < c1; ++c) {
+    const int n = count[c];
+    if (n > 0) {
+      const ClusterItems ci(offsets, C, c, n, segs);
+      mine += (long long)ci.groups * ci.parts << 32;
+    }
+    mine += n;  // the pairs, at most 2^31 - 1 in all: no carry into the items
+  }
+  long long total;
+  const long long at = block_scan(mine, sums, &total);
+  int pa = (int)(at & 0xffffffffll), ia = (int)(at >> 32);
+  for (int c = c0; c < c1; ++c) {
+    const int n = count[c];
+    pstart[c] = pa;
+    if (n > 0) {
+      const ClusterItems ci(offsets, C, c, n, segs);
+      for (int g = 0; g < ci.groups; ++g) {
+        const int nq = min(kItemQueries, n - g * kItemQueries);
+        for (int s = 0; s < ci.parts; ++s) {
+          const int rb = min(ci.end, ci.begin + s * ci.per * kTR);
+          const int re = min(ci.end, ci.begin + (s + 1) * ci.per * kTR);
+          items[ia++] = make_int4(rb, re, pa + g * kItemQueries,
+                                  nq | (s << 8) | (ci.parts << 16));
+        }
+      }
+    }
+    pa += n;
+  }
+  if (threadIdx.x == 0) {
+    head[0] = (int)(total >> 32);
+    head[1] = 0;
+  }
+  __syncthreads();  // every cluster's start is written
+  for (int p = threadIdx.x; p < P; p += kPlanThreads)
+    pairs[pstart[cluster_of(probe[p], C)] + rank[p]] = p;
+  for (int b = threadIdx.x; b < B; b += kPlanThreads)
+    gate[b] = 0x7f7f7f7f;  // above the +3e38 sentinel: 3.39e38
+}
+
+// The scan: each block takes items until the list is done. An item's lists
+// start empty, its walk scores every row of its range against its queries,
+// and its lists go to their partial slots (ItemLists::write).
+template <class Tile>
+__global__ void __launch_bounds__(kThreads, 3)
+    stream_masked_kernel(ItemOperands<typename Tile::Storage> op,
+                         const float* __restrict__ emb_sq, const int4* __restrict__ items,
+                         const int* __restrict__ pairs, int* head, int B, int nprobe,
+                         int segs, int k, float* __restrict__ part_d,
+                         int* __restrict__ part_i, int* gate, int* stats) {
+  extern __shared__ char dyn[];
+  __shared__ int item;
+  char* ring = align_ring(dyn);
+  Tile t;
+  ItemLists<Tile> epi;
+  epi.layout(ring + kItemStages * Tile::kStageBytes, emb_sq, k);
+  epi.gate = gate;
+  op.qidx = epi.qidx;
+  const int n_items = head[0];
+  for (;;) {
+    if (threadIdx.x == 0) item = atomicAdd(head + 1, 1);
+    __syncthreads();  // the item is read; the last item's lists are written
+    const int it = item;
+    if (it >= n_items) break;
+    const int4 w = items[it];
+    const int nq = w.w & 0xff, s = (w.w >> 8) & 0xff, parts = w.w >> 16;
+    if (threadIdx.x < kItemQueries) {
+      const int p = threadIdx.x < nq ? pairs[w.z + threadIdx.x] : 0;
+      epi.qidx[threadIdx.x] = p / nprobe;
+      epi.slot[threadIdx.x] = p % nprobe * segs + s;
+    }
+    epi.clear();
+    epi.nq = op.nq = nq;
+    epi.row_end = w.y;
+    __syncthreads();
+    if (w.y > w.x) {
+      walk_rows<kItemStages>(t, op, 0, w.x, w.y, ring, epi);
+      if (stats != nullptr && threadIdx.x == 0) {
+        atomicAdd(stats, 1);
+        atomicAdd(stats + 1, (w.y - w.x + kTR - 1) / kTR);
+      }
+    }
+    __syncthreads();  // the lists are complete
+    epi.write(part_d, part_i, B, s == parts - 1 ? segs - parts : 0);
+  }
+}
+
+// The largest work list of C clusters, P pairs and `segs` segments: a
+// cluster with n pairs has ceil(n / 16) groups, so all of them have at most
+// ceil(P / 16) + (clusters with a pair) groups, each in at most segs items.
+static int k3_max_items(int C, int P, int segs) {
+  return segs * (ceil_div(P, kItemQueries) + std::min(C + 1, P));
+}
+
+// K3's scratch, in int32 words: the items (int4, first, so 16-byte aligned),
+// the list's length and cursor (4 words), the counts and pair starts of the
+// clusters and the sentinel, each pair's rank, and the pairs by cluster.
+static long long k3_scratch_words(int C, int P, int segs) {
+  return 4ll * k3_max_items(C, P, segs) + 4 + 2ll * (C + 1) + 2ll * P;
+}
+
+template <class Tile>
+int launch_item_scan(const void* q, const void* emb, const float* emb_sq, const int4* items,
+                     const int* pairs, int* head, int B, int d, int k, int nprobe, int segs,
+                     int max_items, float* part_d, int* part_i, int* gate, int* stats,
+                     cudaStream_t st) {
   using T = typename Tile::Storage;
-  TileOperands<T> op = {static_cast<const T*>(q), static_cast<const T*>(emb), src.B, d};
-  auto kernel = words > 0 ? stream_masked_kernel<Tile, STAGES, true>
-                          : stream_masked_kernel<Tile, STAGES, false>;
-  const int smem = masked_lists_smem<Tile, STAGES>(k, words);
+  auto kernel = stream_masked_kernel<Tile>;
+  const int smem = item_scan_smem<Tile>(k);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return (int)err;
-  err = open_gates(gate, src.B, st);
-  if (err != cudaSuccess) return (int)err;
-  const int nqb = ceil_div(src.B, Tile::kQueries);
-  kernel<<<units * nqb, kThreads, smem, st>>>(op, emb_sq, lcl, src, sched, part_d, part_i,
-                                              gate, k, tile, words, units, nqb);
+  const int grid = std::max(1, std::min(max_items, sms * std::max(1, per_sm)));
+  ItemOperands<T> op = {static_cast<const T*>(q), static_cast<const T*>(emb), nullptr, 0, d};
+  kernel<<<grid, kThreads, smem, st>>>(op, emb_sq, items, pairs, head, B, nprobe, segs, k,
+                                       part_d, part_i, gate, stats);
   return (int)cudaGetLastError();
 }
 
@@ -232,49 +381,69 @@ extern "C" int pqv_stream_exact_topk_smem(int wgmma, int block_queries, int k) {
                             : topk_lists_smem<FmaTile<float, 4>, kTopkFmaStages>(k);
 }
 
-// K3: q, emb and emb_sq as for K2; adds lcl [n_pad] and tc [nt, cmax] int32,
-// mask [B, kc_pad] f32 and the schedule sched [nt + 1] int32 (n_active, then
-// active tile ids); a block owns the active tiles u, u + units, ...;
-// part_d/part_i [units, B, k] and gate [B] int32 scratch. wgmma as for K2;
-// words is the probe table's width in 32-bit words a query, ceil(cmax / 32)
-// up to 8, or 0 to read mask and tc from device memory in the epilogue; stats
-// is null or two int32 counters the launch adds the (block, tile) and
-// (block, chunk) pairs it scored to.
+// K3: q, emb and emb_sq as for K2; offsets [C + 1] int32, the first row of
+// each cluster in the cluster-sorted layout and the end of the last; probe
+// [B, nprobe] int32 cluster ids (ids out of range probe nothing); a cluster's
+// rows are cut into at most segs segments; scratch of
+// pqv_stream_masked_topk_scratch int32 words; part_d/part_i
+// [nprobe * segs, B, k] and gate [B] int32 scratch. wgmma as for K2; stats
+// is null or two int32 counters the launch adds the work items it scored
+// (those with rows) and their (item, chunk) pairs to.
 extern "C" int pqv_stream_masked_topk(
-    const void* q, const void* emb, const float* emb_sq, const int* lcl,
-    const int* tc, const float* mask, const int* sched, int B, int d,
-    int n_pad, int k, int tile, int cmax, int kc_pad, int units, int is_bf16,
-    int wgmma, int words, int* stats, float* part_d, int* part_i, int* gate,
-    float* out_d, int* out_i, void* stream) {
+    const void* q, const void* emb, const float* emb_sq, const int* offsets,
+    const int* probe, int B, int d, int k, int n_clusters, int nprobe, int segs,
+    int is_bf16, int wgmma, int* stats, int* scratch, float* part_d, int* part_i,
+    int* gate, float* out_d, int* out_i, void* stream) {
   using namespace pqv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k < 1 || k > kMaxK || cmax < 1 || units < 1 || words < 0 ||
-      words > kTableWordsMax || (words > 0 && 32 * words < cmax) || tile < 1 ||
-      n_pad % tile)
+  if (k < 1 || k > kMaxK || B < 1 || n_clusters < 1 || nprobe < 1 || segs < 1 ||
+      segs > 255 || (long long)B * nprobe > 0x7fffffffll)
     return (int)cudaErrorInvalidValue;
-  const ProbeSource src = {nullptr, mask, tc, B, cmax, kc_pad, stats};
+  if (wgmma && (!is_bf16 || d % 8 || ((uintptr_t)q | (uintptr_t)emb) % 16))
+    return (int)cudaErrorInvalidValue;
+  const int C = n_clusters, P = B * nprobe;
+  const int max_items = k3_max_items(C, P, segs);
+  int4* items = reinterpret_cast<int4*>(scratch);
+  int* head = scratch + 4ll * max_items;
+  int* count = head + 4;
+  int* pstart = count + (C + 1);
+  int* rank = pstart + (C + 1);
+  int* pairs = rank + P;
+  cudaError_t err = cudaMemsetAsync(count, 0, (size_t)(C + 1) * sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  k3_count_kernel<<<std::min(ceil_div(P, kThreads), 264), kThreads, 0, st>>>(probe, P, C,
+                                                                           count, rank);
+  k3_plan_kernel<<<1, kPlanThreads, 0, st>>>(offsets, probe, P, C, B, segs, count, rank,
+                                             pstart, pairs, items, head, gate);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   int rc;
   if (wgmma) {
-    if (!is_bf16 || d % 8 || ((uintptr_t)q | (uintptr_t)emb) % 16)
-      return (int)cudaErrorInvalidValue;
-    rc = launch_stream_masked<MmaTile, kTopkMmaStages>(
-        q, emb, emb_sq, lcl, src, sched, part_d, part_i, gate, d, k, tile, words, units, st);
-  } else if (is_bf16) {  // the fp32 patch: 64 queries a block whatever the batch, as K4
-    rc = launch_stream_masked<FmaTile<__nv_bfloat16, 4>, kTopkFmaStages>(
-        q, emb, emb_sq, lcl, src, sched, part_d, part_i, gate, d, k, tile, words, units, st);
+    rc = launch_item_scan<ItemMmaTile>(q, emb, emb_sq, items, pairs, head, B, d, k, nprobe,
+                                       segs, max_items, part_d, part_i, gate, stats, st);
+  } else if (is_bf16) {
+    rc = launch_item_scan<ItemFmaTile<__nv_bfloat16>>(q, emb, emb_sq, items, pairs, head, B,
+                                                      d, k, nprobe, segs, max_items, part_d,
+                                                      part_i, gate, stats, st);
   } else {
-    rc = launch_stream_masked<FmaTile<float, 4>, kTopkFmaStages>(
-        q, emb, emb_sq, lcl, src, sched, part_d, part_i, gate, d, k, tile, words, units, st);
+    rc = launch_item_scan<ItemFmaTile<float>>(q, emb, emb_sq, items, pairs, head, B, d, k,
+                                              nprobe, segs, max_items, part_d, part_i, gate,
+                                              stats, st);
   }
   if (rc != 0) return rc;
-  return merge(part_d, part_i, units, B, k, out_d, out_i, st);
+  return merge(part_d, part_i, nprobe * segs, B, k, out_d, out_i, st);
 }
 
-// Dynamic shared memory of K3's launch, for the wrapper's own reckoning.
-extern "C" int pqv_stream_masked_topk_smem(int wgmma, int block_queries, int k,
-                                           int words) {
+// K3's scratch in int32 words for n_clusters clusters, `pairs` (B * nprobe)
+// probe ids and segs segments, for the wrapper's allocation; -1 where that
+// passes 2^31 - 1.
+extern "C" int pqv_stream_masked_topk_scratch(int n_clusters, int pairs, int segs) {
+  const long long words = pqv::k3_scratch_words(n_clusters, pairs, segs);
+  return words > 0x7fffffffll ? -1 : (int)words;
+}
+
+// Dynamic shared memory of K3's scan, for the wrapper's own reckoning.
+extern "C" int pqv_stream_masked_topk_smem(int wgmma, int k) {
   using namespace pqv;
-  if (wgmma) return masked_lists_smem<MmaTile, kTopkMmaStages>(k, words);
-  return block_queries > 64 ? masked_lists_smem<FmaTile<float, 8>, kTopkFmaStages>(k, words)
-                            : masked_lists_smem<FmaTile<float, 4>, kTopkFmaStages>(k, words);
+  return wgmma ? item_scan_smem<ItemMmaTile>(k) : item_scan_smem<ItemFmaTile<float>>(k);
 }

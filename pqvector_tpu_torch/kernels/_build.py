@@ -58,8 +58,9 @@ _SIGNATURES = {
     "pqv_assign_f32_screen_pairs": [_P, _P],
     "pqv_stream_exact_topk": [_P, _P, _P] + [_I] * 7 + [_P] * 6,
     "pqv_stream_exact_topk_smem": [_I] * 3,
-    "pqv_stream_masked_topk": [_P] * 7 + [_I] * 11 + [_P] * 7,
-    "pqv_stream_masked_topk_smem": [_I] * 4,
+    "pqv_stream_masked_topk": [_P] * 5 + [_I] * 8 + [_P] * 8,
+    "pqv_stream_masked_topk_scratch": [_I] * 3,
+    "pqv_stream_masked_topk_smem": [_I] * 2,
     "pqv_masked_local_topk": [_P] * 5 + [_I] * 9 + [_P] * 4,
     "pqv_masked_local_topk_smem": [_I] * 4,
     "pqv_exact_topk": [_P] * 3 + [_I] * 7 + [_P] * 3,

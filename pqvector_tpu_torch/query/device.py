@@ -88,7 +88,12 @@ from ..kernels.scan_topk import (
     select_lex,
 )
 from ..kernels.compact import tile_gather
-from ..kernels.stream_topk import _probe_mask, stream_exact_topk, stream_masked_topk
+from ..kernels.stream_topk import (
+    _probe_mask,
+    cluster_offsets,
+    stream_exact_topk,
+    stream_masked_topk,
+)
 from ..kernels.tilemin import tile_min
 from ..utils.profiling import span, staged
 
@@ -1744,11 +1749,13 @@ class DeviceIvfSearcher:
                 )
             lcl, tc, _ = self._tile_cluster_table(tile)
             run = masked_local_topk if mode == "pallas" else stream_masked_topk
+            rows = {} if mode == "pallas" else {
+                "offsets": cluster_offsets(self.row_cluster, self.index.n_clusters)}
             d2, ids = run(
                 q, self.centroids, self.c_sq, lcl, tc, self.emb,
                 self._pallas_emb_sq(), nprobe, k,
                 max_probe=self._max_probe_bucket(nprobe), tile=tile,
-                emb_ref=self._ref(),
+                emb_ref=self._ref(), **rows,
             )
         elif mode == "pallas":
             if k > MAX_K:

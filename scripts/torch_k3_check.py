@@ -1,0 +1,183 @@
+"""K3's scan (``kernels/stream_topk.py``: ``stream_masked_scan``) on one
+Hopper GPU: timed, and its f32 distances and ids digested, so that two
+checkouts of the package can be run in turns in one call and held bit for
+bit.
+
+    python3 scripts/torch_k3_check.py [--package-root DIR] [--digest-file FILE]
+        [--label NAME] [--shapes NAME,...]
+
+Needs a card and the repo root as the working directory. The rows are
+seeded Gaussian modes (uniform centres in [-1, 1]^d, 0.15 N(0, 1) around
+them) stored mode by mode, as a cluster-sorted searcher holds them, with the
+mode centres for centroids; queries are rows plus 0.05 N(0, 1). Shapes:
+
+- ``1m128``: 1M x 128, 1,024 clusters, nprobe 8, B = 256, k = 10, in bf16
+  and f32 (``chip_smoke.py`` phase 2b's K3);
+- ``10m96``: 10M x 96, 4,096 clusters, nprobe 4, B = 256 (phase 7b) and
+  B = 4096 (the ``deep10m.search.b4096`` cell's batch), bf16.
+
+The C source's shared-memory sizes are held to the wrapper's reckoning
+first. For each shape, the scan's time on the card (CUDA events around 10 calls after two
+of warm-up, the median), with K3's counters where the package has the
+work-item scan, and at B <= 256 K4's route beside it (the local mask's
+gather, K4 and the cross-tile merge). ``--package-root DIR`` takes ``pqvector_tpu_torch`` from
+another checkout (say, the parent commit unpacked with ``git archive`` under
+``build/``), whose K3 takes a probe mask and a tile schedule; the inputs are
+the same tensors, made here from seeds. ``--digest-file FILE`` holds each
+shape's digest to the one FILE has under its name, fails where one differs
+and adds new names: run parent, change, change, parent with one file. Each
+process prints one JSON line a shape.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import statistics
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SHAPES = {  # name: (rows, d, clusters, nprobe, [(B, storage)])
+    "1m128": (1_000_000, 128, 1024, 8, [(256, "bf16"), (256, "f32")]),
+    "10m96": (10_000_000, 96, 4096, 4, [(256, "bf16"), (4096, "bf16")]),
+}
+TILE, K, MAX_PROBE = 1024, 10, 128
+
+
+def make_rows(torch, n, d, clusters, seed):
+    """-> (rows f32 [n_pad, d], norms with +3e38 pads, row clusters with
+    ``clusters`` on pads, centres [clusters, d])."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centres = torch.rand((clusters, d), generator=g, device=dev) * 2 - 1
+    label = torch.randint(0, clusters, (n,), generator=g, device=dev).sort().values
+    n_pad = -(-(n + 1) // TILE) * TILE
+    x = torch.zeros((n_pad, d), device=dev)
+    x[:n] = centres[label] + 0.15 * torch.randn((n, d), generator=g, device=dev)
+    sq = torch.full((n_pad,), 3.0e38, device=dev)
+    sq[:n] = (x[:n] * x[:n]).sum(1)
+    rc = torch.full((n_pad,), clusters, dtype=torch.int32, device=dev)
+    rc[:n] = label.to(torch.int32)
+    return x, sq, rc, centres
+
+
+def tile_tables(torch, rc):
+    """The searcher's (local_cluster, tile_clusters) of sorted row clusters."""
+    parts = rc.cpu().numpy().reshape(-1, TILE)
+    uniques = [np.unique(p) for p in parts]
+    tc = np.full((len(parts), max(u.size for u in uniques)), int(parts[-1, -1]), np.int32)
+    lcl = np.zeros(parts.shape, np.int32)
+    for t, u in enumerate(uniques):
+        tc[t, : u.size] = u
+        lcl[t] = np.searchsorted(u, parts[t])
+    return (torch.from_numpy(lcl.reshape(-1)).cuda(), torch.from_numpy(tc).cuda())
+
+
+def device_ms(torch, fn, reps=10):
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--package-root", default=ROOT)
+    ap.add_argument("--digest-file")
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--shapes", default=",".join(SHAPES))
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.package_root))
+    import torch
+
+    from pqvector_tpu_torch.kernels import scan_topk as sc
+    from pqvector_tpu_torch.kernels import stream_topk as st
+
+    assert os.path.abspath(st.__file__).startswith(os.path.abspath(args.package_root))
+    items_scan = hasattr(st, "work_items_plain")
+    lib = st._build.load()  # both packages build before anything is timed
+    if items_scan:  # the C source's shared memory is the wrapper's reckoning
+        for flag, backend in ((0, "fma"), (1, "wgmma")):
+            for k in (1, 10, 128):
+                assert lib.pqv_stream_masked_topk_smem(flag, k) == st.item_scan_smem(backend, k)
+    card = torch.cuda.get_device_name(0)
+    want = {}
+    if args.digest_file and os.path.exists(args.digest_file):
+        with open(args.digest_file) as f:
+            want = json.load(f)
+    digests, bad = {}, []
+    for shape in args.shapes.split(","):
+        n, d, clusters, nprobe, runs = SHAPES[shape]
+        x, sq, rc, centres = make_rows(torch, n, d, clusters, seed=n + d)
+        lcl, tc = tile_tables(torch, rc)
+        c_sq = (centres * centres).sum(1)
+        pick = torch.randint(0, n, (4096,), generator=torch.Generator(device="cuda")
+                             .manual_seed(7), device="cuda")
+        q_all = x[pick] + 0.05 * torch.randn((4096, d), device="cuda", generator=torch
+                                             .Generator(device="cuda").manual_seed(8))
+        for b, storage in runs:
+            emb = x if storage == "f32" else x.to(torch.bfloat16)
+            q = q_all[:b].contiguous()
+            qf = q.to(emb.dtype)
+            if items_scan:
+                probe = st._probe_ids(q, centres, c_sq, nprobe, MAX_PROBE)
+                offsets = st.cluster_offsets(rc, clusters)
+                a3 = (qf, emb, sq, offsets, probe, K)
+            else:
+                kc_pad = -(-(clusters + 1) // 128) * 128
+                mask = st._probe_mask(q, centres, c_sq, nprobe, MAX_PROBE, kc_pad)
+                a3 = (qf, emb, sq, lcl, tc, mask, st._tile_schedule(mask, tc), K, TILE)
+            got = st.stream_masked_scan(*a3)
+            torch.cuda.synchronize()
+            name = f"{shape} {storage} B={b} nprobe={nprobe}"
+            h = hashlib.sha256(got[0].cpu().numpy().tobytes())
+            h.update(got[1].cpu().numpy().tobytes())
+            digests[name] = h.hexdigest()[:16]
+            if name in want and want[name] != digests[name]:
+                bad.append(name)
+            line = {"label": args.label, "shape": name, "card": card,
+                    "ms": round(device_ms(torch, lambda: st.stream_masked_scan(*a3)), 4),
+                    "digest": digests[name], "same_as_file": want.get(name, digests[name])
+                    == digests[name]}
+            if b <= 256:  # K4's route at this batch: the local mask's gather, K4, the merge
+                kc_pad = -(-(clusters + 1) // 128) * 128
+                mask = st._probe_mask(q, centres, c_sq, nprobe, MAX_PROBE, kc_pad)
+
+                def k4_chain():
+                    lmask = mask[:, tc.long()].permute(1, 0, 2).contiguous()
+                    return sc._final_merge(*sc.masked_local_scan(qf, emb, sq, lcl, lmask, K,
+                                                                 TILE), K)
+
+                line["k4_chain_ms"] = round(device_ms(torch, k4_chain), 4)
+            if items_scan:
+                stats = torch.zeros(2, dtype=torch.int32, device="cuda")
+                st._stream_masked_cuda(*a3, stats=stats)
+                items, chunks = stats.tolist()
+                line.update(items=items, chunks=chunks,
+                            rows_read_pct=round(100.0 * chunks * 128 / n, 2),
+                            segments=st.masked_segments(b * nprobe))
+            print(json.dumps(line), flush=True)
+            del emb, qf, got, a3
+        del x, sq, rc, lcl, tc
+        torch.cuda.empty_cache()
+    if args.digest_file:
+        with open(args.digest_file, "w") as f:
+            json.dump({**want, **digests}, f)
+    if bad:
+        raise SystemExit(f"digests differ from {args.digest_file}: {bad}")
+
+
+if __name__ == "__main__":
+    main()

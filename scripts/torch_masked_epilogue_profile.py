@@ -90,13 +90,14 @@ def one_build(flag: str, rows: int) -> None:
     for b in (256, 16):
         q = q_all[:b].contiguous()
         mask = st._probe_mask(q, centres, c_sq, 8, 128, -(-(modes + 1) // 128) * 128)
-        sched = st._tile_schedule(mask, tc)
+        probe = st._probe_ids(q, centres, c_sq, 8, 128)
+        offsets = st.cluster_offsets(torch.from_numpy(rc).to(dev), modes)
         lmask = mask[:, tc.long()].permute(1, 0, 2).contiguous()
         for name, emb, embf in (("bf16", x.to(torch.bfloat16), xf.to(torch.bfloat16)),
                                 ("f32", x, xf)):
             qf = q.to(emb.dtype)
             a4 = (qf, emb, sq, lcl, lmask, 10, tile)
-            a3 = (qf, emb, sq, lcl, tc, mask, sched, 10, tile)
+            a3 = (qf, emb, sq, offsets, probe, 10)
             a6 = (qf, embf, sqf, rcf, mask, 10, tile)
             out.append(
                 f"B={b} {name}: K4 {device_ms(torch, lambda: sc.masked_local_scan(*a4)):.3f} "

@@ -13,8 +13,8 @@ Needs a card, nvcc and the repo root as the working directory. It
 2. holds the C sources' shared-memory sizes to ``kernels/score_tile.py``;
 3. runs the kernels against their plain versions on 1/4-grid data (every
    sum exact, so the results must be equal) over awkward shapes, on both
-   back ends, K2 and K3 also over several splits of the rows, K4 and K3 with
-   their counters of scored tiles and chunks held to the skip rule;
+   back ends, K2 and K3 also over several splits of the rows, K4 with its
+   counters of scored tiles and chunks held to the skip rule;
 4. times them at ``--rows`` x 128 (K9, K5 and K2 at B = 256 in f32 and bf16,
    K2 at k = 1, 10, 100 and 128 and at B = 1; K1 against 1024 centroids)
    beside one PyTorch chain for the same function, with CUDA events (median
@@ -24,14 +24,15 @@ Needs a card, nvcc and the repo root as the working directory. It
 5. with ``--modes M``: times K4 and K3 on those cluster-sorted rows (tiles of
    1024 rows, the M mode centres as centroids, nprobe 8) at B = 1, 16, 64, 256
    and 4096, k = 10 and 100, in f32 and bf16, prints the share of tiles and
-   chunks the skip rule scores, and adds the SHA-256 of their f32 outputs to
+   chunks K4's skip rule scores and K3's work items and chunks
+   (``stream_topk.scored_items``), and adds the SHA-256 of their f32 outputs to
    the digests; then K6 on the same rows stored in a seeded random order
    (file order) at the same shapes, and K7 (tile 2048, expand 2) and K8 (a
    seeded half of those tiles) at B = 1, 16, 64, 256 and 4096 in f32, bf16
    and int8 codes, each beside its bound and, up to B = 256, the PyTorch
    chain of ``chip_smoke.py`` phase 2b, adding the SHA-256 of K6's f32
    outputs and of K7's and K8's f32 and int8 key tables. The layout, the
-   probe mask, the local mask and the schedule come from seeded numpy and
+   probe mask and ids, the local mask and the offsets come from seeded numpy and
    plain torch code in this script, so two versions of the package get the
    same tensors.
 
@@ -107,6 +108,7 @@ def ptxas_report(_build) -> None:
 def check_shared_memory(lib) -> None:
     from pqvector_tpu_torch.kernels import assign as ka
     from pqvector_tpu_torch.kernels import score_tile
+    from pqvector_tpu_torch.kernels import stream_topk as st
 
     for backend, nq in (("fma", 64), ("fma", 128), ("wgmma", 128)):
         flag = int(backend == "wgmma")
@@ -121,8 +123,7 @@ def check_shared_memory(lib) -> None:
             for words in (0, 1, 8):
                 want = score_tile.smem_bytes("K4", backend, nq, k, words)
                 assert lib.pqv_masked_local_topk_smem(flag, nq, k, words) == want
-                assert lib.pqv_stream_masked_topk_smem(flag, nq, k, words) == want
-                assert want == score_tile.smem_bytes("K3", backend, nq, k, words)
+            assert lib.pqv_stream_masked_topk_smem(flag, k) == st.item_scan_smem(backend, k)
             words = score_tile.table_words("K4", backend, nq, k, 256)
             assert score_tile.smem_bytes("K4", backend, nq, k, words) <= score_tile.SMEM_LIMIT
     assert lib.pqv_assign_smem() == score_tile.smem_bytes("K1", "fma", 128)
@@ -318,21 +319,24 @@ def masked_section(torch, cs, sc, st, x, sq, centres, label, rng, n, digests) ->
     for b in (1, 16, 64, 256, 4096):
         q = q_all[:b].contiguous()
         mask = st._probe_mask(q, centres, c_sq, nprobe, 128, kc_pad)
-        sched = st._tile_schedule(mask, tc)
+        probe = st._probe_ids(q, centres, c_sq, nprobe, 128)
+        offsets = st.cluster_offsets(torch.from_numpy(rc).to(dev), kc)
         lmask = mask[:, tc.long()].permute(1, 0, 2).contiguous()
         for name, emb in (("f32", x), ("bf16", x.to(torch.bfloat16))):
             qf = q.to(emb.dtype)
             if scored_chunks is not None:
                 queries = sc.masked_geometry("K4", qf, emb, 10, tc.shape[1])[1]
                 chunks = scored_chunks(lmask > 0.5, lcl, tile, queries)
-                print(f"K4/K3 {name} B={b} nprobe={nprobe}: {int(sched[0])} of {tc.shape[0]} "
-                      f"tiles active; blocks of {queries} queries score "
-                      f"{int(chunks.any(2).sum())} of {chunks.shape[0] * chunks.shape[1]} "
-                      f"(block, tile) pairs and {int(chunks.sum())} of {chunks.numel()} "
-                      "(block, chunk) pairs")
+                items, item_chunks = st.scored_items(offsets, probe,
+                                                     st.masked_segments(probe.numel()))
+                print(f"K4/K3 {name} B={b} nprobe={nprobe}: K4's blocks of {queries} queries "
+                      f"score {int(chunks.any(2).sum())} of "
+                      f"{chunks.shape[0] * chunks.shape[1]} (block, tile) pairs and "
+                      f"{int(chunks.sum())} of {chunks.numel()} (block, chunk) pairs; K3 "
+                      f"{items} items and {item_chunks} (item, chunk) pairs")
             for k in (10, 100):
                 a4 = (qf, emb, sq, lcl, lmask, k, tile)
-                a3 = (qf, emb, sq, lcl, tc, mask, sched, k, tile)
+                a3 = (qf, emb, sq, offsets, probe, k)
                 g4, g3 = sc.masked_local_scan(*a4), st.stream_masked_scan(*a3)
                 torch.cuda.synchronize()
                 m4 = sc._final_merge(*g4, k)

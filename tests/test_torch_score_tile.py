@@ -1,9 +1,9 @@
 """The score tile shared by K9, K5, K4, K3, K2 and K1 (``csrc/score_tile.cuh``,
 ``kernels/score_tile.py``): the rule on shapes that picks the back end, the
 launch geometry and the dynamic shared memory as Python functions (for K2
-also the split of the rows into runs, ``stream_topk.scan_units``; for K4 and
-K3 the width of the probe table, and for K3 the split of the active tiles
-into runs, ``stream_topk.masked_scan_units``); the
+also the split of the rows into runs, ``stream_topk.scan_units``; for K4 the
+width of the probe table; for K3 the segments of a probed cluster's rows,
+``stream_topk.masked_segments`` and ``work_items_plain``); the
 wrappers on CPU tensors against the JAX package's ``pallas_tile_min`` and
 ``pallas_exact_topk`` in interpret mode at the shapes the 128 x 128 tile
 makes awkward; and, on the card, the kernels against their plain versions
@@ -260,40 +260,48 @@ def test_masked_kernels_table_at_the_corners():
 
 
 @pytest.mark.parametrize(
-    "nt,batch,queries,wave,want",
+    "pairs,want",
     [
-        (980, 256, 128, 264, 132),  # the main path: two query groups
-        (980, 1, 128, 264, 264),
-        (980, 64, 64, 264, 264),
-        (980, 256, 64, 264, 66),  # f32 storage: four groups of 64 queries
-        (980, 4096, 128, 264, 8),
-        (980, 256, 128, 132, 66),  # large k: one block an SM
-        (9766, 256, 128, 264, 132),
-        (3, 4096, 128, 264, 3),  # never more runs than tiles
-        (1, 1, 64, 264, 1),
-        (245, 100_000, 128, 264, 1),  # more query groups than a wave: one run each
+        (4096 * 4, 1),  # deep10m.search.b4096: ~4,000 items without a cut
+        (256 * 4, 1),  # deep10m.search.b256
+        (256 * 8, 1),  # sift1m.search.b256
+        (256 * 16, 1),  # ref1024.search.b256
+        (1023, 2),
+        (512, 2),
+        (256, 4),
+        (129, 8),
+        (8, 8),  # one query, nprobe 8: at most 8 segments a cluster
+        (1, 8),
     ],
 )
-def test_masked_scan_units_fill_about_one_wave(nt, batch, queries, wave, want):
-    units = tst.masked_scan_units(nt, batch, queries, wave)
-    assert units == want
-    groups = -(-batch // queries)
-    assert 1 <= units <= nt
-    assert units * groups <= max(wave, groups)
-    if nt >= wave:
-        assert units * groups > wave // 2
+def test_masked_segments_give_the_card_about_a_thousand_items(pairs, want):
+    segs = tst.masked_segments(pairs)
+    assert segs == want
+    assert 1 <= segs <= tst.MAX_SEGMENTS
+    if segs < tst.MAX_SEGMENTS:
+        assert pairs * segs >= 1024
 
 
-@pytest.mark.parametrize("units", [1, 3, 132, 264])
-@pytest.mark.parametrize("n_active", [0, 1, 131, 132, 133, 906, 980])
-def test_masked_runs_cover_every_active_tile_once(units, n_active):
-    """Run u walks the active tiles u, u + units, ...: together every active
-    tile once, and no run is empty while there are at least `units` tiles."""
-    runs = [list(tst.masked_run_tiles(u, units, n_active)) for u in range(units)]
-    assert sorted(p for run in runs for p in run) == list(range(n_active))
-    if n_active >= units:
-        assert all(runs)
-        assert max(map(len, runs)) - min(map(len, runs)) <= 1
+@pytest.mark.parametrize("segs", [1, 2, 3, 8])
+@pytest.mark.parametrize("rows", [0, 1, 128, 129, 640, 1000, 5000])
+def test_segments_cut_a_cluster_into_whole_chunks_once(rows, segs):
+    """A probed cluster's rows go to at most ``segs`` segments of whole
+    128-row chunks (the last may end inside one), none empty, together every
+    row once; a cluster with no rows gets one empty item."""
+    offsets = torch.tensor([0, 300, 300 + rows, 300 + rows + 50], dtype=torch.int32)
+    probe = torch.tensor([[1]], dtype=torch.int32)
+    items, _ = tst.work_items_plain(offsets, probe, segs)
+    spans = [(int(i[0]), int(i[1])) for i in items]
+    parts = (int(items[0, 3]) >> 16) if len(items) else 0
+    assert parts == len(spans) <= max(1, min(segs, -(-rows // 128)))
+    assert [(int(i[3]) >> 8) & 0xFF for i in items] == list(range(parts))
+    if rows == 0:
+        assert spans == [(300, 300)]
+        return
+    assert spans[0][0] == 300 and spans[-1][1] == 300 + rows
+    assert all(lo < hi for lo, hi in spans)
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert all((hi - lo) % 128 == 0 for lo, hi in spans[:-1])
 
 
 # ---------------------------------------------------------------- K9 vs JAX
@@ -410,7 +418,7 @@ def test_sources_and_python_agree_on_shared_memory(cuda_device):
             for words in (0, 1, 8):
                 want = score_tile.smem_bytes("K4", backend, queries, k, words)
                 assert lib.pqv_masked_local_topk_smem(flag, queries, k, words) == want
-                assert lib.pqv_stream_masked_topk_smem(flag, queries, k, words) == want
+            assert lib.pqv_stream_masked_topk_smem(flag, k) == tst.item_scan_smem(backend, k)
     assert lib.pqv_assign_smem() == score_tile.smem_bytes("K1", "fma", 128)
 
 

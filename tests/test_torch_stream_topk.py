@@ -213,11 +213,9 @@ def test_stream_masked_scan_keeps_lower_ids_on_ties(nprobe, k):
     _, a, t = _layout(x, cent, jnp.float32)
     qt = torch.from_numpy(q)
     mask = tst._probe_mask(qt, t["centroids"], t["c_sq"], nprobe, 12, 128)
-    sched = tst._tile_schedule(mask, t["tile_clusters"])
-    _, i = tst.stream_masked_scan(
-        qt, t["emb"], t["emb_sq"], t["local_cluster"], t["tile_clusters"], mask,
-        sched, k, TILE,
-    )
+    probe = tst._probe_ids(qt, t["centroids"], t["c_sq"], nprobe, 12)
+    offsets = tst._tile_offsets(t["local_cluster"], t["tile_clusters"], 12)
+    _, i = tst.stream_masked_scan(qt, t["emb"], t["emb_sq"], offsets, probe, k)
     lcl = a["local_cluster"].astype(np.int64)
     row_cluster = a["tile_clusters"][np.arange(lcl.size) // TILE, lcl]
     probed = mask.numpy()[:, row_cluster] > 0.5
@@ -338,15 +336,15 @@ def test_stream_exact_continuous_f32_awkward(d, k, b):
 
 
 def test_k2_and_k3_split_rows_by_their_own_rules():
-    """K2 fills one wave of 128-query blocks with runs of rows; K3 fills one
-    wave of 128-query blocks with runs of active tiles, never more runs than
-    tiles."""
+    """K2 fills one wave of 128-query blocks with runs of rows; K3 cuts a
+    probed cluster's rows into segments only while a batch has too few probe
+    ids to give the card about a thousand work items."""
     assert tst.scan_units(7840, 256) == 131
-    assert tst.masked_scan_units(245, 256) == 132
-    assert tst.masked_scan_units(245, 1) == 245
-    assert tst.masked_scan_units(3, 4096) == 3
-    assert tst.masked_scan_units(980, 256) == 132
-    assert list(tst.masked_run_tiles(5, 132, 906)) == [5, 137, 269, 401, 533, 665, 797]
+    assert tst.masked_segments(256 * 8) == 1
+    assert tst.masked_segments(1) == tst.MAX_SEGMENTS
+    assert tst.masked_segments(4096 * 4) == 1
+    assert tst.masked_segments(256 * 4) == 1
+    assert tst.masked_segments(16 * 8) == 8 and tst.masked_segments(64 * 8) == 2
 
 
 @pytest.fixture
@@ -367,9 +365,9 @@ def test_kernels_match_plain_on_card(cuda_device, dtype):
     want = tst.stream_exact_scan_plain(qf, t["emb"], t["emb_sq"], 50)
     assert_topk_match(tuple(v.cpu().numpy() for v in got),
                       tuple(v.cpu().numpy() for v in want), q)
-    mask = tst._probe_mask(qf.float(), t["centroids"], t["c_sq"], 4, 64, 128)
-    sched = tst._tile_schedule(mask, t["tile_clusters"])
-    args = (qf, t["emb"], t["emb_sq"], t["local_cluster"], t["tile_clusters"], mask, sched, 50, TILE)
+    probe = tst._probe_ids(qf.float(), t["centroids"], t["c_sq"], 4, 64)
+    offsets = tst._tile_offsets(t["local_cluster"], t["tile_clusters"], 40)
+    args = (qf, t["emb"], t["emb_sq"], offsets, probe, 50)
     got = tst.stream_masked_scan(*args)
     want = tst.stream_masked_scan_plain(*args)
     assert_topk_match(tuple(v.cpu().numpy() for v in got),
