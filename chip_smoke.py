@@ -290,6 +290,19 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+def traced(fn, keys):
+    """Run ``fn`` with tracing on -> (its result, the trace's counters
+    ``keys``, 0 for one no launch added to)."""
+    from pqvector_tpu_torch.utils import profiling
+
+    profiling.clear_store()
+    with profiling.tracing():
+        out = fn()
+    counts = profiling.read_store()["counters"]
+    profiling.clear_store()
+    return out, [counts.get(key, 0) for key in keys]
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -383,6 +396,8 @@ def grid_layout(n, d, kc, tile, seed, nq=37, shuffle=False):
 
 
 def phase2_small(torch, st, sc, ka):
+    from pqvector_tpu_torch.kernels.probe import probe_ids, probe_mask
+
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(0)
     base = rng.integers(-4, 5, (23, 40)).astype(np.float32)
@@ -402,14 +417,15 @@ def phase2_small(torch, st, sc, ka):
             S = torch.from_numpy(sq).to(dev)
             L = torch.from_numpy(lcl).to(dev)
             TC = torch.from_numpy(tc).to(dev)
+            RCL = torch.from_numpy(tc[np.arange(emb.shape[0]) // tile, lcl]).to(dev)
             C = torch.from_numpy(cent_np).to(dev)
             Q = torch.from_numpy(q).to(dev)
             qf = Q.to(dt)
             exact = (st.stream_exact_scan(qf, E, S, k, tile),
                      st.stream_exact_scan_plain(qf, E, S, k))
-            mask = st._probe_mask(Q, C, (C * C).sum(1), 3, 20, 128)
-            probe = st._probe_ids(Q, C, (C * C).sum(1), 3, 20)
-            args = (qf, E, S, st._tile_offsets(L, TC, 20), probe, k)
+            mask = probe_mask(Q, C, (C * C).sum(1), 3)
+            probe = probe_ids(Q, C, (C * C).sum(1), 3)
+            args = (qf, E, S, st.cluster_offsets(RCL, 20), probe, k)
             masked = (st.stream_masked_scan(*args), st.stream_masked_scan_plain(*args))
             lmask = mask[:, TC.long()].permute(1, 0, 2).contiguous()
             args = (qf, E, S, L, lmask, k, tile)
@@ -429,8 +445,10 @@ def phase2_k6_score_tile(torch, st, sc):
     or 128, k = 1 to 128, widths that end inside a stage, n < k, pad rows,
     a tile shorter than a chunk and one of 64 chunks, one cluster and 20000
     (a probe table too wide for shared memory, as at k = 128 on wgmma); the
-    kernel's counters of scored tiles and chunks equal to
+    kernel's trace counters of scored tiles and chunks equal to
     ``masked_scan_chunks``'. -> cases."""
+    from pqvector_tpu_torch.kernels.probe import probe_mask
+
     dev = torch.device(DEVICE)
     cases = mma = tableless = 0
     # (n, tile, k, d, B, clusters)
@@ -452,20 +470,19 @@ def phase2_k6_score_tile(torch, st, sc):
             C = torch.from_numpy(cent_np).to(dev)
             Q = torch.from_numpy(q).to(dev)
             qf = Q.to(dt)
-            mask = st._probe_mask(Q, C, (C * C).sum(1), min(3, kc), min(20, kc), kc_pad)
+            mask = probe_mask(Q, C, (C * C).sum(1), min(3, kc))
             backend, queries, words, _ = sc.masked_geometry("K6", qf, E, k, kc_pad)
             rule = sc.masked_scan_chunks(mask, RC, tile, queries, table=bool(words))
             want_stats = [int(rule.any(2).sum()), int(rule.sum())]
-            stats = torch.zeros(2, dtype=torch.int32, device=dev)
             args = (qf, E, S, RC, mask, k, tile)
-            g, w = sc.masked_scan(*args, stats=stats), sc.masked_scan_plain(*args)
+            g, stats = traced(lambda: sc.masked_scan(*args), sc.K6_COUNTERS)
+            w = sc.masked_scan_plain(*args)
             torch.cuda.synchronize()
             what = f"K6 small n={n} tile={tile} k={k} d={d} B={b} kc={kc} {dt}"
             check(torch.equal(g[1], w[1]) and torch.equal(g[0], w[0]),
                   f"{what}: {int((g[1] != w[1]).sum())} ids differ from plain")
-            check(stats.tolist() == want_stats,
-                  f"{what}: scored {stats.tolist()} tiles and chunks, the rule says "
-                  f"{want_stats}")
+            check(stats == want_stats,
+                  f"{what}: scored {stats} tiles and chunks, the rule says {want_stats}")
             cases += 1
             mma += backend == "wgmma"
             tableless += not words
@@ -546,6 +563,8 @@ def grid_rows(n, d, tile, seed, nq=13):
 
 def phase2_small_slice2(torch, st, sc, bs, quantize):
     """K5-K8 against their plain versions at small awkward shapes: exact."""
+    from pqvector_tpu_torch.kernels.probe import probe_mask
+
     dev = torch.device(DEVICE)
     cases = 0
     for n, tile, k in ((5000, 256, 1), (5000, 256, 128), (5, 256, 9), (700, 64, 10)):
@@ -560,7 +579,7 @@ def phase2_small_slice2(torch, st, sc, bs, quantize):
             C = torch.from_numpy(cent_np).to(dev)
             Q = torch.from_numpy(q).to(dev)
             qf = Q.to(dt)
-            mask = st._probe_mask(Q, C, (C * C).sum(1), 3, 20, 128)
+            mask = probe_mask(Q, C, (C * C).sum(1), 3)
             pairs = (
                 ("K5", sc.exact_scan(qf, E, S, k, tile), sc.exact_scan_plain(qf, E, S, k, tile)),
                 ("K6", sc.masked_scan(qf, E, S, RC, mask, k, tile),
@@ -679,18 +698,18 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
                    q16, tile, results):
     """K6, K7 and K8 at the main path's shapes against their plain versions,
     timed: K6 and K7 on the bf16 layout in file order, K8 on the sorted one."""
+    from pqvector_tpu_torch.kernels.probe import probe_mask
+
     dev = q.device
     fo16 = pqt.DeviceIvfSearcher(index_a, emb_np, dtype=torch.bfloat16,
                                  row_tile=ROW_TILE, device=dev)
     qf16 = q.to(torch.bfloat16)
     nprobe_2b = 8
-    kc_pad = -(-(N_CLUSTERS + 1) // 128) * 128
-    mask = st._probe_mask(q, fo16.centroids, fo16.c_sq, nprobe_2b,
-                          fo16._max_probe_bucket(nprobe_2b), kc_pad)
+    mask = probe_mask(q, fo16.centroids, fo16.c_sq, nprobe_2b)
+    kc_pad = mask.shape[1]
     xf, sqf = stored_f64(fo16.emb), fo16._pallas_emb_sq().cpu().numpy().astype(np.float64)
     m_args = (qf16, fo16.emb, fo16._pallas_emb_sq(), fo16.row_cluster, mask, K, tile)
-    stats = torch.zeros(2, dtype=torch.int32, device=dev)
-    lists6 = sc.masked_scan(*m_args, stats=stats)
+    lists6, stats = traced(lambda: sc.masked_scan(*m_args), sc.K6_COUNTERS)
     merge_held(torch, sc, lists6, K, f"phase 2b merge of K6's lists, nprobe={nprobe_2b}")
     err, swaps = compare_topk(sc._final_merge(*lists6, K),
                               sc.final_merge_plain(*sc.masked_scan_plain(*m_args), K),
@@ -699,8 +718,8 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
     backend, queries, words, _ = sc.masked_geometry("K6", qf16, fo16.emb, K, kc_pad)
     rule = sc.masked_scan_chunks(mask, fo16.row_cluster, tile, queries, table=bool(words))
     want_stats = [int(rule.any(2).sum()), int(rule.sum())]
-    check(stats.tolist() == want_stats,
-          f"phase 2b K6: scored {stats.tolist()} (block, tile) and (block, chunk) pairs, "
+    check(stats == want_stats,
+          f"phase 2b K6: scored {stats} (block, tile) and (block, chunk) pairs, "
           f"the rule says {want_stats}")
     results["K6"] = {
         "max_abs_err": err,
@@ -773,9 +792,8 @@ def phase2b_slice2(torch, pqt, sc, st, bs, compact_select, index_a, emb_np, s16,
     check(ctile > 0, "bincompact ineligible at the main shape")
     tlo, thi, span = s16._compact_tile_ranges(ctile)
     n_pad = s16.emb.shape[0]
-    sel = compact_select(q, s16.centroids, s16.c_sq, s16.row_cluster, nprobe_2b,
-                         s16._compact_probe_bucket(nprobe_2b), ctile, cap, tlo, thi,
-                         span, n_pad)
+    sel = compact_select(q, s16.centroids, s16.c_sq, s16.row_cluster, nprobe_2b, ctile,
+                         cap, tlo, thi, span, n_pad)
     cb = bs.provenance_bits(cap, ctile)
     s_args = (q, s16.emb, s16._pallas_emb_sq(), sel, ctile,
               s16._binscan_expand(ctile, cap=cap))
@@ -1272,9 +1290,11 @@ def phase2_masked_score_tile(torch, st, sc):
     random order (unsorted slots) with 150 and with 300 clusters a tile (a
     table of 5 words, and one too wide for shared memory; K4 only: K3 reads
     a cluster's rows as one run of a sorted layout), one cluster a tile; K3
-    with its clusters cut into 1, 3 and the rule's segments. K4's counters
-    of scored tiles and chunks must equal ``scored_chunks``' wherever a probe
-    table is held, K3's of items and chunks ``scored_items``'. -> cases."""
+    with its clusters cut into 1, 3 and the rule's segments. K4's trace
+    counters of scored tiles and chunks must equal ``scored_chunks``' (whole
+    tiles where no probe table is held), K3's of items and chunks
+    ``scored_items``'. -> cases."""
+    from pqvector_tpu_torch.kernels.probe import probe_ids, probe_mask
     from pqvector_tpu_torch.kernels.score_tile import CHUNK_ROWS
 
     dev = torch.device(DEVICE)
@@ -1289,7 +1309,6 @@ def phase2_masked_score_tile(torch, st, sc):
             (4000, 512, 1, 3, 1, 9, False)):
         cent_np, emb, sq, lcl, tc, q = grid_layout(n, d, kc, tile, seed=n + k + d, nq=b,
                                                    shuffle=shuffle)
-        kc_pad = -(-(kc + 1) // 128) * 128
         for dt in (torch.float32, torch.bfloat16):
             E = torch.from_numpy(emb).to(dev).to(dt)
             S = torch.from_numpy(sq).to(dev)
@@ -1298,7 +1317,7 @@ def phase2_masked_score_tile(torch, st, sc):
             C = torch.from_numpy(cent_np).to(dev)
             Q = torch.from_numpy(q).to(dev)
             qf = Q.to(dt)
-            mask = st._probe_mask(Q, C, (C * C).sum(1), min(3, kc), min(20, kc), kc_pad)
+            mask = probe_mask(Q, C, (C * C).sum(1), min(3, kc))
             lmask = mask[:, TC.long()].permute(1, 0, 2).contiguous()
             backend, queries, words, _ = sc.masked_geometry("K4", qf, E, k, tc.shape[1])
             want_chunks = sc.scored_chunks(lmask > 0.5, L, tile, queries)
@@ -1306,34 +1325,34 @@ def phase2_masked_score_tile(torch, st, sc):
                 want_chunks = want_chunks.any(2, keepdim=True).expand(
                     -1, -1, -(-tile // CHUNK_ROWS))
             want_stats = [int(want_chunks.any(2).sum()), int(want_chunks.sum())]
-            stats = torch.zeros(2, dtype=torch.int32, device=dev)
             args = (qf, E, S, L, lmask, k, tile)
-            g, w = sc.masked_local_scan(*args, stats=stats), sc.masked_local_scan_plain(*args)
+            g, stats = traced(lambda: sc.masked_local_scan(*args), sc.K4_COUNTERS)
+            w = sc.masked_local_scan_plain(*args)
             torch.cuda.synchronize()
             what = f"small n={n} tile={tile} k={k} d={d} B={b} kc={kc} {dt}"
             check(torch.equal(g[1], w[1]) and torch.equal(g[0], w[0]),
                   f"K4 {what}: {int((g[1] != w[1]).sum())} ids differ from plain")
-            check(stats.tolist() == want_stats,
-                  f"K4 {what}: scored {stats.tolist()} tiles and chunks, the rule says "
-                  f"{want_stats}")
+            check(stats == want_stats,
+                  f"K4 {what}: scored {stats} tiles and chunks, the rule says {want_stats}")
             if not shuffle:  # K3 reads each cluster's rows as one run: sorted rows only
-                probe = st._probe_ids(Q, C, (C * C).sum(1), min(3, kc), min(20, kc))
-                offsets = st._tile_offsets(L, TC, kc)
+                probe = probe_ids(Q, C, (C * C).sum(1), min(3, kc))
+                rows = torch.from_numpy(tc[np.arange(emb.shape[0]) // tile, lcl]).to(dev)
+                offsets = st.cluster_offsets(rows, kc)
                 args = (qf, E, S, offsets, probe, k)
                 w = st.stream_masked_scan_plain(*args)
                 check(torch.equal(w[1], sc.final_merge_plain(*g, k)[1]),
                       f"K3 {what}: the plain versions of K3 and K4 disagree")
                 for segs in (None, 1, 3):
-                    stats.zero_()
-                    g = st._stream_masked_cuda(*args, segments=segs, stats=stats)
+                    g, stats = traced(lambda: st._stream_masked_cuda(*args, segments=segs),
+                                      st.K3_COUNTERS)
                     torch.cuda.synchronize()
                     check(torch.equal(g[1], w[1]) and torch.equal(g[0], w[0]),
                           f"K3 {what} segments={segs}: {int((g[1] != w[1]).sum())} ids "
                           "differ from plain")
                     want3 = list(st.scored_items(
                         offsets, probe, segs or st.masked_segments(probe.numel())))
-                    check(stats.tolist() == want3,
-                          f"K3 {what} segments={segs}: scored {stats.tolist()} items and "
+                    check(stats == want3,
+                          f"K3 {what} segments={segs}: scored {stats} items and "
                           f"chunks, the work list says {want3}")
             cases += 1
             mma += backend == "wgmma"
@@ -1443,9 +1462,8 @@ def phase2b_slice3(torch, tm, cp, compact_select, s32, s16, q, results):
     nprobe = 8
     ctile, cap, _ = s16._compact_params(b, nprobe, K)
     tlo, thi, span = s16._compact_tile_ranges(ctile)
-    sel = compact_select(q, s16.centroids, s16.c_sq, s16.row_cluster, nprobe,
-                         s16._compact_probe_bucket(nprobe), ctile, cap, tlo, thi, span,
-                         int(s16.emb.shape[0]))
+    sel = compact_select(q, s16.centroids, s16.c_sq, s16.row_cluster, nprobe, ctile, cap,
+                         tlo, thi, span, int(s16.emb.shape[0]))
     gather_check(torch, cp, s16.emb, s16.emb_sq, sel, ctile, results,
                  f"phase 2b 1M x {d} bf16, nprobe={nprobe}")
 
@@ -1659,21 +1677,18 @@ def masked_timed(torch, sc, st, qf, emb, sq, lcl, tc, mask, probe, row_cluster, 
     del chunks
     a3 = (qf, emb, sq, offsets, probe, k)
     a4 = (qf, emb, sq, lcl, lmask, k, tile)
-    stats = torch.zeros(2, dtype=torch.int32, device=emb.device)
-    g4 = sc.masked_local_scan(*a4, stats=stats)
+    g4, got4 = traced(lambda: sc.masked_local_scan(*a4), sc.K4_COUNTERS)
     m4 = sc._final_merge(*g4, k)
-    got4 = stats.tolist()
     merge = merge_timed(torch, sc, g4, k, f"{what} merge")
     del g4
-    stats.zero_()
-    g3 = st.stream_masked_scan(*a3, stats=stats)
+    g3, got3 = traced(lambda: st.stream_masked_scan(*a3), st.K3_COUNTERS)
     torch.cuda.synchronize()
     if words:
         want = [work["block_tiles_scored"], work["block_chunks_scored"]]
         check(got4 == want, f"{what}: K4 scored {got4} tiles and chunks; the skip rule "
               f"says {want}")
-    check(stats.tolist() == [k3_items, k3_chunks],
-          f"{what}: K3 scored {stats.tolist()} items and chunks; the work list says "
+    check(got3 == [k3_items, k3_chunks],
+          f"{what}: K3 scored {got3} items and chunks; the work list says "
           f"{[k3_items, k3_chunks]}")
     check(torch.equal(g3[1], m4[1]), f"{what}: K3's ids differ from K4's merged ids")
     w3 = st.stream_masked_scan_plain(*a3)
@@ -1727,11 +1742,12 @@ def masked_timed(torch, sc, st, qf, emb, sq, lcl, tc, mask, probe, row_cluster, 
 def deep_masked(torch, sc, st, s, q, nprobe=4):
     """K4 and K3 at the 10M x 96 rung's shapes (tiles of 1024 rows of the
     sorted searcher, 4096 clusters), on its f32 copy and its bf16 storage."""
+    from pqvector_tpu_torch.kernels.probe import probe_ids, probe_mask
+
     tile = s._scan_tile()
     lcl, tc, cmax = s._tile_cluster_table(tile)
-    kc_pad = -(-(DEEP_CLUSTERS + 1) // 128) * 128
-    mask = st._probe_mask(q, s.centroids, s.c_sq, nprobe, s._max_probe_bucket(nprobe), kc_pad)
-    probe = st._probe_ids(q, s.centroids, s.c_sq, nprobe, s._max_probe_bucket(nprobe))
+    mask = probe_mask(q, s.centroids, s.c_sq, nprobe)
+    probe = probe_ids(q, s.centroids, s.c_sq, nprobe)
     sq = s._pallas_emb_sq()
     out = {"work": {}}
     for name, emb, kind in (("f32", s._ref(), "fp32"), ("bf16", s.emb, "bf16")):
@@ -1748,23 +1764,25 @@ def deep_k3_b4096(torch, st, s, q, nprobe=4):
     """K3 alone at the ``deep10m.search.b4096`` cell's batch (B = 4096, nprobe
     4) on the 10M x 96 rung's bf16 storage, where K4's [nt, B, cmax] local
     mask would pass 256 MiB: held to its plain version (distances within
-    1e-5 (|q|^2 + max |x|^2), the same empty slots), its counters to the
-    work list's, and timed beside its bound."""
+    1e-5 (|q|^2 + max |x|^2), the same empty slots), its trace counters to
+    the work list's, and timed beside its bound. The offsets are the ones
+    the searcher holds."""
+    from pqvector_tpu_torch.kernels.probe import probe_ids, probe_mask
+
     b = q.shape[0]
-    kc_pad = -(-(DEEP_CLUSTERS + 1) // 128) * 128
-    mask = st._probe_mask(q, s.centroids, s.c_sq, nprobe, s._max_probe_bucket(nprobe), kc_pad)
-    probe = st._probe_ids(q, s.centroids, s.c_sq, nprobe, s._max_probe_bucket(nprobe))
-    offsets = st.cluster_offsets(s.row_cluster, DEEP_CLUSTERS)
+    mask = probe_mask(q, s.centroids, s.c_sq, nprobe)
+    probe = probe_ids(q, s.centroids, s.c_sq, nprobe)
+    offsets = s.cluster_offsets
+    check(torch.equal(offsets, st.cluster_offsets(s.row_cluster, DEEP_CLUSTERS)),
+          "phase 7b: the searcher's held offsets are not its rows'")
     sq, qf = s._pallas_emb_sq(), q.to(s.emb.dtype)
     a3 = (qf, s.emb, sq, offsets, probe, K)
-    stats = torch.zeros(2, dtype=torch.int32, device=q.device)
-    got = st.stream_masked_scan(*a3, stats=stats)
+    got, stats = traced(lambda: st.stream_masked_scan(*a3), st.K3_COUNTERS)
     want = st.stream_masked_scan_plain(*a3)
     items, chunks = st.scored_items(offsets, probe, st.masked_segments(probe.numel()))
     what = f"phase 7b K3 bf16 10M x {DEEP_DIM}, B={b}, nprobe={nprobe}"
-    check(stats.tolist() == [items, chunks],
-          f"{what}: scored {stats.tolist()} items and chunks, the work list says "
-          f"{[items, chunks]}")
+    check(stats == [items, chunks],
+          f"{what}: scored {stats} items and chunks, the work list says {[items, chunks]}")
     check(torch.equal(got[1] >= 0, want[1] >= 0), f"{what}: empty slots differ")
     fin = sq[sq < 1e38]
     tol = 1e-5 * float((qf.float() ** 2).sum(1).max() + fin.max())
@@ -2063,9 +2081,8 @@ def phase7b(torch, ds, cp, compact_select, s, q256, truth):
         f"(coverage {cap / nt:.3f}), recall@{K} {r:.4f}, {ms:.2f} ms/batch, "
         f"{256 / (ms / 1e3):.0f} QPS")
     tlo, thi, span = s._compact_tile_ranges(ctile)
-    sel = compact_select(q256, s.centroids, s.c_sq, s.row_cluster, nprobe,
-                         s._compact_probe_bucket(nprobe), ctile, cap, tlo, thi, span,
-                         int(s.emb.shape[0]))
+    sel = compact_select(q256, s.centroids, s.c_sq, s.row_cluster, nprobe, ctile, cap,
+                         tlo, thi, span, int(s.emb.shape[0]))
     deep = {}
     gather_check(torch, cp, s.emb, s.emb_sq, sel, ctile, deep,
                  f"phase 7b 10M x {DEEP_DIM} bf16, nprobe={nprobe}")
@@ -4136,6 +4153,7 @@ def main() -> None:
     from pqvector_tpu_torch.kernels import scan_topk as sc
     from pqvector_tpu_torch.kernels import stream_topk as st
     from pqvector_tpu_torch.kernels import tilemin as tm
+    from pqvector_tpu_torch.kernels.probe import probe_ids, probe_mask
     from pqvector_tpu_torch.query.device import _compact_select, _quantize_rows_i8
     from pqvector_tpu_torch.types import Embeddings
 
@@ -4273,10 +4291,8 @@ def main() -> None:
     nprobe_2b = 8
     lcl, tc, cmax = s16._tile_cluster_table(tile)
     qf16 = q.to(torch.bfloat16)
-    mask = st._probe_mask(q, s16.centroids, s16.c_sq, nprobe_2b,
-                          s16._max_probe_bucket(nprobe_2b),
-                          -(-(N_CLUSTERS + 1) // 128) * 128)
-    probe = st._probe_ids(q, s16.centroids, s16.c_sq, nprobe_2b, s16._max_probe_bucket(nprobe_2b))
+    mask = probe_mask(q, s16.centroids, s16.c_sq, nprobe_2b)
+    probe = probe_ids(q, s16.centroids, s16.c_sq, nprobe_2b)
     x16, sq16 = stored_f64(s16.emb), s16._pallas_emb_sq().cpu().numpy().astype(np.float64)
     q16 = stored_f64(qf16)
     masked16 = masked_timed(torch, sc, st, qf16, s16.emb, s16._pallas_emb_sq(), lcl, tc, mask,

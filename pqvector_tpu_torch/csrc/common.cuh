@@ -1,8 +1,8 @@
 // Shared device code of the top-k kernels for sm_90a: constants, the
 // (distance, id) order and the warp-level sorted lists (warp_offer) that the
-// lists of K4, K6 and K3 (MaskedLists in topk_lists.cuh) and the merge of
-// K2's and K3's partial lists use. Every kernel scores on the tile of
-// score_tile.cuh.
+// lists of K4 (MaskedLists in topk_lists.cuh) and K3 (ItemLists in
+// item_scan.cuh) and the merge of K2's and K3's partial lists use. Every
+// kernel scores on the tile of score_tile.cuh.
 //
 // A candidate is inserted only if it beats the list's current k-th entry
 // under the (distance, id) order: the running-threshold idea of the TPU

@@ -19,7 +19,7 @@
 // scores |x|^2 - 2 q.x go to shared memory 64 rows at a time, and there one
 // thread per query marks the scores that beat its list's largest entry,
 // which it keeps in registers, and puts each survivor in that entry's place
-// (TopkLists in topk_lists.cuh, which K2 and K3 share). The lists live in
+// (TopkLists in topk_lists.cuh, which K2 shares). The lists live in
 // dynamic shared memory sized by the call's k, entry-major ([k][query]) so
 // that 32 queries' threads touch 32 banks; they are unordered until the tile
 // is done and are then ranked under the (distance, id) order, so the result
@@ -123,7 +123,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   extern __shared__ char dyn[];
   char* ring = align_ring(dyn);
   Tile t;
-  MaskedLists<Tile, false, TABLE> epi;
+  MaskedLists<Tile, TABLE> epi;
   epi.layout(ring + STAGES * Tile::kStageBytes, emb_sq, k, words);
   const int unit = blockIdx.x / nqb;
   const int q0 = (blockIdx.x % nqb) * Tile::kQueries;
@@ -301,7 +301,7 @@ extern "C" int pqv_masked_topk(const void* q, const void* emb, const float* emb_
         q, emb, emb_sq, row_cluster, mask, kc_pad, stats, out_d, out_i, B, d, n_pad, k, tile,
         units, st);
   }
-  const ProbeSource src = {nullptr, mask, nullptr, B, kc_pad, kc_pad, stats};
+  const ProbeSource src = {nullptr, mask, B, kc_pad, kc_pad, stats};
   if (wgmma)
     return launch_masked_local<MmaTile, kTopkMmaStages>(q, emb, emb_sq, row_cluster, src,
                                                         out_d, out_i, d, n_pad, k, tile, 0, st);
@@ -339,7 +339,7 @@ extern "C" int pqv_masked_local_topk(const void* q, const void* emb,
       (words > 0 && 32 * words < cmax) ||
       (wgmma && (!is_bf16 || d % 8 || ((uintptr_t)q | (uintptr_t)emb) % 16)))
     return (int)cudaErrorInvalidValue;
-  const ProbeSource src = {lmask, nullptr, nullptr, B, cmax, 0, stats};
+  const ProbeSource src = {lmask, nullptr, B, cmax, 0, stats};
   if (wgmma)
     return launch_masked_local<MmaTile, kTopkMmaStages>(q, emb, emb_sq, lcl, src, out_d,
                                                         out_i, d, n_pad, k, tile, words, st);

@@ -1,13 +1,14 @@
 // The score tile of K9 (tile min), K5 (exact per-tile top-k), K4 and K6
-// (masked per-tile top-k), K2 and K3 (streaming exact and masked top-k), K1
-// (nearest-centroid assign) and K7 and K8 (the binned-min scan) for sm_90a.
+// (masked per-tile top-k), K2 (streaming exact top-k), K1 (nearest-centroid
+// assign) and K7 and K8 (the binned-min scan) for sm_90a; K3's item tiles
+// (item_scan.cuh) walk its ring.
 //
 // A block of 256 threads owns up to 128 queries and walks a range of rows in
 // chunks of 128. The 128 x 128 dot products q.x of one chunk live in
 // registers and never reach device memory; an epilogue (a fold to per-tile
 // minima, per-query top-k lists, a running argmin with K1's data rows as
 // the queries and its centroids as the rows, or K7's per-lane minimum of
-// packed keys) consumes them chunk by chunk. K4, K3 and K6 walk only the
+// packed keys) consumes them chunk by chunk. K4 and K6 walk only the
 // chunks that hold a row some query of the block probes (walk_chunks,
 // MaskChunks); K7 and K8 walk 128-row chunks that are not neighbours, one
 // lane group of each tile (walk_list). Slices of both operands arrive in a
@@ -832,7 +833,7 @@ struct MaskChunks {
 
 // walk_rows over the chunks `chunks` picks of rows [row_begin, row_end), at
 // most 32 chunks: a chunk whose bit is clear is neither copied nor
-// multiplied (K4 and K3: no query of the block probes a row of it). The
+// multiplied (K4 and K6: no query of the block probes a row of it). The
 // epilogue's slot alternates over the scored chunks. A walk of its own, so
 // that walk_rows compiles for K9, K5, K2 and K1 as it always did. A caller
 // that walks again first makes sure, with a barrier, that every thread has

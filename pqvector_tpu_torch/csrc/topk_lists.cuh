@@ -1,7 +1,7 @@
 // Per-query top-k lists as an epilogue of the score tile (score_tile.cuh):
 // TopkLists, shared by K5 (exact per-tile top-k, scan_topk.cu) and K2
-// (streaming exact top-k, stream_topk.cu), and below it MaskedLists, shared by
-// K4 (masked per-tile top-k) and K3 (streaming masked top-k), and
+// (streaming exact top-k, stream_topk.cu), and below it MaskedLists, K4's
+// (masked per-tile top-k; K6's where its probe table does not fit), and
 // ClusterLists, K6's (masked per-tile top-k on any layout).
 //
 // The chunk's scores |x|^2 - 2 q.x go to shared memory 64 rows at a time,
@@ -219,28 +219,24 @@ struct TopkLists {
   }
 };
 
-// How K4, K3 and K6 learn whether query b probes the rows of slot s of tile
-// t: K4 from the pre-gathered local mask, K3 from the batch's probe mask
-// through the tile's cluster table, which is that local mask built in place,
-// and K6 from the probe mask directly: its rows' slots are their cluster ids.
+// How K4 and K6 learn whether query b probes the rows of slot s of tile t:
+// K4 from the pre-gathered local mask, and K6 from the probe mask directly:
+// its rows' slots are their cluster ids.
 struct ProbeSource {
-  const float* lmask;  // K4: [nt, B, cmax]; null for K3 and K6
-  const float* mask;   // K3, K6: [B, kc_pad]
-  const int* tc;       // K3: [nt, cmax]; null for K6
+  const float* lmask;  // K4: [nt, B, cmax]; null for K6
+  const float* mask;   // K6: [B, kc_pad]
   int B, cmax, kc_pad;
   int* stats;          // null, or two counters: (block, tile) and (block, chunk) pairs scored
   __device__ __forceinline__ bool probed(int t, int b, int s) const {
     if (lmask != nullptr) return lmask[((size_t)t * B + b) * cmax + s] > 0.5f;
-    const int c = tc != nullptr ? tc[(size_t)t * cmax + s] : s;
-    return mask[(size_t)b * kc_pad + c] > 0.5f;
+    return mask[(size_t)b * kc_pad + s] > 0.5f;
   }
 };
 
 constexpr int kTableWordsMax = 8;  // probe tables of up to 256 slots live in shared memory
 constexpr int kSegmentChunks = 32;  // chunks whose picks one MaskChunks word holds
 
-// The lists of K4 and K6 (a tile's own) and K3 (GATE: carried across a run of tiles
-// and gated across blocks as K2's are), fed only with the scores of (query,
+// The lists of K4 and K6 (a tile's own), fed only with the scores of (query,
 // row) pairs the query probes.
 //
 // TABLE: before a tile's first chunk the block holds its queries' probe table
@@ -259,7 +255,7 @@ constexpr int kSegmentChunks = 32;  // chunks whose picks one MaskChunks word ho
 // Not TABLE (W words a query do not fit: cmax above 256, or k near 128 on
 // wgmma; and K6, whose rows' slots are cluster ids): the same kernel reads
 // the slots and the probe source from device memory, skips whole tiles only
-// (K4; K3 and K6 none), and dumps and drains every half.
+// (K4; K6 none), and dumps and drains every half.
 //
 // The lists differ from TopkLists'. The rows a query probes are near it, so
 // far more of them enter its list than of a full scan's rows (about
@@ -270,10 +266,9 @@ constexpr int kSegmentChunks = 32;  // chunks whose picks one MaskChunks word ho
 // beat the k-th entry, and each of them inserted by 32 lanes that hold k / 32
 // entries each (`warp_offer`). The block's queries are dealt to its 8 warps
 // in turn. Sorted lists need no ranking when they are written.
-template <class Tile, bool GATE, bool TABLE>
+template <class Tile, bool TABLE>
 struct MaskedLists {
   static constexpr int NQB = Tile::kQueries;
-  using Gate = TopkLists<Tile, true>;  // for its order-preserving gate keys
   const float* emb_sq;
   const int* lcl;  // [n_pad] a row's slot in its tile's table
   ProbeSource src;
@@ -281,7 +276,6 @@ struct MaskedLists {
   int* li;      // shared, [NQB][k]
   float* dump;  // shared, [NQB][kDumpStride]
   float* sqs;   // shared, [2][kTR]
-  int* gate;    // GATE: device memory, this block's queries' shared gates
   int k, row_end, W, t, q0;
 
   // Shared memory after the norms: the union of the table over the queries
@@ -323,7 +317,7 @@ struct MaskedLists {
   __device__ __forceinline__ bool load_table(int tile_) {
     t = tile_;
     if constexpr (!TABLE) {
-      if (src.lmask == nullptr) return true;  // K3: the schedule's word stands; K6: every tile
+      if (src.lmask == nullptr) return true;  // K6: every tile
       int any = 0;
       const int nq = min(NQB, src.B - q0);
       const float* m = src.lmask + ((size_t)t * src.B + q0) * src.cmax;
@@ -417,17 +411,9 @@ struct MaskedLists {
       const float* col = dump + qq * kDumpStride;
       float* qd = ld + qq * k;
       int* qi = li + qq * k;
-      float g = 0.f;
-      if constexpr (GATE) g = Gate::gate_value(*(volatile int*)(gate + qq));
 #pragma unroll
-      for (int c0 = 0; c0 < 64; c0 += 32) {
-        const float v = col[c0 + lane];
-        warp_offer(qd, qi, k, v, id0 + c0 + lane, GATE ? v <= g : true, lane);
-      }
-      if constexpr (GATE) {  // a full list's k-th entry lowers the shared gate
-        if (lane == 0 && qi[k - 1] >= 0 && qd[k - 1] < g)
-          atomicMin(gate + qq, Gate::gate_key(qd[k - 1]));
-      }
+      for (int c0 = 0; c0 < 64; c0 += 32)
+        warp_offer(qd, qi, k, col[c0 + lane], id0 + c0 + lane, true, lane);
     }
   }
 
@@ -498,10 +484,10 @@ struct MaskedLists {
 
 // Walk tile t (rows t * tile .. (t + 1) * tile - 1), whose table `epi` holds,
 // in segments of kSegmentChunks chunks, scoring the chunks it picks.
-template <int STAGES, class Tile, bool GATE, bool TABLE>
+template <int STAGES, class Tile, bool TABLE>
 __device__ __forceinline__ void walk_masked_tile(
     Tile& tl, const TileOperands<typename Tile::Storage>& op, int q0, int t, int tile,
-    char* ring, MaskedLists<Tile, GATE, TABLE>& epi) {
+    char* ring, MaskedLists<Tile, TABLE>& epi) {
   const int tile_end = (t + 1) * tile;
   epi.row_end = tile_end;
   int scored = 0;

@@ -36,8 +36,9 @@ from ..kernels.binscan import (
     binscan_b_tile,
     provenance_bits,
 )
-from ..kernels.scan_topk import MAX_K, POS_INF, _refine, select_lex
-from ..kernels.stream_topk import stream_exact_scan, stream_masked_topk
+from ..kernels.probe import probe_ids
+from ..kernels.scan_topk import MAX_K, POS_INF, _refine
+from ..kernels.stream_topk import cluster_offsets, stream_exact_scan, stream_masked_topk
 from ..query.device import (
     _checked_bins,
     _exact_approx_topk_impl,
@@ -62,15 +63,6 @@ from .mesh import (
     replicate,
     shard_rows,
 )
-
-
-def _max_probe_bucket(nprobe: int, n_clusters: int) -> int:
-    """Power-of-two probe bucket, floored at min(128, n_clusters) and
-    capped at n_clusters, as in the JAX package."""
-    max_probe = 1
-    while max_probe < nprobe:
-        max_probe *= 2
-    return min(max(max_probe, min(128, n_clusters)), n_clusters)
 
 
 def _merge_gathered(best_d, best_i):
@@ -210,11 +202,13 @@ class DistributedExactSearcher:
 
 
 def _tile_tables(rc_blocks: np.ndarray, tile: int, kc: int):
-    """Per-shard tile tables of K3 over cluster-sorted blocks [n_shards,
-    rows]: (tile_clusters [n_shards, nt, cmax] int32, each tile's distinct
-    clusters padded with the sentinel ``kc``; local_cluster [n_shards, rows]
-    int32, each row's slot among them; cmax, shared by the shards). The JAX
-    package pads cmax to 128 lanes; the card's kernel takes it as it is."""
+    """Per-shard tables over cluster-sorted blocks [n_shards, rows]:
+    (tile_clusters [n_shards, nt, cmax] int32, each tile's distinct clusters
+    padded with the sentinel ``kc``; local_cluster [n_shards, rows] int32,
+    each row's slot among them; cmax, shared by the shards; offsets
+    [n_shards, kc + 1] int32, each block's ``cluster_offsets``, which are
+    what K3 reads). The JAX package pads cmax to 128 lanes; the port keeps
+    it as it is."""
     n_dev, rows = rc_blocks.shape
     nt = rows // tile
     parts = rc_blocks.reshape(n_dev, nt, tile)
@@ -226,7 +220,8 @@ def _tile_tables(rc_blocks: np.ndarray, tile: int, kc: int):
             u = np.unique(parts[s, t])
             tc[s, t, : u.size] = u
             lcl[s, t] = np.searchsorted(u, parts[s, t])
-    return tc, lcl.reshape(n_dev, rows), cmax
+    offsets = torch.stack([cluster_offsets(torch.from_numpy(b), kc) for b in rc_blocks])
+    return tc, lcl.reshape(n_dev, rows), cmax, offsets
 
 
 def _greedy_owner(sizes: np.ndarray, bins: int):
@@ -248,7 +243,7 @@ class DistributedIvfSearcher:
     Clusters are greedily balanced across shards by population; each shard
     holds a dense, cluster-sorted block of its clusters' rows, a full
     ``[kc, lmax]`` cluster table (clusters it does not own are all
-    sentinel) and K3's tile tables. A query probes the replicated centroids
+    sentinel), its tile tables and its clusters' row offsets. A query probes the replicated centroids
     on every shard; each shard searches the probed clusters it owns and the
     shards' top-k sets are gathered and merged."""
 
@@ -314,7 +309,7 @@ class DistributedIvfSearcher:
             fill[dev] += count
         # the last row of every block stays a sentinel (inf norm, id -1)
 
-        tc, lcl, cmax = _tile_tables(rc_blocks, tile, kc)
+        tc, lcl, cmax, offsets = _tile_tables(rc_blocks, tile, kc)
         self._cmax = cmax
         self._nt_local = rows_per_dev // tile
         self._tc_host = tc
@@ -332,6 +327,7 @@ class DistributedIvfSearcher:
         self.tables = shard_rows(tables.reshape(n_dev * kc, lmax), mesh)
         self.lcl = shard_rows(lcl.reshape(-1), mesh)
         self.tc = shard_rows(tc.reshape(n_dev * self._nt_local, cmax), mesh)
+        self.offsets = shard_rows(offsets.reshape(-1), mesh)
         cent = np.asarray(index.centroids, np.float32)
         self.centroids = replicate(cent, mesh)
         self.c_sq = replicate(np.einsum("kd,kd->k", cent, cent), mesh)
@@ -376,9 +372,6 @@ class DistributedIvfSearcher:
         return cls(ext_index, ext_emb, mesh=mesh, tile=tile, orig_ids=gid,
                    dtype=dtype, rescore_dtype=rescore_dtype)
 
-    def _max_probe_bucket(self, nprobe: int) -> int:
-        return _max_probe_bucket(nprobe, self.index.n_clusters)
-
     def _nprobe(self, nprobe: int) -> int:
         return min(max(1, nprobe), self.index.n_clusters)
 
@@ -398,16 +391,14 @@ class DistributedIvfSearcher:
         return _sharded_topk(self, queries, shard_fn)
 
     def _fused(self, queries, k: int, nprobe: int, reps: int | None):
-        """K3 per shard over its cluster-sorted block: tiles whose clusters
-        no query probes are skipped."""
+        """K3 per shard over its cluster-sorted block: only the rows of the
+        probed clusters it holds are read."""
         nprobe = self._nprobe(nprobe)
-        max_probe = self._max_probe_bucket(nprobe)
 
         def shard_fn(s, q):
             return stream_masked_topk(
-                q, self.centroids[s], self.c_sq[s], self.lcl[s], self.tc[s],
-                self.emb[s], self.emb_sq_pallas[s], nprobe, k,
-                max_probe=max_probe, tile=self.tile,
+                q, self.centroids[s], self.c_sq[s], self.offsets[s], self.emb[s],
+                self.emb_sq_pallas[s], nprobe, k,
             )
 
         return _sharded_topk(self, queries, shard_fn, reps)
@@ -627,14 +618,9 @@ class DistributedIvfSearcher:
         ordered by popularity, the most queries of ``q`` (on the shard's
         device) that probe one of their clusters, ties in tile order."""
         kc = self.index.n_clusters
-        max_probe = self._max_probe_bucket(nprobe)
-        dist = self.c_sq[s][None, :] - 2.0 * (q @ self.centroids[s].T)
-        cids = torch.arange(kc, dtype=torch.int32, device=q.device)
-        _, probe = select_lex(dist, cids[None, :].expand_as(dist), max_probe)
-        in_probe = (torch.arange(max_probe, device=q.device) < nprobe).to(torch.int32)
+        probe = probe_ids(q, self.centroids[s], self.c_sq[s], nprobe).reshape(-1)
         counts = torch.zeros(kc + 1, dtype=torch.int32, device=q.device)
-        counts.index_add_(0, probe.reshape(-1).long(),
-                          in_probe.expand(probe.shape[0], -1).reshape(-1))
+        counts.index_add_(0, probe.long(), torch.ones_like(probe))
         counts[kc] = 0
         tile_pop = counts[self.tc[s].long()].amax(dim=1)
         order = torch.argsort(torch.where(tile_pop > 0, -tile_pop, 1), stable=True)
@@ -864,7 +850,7 @@ class DistributedClusterIvfSearcher:
                 )
                 rc_blocks[slot, : rows_p.size] = cids_g[part]
 
-        tc, lcl, cmax = _tile_tables(rc_blocks, tile, kc)
+        tc, lcl, cmax, offsets = _tile_tables(rc_blocks, tile, kc)
         self._cmax = cmax
         self._per_dev = per_dev
         nt_local = per_dev // tile
@@ -875,6 +861,7 @@ class DistributedClusterIvfSearcher:
         self.gids = shard_rows(gid_blocks.reshape(-1), mesh)
         self.lcl = shard_rows(lcl.reshape(-1), mesh)
         self.tc = shard_rows(tc.reshape(n_slots * nt_local, cmax), mesh)
+        self.offsets = shard_rows(offsets.reshape(-1), mesh)
         cent = np.asarray(index.centroids, np.float32)
         self.centroids = replicate(cent, mesh)
         self.c_sq = replicate(np.einsum("kd,kd->k", cent, cent), mesh)
@@ -900,18 +887,13 @@ class DistributedClusterIvfSearcher:
         )
         return cls(ext_index, ext_emb, orig_ids=gid, **kwargs)
 
-    def _max_probe_bucket(self, nprobe: int) -> int:
-        return _max_probe_bucket(nprobe, self.index.n_clusters)
-
     def _body(self, queries, k: int, nprobe: int, reps: int | None):
         nprobe = min(max(1, nprobe), self.index.n_clusters)
-        max_probe = self._max_probe_bucket(nprobe)
 
         def shard_fn(s, q):
             return stream_masked_topk(
-                q, self.centroids[s], self.c_sq[s], self.lcl[s], self.tc[s],
-                self.emb[s], self.emb_sq_pallas[s], nprobe, k,
-                max_probe=max_probe, tile=self.tile,
+                q, self.centroids[s], self.c_sq[s], self.offsets[s], self.emb[s],
+                self.emb_sq_pallas[s], nprobe, k,
             )
 
         return _sharded_topk(self, queries, shard_fn, reps)

@@ -11,9 +11,9 @@ tile of ``csrc/score_tile.cuh``; K4 and K6 score only the chunks their
 queries probe: ``scored_chunks``, ``masked_scan_chunks``) and the ``*_plain``
 functions on CPU tensors. The cross-tile merge is the hand-written kernel
 of ``csrc/merge.cu`` on CUDA tensors (``select_lex`` over the [B, nt·k]
-block on CPU tensors). The probe mask, the ``lmask`` gather and the f32
-re-score are plain torch, as they are XLA code outside the Pallas calls in
-the JAX package.
+block on CPU tensors). The probe mask (``probe.probe_mask``), K4's
+``lmask`` gather and the f32 re-score are plain torch, as they are XLA code
+outside the Pallas calls in the JAX package.
 
 Every selection orders on (distance, id): ties go to the lower row id, since
 ``torch.topk`` promises no order among ties.
@@ -25,11 +25,14 @@ import torch
 
 from ..utils import profiling
 from . import _build, score_tile
+from .probe import probe_mask
 
 POS_INF = 3.0e38  # pad and masked rows, as in the kernels
 MAX_K = 128  # largest k a kernel's top-k list holds
-#: The counters of ``check_stats``' two entries, as the trace names them.
+#: K4's and K6's trace counters (``profiling.device_counter``): the
+#: (block, tile) and (block, chunk) pairs a launch scored.
 K4_COUNTERS = ("k4.tiles", "k4.chunks")
+K6_COUNTERS = ("k6.tiles", "k6.chunks")
 #: The merge kernel's counters: (query, tile) lists whose head is a
 #: candidate (the only ones it may read past their head; it skips those
 #: whose head is already past its running k-th key), and list heads it tested.
@@ -132,17 +135,16 @@ def masked_local_scan_plain(qf, emb, emb_sq, local_cluster, lmask, k, tile):
 
 
 def scored_chunks(probe, local_cluster, tile: int, queries: int):
-    """Which 128-row chunks K4 and K3 score -> bool [nt, groups, chunks a
-    tile]: the skip rule of ``csrc/topk_lists.cuh`` (``MaskedLists``) in plain
+    """Which 128-row chunks K4 scores -> bool [nt, groups, chunks a tile]:
+    the skip rule of ``csrc/topk_lists.cuh`` (``MaskedLists``) in plain
     torch. ``probe`` [nt, B, cmax] bool says which slots of each tile's
-    cluster table each query probes (K4's ``lmask > 0.5``; for K3
-    ``mask[:, tile_clusters] > 0.5``); a block owns ``queries`` consecutive
-    queries. A block scores a chunk of a tile iff some row of the chunk has a
-    slot that some query of the block probes; a tile none of whose chunks is
-    scored is skipped whole. Every probed (query, row) pair therefore lies
-    in a scored chunk. With no probe table in shared memory
-    (``score_tile.table_words`` = 0) the kernels score every chunk of a tile
-    that has a scored chunk here (K4), or of every active tile (K3)."""
+    cluster table each query probes (``lmask > 0.5``); a block owns
+    ``queries`` consecutive queries. A block scores a chunk of a tile iff
+    some row of the chunk has a slot that some query of the block probes; a
+    tile none of whose chunks is scored is skipped whole. Every probed
+    (query, row) pair therefore lies in a scored chunk. With no probe table
+    in shared memory (``score_tile.table_words`` = 0) the kernel scores
+    every chunk of a tile that has a scored chunk here."""
     nt, b, cmax = probe.shape
     groups = -(-b // queries)
     pad = torch.zeros((nt, groups * queries - b, cmax), dtype=torch.bool,
@@ -193,7 +195,7 @@ def k6_units(batch: int, nt: int, smem: int, queries: int) -> int:
 
 def masked_geometry(kernel: str, qf, emb, k: int, cmax: int):
     """(back end, queries a block, probe-table words, dynamic shared memory)
-    of a K4, K6 or K3 launch on these operands (K6: ``cmax`` = kc_pad)."""
+    of a K4 or K6 launch on these operands (K6: ``cmax`` = kc_pad)."""
     backend = score_tile.pick_backend(
         emb.dtype, emb.shape[1], qf.data_ptr(), emb.data_ptr()
     )
@@ -203,15 +205,14 @@ def masked_geometry(kernel: str, qf, emb, k: int, cmax: int):
         if score_tile.smem_bytes(kernel, backend, queries, k, words) > score_tile.SMEM_LIMIT:
             words = 0
     else:
-        words = score_tile.table_words(kernel, backend, queries, k, cmax)
+        words = score_tile.table_words(backend, queries, k, cmax)
     smem = score_tile.smem_bytes(kernel, backend, queries, k, words)
     return backend, queries, words, smem
 
 
 def check_stats(stats, device) -> int:
-    """The address of K4's, K6's and K3's optional counters (0 for none): an
-    int32 [2] CUDA tensor that a launch adds the (block, tile) and (block,
-    chunk) pairs it scored to."""
+    """The address of a launch's counters (0 for none: tracing is off), an
+    int32 [2] tensor on the operands' device (``profiling.device_counter``)."""
     if stats is None:
         return 0
     if stats.dtype != torch.int32 or stats.shape != (2,) or stats.device != device:
@@ -219,8 +220,7 @@ def check_stats(stats, device) -> int:
     return stats.data_ptr()
 
 
-def masked_local_scan(qf, emb, emb_sq, local_cluster, lmask, k: int, tile: int,
-                      stats=None):
+def masked_local_scan(qf, emb, emb_sq, local_cluster, lmask, k: int, tile: int):
     """K4's scan: per-tile top-k of the probed rows -> ([nt, B, k], [nt, B, k]).
 
     ``qf`` [B, d] in the storage dtype, ``emb`` [n_pad, d], ``emb_sq``
@@ -229,9 +229,8 @@ def masked_local_scan(qf, emb, emb_sq, local_cluster, lmask, k: int, tile: int,
     f32. The kernel runs on the score tile of ``csrc/score_tile.cuh`` (fp32
     FMA or wgmma by ``score_tile.pick_backend``) and scores only the chunks
     that hold a row some query of the block probes (``scored_chunks``);
-    ``stats`` (``check_stats``) counts them, on CUDA tensors only; without
-    it, while tracing is on, the trace's ``k4`` counter does
-    (``profiling.device_counter``)."""
+    while tracing is on, the trace's ``k4`` counter adds them
+    (``profiling.device_counter``, ``K4_COUNTERS``)."""
     with profiling.span("search.scan"):
         check_scan_args(qf, emb, emb_sq, k, tile)
         nt = emb.shape[0] // tile
@@ -246,9 +245,8 @@ def masked_local_scan(qf, emb, emb_sq, local_cluster, lmask, k: int, tile: int,
             q=qf, emb=emb, emb_sq=emb_sq, local_cluster=local_cluster, lmask=lmask
         )
         backend, queries, words, _ = masked_geometry("K4", qf, emb, k, lmask.shape[2])
-        if stats is None and profiling.tracing_on():
-            pairs = nt * -(-qf.shape[0] // queries) * -(-tile // score_tile.CHUNK_ROWS)
-            stats = profiling.device_counter("k4", K4_COUNTERS, emb.device, pairs)
+        pairs = nt * -(-qf.shape[0] // queries) * -(-tile // score_tile.CHUNK_ROWS)
+        stats = profiling.device_counter("k4", K4_COUNTERS, emb.device, pairs)
         return _launch_tile_topk(
             "K4", "pqv_masked_local_topk", qf, emb, emb_sq, k, tile,
             ptrs=(local_cluster, lmask), ints=(lmask.shape[2],),
@@ -313,7 +311,7 @@ def masked_scan_plain(qf, emb, emb_sq, row_cluster, mask, k, tile):
     return _tile_topk_plain(qf, emb, emb_sq, k, tile, probed)
 
 
-def masked_scan(qf, emb, emb_sq, row_cluster, mask, k: int, tile: int, stats=None):
+def masked_scan(qf, emb, emb_sq, row_cluster, mask, k: int, tile: int):
     """K6's scan: per-tile top-k under a global probe mask -> ([nt, B, k],
     [nt, B, k]). ``row_cluster`` [n_pad] int32 holds each row's cluster, kc
     on pad rows; ``mask`` [B, kc_pad] f32 with kc_pad > kc, slot kc unset.
@@ -322,8 +320,9 @@ def masked_scan(qf, emb, emb_sq, row_cluster, mask, k: int, tile: int, stats=Non
     as a probe table in shared memory, a block walking a run of tiles
     (``k6_units``), or, where that table does not fit, K4's kernel reading
     the mask through the rows' cluster ids; it scores the chunks
-    ``masked_scan_chunks`` picks, and ``stats`` (``check_stats``) counts the
-    (block, tile) and (block, chunk) pairs it scored, on CUDA tensors only."""
+    ``masked_scan_chunks`` picks, and while tracing is on the trace's ``k6``
+    counter adds the (block, tile) and (block, chunk) pairs it scored
+    (``profiling.device_counter``, ``K6_COUNTERS``)."""
     with profiling.span("search.scan"):
         check_scan_args(qf, emb, emb_sq, k, tile)
         if row_cluster.dtype != torch.int32 or row_cluster.shape != (emb.shape[0],):
@@ -336,7 +335,10 @@ def masked_scan(qf, emb, emb_sq, row_cluster, mask, k: int, tile: int, stats=Non
             raise ValueError("mask's kc_pad must be a multiple of 128")
         check_cuda_operands(q=qf, emb=emb, emb_sq=emb_sq, row_cluster=row_cluster, mask=mask)
         backend, queries, words, smem = masked_geometry("K6", qf, emb, k, mask.shape[1])
-        units = k6_units(qf.shape[0], emb.shape[0] // tile, smem, queries) if words else 0
+        nt = emb.shape[0] // tile
+        units = k6_units(qf.shape[0], nt, smem, queries) if words else 0
+        pairs = nt * -(-qf.shape[0] // queries) * -(-tile // score_tile.CHUNK_ROWS)
+        stats = profiling.device_counter("k6", K6_COUNTERS, emb.device, pairs)
         return _launch_tile_topk(
             "K6", "pqv_masked_topk", qf, emb, emb_sq, k, tile,
             ptrs=(row_cluster, mask), ints=(mask.shape[1],),
@@ -413,15 +415,12 @@ def _final_merge(tile_d, tile_i, k):
 
 def masked_local_topk(
     q, centroids, c_sq, local_cluster, tile_clusters, emb, emb_sq, nprobe: int,
-    k: int, max_probe: int, tile: int, emb_ref=None,
+    k: int, tile: int, emb_ref=None,
 ):
     """IVF top-k over a cluster-sorted layout (``pallas_masked_local_topk``):
     probe mask -> ``lmask`` gather -> K4 -> cross-tile merge -> re-score."""
-    from .stream_topk import _probe_mask
-
-    kc_pad = -(-(centroids.shape[0] + 1) // 128) * 128
     with profiling.span("search.probe"):
-        mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe, kc_pad)
+        mask = probe_mask(q, centroids, c_sq, nprobe)
         lmask = mask[:, tile_clusters.long()].permute(1, 0, 2).contiguous()
     tile_d, tile_i = masked_local_scan(
         q.to(emb.dtype), emb, emb_sq, local_cluster, lmask, k, tile
@@ -439,16 +438,13 @@ def exact_topk(q, emb, emb_sq, k: int, tile: int, emb_ref=None):
 
 
 def masked_topk(
-    q, centroids, c_sq, row_cluster, emb, emb_sq, nprobe: int, k: int,
-    max_probe: int, tile: int, emb_ref=None,
+    q, centroids, c_sq, row_cluster, emb, emb_sq, nprobe: int, k: int, tile: int,
+    emb_ref=None,
 ):
     """IVF top-k on any layout (``pallas_masked_topk``): probe mask -> K6
     -> cross-tile merge -> re-score."""
-    from .stream_topk import _probe_mask
-
-    kc_pad = -(-(centroids.shape[0] + 1) // 128) * 128
     with profiling.span("search.probe"):
-        mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe, kc_pad)
+        mask = probe_mask(q, centroids, c_sq, nprobe)
     tile_d, tile_i = masked_scan(
         q.to(emb.dtype), emb, emb_sq, row_cluster, mask, k, tile
     )

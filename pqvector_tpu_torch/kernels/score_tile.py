@@ -1,5 +1,5 @@
-"""Launch geometry of the score tile shared by K9, K5, K4, K6, K3, K2, K1,
-K7 and K8.
+"""Launch geometry of the score tile shared by K9, K5, K4, K6, K2, K1, K7
+and K8.
 
 ``csrc/score_tile.cuh`` scores up to 128 queries against 128-row chunks in
 registers, on one of three back ends: ``"fma"``, IEEE fp32 on the CUDA cores
@@ -23,8 +23,8 @@ SMEM_LIMIT = 232_448  # dynamic shared memory a block can opt into on sm_90
 _ALIGN_SLACK = 1024  # the ring is aligned to the swizzle's 1024 bytes by hand
 _NORMS = 2 * CHUNK_ROWS * 4  # the norms of this chunk and the next
 DUMP_STRIDE = 65  # floats per query of the 64-row score dump of K5 and K2
-TABLE_WORDS_MAX = 8  # K4, K3: probe tables of up to 256 slots live in shared memory
-SEGMENT_CHUNKS = 32  # K4, K3: chunks of a tile whose picks one 32-bit word holds
+TABLE_WORDS_MAX = 8  # K4: probe tables of up to 256 slots live in shared memory
+SEGMENT_CHUNKS = 32  # K4: chunks of a tile whose picks one 32-bit word holds
 SM_COUNT = 132  # streaming multiprocessors of the H100
 SMEM_PER_SM = 233_472  # shared memory of one; a resident block reserves 1 KB more
 
@@ -46,7 +46,7 @@ def block_queries(batch: int, backend: str) -> int:
 
 
 def masked_block_queries(backend: str) -> int:
-    """Queries one block of K4, K6 or K3 owns: a warpgroup pair's 128 on
+    """Queries one block of K4 or K6 owns: a warpgroup pair's 128 on
     wgmma, 64 on the CUDA cores whatever the batch. Fewer queries probe fewer of a
     tile's chunks, which pays where the products are the time, and two
     blocks fit an SM up to k = 100."""
@@ -71,7 +71,7 @@ def stage_bytes(backend: str, queries: int) -> int:
     return 16 * ((CHUNK_ROWS + 4) + (queries + 4)) * 4
 
 
-_LIST_KERNELS = ("K5", "K2", "K4", "K6", "K3")  # their epilogue keeps top-k lists
+_LIST_KERNELS = ("K5", "K2", "K4", "K6")  # their epilogue keeps top-k lists
 
 
 def stages(kernel: str, backend: str) -> int:
@@ -82,14 +82,14 @@ def stages(kernel: str, backend: str) -> int:
 
 def smem_bytes(kernel: str, backend: str, queries: int, k: int = 0, words: int = 0) -> int:
     """Dynamic shared memory of a launch of ``kernel`` ("K9", "K5", "K4", "K6",
-    "K3", "K2", "K1", "K7" or "K8"): the ring and the norms; for K5, K4, K6,
-    K3 and K2 the lists ([k][queries] f32 + i32) and the score dump, for K9
-    one carried minimum per query, for K7 and K8 the row scales of two
-    chunks; K1's running argmin lives in registers (in shared memory between
-    chunks for its bf16-row FMA form) and K7's bins too. K4 and K3
-    add 64 bytes of flags and, with a probe table of ``words`` 32-bit words a
-    query (``table_words``), the staged slots of two chunks, the slot sets of
-    their quarters and the table; K6 with its table (``words`` = kc_pad / 32,
+    "K2", "K1", "K7" or "K8"): the ring and the norms; for K5, K4, K6 and K2
+    the lists ([k][queries] f32 + i32) and the score dump, for K9 one
+    carried minimum per query, for K7 and K8 the row scales of two chunks;
+    K1's running argmin lives in registers (in shared memory between chunks
+    for its bf16-row FMA form) and K7's bins too. K4 adds 64 bytes of flags
+    and, with a probe table of ``words`` 32-bit words a query
+    (``table_words``), the staged slots of two chunks, the slot sets of their
+    quarters and the table; K6 with its table (``words`` = kc_pad / 32,
     a bit a cluster) the clusters of two chunks, two counts a query, the
     picks word, the union, the table and a byte a candidate's row, and
     without it what K4 takes without one."""
@@ -101,7 +101,7 @@ def smem_bytes(kernel: str, backend: str, queries: int, k: int = 0, words: int =
         if kernel == "K6" and words:  # clusters, counts, picks, table, candidates' rows
             return total + _NORMS + queries * 8 + 16 + words * 4 + queries * words * 4 \
                 + queries * 64
-        if kernel in ("K4", "K6", "K3"):
+        if kernel in ("K4", "K6"):
             total += 64
             if words:
                 total += 2 * CHUNK_ROWS * 4 + 2 * 4 * words * 4 + queries * words * 4
@@ -113,14 +113,14 @@ def smem_bytes(kernel: str, backend: str, queries: int, k: int = 0, words: int =
     return total
 
 
-def table_words(kernel: str, backend: str, queries: int, k: int, cmax: int) -> int:
-    """Width of K4's and K3's probe table in shared memory, in 32-bit words a
-    query: one bit per slot of a tile's cluster table (``cmax`` slots), or 0
+def table_words(backend: str, queries: int, k: int, cmax: int) -> int:
+    """Width of K4's probe table in shared memory, in 32-bit words a query:
+    one bit per slot of a tile's cluster table (``cmax`` slots), or 0
     where that is wider than ``TABLE_WORDS_MAX`` words or does not fit beside
     the lists (k near 128 on wgmma). With 0 the same kernel reads the probe
     source from device memory and skips whole tiles only."""
     words = -(-cmax // 32)
-    fits = smem_bytes(kernel, backend, queries, k, words) <= SMEM_LIMIT
+    fits = smem_bytes("K4", backend, queries, k, words) <= SMEM_LIMIT
     return words if words <= TABLE_WORDS_MAX and fits else 0
 
 
@@ -134,8 +134,8 @@ def wave_blocks(smem: int) -> int:
 def grid_blocks(batch: int, backend: str, units: int) -> int:
     """Blocks of a launch over ``units`` row runs (K9, K2) or tiles (K5): the
     query groups of one unit are neighbours, so the later ones find the rows
-    in L2. K4 (tiles) and K3 (runs of active tiles) lay their grid out the
-    same way, with ``masked_block_queries`` queries a group."""
+    in L2. K4 (tiles) lays its grid out the same way, with
+    ``masked_block_queries`` queries a group."""
     q = block_queries(batch, backend)
     return units * (-(-batch // q))
 

@@ -1,12 +1,13 @@
 """K2 and K3: streaming threshold top-k, exact and IVF-masked.
 
 Counterpart of ``pqvector_tpu/kernels/stream_topk.py``:
-``pallas_stream_exact_topk`` (K2), ``pallas_stream_masked_topk`` (K3),
-``_probe_mask`` and ``_tile_schedule``. The scans are the hand-written
-kernels of ``csrc/stream_topk.cu`` on CUDA tensors and the ``*_plain``
-functions here on CPU tensors. The probe mask and ids, the tile schedule,
-the clusters' row offsets and the f32 re-score are plain torch, as they are
-XLA code outside the Pallas calls in the JAX package.
+``pallas_stream_exact_topk`` (K2) and ``pallas_stream_masked_topk`` (K3).
+The scans are the hand-written kernels of ``csrc/stream_topk.cu`` on CUDA
+tensors and the ``*_plain`` functions here on CPU tensors. K3's probe ids
+(``probe.probe_ids``), the clusters' row offsets (``cluster_offsets``, held
+by the searcher) and the f32 re-score are plain torch, as they are XLA code
+outside the Pallas calls in the JAX package. K3 takes no tile schedule and
+no tile tables: its work follows the probed clusters, not the tiles.
 
 K2 splits the rows over ``units`` blocks per query group and merges their
 partial lists in a second launch; the result does not depend on the split,
@@ -41,8 +42,8 @@ from .scan_topk import (
     final_merge_plain,
     merge_candidates,
     partial_scores,
-    select_lex,
 )
+from .probe import probe_ids
 
 #: Rows per step of the plain scans: bounds their [B, rows] score block.
 _PLAIN_ROWS = 65536
@@ -149,56 +150,12 @@ def stream_exact_topk(q, emb, emb_sq, k: int, tile: int, emb_ref=None):
     return _refine(q, emb if emb_ref is None else emb_ref, best_d, best_i)
 
 
-def _probe_mask(q, centroids, c_sq, nprobe: int, max_probe: int, kc_pad: int):
-    """[B, kc_pad] f32 probe mask: the first ``nprobe`` of the ``max_probe``
-    nearest centroids (ties to the lower cluster id)."""
-    b = q.shape[0]
-    dist = c_sq[None, :] - 2.0 * (q @ centroids.T)
-    ids = torch.arange(centroids.shape[0], dtype=torch.int32, device=q.device)
-    _, probe = select_lex(dist, ids[None, :].expand_as(dist), max_probe)
-    mask = torch.zeros((b, kc_pad), dtype=torch.float32, device=q.device)
-    return mask.scatter_(1, probe[:, :nprobe].long(), 1.0)
-
-
-def _tile_schedule(mask, tc):
-    """Compacted schedule [nt + 1] i32: [n_active, active tiles..., pad].
-
-    A tile is active iff any query's mask covers any of its clusters;
-    padding repeats the last active tile."""
-    nt = tc.shape[0]
-    cluster_active = mask.amax(dim=0) > 0.0
-    tile_active = cluster_active[tc.long()].any(dim=1).to(torch.int32)
-    order = torch.argsort(1 - tile_active, stable=True).to(torch.int32)
-    n_active = tile_active.sum(dtype=torch.int32)
-    last = order[(n_active - 1).clamp_min(0).long()]
-    steps = torch.arange(nt, dtype=torch.int32, device=mask.device)
-    idxs = torch.where(steps < n_active, order, last)
-    return torch.cat([n_active[None], idxs])
-
-
-def _probe_ids(q, centroids, c_sq, nprobe: int, max_probe: int):
-    """[B, nprobe] int32: the clusters ``_probe_mask`` sets, in its order (the
-    first ``nprobe`` of the ``max_probe`` nearest, ties to the lower id)."""
-    dist = c_sq[None, :] - 2.0 * (q @ centroids.T)
-    ids = torch.arange(centroids.shape[0], dtype=torch.int32, device=q.device)
-    _, probe = select_lex(dist, ids[None, :].expand_as(dist), max_probe)
-    return probe[:, :nprobe].contiguous()
-
-
 def cluster_offsets(row_cluster, n_clusters: int):
     """[n_clusters + 1] int32: the first row of each cluster in a
     cluster-sorted layout (``row_cluster`` non-decreasing, pad rows
     ``n_clusters``), then the first pad row."""
     ids = torch.arange(n_clusters + 1, dtype=torch.int32, device=row_cluster.device)
     return torch.searchsorted(row_cluster, ids, out_int32=True)
-
-
-def _tile_offsets(local_cluster, tile_clusters, n_clusters: int):
-    """``cluster_offsets`` from the tile tables: each row's cluster is its
-    tile's cluster at its slot."""
-    nt = tile_clusters.shape[0]
-    slots = local_cluster.view(nt, -1).long()
-    return cluster_offsets(tile_clusters.gather(1, slots).reshape(-1), n_clusters)
 
 
 def masked_segments(pairs: int) -> int:
@@ -323,9 +280,9 @@ def stream_masked_scan_plain(qf, emb, emb_sq, offsets, probe, k):
     return best_d, best_i
 
 
-def _stream_masked_cuda(qf, emb, emb_sq, offsets, probe, k, segments=None, stats=None):
+def _stream_masked_cuda(qf, emb, emb_sq, offsets, probe, k, segments=None):
     """Launch K3. ``segments`` overrides ``masked_segments`` (the result does
-    not depend on it); ``stats`` as for K4."""
+    not depend on it)."""
     check_cuda_operands(q=qf, emb=emb, emb_sq=emb_sq, offsets=offsets, probe=probe)
     lib = _build.load()
     n_pad, d = emb.shape
@@ -333,10 +290,9 @@ def _stream_masked_cuda(qf, emb, emb_sq, offsets, probe, k, segments=None, stats
     c_count = offsets.shape[0] - 1
     backend = score_tile.pick_backend(emb.dtype, d, qf.data_ptr(), emb.data_ptr())
     segs = masked_segments(b * nprobe) if segments is None else segments
-    if stats is None and profiling.tracing_on():
-        groups = -(-b // ITEM_QUERIES)  # a query probes a cluster once
-        bound = groups * (-(-n_pad // score_tile.CHUNK_ROWS) + c_count + 1)
-        stats = profiling.device_counter("k3", K3_COUNTERS, emb.device, bound)
+    groups = -(-b // ITEM_QUERIES)  # a query probes a cluster once
+    bound = groups * (-(-n_pad // score_tile.CHUNK_ROWS) + c_count + 1)
+    stats = profiling.device_counter("k3", K3_COUNTERS, emb.device, bound)
     dev = emb.device
     words = lib.pqv_stream_masked_topk_scratch(c_count, b * nprobe, segs)
     if words < 0:
@@ -360,19 +316,18 @@ def _stream_masked_cuda(qf, emb, emb_sq, offsets, probe, k, segments=None, stats
     return out_d, out_i
 
 
-def stream_masked_scan(qf, emb, emb_sq, offsets, probe, k: int, stats=None):
+def stream_masked_scan(qf, emb, emb_sq, offsets, probe, k: int):
     """K3's scan: masked top-k over the probed clusters -> ([B, k], [B, k]).
 
     Adds ``offsets`` [C + 1] int32 (``cluster_offsets``: cluster c's rows
     are offsets[c] .. offsets[c + 1] - 1 of the cluster-sorted ``emb``) and
-    ``probe`` [B, nprobe] int32 cluster ids (``_probe_ids``; each query's
-    distinct, out of range probes nothing). The kernels build the work list
-    on the device and score each item's rows against its queries only, on
-    the tiles of ``csrc/item_scan.cuh`` (fp32 FMA or wgmma by
-    ``score_tile.pick_backend``); ``stats`` (``scan_topk.check_stats``)
-    counts the items and chunks it scored (``scored_items``), on CUDA tensors
-    only; without it, while tracing is on, the trace's ``k3`` counter does
-    (``profiling.device_counter``, ``K3_COUNTERS``)."""
+    ``probe`` [B, nprobe] int32 cluster ids (``probe.probe_ids``; each
+    query's distinct, out of range probes nothing). The kernels build the
+    work list on the device and score each item's rows against its queries
+    only, on the tiles of ``csrc/item_scan.cuh`` (fp32 FMA or wgmma by
+    ``score_tile.pick_backend``); while tracing is on, the trace's ``k3``
+    counter adds the items and chunks it scored (``scored_items``,
+    ``K3_COUNTERS``)."""
     with profiling.span("search.scan"):
         check_scan_args(qf, emb, emb_sq, k, 1)  # any row may start an item
         if offsets.dtype != torch.int32 or offsets.dim() != 1 or offsets.shape[0] < 2:
@@ -381,22 +336,18 @@ def stream_masked_scan(qf, emb, emb_sq, offsets, probe, k: int, stats=None):
             raise TypeError("probe must be int32 [B, nprobe]")
         if emb.device.type == "cpu":
             return stream_masked_scan_plain(qf, emb, emb_sq, offsets, probe, k)
-        return _stream_masked_cuda(qf, emb, emb_sq, offsets, probe, k, stats=stats)
+        return _stream_masked_cuda(qf, emb, emb_sq, offsets, probe, k)
 
 
-def stream_masked_topk(
-    q, centroids, c_sq, local_cluster, tile_clusters, emb, emb_sq, nprobe: int,
-    k: int, max_probe: int, tile: int, emb_ref=None, offsets=None,
-):
+def stream_masked_topk(q, centroids, c_sq, offsets, emb, emb_sq, nprobe: int, k: int,
+                       emb_ref=None):
     """IVF top-k over the probed clusters (``pallas_stream_masked_topk``):
-    probe ids -> K3 -> re-score. ``offsets`` (``cluster_offsets``) are the
-    clusters' rows in the cluster-sorted layout; None derives them from the
-    tile tables ``local_cluster`` and ``tile_clusters`` (of ``tile`` rows)."""
+    probe ids -> K3 -> re-score against ``emb_ref`` when given. ``offsets``
+    (``cluster_offsets``) are the clusters' rows in the cluster-sorted
+    layout."""
     if k > MAX_K:
         raise ValueError(f"stream kernel supports k <= {MAX_K}")
     with profiling.span("search.probe"):
-        probe = _probe_ids(q, centroids, c_sq, nprobe, max_probe)
-        if offsets is None:
-            offsets = _tile_offsets(local_cluster, tile_clusters, centroids.shape[0])
+        probe = probe_ids(q, centroids, c_sq, nprobe)
     best_d, best_i = stream_masked_scan(q.to(emb.dtype), emb, emb_sq, offsets, probe, k)
     return _refine(q, emb if emb_ref is None else emb_ref, best_d, best_i)

@@ -88,8 +88,8 @@ from ..kernels.scan_topk import (
     select_lex,
 )
 from ..kernels.compact import tile_gather
+from ..kernels.probe import probe_ids, probe_mask
 from ..kernels.stream_topk import (
-    _probe_mask,
     cluster_offsets,
     stream_exact_topk,
     stream_masked_topk,
@@ -116,12 +116,12 @@ _CERT_FUSE_BUDGET = 2 << 30
 #: Cap on the [B, chunk] f32 score block of the over-fetch modes.
 _APPROX_BLOCK_CAP = 1 << 30
 #: The scan kernels' tile: the rows one block of K4 and K5 owns, the unit of
-#: K6's per-tile lists, the grain at which K3 and K4 skip unprobed work, and
-#: the unit of the per-tile cluster tables. Shared memory does not depend on
-#: it (the kernels stream 128-row chunks), so the tile is chosen for the grid
-#: and the tables: 1024 rows is about one cluster at IVF-1024 over 1M rows, gives
-#: about 1000 tiles there, and keeps a tile's table to a few clusters, one
-#: 32-bit word a query in K3's and K4's shared memory.
+#: K6's per-tile lists, the grain at which K4 skips unprobed work, and the
+#: unit of the per-tile cluster tables. Shared memory does not depend on it
+#: (the kernels stream 128-row chunks), so the tile is chosen for the grid
+#: and the tables: 1024 rows is about one cluster at IVF-1024 over 1M rows,
+#: gives about 1000 tiles there, and keeps a tile's table to a few clusters,
+#: one 32-bit word a query in K4's shared memory. K3 reads whole clusters.
 _SCAN_TILE_CAP = 1024
 #: Cap on K4's pre-gathered [nt, B, cmax] f32 local mask, as in the JAX
 #: package; beyond it ``auto`` takes K3, which needs no such buffer.
@@ -162,7 +162,7 @@ def _quantize_rows_i8(emb):
 
 
 def _compact_select(
-    q, centroids, c_sq, row_cluster, nprobe, max_probe, ctile, cap_tiles,
+    q, centroids, c_sq, row_cluster, nprobe, ctile, cap_tiles,
     tile_lo, tile_hi, max_cluster_tiles, n_pad,
 ):
     """Active-tile selection of the probed-union modes: probe the batch,
@@ -172,13 +172,9 @@ def _compact_select(
     drops the tiles fewest queries probed. Counts are integer adds."""
     kc = centroids.shape[0]
     nt = n_pad // ctile
-    dist = c_sq[None, :] - 2.0 * (q @ centroids.T)
-    cids = torch.arange(kc, dtype=torch.int32, device=q.device)
-    _, probe = select_lex(dist, cids[None, :].expand_as(dist), max_probe)
-    in_probe = (torch.arange(max_probe, device=q.device) < nprobe).to(torch.int32)
+    probe = probe_ids(q, centroids, c_sq, nprobe).reshape(-1)
     counts = torch.zeros(kc + 1, dtype=torch.int32, device=q.device)
-    counts.index_add_(0, probe.reshape(-1).long(),
-                      in_probe.expand(probe.shape[0], -1).reshape(-1))
+    counts.index_add_(0, probe.long(), torch.ones_like(probe))
     counts[kc] = 0  # pad rows are never active
     if tile_lo is not None:
         # Cluster-sorted layout: cluster c spans tiles tile_lo[c] ..
@@ -225,10 +221,8 @@ def _ivf_topk_impl(q, centroids, c_sq, clusters, emb, emb_sq, k: int, nprobe: in
     kf = k if emb_ref is None else 2 * k
     lmax = clusters.shape[1]
     with span("search.probe"):
-        dist = c_sq[None, :] - 2.0 * (q @ centroids.T)
-        cids = torch.arange(centroids.shape[0], dtype=torch.int32, device=q.device)
-        _, probe = select_lex(dist, cids[None, :].expand_as(dist), nprobe)
-        cand = clusters[probe.long()].reshape(b, nprobe * lmax)
+        probe = probe_ids(q, centroids, c_sq, nprobe)
+        cand = clusters[probe.long()].reshape(b, probe.shape[1] * lmax)
     c_pad = _round_up(cand.shape[1], tile)
     with span("search.scan"):
         if c_pad != cand.shape[1]:
@@ -719,15 +713,13 @@ def _exact_tilescan_impl(
 
 def _ivf_approx_masked_impl(
     q, centroids, c_sq, row_cluster, emb, emb_sq, nprobe: int, k: int,
-    max_probe: int, chunk: int, recall_target: float,
+    chunk: int, recall_target: float,
     score_dtype=torch.float32, overfetch: int = 0, emb_ref=None,
 ):
     """Masked IVF scan with over-fetch extraction: ``_exact_approx_topk_impl``
     with the rows of unprobed clusters set to +inf."""
     qf = q.to(emb.dtype)
-    # [B, kc + 1]: the extra slot takes the pad rows' cluster id, never set
-    mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe,
-                       centroids.shape[0] + 1) > 0.5
+    mask = probe_mask(q, centroids, c_sq, nprobe) > 0.5
     k_fetch = _fetch_width(k, overfetch)
 
     def chunk_topk(x, x2, cl, base):
@@ -744,7 +736,7 @@ def _ivf_approx_masked_impl(
 
 def _ivf_compact_approx_impl(
     q, centroids, c_sq, row_cluster, emb, emb_sq, nprobe: int, k: int,
-    max_probe: int, ctile: int, cap_tiles: int, chunk: int, recall_target: float,
+    ctile: int, cap_tiles: int, chunk: int, recall_target: float,
     score_dtype=torch.float32, tile_lo=None, tile_hi=None,
     max_cluster_tiles: int = 0, emb_ref=None,
 ):
@@ -755,7 +747,7 @@ def _ivf_compact_approx_impl(
     union of the batch's probed clusters plus the rows sharing a tile with
     them, capped at ``cap_tiles`` tiles (the least-probed are dropped)."""
     sel = _compact_select(
-        q, centroids, c_sq, row_cluster, nprobe, max_probe, ctile, cap_tiles,
+        q, centroids, c_sq, row_cluster, nprobe, ctile, cap_tiles,
         tile_lo, tile_hi, max_cluster_tiles, emb.shape[0],
     )
     emb_c, sq_c = tile_gather(emb, emb_sq, sel, ctile)
@@ -773,7 +765,7 @@ def _ivf_compact_approx_impl(
 
 def _ivf_masked_scan_impl(
     q, centroids, c_sq, row_cluster, emb, emb_sq, nprobe: int, k: int,
-    max_probe: int, tile: int, emb_ref=None,
+    tile: int, emb_ref=None,
 ):
     """IVF top-k as a masked full scan in plain torch: every row tile is
     scored once for the whole batch, rows of unprobed clusters are set to
@@ -781,9 +773,7 @@ def _ivf_masked_scan_impl(
     b = q.shape[0]
     n_pad = emb.shape[0]
     kf = k if emb_ref is None else min(2 * k, n_pad)
-    # [B, kc + 1]: the extra slot takes the pad rows' cluster id, never set
-    mask = _probe_mask(q, centroids, c_sq, nprobe, max_probe,
-                       centroids.shape[0] + 1) > 0.5
+    mask = probe_mask(q, centroids, c_sq, nprobe) > 0.5
     qf = q.to(emb.dtype).float()
     best_d = torch.full((b, kf), torch.inf, device=q.device)
     best_i = torch.full((b, kf), -1, dtype=torch.int32, device=q.device)
@@ -1007,6 +997,11 @@ class DeviceIvfSearcher:
         self.row_cluster = torch.from_numpy(row_cluster).to(dev)
         self._row_cluster_host = row_cluster
         self._row_cluster_sorted = bool(np.all(np.diff(row_cluster) >= 0))
+        # K3's view of a sorted layout: the first row of each cluster
+        self.cluster_offsets = (
+            cluster_offsets(self.row_cluster, index.n_clusters)
+            if self._row_cluster_sorted else None
+        )
         self._tile_tables: dict[int, tuple[torch.Tensor, torch.Tensor, int]] = {}
         self._cmax_cache: dict[int, int] = {}
 
@@ -1074,9 +1069,10 @@ class DeviceIvfSearcher:
         return tile
 
     def _can_stream_masked(self, k: int) -> bool:
-        """K3 needs the per-tile cluster tables of a sorted layout and k that
-        fits a kernel's top-k list. Its probe mask lives in device memory,
-        so unlike the TPU kernel it has no batch cap."""
+        """K3 needs a sorted layout (it reads each probed cluster's rows
+        through ``cluster_offsets``) and k that fits a kernel's top-k list.
+        Its work list lives in device memory, so unlike the TPU kernel it
+        has no batch cap."""
         return self._row_cluster_sorted and k <= MAX_K
 
     def _use_local_mask(self, tile: int, batch: int) -> bool:
@@ -1097,15 +1093,6 @@ class DeviceIvfSearcher:
             parts = self._row_cluster_host.reshape(-1, tile)
             self._cmax_cache[tile] = int((np.diff(parts, axis=1) != 0).sum(axis=1).max()) + 1
         return self._cmax_cache[tile]
-
-    def _max_probe_bucket(self, nprobe: int) -> int:
-        """Power-of-two max_probe bucket (floor 128), as in the JAX package;
-        the mask keeps the first nprobe of them either way."""
-        max_probe = 1
-        while max_probe < nprobe:
-            max_probe *= 2
-        return min(max(max_probe, min(128, self.index.n_clusters)),
-                   self.index.n_clusters)
 
     def _tile_cluster_table(self, tile: int):
         """(local_cluster [n_pad] i32, tile_clusters [nt, cmax] i32, cmax):
@@ -1223,13 +1210,6 @@ class DeviceIvfSearcher:
             raise ValidationError(str(exc)) from exc
 
     # -- probed-union selection (bincompact) ------------------------------
-
-    def _compact_probe_bucket(self, nprobe: int) -> int:
-        """Power-of-two probe bucket for the probed-union modes (floor 8)."""
-        p = 8
-        while p < nprobe:
-            p *= 2
-        return min(p, self.index.n_clusters)
 
     def _compact_tile_ranges(self, ctile: int):
         """(tile_lo, tile_hi [kc] int32 on the device, max_cluster_tiles)
@@ -1352,9 +1332,8 @@ class DeviceIvfSearcher:
             )
         tlo, thi, span = self._compact_tile_ranges(ctile)
         sel = _compact_select(
-            q, self.centroids, self.c_sq, self.row_cluster, nprobe,
-            self._compact_probe_bucket(nprobe), ctile, cap, tlo, thi, span,
-            int(self.emb.shape[0]),
+            q, self.centroids, self.c_sq, self.row_cluster, nprobe, ctile, cap,
+            tlo, thi, span, int(self.emb.shape[0]),
         )
         e8, sc = self._xbin8_arrays() if int8 else (self.emb, None)
         try:
@@ -1612,8 +1591,7 @@ class DeviceIvfSearcher:
         tlo, thi, span = self._compact_tile_ranges(ctile)
         return _ivf_compact_approx_impl(
             q, self.centroids, self.c_sq, self.row_cluster, self.emb, self.emb_sq,
-            nprobe, k, max_probe=self._compact_probe_bucket(nprobe), ctile=ctile,
-            cap_tiles=cap, chunk=chunk, recall_target=self.approx_recall_target,
+            nprobe, k, ctile=ctile, cap_tiles=cap, chunk=chunk, recall_target=self.approx_recall_target,
             score_dtype=self.approx_score_dtype, tile_lo=tlo, tile_hi=thi,
             max_cluster_tiles=span, emb_ref=self._ref(),
         )
@@ -1708,8 +1686,9 @@ class DeviceIvfSearcher:
 
         ``auto`` on a cluster-sorted layout with k <= 128 takes K4
         (``pallas``) while its [nt, B, cmax] local mask stays within 256 MB,
-        and K3 (``stream``) beyond: K3 builds the probe test from the
-        [B, kc_pad] mask and scans only the active tiles. On a layout in
+        and K3 (``stream``) beyond: K3 takes the batch's [B, nprobe] probe
+        ids and reads each probed cluster's rows once for the queries that
+        probe it. On a layout in
         file order with k <= 128 it takes K6 (``pallas``) or ``gather`` by
         the rule of ``_unsorted_auto``, measured on the card; k > 128 takes
         ``gather``. ``pallas`` runs K4 where its local mask fits and K6
@@ -1747,24 +1726,23 @@ class DeviceIvfSearcher:
                 raise ValidationError(
                     f"{mode} mode needs a cluster-sorted layout and k <= {MAX_K}"
                 )
-            lcl, tc, _ = self._tile_cluster_table(tile)
-            run = masked_local_topk if mode == "pallas" else stream_masked_topk
-            rows = {} if mode == "pallas" else {
-                "offsets": cluster_offsets(self.row_cluster, self.index.n_clusters)}
-            d2, ids = run(
-                q, self.centroids, self.c_sq, lcl, tc, self.emb,
-                self._pallas_emb_sq(), nprobe, k,
-                max_probe=self._max_probe_bucket(nprobe), tile=tile,
-                emb_ref=self._ref(), **rows,
-            )
+            if mode == "pallas":
+                lcl, tc, _ = self._tile_cluster_table(tile)
+                d2, ids = masked_local_topk(
+                    q, self.centroids, self.c_sq, lcl, tc, self.emb,
+                    self._pallas_emb_sq(), nprobe, k, tile, emb_ref=self._ref(),
+                )
+            else:
+                d2, ids = stream_masked_topk(
+                    q, self.centroids, self.c_sq, self.cluster_offsets, self.emb,
+                    self._pallas_emb_sq(), nprobe, k, emb_ref=self._ref(),
+                )
         elif mode == "pallas":
             if k > MAX_K:
                 raise ValidationError(f"pallas mode needs k <= {MAX_K}")
             d2, ids = masked_topk(
                 q, self.centroids, self.c_sq, self.row_cluster, self.emb,
-                self._pallas_emb_sq(), nprobe, k,
-                max_probe=self._max_probe_bucket(nprobe), tile=tile,
-                emb_ref=self._ref(),
+                self._pallas_emb_sq(), nprobe, k, tile, emb_ref=self._ref(),
             )
         elif mode == "gather":
             d2, ids = _ivf_topk_impl(
@@ -1779,14 +1757,12 @@ class DeviceIvfSearcher:
         elif mode == "masked":
             d2, ids = _ivf_masked_scan_impl(
                 q, self.centroids, self.c_sq, self.row_cluster, self.emb,
-                self.emb_sq, nprobe, k, max_probe=self._max_probe_bucket(nprobe),
-                tile=self.row_tile, emb_ref=self._ref(),
+                self.emb_sq, nprobe, k, tile=self.row_tile, emb_ref=self._ref(),
             )
         elif mode == "approx":
             d2, ids = _ivf_approx_masked_impl(
                 q, self.centroids, self.c_sq, self.row_cluster, self.emb,
-                self.emb_sq, nprobe, k, max_probe=self._max_probe_bucket(nprobe),
-                chunk=self._approx_chunk(q.shape[0]),
+                self.emb_sq, nprobe, k, chunk=self._approx_chunk(q.shape[0]),
                 recall_target=self.approx_recall_target,
                 score_dtype=self.approx_score_dtype,
                 overfetch=self.scan_overfetch, emb_ref=self._ref(),

@@ -17,13 +17,13 @@ mode centres for centroids; queries are rows plus 0.05 N(0, 1). Shapes:
   B = 4096 (the ``deep10m.search.b4096`` cell's batch), bf16.
 
 The C source's shared-memory sizes are held to the wrapper's reckoning
-first. For each shape, the scan's time on the card (CUDA events around 10 calls after two
-of warm-up, the median), with K3's counters where the package has the
-work-item scan, and at B <= 256 K4's route beside it (the local mask's
-gather, K4 and the cross-tile merge). ``--package-root DIR`` takes ``pqvector_tpu_torch`` from
+first. For each shape, the scan's time on the card (CUDA events around 10
+calls after two of warm-up, the median), with K3's trace counters, and at
+B <= 256 K4's route beside it (the local mask's gather, K4 and the
+cross-tile merge). ``--package-root DIR`` takes ``pqvector_tpu_torch`` from
 another checkout (say, the parent commit unpacked with ``git archive`` under
-``build/``), whose K3 takes a probe mask and a tile schedule; the inputs are
-the same tensors, made here from seeds. ``--digest-file FILE`` holds each
+``build/``); the inputs, the probe ids and mask among them, are the same
+tensors, made here from seeds. ``--digest-file FILE`` holds each
 shape's digest to the one FILE has under its name, fails where one differs
 and adds new names: run parent, change, change, parent with one file. Each
 process prints one JSON line a shape.
@@ -39,6 +39,7 @@ import statistics
 import sys
 
 import numpy as np
+from torch_score_tile_check import probe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,7 +47,7 @@ SHAPES = {  # name: (rows, d, clusters, nprobe, [(B, storage)])
     "1m128": (1_000_000, 128, 1024, 8, [(256, "bf16"), (256, "f32")]),
     "10m96": (10_000_000, 96, 4096, 4, [(256, "bf16"), (4096, "bf16")]),
 }
-TILE, K, MAX_PROBE = 1024, 10, 128
+TILE, K = 1024, 10
 
 
 def make_rows(torch, n, d, clusters, seed):
@@ -104,14 +105,13 @@ def main() -> None:
 
     from pqvector_tpu_torch.kernels import scan_topk as sc
     from pqvector_tpu_torch.kernels import stream_topk as st
+    from pqvector_tpu_torch.utils import profiling
 
     assert os.path.abspath(st.__file__).startswith(os.path.abspath(args.package_root))
-    items_scan = hasattr(st, "work_items_plain")
     lib = st._build.load()  # both packages build before anything is timed
-    if items_scan:  # the C source's shared memory is the wrapper's reckoning
-        for flag, backend in ((0, "fma"), (1, "wgmma")):
-            for k in (1, 10, 128):
-                assert lib.pqv_stream_masked_topk_smem(flag, k) == st.item_scan_smem(backend, k)
+    for flag, backend in ((0, "fma"), (1, "wgmma")):  # the C source's shared memory
+        for k in (1, 10, 128):
+            assert lib.pqv_stream_masked_topk_smem(flag, k) == st.item_scan_smem(backend, k)
     card = torch.cuda.get_device_name(0)
     want = {}
     if args.digest_file and os.path.exists(args.digest_file):
@@ -131,14 +131,8 @@ def main() -> None:
             emb = x if storage == "f32" else x.to(torch.bfloat16)
             q = q_all[:b].contiguous()
             qf = q.to(emb.dtype)
-            if items_scan:
-                probe = st._probe_ids(q, centres, c_sq, nprobe, MAX_PROBE)
-                offsets = st.cluster_offsets(rc, clusters)
-                a3 = (qf, emb, sq, offsets, probe, K)
-            else:
-                kc_pad = -(-(clusters + 1) // 128) * 128
-                mask = st._probe_mask(q, centres, c_sq, nprobe, MAX_PROBE, kc_pad)
-                a3 = (qf, emb, sq, lcl, tc, mask, st._tile_schedule(mask, tc), K, TILE)
+            ids, mask = probe(torch, q, centres, c_sq, nprobe)
+            a3 = (qf, emb, sq, st.cluster_offsets(rc, clusters), ids, K)
             got = st.stream_masked_scan(*a3)
             torch.cuda.synchronize()
             name = f"{shape} {storage} B={b} nprobe={nprobe}"
@@ -152,22 +146,20 @@ def main() -> None:
                     "digest": digests[name], "same_as_file": want.get(name, digests[name])
                     == digests[name]}
             if b <= 256:  # K4's route at this batch: the local mask's gather, K4, the merge
-                kc_pad = -(-(clusters + 1) // 128) * 128
-                mask = st._probe_mask(q, centres, c_sq, nprobe, MAX_PROBE, kc_pad)
-
                 def k4_chain():
                     lmask = mask[:, tc.long()].permute(1, 0, 2).contiguous()
                     return sc._final_merge(*sc.masked_local_scan(qf, emb, sq, lcl, lmask, K,
                                                                  TILE), K)
 
                 line["k4_chain_ms"] = round(device_ms(torch, k4_chain), 4)
-            if items_scan:
-                stats = torch.zeros(2, dtype=torch.int32, device="cuda")
-                st._stream_masked_cuda(*a3, stats=stats)
-                items, chunks = stats.tolist()
-                line.update(items=items, chunks=chunks,
-                            rows_read_pct=round(100.0 * chunks * 128 / n, 2),
-                            segments=st.masked_segments(b * nprobe))
+            profiling.clear_store()
+            with profiling.tracing():
+                st.stream_masked_scan(*a3)
+            items, chunks = (profiling.read_store()["counters"][key] for key in st.K3_COUNTERS)
+            profiling.clear_store()
+            line.update(items=items, chunks=chunks,
+                        rows_read_pct=round(100.0 * chunks * 128 / n, 2),
+                        segments=st.masked_segments(b * nprobe))
             print(json.dumps(line), flush=True)
             del emb, qf, got, a3
         del x, sq, rc, lcl, tc

@@ -54,6 +54,7 @@ def one_build(flag: str, rows: int) -> None:
     from pqvector_tpu_torch.kernels import scan_topk as sc
     from pqvector_tpu_torch.kernels import stream_topk as st
     from pqvector_tpu_torch.kernels import tilemin as tm
+    from pqvector_tpu_torch.kernels.probe import probe_ids, probe_mask
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
@@ -89,8 +90,8 @@ def one_build(flag: str, rows: int) -> None:
     out = [flag or "as built", cs.card_line()]
     for b in (256, 16):
         q = q_all[:b].contiguous()
-        mask = st._probe_mask(q, centres, c_sq, 8, 128, -(-(modes + 1) // 128) * 128)
-        probe = st._probe_ids(q, centres, c_sq, 8, 128)
+        mask = probe_mask(q, centres, c_sq, 8)
+        probe = probe_ids(q, centres, c_sq, 8)
         offsets = st.cluster_offsets(torch.from_numpy(rc).to(dev), modes)
         lmask = mask[:, tc.long()].permute(1, 0, 2).contiguous()
         for name, emb, embf in (("bf16", x.to(torch.bfloat16), xf.to(torch.bfloat16)),

@@ -124,7 +124,7 @@ def check_shared_memory(lib) -> None:
                 want = score_tile.smem_bytes("K4", backend, nq, k, words)
                 assert lib.pqv_masked_local_topk_smem(flag, nq, k, words) == want
             assert lib.pqv_stream_masked_topk_smem(flag, k) == st.item_scan_smem(backend, k)
-            words = score_tile.table_words("K4", backend, nq, k, 256)
+            words = score_tile.table_words(backend, nq, k, 256)
             assert score_tile.smem_bytes("K4", backend, nq, k, words) <= score_tile.SMEM_LIMIT
     assert lib.pqv_assign_smem() == score_tile.smem_bytes("K1", "fma", 128)
     assert lib.pqv_assign_bf16_smem(0) == score_tile.smem_bytes("K1", "fma_bf16", 128)
@@ -293,6 +293,17 @@ def main() -> None:
     print("ok")
 
 
+def probe(torch, q, centres, c_sq, nprobe):
+    """-> (ids [B, nprobe] int32, mask [B, kc_pad] f32): each query's nearest
+    centres, ties to the lower id, made here so that two versions of the
+    package scan the same probe."""
+    ids = torch.argsort(c_sq[None, :] - 2.0 * (q @ centres.T), dim=1, stable=True)
+    ids = ids[:, :nprobe].to(torch.int32)
+    kc_pad = -(-(centres.shape[0] + 1) // 128) * 128
+    mask = torch.zeros((q.shape[0], kc_pad), device=q.device)
+    return ids, mask.scatter_(1, ids.long(), 1.0)
+
+
 def masked_section(torch, cs, sc, st, x, sq, centres, label, rng, n, digests) -> None:
     """K4 and K3 on the cluster-sorted rows ``x`` (mode ``label[r]`` for row r,
     the modes' ``centres`` for centroids): times, skip shares and digests."""
@@ -314,29 +325,24 @@ def masked_section(torch, cs, sc, st, x, sq, centres, label, rng, n, digests) ->
     noise = torch.from_numpy(rng.standard_normal((4096, d)).astype(np.float32)).to(dev)
     q_all = x[pick] + 0.05 * noise
     c_sq = (centres * centres).sum(1)
-    kc_pad = -(-(kc + 1) // 128) * 128
-    scored_chunks = getattr(sc, "scored_chunks", None)  # an older package has none
+    offsets = st.cluster_offsets(torch.from_numpy(rc).to(dev), kc)
     for b in (1, 16, 64, 256, 4096):
         q = q_all[:b].contiguous()
-        mask = st._probe_mask(q, centres, c_sq, nprobe, 128, kc_pad)
-        probe = st._probe_ids(q, centres, c_sq, nprobe, 128)
-        offsets = st.cluster_offsets(torch.from_numpy(rc).to(dev), kc)
+        ids, mask = probe(torch, q, centres, c_sq, nprobe)
         lmask = mask[:, tc.long()].permute(1, 0, 2).contiguous()
         for name, emb in (("f32", x), ("bf16", x.to(torch.bfloat16))):
             qf = q.to(emb.dtype)
-            if scored_chunks is not None:
-                queries = sc.masked_geometry("K4", qf, emb, 10, tc.shape[1])[1]
-                chunks = scored_chunks(lmask > 0.5, lcl, tile, queries)
-                items, item_chunks = st.scored_items(offsets, probe,
-                                                     st.masked_segments(probe.numel()))
-                print(f"K4/K3 {name} B={b} nprobe={nprobe}: K4's blocks of {queries} queries "
-                      f"score {int(chunks.any(2).sum())} of "
-                      f"{chunks.shape[0] * chunks.shape[1]} (block, tile) pairs and "
-                      f"{int(chunks.sum())} of {chunks.numel()} (block, chunk) pairs; K3 "
-                      f"{items} items and {item_chunks} (item, chunk) pairs")
+            queries = sc.masked_geometry("K4", qf, emb, 10, tc.shape[1])[1]
+            chunks = sc.scored_chunks(lmask > 0.5, lcl, tile, queries)
+            items, item_chunks = st.scored_items(offsets, ids, st.masked_segments(ids.numel()))
+            print(f"K4/K3 {name} B={b} nprobe={nprobe}: K4's blocks of {queries} queries "
+                  f"score {int(chunks.any(2).sum())} of "
+                  f"{chunks.shape[0] * chunks.shape[1]} (block, tile) pairs and "
+                  f"{int(chunks.sum())} of {chunks.numel()} (block, chunk) pairs; K3 "
+                  f"{items} items and {item_chunks} (item, chunk) pairs")
             for k in (10, 100):
                 a4 = (qf, emb, sq, lcl, lmask, k, tile)
-                a3 = (qf, emb, sq, offsets, probe, k)
+                a3 = (qf, emb, sq, offsets, ids, k)
                 g4, g3 = sc.masked_local_scan(*a4), st.stream_masked_scan(*a3)
                 torch.cuda.synchronize()
                 m4 = sc._final_merge(*g4, k)
@@ -368,7 +374,6 @@ def k6_section(torch, cs, sc, st, x, sq, centres, label, n, digests) -> None:
     sqf[:n] = sq[perm]
     rc = torch.full((n_pad,), kc, dtype=torch.int32, device=dev)
     rc[:n] = label[perm].to(torch.int32)
-    kc_pad = -(-(kc + 1) // 128) * 128
     c_sq = (centres * centres).sum(1)
     g = np.random.default_rng(12)
     pick = torch.from_numpy(g.integers(0, n, 4096)).to(dev)
@@ -378,7 +383,7 @@ def k6_section(torch, cs, sc, st, x, sq, centres, label, n, digests) -> None:
         kind = "fp32" if name == "f32" else "bf16"
         for b in (1, 16, 64, 256, 4096):
             q = q_all[:b].contiguous()
-            mask = st._probe_mask(q, centres, c_sq, nprobe, 128, kc_pad)
+            _, mask = probe(torch, q, centres, c_sq, nprobe)
             qf = q.to(emb.dtype)
             for k in (10, 100):
                 args = (qf, emb, sqf, rc, mask, k, tile)

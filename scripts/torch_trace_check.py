@@ -117,7 +117,7 @@ def k4_check(searcher, q, k: int, nprobe: int) -> dict:
     from pqbench import spans
     from pqvector_tpu_torch.kernels import scan_topk as sc
     from pqvector_tpu_torch.kernels import score_tile
-    from pqvector_tpu_torch.kernels.stream_topk import _probe_mask
+    from pqvector_tpu_torch.kernels.probe import probe_mask
 
     profiling.clear_store()
     with profiling.tracing():
@@ -128,9 +128,7 @@ def k4_check(searcher, q, k: int, nprobe: int) -> dict:
     qd = searcher._check_queries(q)
     tile = searcher._scan_tile()
     lcl, tc, cmax = searcher._tile_cluster_table(tile)
-    kc_pad = -(-(searcher.centroids.shape[0] + 1) // 128) * 128
-    mask = _probe_mask(qd, searcher.centroids, searcher.c_sq, nprobe,
-                       searcher._max_probe_bucket(nprobe), kc_pad)
+    mask = probe_mask(qd, searcher.centroids, searcher.c_sq, nprobe)
     lmask = mask[:, tc.long()].permute(1, 0, 2).contiguous()
     _, queries, words, _ = sc.masked_geometry("K4", qd.to(searcher.emb.dtype), searcher.emb,
                                               k, cmax)

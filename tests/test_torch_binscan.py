@@ -334,7 +334,7 @@ def test_compact_select_both_branches_match_jax():
             want = j_select(jnp.asarray(q), js.centroids, js.c_sq, js.row_cluster,
                             jnp.int32(nprobe), 8, ctile, cap, jlo, jhi, jspan, n_pad)
             got = t_select(torch.from_numpy(q), ts.centroids, ts.c_sq, ts.row_cluster,
-                           nprobe, 8, ctile, cap, tlo, thi, tspan, n_pad)
+                           nprobe, ctile, cap, tlo, thi, tspan, n_pad)
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 

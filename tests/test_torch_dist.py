@@ -176,9 +176,9 @@ def test_shard_work_runs_in_each_shards_device_scope(monkeypatch, data, idx1):
     calls = []
     real_k3 = search_mod.stream_masked_topk
 
-    def k3(q, centroids, c_sq, lcl, tc, emb, *args, **kwargs):
+    def k3(q, centroids, c_sq, offsets, emb, *args, **kwargs):
         calls.append((len(entered), entered[-1] if entered else None, emb))
-        return real_k3(q, centroids, c_sq, lcl, tc, emb, *args, **kwargs)
+        return real_k3(q, centroids, c_sq, offsets, emb, *args, **kwargs)
 
     monkeypatch.setattr(search_mod, "device_scope", Recorder)
     monkeypatch.setattr(search_mod, "stream_masked_topk", k3)
@@ -845,6 +845,28 @@ def test_layout_equals_the_jax_searchers_by_shard(jmesh, mesh, data, idx0, near_
         # the JAX tile tables pad to 128 lanes with the sentinel cluster
         jtc = np.asarray(want_s.tc)
         assert (jtc[:, got_s._cmax:] == want_s.index.n_clusters).all()
+
+
+@pytest.mark.parametrize("kind", ["rows", "spilled rows", "2-D"])
+def test_each_shards_offsets_are_its_rows(mesh, data, idx0, kind):
+    """K3 reads each shard's ``offsets``, made once at set-up: the first
+    row of each cluster in the shard's block, each row's cluster as its tile
+    tables give it, then the first pad row."""
+    _, index = idx0
+    if kind == "2-D":
+        s = dist.DistributedClusterIvfSearcher(
+            index, data, mesh=dist.make_mesh_2d(4, 2, device=CPU), tile=8)
+    elif kind == "spilled rows":
+        s = dist.DistributedIvfSearcher.with_spill(index, data, spill=0.3, mesh=mesh, tile=8)
+    else:
+        s = dist.DistributedIvfSearcher(index, data, mesh=mesh, tile=8)
+    kc = s.index.n_clusters
+    assert len(s.offsets) == s.mesh.size
+    for tc, lcl, offsets in zip(s.tc, s.lcl, s.offsets):
+        rows = tc.gather(1, lcl.view(tc.shape[0], -1).long()).reshape(-1).numpy()
+        assert (np.diff(rows) >= 0).all() and rows[-1] == kc  # sorted, a pad row last
+        assert offsets.dtype == torch.int32
+        np.testing.assert_array_equal(offsets.numpy(), np.searchsorted(rows, np.arange(kc + 1)))
 
 
 def test_mesh_size_invariance(data, idx1):

@@ -2,7 +2,8 @@
 of ``csrc/stream_topk.cu``'s ``k3_plan_kernel``) against a numpy reference,
 and K3's scan item by item (``scan_items_plain``: each item's own lists in
 its queries' partial slots, then the merge) against the plain masked scan,
-whatever the order of the items.
+whatever the order of the items; the probe ids K3 takes, and the offsets
+the searcher holds for it.
 
 Rows lie on a 1/4 grid, so every score is exact and the two scans must
 agree bit for bit. The layouts have empty clusters, clusters probed by more
@@ -13,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from pqvector_tpu_torch import DeviceIvfSearcher, IvfIndex
 from pqvector_tpu_torch.kernels import stream_topk as tst
+from pqvector_tpu_torch.kernels.probe import mask_width, probe_ids, probe_mask
 
 Q = tst.ITEM_QUERIES
 
@@ -154,35 +157,45 @@ def test_scored_items_count_the_items_with_rows_and_their_chunks(
         len(with_rows), sum(-(-r // 128) for r in with_rows))
 
 
-@pytest.mark.parametrize("nprobe,max_probe", [(1, 12), (3, 12), (12, 16)])
-def test_probe_ids_are_the_probe_masks_bits(nprobe, max_probe):
+@pytest.mark.parametrize("nprobe", [1, 3, 12])
+def test_probe_ids_are_the_probe_masks_bits(nprobe):
     rng = np.random.default_rng(nprobe)
     cents = torch.from_numpy(rng.integers(-8, 9, (16, 8)).astype(np.float32) / 4)
     q = torch.from_numpy(rng.integers(-8, 9, (9, 8)).astype(np.float32) / 4)
     c_sq = (cents * cents).sum(1)
-    ids = tst._probe_ids(q, cents, c_sq, nprobe, max_probe)
-    mask = tst._probe_mask(q, cents, c_sq, nprobe, max_probe, 128)
-    assert ids.dtype == torch.int32 and ids.shape == (9, nprobe)
+    ids = probe_ids(q, cents, c_sq, nprobe)
+    mask = probe_mask(q, cents, c_sq, nprobe)
+    assert ids.dtype == torch.int32 and ids.shape == (9, nprobe) and ids.is_contiguous()
+    assert mask.shape == (9, mask_width(16)) == (9, 128)
     want = torch.zeros_like(mask).scatter_(1, ids.long(), 1.0)
     assert torch.equal(want, mask)
 
 
-def test_offsets_from_the_tile_tables_equal_those_from_the_rows():
-    lab = np.sort(np.random.default_rng(0).integers(0, 9, 1000)).astype(np.int32)
-    lab[lab == 4] = 5
-    rc = np.full(1024, 9, np.int32)
-    rc[:1000] = lab
-    parts = rc.reshape(-1, 256)
-    uniques = [np.unique(p) for p in parts]
-    tc = np.full((4, max(u.size for u in uniques)), 9, np.int32)
-    lcl = np.zeros(parts.shape, np.int32)
-    for t, u in enumerate(uniques):
-        tc[t, : u.size] = u
-        lcl[t] = np.searchsorted(u, parts[t])
-    got = tst._tile_offsets(torch.from_numpy(lcl.reshape(-1)), torch.from_numpy(tc), 9)
-    want = np.searchsorted(rc, np.arange(10))
-    np.testing.assert_array_equal(got.numpy(), want)
-    assert got[4] == got[5]  # cluster 4 is empty
+@pytest.mark.parametrize("empty", [(), (0, 5, 6)])
+def test_the_searcher_holds_k3s_offsets_and_builds_no_tile_table(empty):
+    """A cluster-sorted searcher computes ``cluster_offsets`` once, at set-up;
+    ``search(mode="stream")`` reads them and builds no tile table. A layout
+    in file order holds none."""
+    rng = np.random.default_rng(len(empty))
+    n, d, clusters = 700, 8, 9
+    x = rng.integers(-8, 9, (n, d)).astype(np.float32) / 4
+    keep = np.setdiff1d(np.arange(clusters), np.asarray(empty, int))
+    assign = rng.choice(keep, n)
+    cents = np.stack([x[assign == c].mean(0) if (assign == c).any() else x[0]
+                      for c in range(clusters)])
+    index = IvfIndex.from_assignments(cents, assign)
+    s = DeviceIvfSearcher(index, x, cluster_sorted=True, device="cpu", row_tile=128)
+    rc = s.row_cluster.numpy()
+    want = np.searchsorted(rc, np.arange(clusters + 1), side="left")
+    assert s.cluster_offsets.dtype == torch.int32
+    np.testing.assert_array_equal(s.cluster_offsets.numpy(), want)
+    assert all(s.cluster_offsets[c] == s.cluster_offsets[c + 1] for c in empty)
+    d_s, i_s = s.search(x[:7], 5, 3, mode="stream")
+    assert s._tile_tables == {}
+    d_m, i_m = s.search(x[:7], 5, 3, mode="masked")
+    np.testing.assert_array_equal(i_s, i_m)
+    file_order = DeviceIvfSearcher(index, x, device="cpu", row_tile=128)
+    assert not file_order._row_cluster_sorted and file_order.cluster_offsets is None
 
 
 def test_item_scan_fits_two_blocks_an_sm_up_to_k_128():

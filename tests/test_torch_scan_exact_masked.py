@@ -22,7 +22,8 @@ from pqvector_tpu.query.device import DeviceIvfSearcher as JSearcher
 from pqvector_tpu_torch import DeviceIvfSearcher, ValidationError
 from pqvector_tpu_torch.convert import index_from_reference, searcher_state_from_reference
 from pqvector_tpu_torch.kernels import scan_topk as tsc
-from pqvector_tpu_torch.kernels.stream_topk import _probe_mask
+from pqvector_tpu_torch.kernels.probe import probe_mask
+from pqvector_tpu_torch.utils import profiling
 
 TILE = 256
 
@@ -105,7 +106,7 @@ def test_masked_topk_matches_jax(dtype, nprobe, k):
     )
     got = tsc.masked_topk(
         torch.from_numpy(q), t["centroids"], t["c_sq"], t["row_cluster"], t["emb"],
-        t["emb_sq"], nprobe, k, max_probe=12, tile=TILE, emb_ref=t["_emb_ref"],
+        t["emb_sq"], nprobe, k, TILE, emb_ref=t["_emb_ref"],
     )
     assert_topk_match(tuple(map(_np, got)), tuple(map(_np, want)), q)
 
@@ -133,7 +134,7 @@ def test_scan_per_tile_oracle(masked):
     k = 20
     emb, sq = a["emb"].astype(np.float64), a["emb_sq"].astype(np.float64)
     if masked:
-        mask = _probe_mask(qt, t["centroids"], t["c_sq"], 2, 6, 128)
+        mask = probe_mask(qt, t["centroids"], t["c_sq"], 2)
         d, i = tsc.masked_scan(qt, t["emb"], t["emb_sq"], t["row_cluster"], mask, k, TILE)
         probed = mask.numpy()[:, a["row_cluster"]] > 0.5
     else:
@@ -215,7 +216,7 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, masked):
     qt = torch.from_numpy(q).to(cuda_device)
     qf = qt.to(t["emb"].dtype)
     if masked:
-        mask = _probe_mask(qt, t["centroids"], t["c_sq"], 4, 64, 128)
+        mask = probe_mask(qt, t["centroids"], t["c_sq"], 4)
         args = (qf, t["emb"], t["emb_sq"], t["row_cluster"], mask, 30, TILE)
         got, want = tsc.masked_scan(*args), tsc.masked_scan_plain(*args)
     else:
@@ -283,7 +284,7 @@ def test_k6_rule_is_k4s_on_a_sorted_layout():
         lcl[t] = np.searchsorted(u, parts[t])
     qt = torch.from_numpy(q)
     cent_t = torch.from_numpy(cent)
-    mask = _probe_mask(qt, cent_t, (cent_t * cent_t).sum(1), 3, 40, 128)
+    mask = probe_mask(qt, cent_t, (cent_t * cent_t).sum(1), 3)
     lmask = mask[:, torch.from_numpy(tc).long()].permute(1, 0, 2)
     for queries in (64, 128):
         k4 = tsc.scored_chunks(lmask > 0.5, torch.from_numpy(lcl.reshape(-1)), tile, queries)
@@ -314,20 +315,25 @@ def test_k6_units_fill_one_wave(batch, nt, queries, kc_pad, k, want):
 @pytest.mark.parametrize("k,batch", [(10, 3), (10, 130), (128, 70)])
 def test_k6_equals_plain_and_counts_its_chunks_on_card(cuda_device, dtype, k, batch):
     """K6 with its probe table (and without it at k = 128 on wgmma) equals
-    its plain version on grid data in file order, and its counters equal
-    ``masked_scan_chunks``'."""
+    its plain version on grid data in file order, and its trace counters
+    equal ``masked_scan_chunks``'."""
     x, _, cent = _grid_data(20_000, 64, 40, seed=8)
     _, _, t = _layout(x, cent, dtype)
     t = {key: None if v is None else v.to(cuda_device) for key, v in t.items()}
     rng = np.random.default_rng(batch)
     qt = torch.from_numpy(x[rng.integers(0, len(x), batch)] + 0.25).to(cuda_device)
     qf = qt.to(t["emb"].dtype)
-    mask = _probe_mask(qt, t["centroids"], t["c_sq"], 4, 64, 128)
+    mask = probe_mask(qt, t["centroids"], t["c_sq"], 4)
     args = (qf, t["emb"], t["emb_sq"], t["row_cluster"], mask, k, TILE)
     _, queries, words, _ = tsc.masked_geometry("K6", qf, t["emb"], k, 128)
-    stats = torch.zeros(2, dtype=torch.int32, device=cuda_device)
-    got, want = tsc.masked_scan(*args, stats=stats), tsc.masked_scan_plain(*args)
+    profiling.clear_store()
+    with profiling.tracing():
+        got = tsc.masked_scan(*args)
+    counts = profiling.read_store()["counters"]
+    profiling.clear_store()
+    want = tsc.masked_scan_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
     rule = tsc.masked_scan_chunks(mask, t["row_cluster"], TILE, queries, table=bool(words))
-    assert stats.tolist() == [int(rule.any(2).sum()), int(rule.sum())]
+    assert [counts[key] for key in tsc.K6_COUNTERS] == [int(rule.any(2).sum()),
+                                                         int(rule.sum())]

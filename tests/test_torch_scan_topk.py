@@ -29,7 +29,8 @@ from pqvector_tpu.kernels import scan_topk as jsc
 from pqvector_tpu.query.device import DeviceIvfSearcher as JSearcher
 from pqvector_tpu_torch.convert import searcher_state_from_reference
 from pqvector_tpu_torch.kernels import scan_topk as tsc
-from pqvector_tpu_torch.kernels.stream_topk import _probe_mask
+from pqvector_tpu_torch.utils import profiling
+from pqvector_tpu_torch.kernels.probe import probe_mask
 from test_torch_merge import SCAN_LIKE, scan_like_lists
 
 TILE = 256
@@ -95,8 +96,8 @@ def test_masked_local_matches_jax(dtype, nprobe, k):
     )
     got = tsc.masked_local_topk(
         torch.from_numpy(q), t["centroids"], t["c_sq"], t["local_cluster"],
-        t["tile_clusters"], t["emb"], t["emb_sq"], nprobe, k, max_probe=12,
-        tile=TILE, emb_ref=t["_emb_ref"],
+        t["tile_clusters"], t["emb"], t["emb_sq"], nprobe, k, TILE,
+        emb_ref=t["_emb_ref"],
     )
     assert_topk_match(tuple(map(_np, got)), tuple(map(_np, want)), q)
 
@@ -107,7 +108,7 @@ def test_masked_local_scan_per_tile_oracle():
     x, q, cent = _grid_data(700, 8, 6, seed=4)
     a, t = _layout(x, cent, jnp.float32)
     qt = torch.from_numpy(q)
-    mask = _probe_mask(qt, t["centroids"], t["c_sq"], 2, 6, 128)
+    mask = probe_mask(qt, t["centroids"], t["c_sq"], 2)
     lmask = mask[:, t["tile_clusters"].long()].permute(1, 0, 2).contiguous()
     k = 20
     d, i = tsc.masked_local_scan(qt, t["emb"], t["emb_sq"], t["local_cluster"], lmask, k, TILE)
@@ -197,11 +198,14 @@ def test_skip_rule_adversarial_single_pair():
 
 
 def test_k3s_probe_table_is_k4s_local_mask():
-    """K3 builds its table from mask[b, tile_clusters[t, slot]]: K4's lmask."""
+    """K4's local mask is the probe mask through the tile tables:
+    lmask[t, b, slot] = mask[b, tile_clusters[t, slot]] (K3 keeps no such
+    table: it reads the probed clusters' rows). A tile K4 scores holds a
+    cluster some query probes."""
     x, q, cent = _grid_data(1500, 16, 12, seed=3)
     _, t = _layout(x, cent, jnp.float32)
     qt = torch.from_numpy(q)
-    mask = _probe_mask(qt, t["centroids"], t["c_sq"], 3, 12, 128)
+    mask = probe_mask(qt, t["centroids"], t["c_sq"], 3)
     tc = t["tile_clusters"].long()
     lmask = mask[:, tc].permute(1, 0, 2).contiguous()
     nt, cmax = tc.shape
@@ -209,11 +213,8 @@ def test_k3s_probe_table_is_k4s_local_mask():
         for slot in range(cmax):
             assert torch.equal(lmask[tile_id, :, slot], mask[:, tc[tile_id, slot]])
     scored = tsc.scored_chunks(lmask > 0.5, t["local_cluster"], TILE, 64)
-    # a tile with no scored chunk is one the schedule leaves out or no query probes
-    from pqvector_tpu_torch.kernels.stream_topk import _tile_schedule
-
-    sched = _tile_schedule(mask, t["tile_clusters"])
-    active = set(sched[1 : 1 + int(sched[0])].tolist())
+    probed = (mask > 0.5).any(0)
+    active = {tile_id for tile_id in range(nt) if probed[tc[tile_id]].any()}
     assert {int(i) for i in scored.any(2).any(1).nonzero().flatten()} <= active
 
 
@@ -221,12 +222,12 @@ def test_masked_geometry_picks_table_and_backend():
     emb = torch.zeros((1024, 128), dtype=torch.bfloat16)
     qf = torch.zeros((256, 128), dtype=torch.bfloat16)
     assert tsc.masked_geometry("K4", qf, emb, 10, 4) == ("wgmma", 128, 1, 112_736)
-    assert tsc.masked_geometry("K3", qf, emb, 128, 4)[:3] == ("wgmma", 128, 0)
+    assert tsc.masked_geometry("K4", qf, emb, 128, 4)[:3] == ("wgmma", 128, 0)
     assert tsc.masked_geometry("K4", qf[:64].float(), emb.float(), 10, 300)[:3] == ("fma", 64, 0)
     # the fp32 patch serves 64 queries a block whatever the batch
     assert tsc.masked_geometry("K4", qf[:, :100].contiguous(), emb[:, :100].contiguous(),
                                10, 40)[:3] == ("fma", 64, 2)
-    assert tsc.masked_geometry("K3", qf.float(), emb.float(), 100, 4)[:3] == ("fma", 64, 1)
+    assert tsc.masked_geometry("K4", qf.float(), emb.float(), 100, 4)[:3] == ("fma", 64, 1)
 
 
 def test_stats_argument_is_checked():
@@ -379,7 +380,7 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype):
     _, t = _layout(x, cent, dtype)
     t = {k: None if v is None else v.to(cuda_device) for k, v in t.items()}
     qt = torch.from_numpy(q).to(cuda_device)
-    mask = _probe_mask(qt, t["centroids"], t["c_sq"], 4, 64, 128)
+    mask = probe_mask(qt, t["centroids"], t["c_sq"], 4)
     lmask = mask[:, t["tile_clusters"].long()].permute(1, 0, 2).contiguous()
     args = (qt.to(t["emb"].dtype), t["emb"], t["emb_sq"], t["local_cluster"], lmask, 30, TILE)
     got = tsc.masked_local_scan(*args)
@@ -400,7 +401,8 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype):
 ])
 def test_kernel_counts_the_chunks_the_rule_scores(cuda_device, dtype, nt, tile, cmax, b, k):
     """Random slots and probes: K4 equals its plain version on grid data and
-    its counters equal ``scored_chunks`` (whole tiles where no table fits)."""
+    its trace counters equal ``scored_chunks`` (whole tiles where no table
+    fits)."""
     rng = np.random.default_rng(nt * tile + cmax)
     n_pad, d = nt * tile, 16
     emb = torch.from_numpy(rng.integers(-8, 9, (n_pad, d)).astype(np.float32) / 4).to(
@@ -411,8 +413,11 @@ def test_kernel_counts_the_chunks_the_rule_scores(cuda_device, dtype, nt, tile, 
     lcl = _random_layout(rng, nt, tile, cmax, sort=False, pad_rows=0).to(cuda_device)
     lmask = torch.from_numpy((rng.random((nt, b, cmax)) < 0.02).astype(np.float32)).to(
         cuda_device)
-    stats = torch.zeros(2, dtype=torch.int32, device=cuda_device)
-    got = tsc.masked_local_scan(qf, emb, sq, lcl, lmask, k, tile, stats=stats)
+    profiling.clear_store()
+    with profiling.tracing():
+        got = tsc.masked_local_scan(qf, emb, sq, lcl, lmask, k, tile)
+    counts = profiling.read_store()["counters"]
+    profiling.clear_store()
     want = tsc.masked_local_scan_plain(qf, emb, sq, lcl, lmask, k, tile)
     torch.cuda.synchronize()
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
@@ -420,4 +425,5 @@ def test_kernel_counts_the_chunks_the_rule_scores(cuda_device, dtype, nt, tile, 
     chunks = tsc.scored_chunks(lmask > 0.5, lcl, tile, queries)
     if not words:
         chunks = chunks.any(2, keepdim=True).expand(-1, -1, -(-tile // 128))
-    assert stats.tolist() == [int(chunks.any(2).sum()), int(chunks.sum())]
+    assert [counts[key] for key in tsc.K4_COUNTERS] == [int(chunks.any(2).sum()),
+                                                         int(chunks.sum())]

@@ -1,9 +1,9 @@
-"""The score tile shared by K9, K5, K4, K3, K2 and K1 (``csrc/score_tile.cuh``,
+"""The score tile shared by K9, K5, K4, K2 and K1 (``csrc/score_tile.cuh``,
 ``kernels/score_tile.py``): the rule on shapes that picks the back end, the
 launch geometry and the dynamic shared memory as Python functions (for K2
 also the split of the rows into runs, ``stream_topk.scan_units``; for K4 the
-width of the probe table; for K3 the segments of a probed cluster's rows,
-``stream_topk.masked_segments`` and ``work_items_plain``); the
+width of the probe table; K3's item tiles, ``stream_topk.item_scan_smem``,
+on the card); the
 wrappers on CPU tensors against the JAX package's ``pallas_tile_min`` and
 ``pallas_exact_topk`` in interpret mode at the shapes the 128 x 128 tile
 makes awkward; and, on the card, the kernels against their plain versions
@@ -211,22 +211,20 @@ def test_k2_launch_geometry_at_the_main_shape(batch, dtype, d, k, blocks):
     assert score_tile.grid_blocks(batch, backend, units) == blocks
 
 
-# ---------------------------------------------------------------- K4 and K3
+# ---------------------------------------------------------------- K4
 
 
 @pytest.mark.parametrize("k", range(1, 129))
 def test_masked_kernels_shared_memory_fits_for_every_k(k):
-    """K4 and K3 hold K5's and K2's block plus 64 bytes of flags and, where it
-    fits, a probe table of one bit per slot: its width is ceil(cmax / 32)
-    words up to 8, else 0 (the table is then read from device memory), and
-    the launch is within the limit either way."""
+    """K4 holds K5's block plus 64 bytes of flags and, where it fits, a
+    probe table of one bit per slot: its width is ceil(cmax / 32) words up
+    to 8, else 0 (the table is then read from device memory), and the
+    launch is within the limit either way."""
     for backend, queries in (("fma", 64), ("fma", 128), ("wgmma", 128)):
         base = score_tile.smem_bytes("K5", backend, queries, k)
         for cmax in (1, 2, 32, 33, 150, 256, 257, 5000):
-            words = score_tile.table_words("K4", backend, queries, k, cmax)
-            assert words == score_tile.table_words("K3", backend, queries, k, cmax)
+            words = score_tile.table_words(backend, queries, k, cmax)
             size = score_tile.smem_bytes("K4", backend, queries, k, words)
-            assert size == score_tile.smem_bytes("K3", backend, queries, k, words)
             assert size <= score_tile.SMEM_LIMIT
             assert words in (0, -(-cmax // 32)) and words <= score_tile.TABLE_WORDS_MAX
             if cmax > 32 * score_tile.TABLE_WORDS_MAX:
@@ -243,14 +241,14 @@ def test_masked_kernels_table_at_the_corners():
     """k = 128 at 128 queries on wgmma leaves 512 bytes: no table. The served
     shape (k = 10, a few clusters a tile) holds one word a query and two
     blocks on an SM."""
-    assert score_tile.table_words("K4", "wgmma", 128, 128, 2) == 0
+    assert score_tile.table_words("wgmma", 128, 128, 2) == 0
     assert score_tile.smem_bytes("K4", "wgmma", 128, 128, 0) == 231_936 + 64
-    assert score_tile.table_words("K4", "fma", 128, 128, 2) == 1
-    assert score_tile.table_words("K4", "wgmma", 128, 10, 4) == 1
+    assert score_tile.table_words("fma", 128, 128, 2) == 1
+    assert score_tile.table_words("wgmma", 128, 10, 4) == 1
     served = score_tile.smem_bytes("K4", "wgmma", 128, 10, 1)
     assert served == 112_736 and score_tile.wave_blocks(served) == 264
-    assert score_tile.stages("K4", "wgmma") == score_tile.stages("K3", "wgmma") == 2
-    assert score_tile.stages("K4", "fma") == score_tile.stages("K3", "fma") == 3
+    assert score_tile.stages("K4", "wgmma") == 2
+    assert score_tile.stages("K4", "fma") == 3
     # on the CUDA cores a block serves 64 queries whatever the batch: two fit an SM to k = 100
     assert score_tile.masked_block_queries("wgmma") == 128
     assert score_tile.masked_block_queries("fma") == 64

@@ -38,6 +38,7 @@ from pqvector_tpu.query.device import DeviceIvfSearcher as JSearcher
 from pqvector_tpu_torch.convert import searcher_state_from_reference
 from pqvector_tpu_torch.kernels import _build, score_tile
 from pqvector_tpu_torch.kernels import stream_topk as tst
+from pqvector_tpu_torch.kernels.probe import mask_width, probe_ids, probe_mask
 from pqvector_tpu_torch.kernels.scan_topk import select_lex
 
 TILE = 256
@@ -66,6 +67,14 @@ def _layout(x, cent, dtype):
         "tile_clusters": np.asarray(tc),
     }
     return js, arrays, searcher_state_from_reference(arrays, device="cpu")
+
+
+def _offsets(t):
+    """The layout's ``cluster_offsets``, from each row's cluster as the
+    tile tables give it."""
+    tc, lcl = t["tile_clusters"], t["local_cluster"]
+    row_cluster = tc.gather(1, lcl.view(tc.shape[0], -1).long()).reshape(-1)
+    return tst.cluster_offsets(row_cluster, t["centroids"].shape[0])
 
 
 def _canon(d, i):
@@ -163,26 +172,49 @@ def test_stream_exact_fewer_rows_than_k():
 
 
 @pytest.mark.parametrize("nprobe", [1, 3, 12])
-def test_probe_mask_and_schedule_match_jax(nprobe):
+def test_probe_mask_matches_jax(nprobe):
     x, q, cent = _grid_data(1500, 16, 12, seed=nprobe)
     _, a, t = _layout(x, cent, jnp.float32)
-    kc_pad = 128
     want_mask = jst._probe_mask(
         jnp.asarray(q), jnp.asarray(a["centroids"]), jnp.asarray(a["c_sq"]),
-        jnp.int32(nprobe), 12, kc_pad,
+        jnp.int32(nprobe), 12, mask_width(12),
     )
-    got_mask = tst._probe_mask(torch.from_numpy(q), t["centroids"], t["c_sq"], nprobe, 12, kc_pad)
+    got_mask = probe_mask(torch.from_numpy(q), t["centroids"], t["c_sq"], nprobe)
     np.testing.assert_array_equal(got_mask.numpy(), np.asarray(want_mask))
-    want_sched = jst._tile_schedule(want_mask, jnp.asarray(a["tile_clusters"]))
-    got_sched = tst._tile_schedule(got_mask, t["tile_clusters"])
-    np.testing.assert_array_equal(got_sched.numpy(), np.asarray(want_sched))
 
 
-def test_tile_schedule_with_no_probed_cluster():
-    tc = torch.tensor([[0, 1], [2, 3], [4, 4]], dtype=torch.int32)
-    mask = torch.zeros((2, 128))
-    want = jst._tile_schedule(jnp.asarray(mask.numpy()), jnp.asarray(tc.numpy()))
-    np.testing.assert_array_equal(tst._tile_schedule(mask, tc).numpy(), np.asarray(want))
+def _jax_buckets(nprobe, kc):
+    """Every top-k width the JAX package probes ``nprobe`` of ``kc`` clusters
+    with: ``nprobe`` itself, its power of two, the searcher's floor of 128
+    (``_max_probe_bucket``) and the compact modes' floor of 8
+    (``_compact_probe_bucket``), each capped at ``kc``."""
+    p = 1 << max(0, nprobe - 1).bit_length()
+    return sorted({min(w, kc) for w in (nprobe, p, max(p, min(128, kc)), max(p, 8))})
+
+
+@pytest.mark.parametrize("nprobe", [1, 3, 5, 17, 40])
+def test_probe_ids_are_the_jax_probe_at_every_bucket(nprobe):
+    """``probe_ids`` is one stable sort with no bucket: its ids are the set
+    bits of the JAX package's ``_probe_mask`` at every width that package
+    passes, nearest first with ties to the lower cluster id. Every centroid
+    appears twice, so each distance ties at least once."""
+    rng = np.random.default_rng(nprobe)
+    half = rng.integers(-8, 9, (20, 8)).astype(np.float32) / 4
+    cent = np.concatenate([half, half[rng.permutation(20)]])
+    q = np.concatenate([half[:6], rng.integers(-8, 9, (10, 8)).astype(np.float32) / 4])
+    c_sq = (cent * cent).sum(1)
+    ids = probe_ids(torch.from_numpy(q), torch.from_numpy(cent), torch.from_numpy(c_sq),
+                    nprobe)
+    assert ids.dtype == torch.int32 and ids.shape == (16, nprobe)
+    dist = c_sq[None, :] - 2.0 * (q @ cent.T)  # exact: the data lies on a 1/4 grid
+    order = np.lexsort((np.broadcast_to(np.arange(40), dist.shape), dist), axis=-1)
+    np.testing.assert_array_equal(ids.numpy(), order[:, :nprobe])
+    got = np.zeros((16, mask_width(40)), np.float32)
+    np.put_along_axis(got, ids.numpy().astype(np.int64), 1.0, axis=1)
+    for width in _jax_buckets(nprobe, 40):
+        want = jst._probe_mask(jnp.asarray(q), jnp.asarray(cent), jnp.asarray(c_sq),
+                               jnp.int32(nprobe), width, mask_width(40))
+        np.testing.assert_array_equal(got, np.asarray(want), err_msg=f"width {width}")
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
@@ -198,9 +230,8 @@ def test_stream_masked_matches_jax(dtype, nprobe, k):
         emb_ref=None if a["_emb_ref"] is None else jnp.asarray(a["_emb_ref"]),
     )
     got = tst.stream_masked_topk(
-        torch.from_numpy(q), t["centroids"], t["c_sq"], t["local_cluster"],
-        t["tile_clusters"], t["emb"], t["emb_sq"], nprobe, k, max_probe=12,
-        tile=TILE, emb_ref=t["_emb_ref"],
+        torch.from_numpy(q), t["centroids"], t["c_sq"], _offsets(t), t["emb"],
+        t["emb_sq"], nprobe, k, emb_ref=t["_emb_ref"],
     )
     assert_topk_match(tuple(map(_np, got)), tuple(map(_np, want)), q, boundary_ties=True)
 
@@ -212,10 +243,9 @@ def test_stream_masked_scan_keeps_lower_ids_on_ties(nprobe, k):
     x, q, cent = _grid_data(1500, 16, 12, seed=nprobe * k)
     _, a, t = _layout(x, cent, jnp.float32)
     qt = torch.from_numpy(q)
-    mask = tst._probe_mask(qt, t["centroids"], t["c_sq"], nprobe, 12, 128)
-    probe = tst._probe_ids(qt, t["centroids"], t["c_sq"], nprobe, 12)
-    offsets = tst._tile_offsets(t["local_cluster"], t["tile_clusters"], 12)
-    _, i = tst.stream_masked_scan(qt, t["emb"], t["emb_sq"], offsets, probe, k)
+    mask = probe_mask(qt, t["centroids"], t["c_sq"], nprobe)
+    probe = probe_ids(qt, t["centroids"], t["c_sq"], nprobe)
+    _, i = tst.stream_masked_scan(qt, t["emb"], t["emb_sq"], _offsets(t), probe, k)
     lcl = a["local_cluster"].astype(np.int64)
     row_cluster = a["tile_clusters"][np.arange(lcl.size) // TILE, lcl]
     probed = mask.numpy()[:, row_cluster] > 0.5
@@ -365,9 +395,8 @@ def test_kernels_match_plain_on_card(cuda_device, dtype):
     want = tst.stream_exact_scan_plain(qf, t["emb"], t["emb_sq"], 50)
     assert_topk_match(tuple(v.cpu().numpy() for v in got),
                       tuple(v.cpu().numpy() for v in want), q)
-    probe = tst._probe_ids(qf.float(), t["centroids"], t["c_sq"], 4, 64)
-    offsets = tst._tile_offsets(t["local_cluster"], t["tile_clusters"], 40)
-    args = (qf, t["emb"], t["emb_sq"], offsets, probe, 50)
+    probe = probe_ids(qf.float(), t["centroids"], t["c_sq"], 4)
+    args = (qf, t["emb"], t["emb_sq"], _offsets(t), probe, 50)
     got = tst.stream_masked_scan(*args)
     want = tst.stream_masked_scan_plain(*args)
     assert_topk_match(tuple(v.cpu().numpy() for v in got),
