@@ -52,9 +52,10 @@ package. Phases, in order; any failure exits non-zero and prints no result:
 3. The main path at the bench's default configuration: a seeded 1M x 128
    Parquet file, ``IndexBuilder(...).n_clusters(1024).build_inplace()`` on
    the card, exact truth from K2 on an f32 searcher, and an nprobe sweep of
-   IVF ``search`` (K4) on a bf16 searcher with an f32 re-score copy until
-   recall@10 >= 0.95; K3 must return K4's ids; exact k = 100 through K2
-   must match the plain scan; search QPS at B = 256 through K4 and K3.
+   IVF ``search(auto)`` (K3) on a bf16 searcher with an f32 re-score copy
+   until recall@10 >= 0.95; ``pallas`` (K4) must return K3's ids; exact
+   k = 100 through K2 must match the plain scan; search time at B = 1 and
+   QPS at B = 256 through K3 (``auto``) and K4 (``pallas``).
 4. Coverage: K1-K4, the merge and, where ``f32_route`` takes it at d =
    128, K1's f32-row screen were launched during phase 3.
 5. Slice 2's path on the same file and index: a bf16 searcher in file
@@ -110,10 +111,10 @@ package. Phases, in order; any failure exits non-zero and prints no result:
 
 9. Slice 9's path on the phase-3 file and index, launch counts from 0:
    (a) ``with_spill(spill=0.2)`` as bf16 storage with its f32 copy (200k
-   extra rows): ``search(auto)`` (K4 at k = 20) swept over nprobe until
+   extra rows): ``search(auto)`` (K3 at k = 20) swept over nprobe until
    recall@10 >= 0.95, each nprobe beside the unspilled searcher's recall
-   (never more than 0.002 under it); no row repeats an id; ``stream`` (K3)
-   gives K4's ids; an f32 spilled searcher's ``exact(stream)`` (K2 at 2k)
+   (never more than 0.002 under it); no row repeats an id; ``pallas`` (K4)
+   gives K3's ids; an f32 spilled searcher's ``exact(stream)`` (K2 at 2k)
    is the K2 truth; ``from_parquet(path, spill=0.2)`` gives ``with_spill``'s
    ids; ``bincompact`` (K8) calibrated to recall >= 0.95; ms a batch
    spilled and unspilled. (c) ``autotune`` on the sorted bf16 searcher
@@ -214,7 +215,11 @@ package. Phases, in order; any failure exits non-zero and prints no result:
    FMA form and the unprobed screen); the bf16 wire's builds must take the
    screen; recall@100 of sorted bf16
    searchers (f32 copy) on the f32- and bf16-wire indexes at k = 100,
-   nprobe 16, B = 256 against the K2 truth; the four ``examples/torch_*.py``
+   nprobe 16, B = 256 against the K2 truth, each timed through ``auto``
+   (K3) and ``pallas`` (K4, the merge) with the ids the two differ in;
+   ``auto`` must launch K3 alone and give the plain route's answer
+   (``stream_masked_scan_plain`` and the f32 re-score) up to near-ties at
+   the k-th selection score; the four ``examples/torch_*.py``
    as subprocesses on their default 10k x 64 dataset, on the card and with
    ``--device cpu``: the same ids. ``scripts/torch_slice12_check.py`` runs
    this phase alone.
@@ -1760,6 +1765,43 @@ def deep_masked(torch, sc, st, s, q, nprobe=4):
     return out
 
 
+def auto_against_plain(torch, _build, s, q, k, nprobe, what):
+    """``search(auto)`` on a sorted searcher held to K3's plain version: it
+    must launch K3 once and neither K4 nor the cross-tile merge; K3's
+    selection must equal the plain scan over the probed clusters up to
+    near-ties (distances slot by slot within 1e-5 (|q|^2 + max |x|^2), the
+    same empty slots); and every query whose selected rows are the plain
+    scan's must get the plain route's ids and distances bit for bit, the
+    f32 re-score and the id map included. -> (queries with a near-tie swap,
+    the largest selection gap)."""
+    from pqvector_tpu_torch.kernels import stream_topk as st
+    from pqvector_tpu_torch.kernels.probe import probe_ids
+    from pqvector_tpu_torch.kernels.scan_topk import _refine
+
+    before = {key: _build.LAUNCHES[key] for key in ("K3", "K4", "merge")}
+    d, ids = s.search(q, k, nprobe, "auto")
+    torch.cuda.synchronize()
+    took = [_build.LAUNCHES[key] - before[key] for key in ("K3", "K4", "merge")]
+    check(took == [1, 0, 0], f"{what}: search(auto) launched K3, K4, merge {took}")
+    probe = probe_ids(q, s.centroids, s.c_sq, nprobe)
+    sq, qf = s._pallas_emb_sq(), q.to(s.emb.dtype)
+    a3 = (qf, s.emb, sq, s.cluster_offsets, probe, k)
+    got, want = st.stream_masked_scan(*a3), st.stream_masked_scan_plain(*a3)
+    check(torch.equal(got[1] >= 0, want[1] >= 0), f"{what}: empty slots differ from plain")
+    fin = sq[sq < 1e38]
+    tol = 1e-5 * float((qf.float() ** 2).sum(1).max() + fin.max())
+    real = want[1] >= 0
+    err = float((got[0] - want[0])[real].abs().max()) if bool(real.any()) else 0.0
+    check(err <= tol, f"{what}: K3's selection differs from plain by {err} (limit {tol:.3g})")
+    d2, rows = _refine(q, s._ref(), *want)
+    same = (got[1].sort(1).values == want[1].sort(1).values).all(1)
+    check(torch.equal(ids[same], s._map_ids(d2, rows)[same]),
+          f"{what}: search(auto)'s ids differ from the plain route's")
+    check(torch.equal(d[same], d2.sqrt()[same]),
+          f"{what}: search(auto)'s distances differ from the plain route's")
+    return int((~same).sum()), err
+
+
 def deep_k3_b4096(torch, st, s, q, nprobe=4):
     """K3 alone at the ``deep10m.search.b4096`` cell's batch (B = 4096, nprobe
     4) on the 10M x 96 rung's bf16 storage, where K4's [nt, B, cmax] local
@@ -2053,7 +2095,7 @@ def phase7(torch, ds, truth_s, sorted16, q, truth, nprobe, card):
         ("exact(auto) f32", lambda: truth_s.exact(q, K)),
         ("search(compact) bf16", lambda: sorted16.search(q, K, nprobe, "compact")),
         ("search(auto) bf16", lambda: sorted16.search(q, K, nprobe, "auto")),
-        ("search(stream) bf16", lambda: sorted16.search(q, K, nprobe, "stream")),
+        ("search(pallas) bf16", lambda: sorted16.search(q, K, nprobe, "pallas")),
     ))
     log(f"phase 7 on {card}")
     return out
@@ -2392,9 +2434,9 @@ def phase9_spill(torch, pqt, _build, ds, path, emb_np, queries, q, truth, search
         f"{sp16.emb.shape[0]} padded, built in {out['spill_build_s']:.2f} s")
     sweep, nprobe_s, nprobe = {}, None, 1
     while nprobe <= N_CLUSTERS:
-        before = _build.LAUNCHES["K4"]
+        before = _build.LAUNCHES["K3"]
         _, ids_sp = sp16.search(q, K, nprobe, "auto")
-        check(_build.LAUNCHES["K4"] == before + 1, "spilled search(auto) did not take K4")
+        check(_build.LAUNCHES["K3"] == before + 1, "spilled search(auto) did not take K3")
         r_sp = recall_of(ds, truth_np, ids_sp)
         r_pl = recall_of(ds, truth_np, searcher.search(q, K, nprobe, "auto")[1])
         sweep[nprobe] = {"spilled": r_sp, "unspilled": r_pl}
@@ -2411,14 +2453,14 @@ def phase9_spill(torch, pqt, _build, ds, path, emb_np, queries, q, truth, search
     ids_a = ids_a.cpu().numpy()
     check((ids_a >= 0).all(), "spilled search(auto) left an empty slot")
     distinct_ids(ids_a, "spilled search(auto)")
-    before = _build.LAUNCHES["K3"]
-    _, ids_st = sp16.search(q, K, nprobe_s, "stream")
-    check(_build.LAUNCHES["K3"] > before, "spilled search(stream) did not take K3")
+    before = _build.LAUNCHES["K4"]
+    _, ids_st = sp16.search(q, K, nprobe_s, "pallas")
+    check(_build.LAUNCHES["K4"] > before, "spilled search(pallas) did not take K4")
     ids_st = ids_st.cpu().numpy()
-    distinct_ids(ids_st, "spilled search(stream)")
+    distinct_ids(ids_st, "spilled search(pallas)")
     swaps = sum(same_or_tied(ids_st[i], ids_a[i], emb_np, queries[i],
-                             f"phase 9a spilled K3 vs K4 query {i}") for i in range(BATCH))
-    log(f"phase 9a nprobe={nprobe_s}: no row repeats an id; K3 (stream) gives K4's ids "
+                             f"phase 9a spilled K4 vs K3 query {i}") for i in range(BATCH))
+    log(f"phase 9a nprobe={nprobe_s}: no row repeats an id; K4 (pallas) gives K3's ids "
         f"({swaps} slots swapped at a tie)")
 
     t0 = time.perf_counter()
@@ -4019,18 +4061,29 @@ def phase12(torch, pqt, _build, ds, ka, path, emb_np, data_dir, card, device="cu
                                   row_tile=ROW_TILE, cluster_sorted=True, device=dev)
         d, ids = s.search(q, 100, 16, "auto")
         check(bool(torch.isfinite(d).all()), f"phase 12 {label}: empty slots")
+        swaps, err = auto_against_plain(torch, _build, s, q, 100, 16, f"phase 12 {label}")
+        out[f"k3_plain_swaps_{label}_wire"], out[f"k3_plain_err_{label}_wire"] = swaps, err
+        out[f"k4_ids_differ_{label}_wire"] = int((s.search(q, 100, 16, "pallas")[1] != ids)
+                                                 .sum())
         out[f"recall_at_100_{label}_wire"] = ds.recall_at_k(truth, ids.cpu().numpy())
         out[f"search_ms_{label}_wire"] = time_ms(lambda: s.search(q, 100, 16, "auto"), reps=5)
+        out[f"search_ms_{label}_wire_k4"] = time_ms(lambda: s.search(q, 100, 16, "pallas"),
+                                                    reps=5)
         log(f"phase 12 sorted bf16 searcher (f32 copy) on the {label}-wire index: "
             f"recall@100 {out[f'recall_at_100_{label}_wire']:.4f} at k=100, nprobe 16, "
-            f"B={BATCH} against the K2 truth; {out[f'search_ms_{label}_wire']:.3f} ms/batch")
+            f"B={BATCH} against the K2 truth; auto (K3) "
+            f"{out[f'search_ms_{label}_wire']:.3f} ms/batch, pallas (K4, merge) "
+            f"{out[f'search_ms_{label}_wire_k4']:.3f}, "
+            f"{out[f'k4_ids_differ_{label}_wire']} ids differ between the two; auto held "
+            f"to K3's plain route: {swaps} queries with a near-tie swap, selection within "
+            f"{err:.3g}")
         del s
         torch.cuda.empty_cache()
     del builds, emb_w
     os.remove(wide)
     phase12_examples(torch, data_dir, out)
     out["launches"] = {k_: v for k_, v in _build.LAUNCHES.items() if v}
-    for name in ("K1", "K1_bf16", "K2", "K4"):
+    for name in ("K1", "K1_bf16", "K2", "K3", "K4"):
         check(out["launches"].get(name, 0) > 0, f"{name} was not launched in phase 12")
     wire_builds = sum(rec.get("k1_bf16_launches", 0) for rec in out.values()
                       if isinstance(rec, dict))
@@ -4092,20 +4145,27 @@ def phase3_serve(torch, pqt, _build, ds, index, emb, q, dev):
     chosen, recall = None, 0.0
     nprobe = 1
     while nprobe <= N_CLUSTERS:
-        before = _build.LAUNCHES["K4"]
+        before = (_build.LAUNCHES["K3"], _build.LAUNCHES["K4"])
         d, ids = searcher.search(q, K, nprobe, "auto")
-        check(_build.LAUNCHES["K4"] == before + 1, "search(auto) did not take K4")
+        check((_build.LAUNCHES["K3"], _build.LAUNCHES["K4"]) == (before[0] + 1, before[1]),
+              "search(auto) did not take K3 alone")
         recall = ds.recall_at_k(truth_np, ids.cpu().numpy())
-        log(f"phase 3 search auto (K4) nprobe={nprobe}: recall@{K} {recall:.4f}")
+        log(f"phase 3 search auto (K3) nprobe={nprobe}: recall@{K} {recall:.4f}")
         if recall >= RECALL_TARGET:
             chosen = nprobe
             break
         nprobe *= 2
     check(chosen is not None, f"recall never reached {RECALL_TARGET}")
     check(bool(torch.isfinite(d).all()), "search returned empty slots")
-    d_s, ids_s = searcher.search(q, K, chosen, "stream")
-    check(torch.equal(ids_s, ids), "K3 (stream) and K4 (auto) ids differ")
-    log(f"phase 3 K3 (stream) and K4 (auto) ids identical at nprobe={chosen}")
+    before = _build.LAUNCHES["K4"]
+    d_p, ids_p = searcher.search(q, K, chosen, "pallas")
+    check(_build.LAUNCHES["K4"] == before + 1, "search(pallas) did not take K4")
+    check(torch.equal(ids_p, ids), "K4 (pallas) and K3 (auto) ids differ")
+    log(f"phase 3 K4 (pallas) and K3 (auto) ids identical at nprobe={chosen}")
+    q1 = q[:1].contiguous()  # one query: the two routes as the searcher runs them
+    ms = {m: time_ms(lambda m=m: searcher.search(q1, K, chosen, m)) for m in ("auto", "pallas")}
+    log(f"phase 3 search B=1 nprobe={chosen}: auto (K3) {ms['auto']:.3f} ms, "
+        f"pallas (K4, merge) {ms['pallas']:.3f} ms")
     return truth_s, (truth_d, truth_ids), searcher, chosen, recall
 
 
@@ -4388,9 +4448,9 @@ def main() -> None:
 
     search_ms = time_ms(lambda: searcher.search(q, K, chosen, "auto"))
     qps = BATCH / (search_ms / 1000.0)
-    stream_ms = time_ms(lambda: searcher.search(q, K, chosen, "stream"))
-    log(f"phase 3 search B={BATCH} nprobe={chosen}: auto (K4) {search_ms:.3f} ms/batch, "
-        f"{qps:.0f} QPS; stream (K3) {stream_ms:.3f} ms/batch on {card}")
+    pallas_ms = time_ms(lambda: searcher.search(q, K, chosen, "pallas"))
+    log(f"phase 3 search B={BATCH} nprobe={chosen}: auto (K3) {search_ms:.3f} ms/batch, "
+        f"{qps:.0f} QPS; pallas (K4) {pallas_ms:.3f} ms/batch on {card}")
     launches = dict(_build.LAUNCHES)
 
     # ---- phase 4 ---------------------------------------------------------
@@ -4447,7 +4507,7 @@ def main() -> None:
         })
     log("main path: " + json.dumps({"build_s": build_s, "nprobe": chosen,
                                     "recall_at_10": recall, "search_ms": search_ms,
-                                    "qps": qps, "stream_ms": stream_ms}))
+                                    "qps": qps, "pallas_ms": pallas_ms}))
     log("slice 2 path: " + json.dumps(main5))
     log("slice 3 path: " + json.dumps(main7))
     log("deep rung: " + json.dumps(main6))

@@ -1,8 +1,8 @@
 // Shared device code of the top-k kernels for sm_90a: constants, the
 // (distance, id) order and the warp-level sorted lists (warp_offer) that the
 // lists of K4 (MaskedLists in topk_lists.cuh) and K3 (ItemLists in
-// item_scan.cuh) and the merge of K2's and K3's partial lists use. Every
-// kernel scores on the tile of score_tile.cuh.
+// item_scan.cuh) use; the merge of K2's and K3's partial lists orders on
+// it. Every kernel scores on the tile of score_tile.cuh.
 //
 // A candidate is inserted only if it beats the list's current k-th entry
 // under the (distance, id) order: the running-threshold idea of the TPU
@@ -83,14 +83,6 @@ __device__ __forceinline__ void warp_offer(float* ld, int* li, int k, float cd,
     const float d = __shfl_sync(kFull, cd, src);
     const int id = __shfl_sync(kFull, cid, src);
     if (lex_less(d, id, ld[k - 1], li[k - 1])) warp_insert(ld, li, k, d, id, lane);
-  }
-}
-
-__device__ __forceinline__ void init_lists(float (*ld)[kMaxK], int (*li)[kMaxK],
-                                           int nq) {
-  for (int e = threadIdx.x; e < nq * kMaxK; e += blockDim.x) {
-    ld[e / kMaxK][e % kMaxK] = kPosInf;
-    li[e / kMaxK][e % kMaxK] = -1;
   }
 }
 

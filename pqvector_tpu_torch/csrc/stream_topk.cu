@@ -298,34 +298,95 @@ int launch_item_scan(const void* q, const void* emb, const float* emb_sq, const 
   return (int)cudaGetLastError();
 }
 
-// One warp per query: merge the [U, B, k] partial lists into [B, k].
+// One warp per query: fold the [U, B, k] partial lists, each ascending
+// under the (distance, id) order, into [B, k], one partial list at a time.
+// The lanes first read the heads of 32 lists at once; only a list whose
+// head beats the running k-th entry can add anything, and the running k-th
+// only falls, so the others are never read in full. A list that passes is
+// loaded into shared memory beside the running list; each entry's place in
+// their union is its own index plus its rank in the other list (a binary
+// search: an entry of the running list goes before an equal one of the
+// next, so every place is taken once), and the places below k are kept.
+// So a query costs U / 32 head reads and one binary-search pass a list that
+// adds something, not one insert a candidate that beats the running k-th
+// entry (some hundreds at k = 100).
 __global__ void __launch_bounds__(kThreads)
-    merge_partials_kernel(const float* pd, const int* pi, int units, int B,
-                          int k, float* out_d, int* out_i) {
-  __shared__ float ld[kWarps][kMaxK];
-  __shared__ int li[kWarps][kMaxK];
+    merge_partials_kernel(const float* __restrict__ pd, const int* __restrict__ pi, int units,
+                          int B, int k, float* __restrict__ out_d, int* __restrict__ out_i) {
+  __shared__ float ld[kWarps][3][kMaxK];
+  __shared__ int li[kWarps][3][kMaxK];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  init_lists(ld, li, kWarps);
-  __syncthreads();
   const int b = blockIdx.x * kWarps + w;
   if (b >= B) return;  // whole warp leaves; no block barrier follows
-  const int total = units * k;
-  for (int j0 = 0; j0 < total; j0 += 32) {
-    const int j = j0 + lane;
-    const bool valid = j < total;
-    float cd = kPosInf;
-    int cid = -1;
-    if (valid) {
-      const size_t o = ((size_t)(j / k) * B + b) * k + (j % k);
-      cd = pd[o];
-      cid = pi[o];
-    }
-    warp_offer(ld[w], li[w], k, cd, cid, valid, lane);
+  float* const qd = ld[w][1];  // the list being folded in
+  int* const qi = li[w][1];
+  int run = 0, spare = 2;
+  for (int s = lane; s < k; s += 32) {
+    ld[w][run][s] = pd[(size_t)b * k + s];
+    li[w][run][s] = pi[(size_t)b * k + s];
   }
-  for (int j = lane; j < k; j += 32) {
-    out_d[(size_t)b * k + j] = ld[w][j];
-    out_i[(size_t)b * k + j] = li[w][j];
+  __syncwarp();
+  for (int u0 = 1; u0 < units; u0 += 32) {
+    const int u = u0 + lane;
+    float head_d = kPosInf;
+    int head_i = -1;
+    if (u < units) {
+      head_d = pd[((size_t)u * B + b) * k];
+      head_i = pi[((size_t)u * B + b) * k];
+    }
+    unsigned todo = __ballot_sync(
+        kFull, u < units && lex_less(head_d, head_i, ld[w][run][k - 1], li[w][run][k - 1]));
+    while (todo) {
+      const int j = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const float* ad = ld[w][run];
+      const int* ai = li[w][run];
+      const float jd = __shfl_sync(kFull, head_d, j);
+      const int ji = __shfl_sync(kFull, head_i, j);
+      if (!lex_less(jd, ji, ad[k - 1], ai[k - 1])) continue;  // the k-th fell below it
+      const size_t o = ((size_t)(u0 + j) * B + b) * k;
+      for (int s = lane; s < k; s += 32) {
+        qd[s] = pd[o + s];
+        qi[s] = pi[o + s];
+      }
+      __syncwarp();
+      float* od = ld[w][spare];
+      int* oi = li[w][spare];
+      for (int s = lane; s < k; s += 32) {
+        float d = ad[s];
+        int id = ai[s];
+        int lo = 0, hi = k - s;  // entries of the next list below (d, id), up to k - s
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (lex_less(qd[mid], qi[mid], d, id)) lo = mid + 1; else hi = mid;
+        }
+        if (s + lo < k) {
+          od[s + lo] = d;
+          oi[s + lo] = id;
+        }
+        d = qd[s];
+        id = qi[s];
+        lo = 0;
+        hi = k - s;  // entries of the running list at or below (d, id)
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (!lex_less(d, id, ad[mid], ai[mid])) lo = mid + 1; else hi = mid;
+        }
+        if (s + lo < k) {
+          od[s + lo] = d;
+          oi[s + lo] = id;
+        }
+      }
+      const int t = run;
+      run = spare;
+      spare = t;
+      __syncwarp();  // every lane is done with the lists before the next is stored
+    }
+  }
+  for (int s = lane; s < k; s += 32) {
+    out_d[(size_t)b * k + s] = ld[w][run][s];
+    out_i[(size_t)b * k + s] = li[w][run][s];
   }
 }
 

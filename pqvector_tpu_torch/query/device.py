@@ -124,7 +124,8 @@ _APPROX_BLOCK_CAP = 1 << 30
 #: one 32-bit word a query in K4's shared memory. K3 reads whole clusters.
 _SCAN_TILE_CAP = 1024
 #: Cap on K4's pre-gathered [nt, B, cmax] f32 local mask, as in the JAX
-#: package; beyond it ``auto`` takes K3, which needs no such buffer.
+#: package; beyond it ``pallas`` takes K6. ``auto`` takes K3, which needs
+#: no such buffer.
 _LOCAL_MASK_CAP = 256 << 20
 #: ``auto``'s cost model on a layout in file order, fit to ``search``
 #: through K6 and through ``gather`` timed on the H100 at 1M x 128 (B = 1 to
@@ -1072,11 +1073,12 @@ class DeviceIvfSearcher:
         """K3 needs a sorted layout (it reads each probed cluster's rows
         through ``cluster_offsets``) and k that fits a kernel's top-k list.
         Its work list lives in device memory, so unlike the TPU kernel it
-        has no batch cap."""
+        has no batch cap: where this holds, ``auto`` takes it."""
         return self._row_cluster_sorted and k <= MAX_K
 
     def _use_local_mask(self, tile: int, batch: int) -> bool:
-        """K4 needs sorted cluster ids and a bounded [nt, B, cmax] local mask."""
+        """K4 (``pallas`` only) needs sorted cluster ids and a bounded [nt,
+        B, cmax] local mask."""
         if not self._row_cluster_sorted:
             return False
         nt = self.emb.shape[0] // tile
@@ -1680,19 +1682,29 @@ class DeviceIvfSearcher:
         gather_ms = _GATHER_MS + _GATHER_MS_PER_M * cand / 1e6
         return "pallas" if k6_ms <= gather_ms else "gather"
 
+    def _auto_mode(self, k: int, nprobe: int, batch: int) -> str:
+        """The mode ``auto`` takes (see ``_search_impl``)."""
+        if k > MAX_K:
+            return "gather"
+        if self._can_stream_masked(k):
+            return "stream"
+        return self._unsorted_auto(batch, nprobe)
+
     def _search_impl(self, queries, k: int, nprobe: int, mode: str = "auto"):
         """IVF top-k over the static layout -> (sqrt distances [B, k], ids
         [B, k]).
 
-        ``auto`` on a cluster-sorted layout with k <= 128 takes K4
-        (``pallas``) while its [nt, B, cmax] local mask stays within 256 MB,
-        and K3 (``stream``) beyond: K3 takes the batch's [B, nprobe] probe
-        ids and reads each probed cluster's rows once for the queries that
-        probe it. On a layout in
+        ``auto`` on a cluster-sorted layout with k <= 128 takes K3
+        (``stream``) at every batch size: K3 takes the batch's [B, nprobe]
+        probe ids and reads each probed cluster's rows once for each group
+        of up to 16 queries that probe it, where K4's 128-query blocks each
+        read the union of their own queries' clusters; on the H100 K3's route
+        was the faster at B = 1 to 4096 (PERF.md §6). On a layout in
         file order with k <= 128 it takes K6 (``pallas``) or ``gather`` by
         the rule of ``_unsorted_auto``, measured on the card; k > 128 takes
-        ``gather``. ``pallas`` runs K4 where its local mask fits and K6
-        (global probe mask, any layout) otherwise. ``binscan``/``binscan8``
+        ``gather``. ``pallas`` runs K4 where its [nt, B, cmax] local mask
+        stays within 256 MB and K6 (global probe mask, any layout)
+        otherwise. ``binscan``/``binscan8``
         ignore nprobe and scan every row (K7); ``bincompact``/``bincompact8``
         scan the batch's probed-union tiles, capped (K8). ``masked`` is the
         masked full scan in plain torch and ``approx`` the same scan with
@@ -1712,38 +1724,33 @@ class DeviceIvfSearcher:
         if nprobe <= 0:
             raise ValidationError("nprobe must be > 0")
         nprobe = min(nprobe, self.index.n_clusters)
-        tile = self._scan_tile()
         if mode == "auto":
-            if k > MAX_K:
-                mode = "gather"
-            elif self._can_stream_masked(k):
-                mode = "pallas" if self._use_local_mask(tile, q.shape[0]) else "stream"
-            else:
-                mode = self._unsorted_auto(q.shape[0], nprobe)
+            mode = self._auto_mode(k, nprobe, q.shape[0])
 
-        if mode == "stream" or (mode == "pallas" and self._use_local_mask(tile, q.shape[0])):
+        if mode == "stream":
             if not self._can_stream_masked(k):
                 raise ValidationError(
-                    f"{mode} mode needs a cluster-sorted layout and k <= {MAX_K}"
+                    f"stream mode needs a cluster-sorted layout and k <= {MAX_K}"
                 )
-            if mode == "pallas":
+            d2, ids = stream_masked_topk(
+                q, self.centroids, self.c_sq, self.cluster_offsets, self.emb,
+                self._pallas_emb_sq(), nprobe, k, emb_ref=self._ref(),
+            )
+        elif mode == "pallas":
+            if k > MAX_K:
+                raise ValidationError(f"pallas mode needs k <= {MAX_K}")
+            tile = self._scan_tile()
+            if self._use_local_mask(tile, q.shape[0]):
                 lcl, tc, _ = self._tile_cluster_table(tile)
                 d2, ids = masked_local_topk(
                     q, self.centroids, self.c_sq, lcl, tc, self.emb,
                     self._pallas_emb_sq(), nprobe, k, tile, emb_ref=self._ref(),
                 )
             else:
-                d2, ids = stream_masked_topk(
-                    q, self.centroids, self.c_sq, self.cluster_offsets, self.emb,
-                    self._pallas_emb_sq(), nprobe, k, emb_ref=self._ref(),
+                d2, ids = masked_topk(
+                    q, self.centroids, self.c_sq, self.row_cluster, self.emb,
+                    self._pallas_emb_sq(), nprobe, k, tile, emb_ref=self._ref(),
                 )
-        elif mode == "pallas":
-            if k > MAX_K:
-                raise ValidationError(f"pallas mode needs k <= {MAX_K}")
-            d2, ids = masked_topk(
-                q, self.centroids, self.c_sq, self.row_cluster, self.emb,
-                self._pallas_emb_sq(), nprobe, k, tile, emb_ref=self._ref(),
-            )
         elif mode == "gather":
             d2, ids = _ivf_topk_impl(
                 q, self.centroids, self.c_sq, self.clusters, self.emb,

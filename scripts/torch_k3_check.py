@@ -11,17 +11,25 @@ seeded Gaussian modes (uniform centres in [-1, 1]^d, 0.15 N(0, 1) around
 them) stored mode by mode, as a cluster-sorted searcher holds them, with the
 mode centres for centroids; queries are rows plus 0.05 N(0, 1). Shapes:
 
-- ``1m128``: 1M x 128, 1,024 clusters, nprobe 8, B = 256, k = 10, in bf16
-  and f32 (``chip_smoke.py`` phase 2b's K3);
-- ``10m96``: 10M x 96, 4,096 clusters, nprobe 4, B = 256 (phase 7b) and
-  B = 4096 (the ``deep10m.search.b4096`` cell's batch), bf16.
+- ``1m128``: 1M x 128, 1,024 clusters, nprobe 8, k = 10, B = 256 in bf16
+  and f32 (``chip_smoke.py`` phase 2b's K3) and B = 1 in bf16 (the
+  ``sift1m.search.b1`` cell's batch);
+- ``1m1024``: 1M x 1024, 1,000 clusters, nprobe 16, k = 100, B = 256, bf16
+  (the ``ref1024.search.b256`` cell's shape);
+- ``10m96``: 10M x 96, 4,096 clusters, nprobe 4, k = 10, B = 256 (phase 7b)
+  and B = 4096 (the ``deep10m.search.b4096`` cell's batch), bf16.
 
 The C source's shared-memory sizes are held to the wrapper's reckoning
 first. For each shape, the scan's time on the card (CUDA events around 10
-calls after two of warm-up, the median), with K3's trace counters, and at
-B <= 256 K4's route beside it (the local mask's gather, K4 and the
-cross-tile merge). ``--package-root DIR`` takes ``pqvector_tpu_torch`` from
-another checkout (say, the parent commit unpacked with ``git archive`` under
+calls after two of warm-up, the median), its device time by kernel from a
+``torch.profiler`` trace of 10 calls (``k3_split_ms``: the count, the plan,
+the scan and the partial merge, ms a call), with K3's trace counters, and
+both of ``search``'s routes on a sorted layout, probe and f32 re-score
+included: ``k3_route_ms`` (``stream_masked_topk``) and, at B <= 256,
+``k4_route_ms`` (``masked_local_topk``: the local mask's gather, K4, the
+cross-tile merge) with the share of ids in which the two routes' answers
+differ. ``--package-root DIR`` takes ``pqvector_tpu_torch`` from another
+checkout (say, the parent commit unpacked with ``git archive`` under
 ``build/``); the inputs, the probe ids and mask among them, are the same
 tensors, made here from seeds. ``--digest-file FILE`` holds each
 shape's digest to the one FILE has under its name, fails where one differs
@@ -36,18 +44,25 @@ import hashlib
 import json
 import os
 import statistics
+import subprocess
 import sys
+import tempfile
+from collections import defaultdict
 
 import numpy as np
 from torch_score_tile_check import probe
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SHAPES = {  # name: (rows, d, clusters, nprobe, [(B, storage)])
-    "1m128": (1_000_000, 128, 1024, 8, [(256, "bf16"), (256, "f32")]),
-    "10m96": (10_000_000, 96, 4096, 4, [(256, "bf16"), (4096, "bf16")]),
+SHAPES = {  # name: (rows, d, clusters, nprobe, k, [(B, storage)])
+    "1m128": (1_000_000, 128, 1024, 8, 10, [(256, "bf16"), (256, "f32"), (1, "bf16")]),
+    "1m1024": (1_000_000, 1024, 1000, 16, 100, [(256, "bf16")]),
+    "10m96": (10_000_000, 96, 4096, 4, 10, [(256, "bf16"), (4096, "bf16")]),
 }
-TILE, K = 1024, 10
+TILE = 1024
+#: K3's launch by kernel name: the pair count, the plan, the scan, the merge.
+K3_KERNELS = ("k3_count_kernel", "k3_plan_kernel", "stream_masked_kernel",
+              "merge_partials_kernel")
 
 
 def make_rows(torch, n, d, clusters, seed):
@@ -93,6 +108,34 @@ def device_ms(torch, fn, reps=10):
     return statistics.median(times)
 
 
+def kernel_split_ms(torch, fn, names, reps=10):
+    """Device ms a call of each kernel whose name holds one of ``names``,
+    from a CUDA-only ``torch.profiler`` trace of ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    us = defaultdict(float)
+    for e in events:
+        if e.get("cat") == "kernel":
+            for name in names:
+                if name in e.get("name", ""):
+                    us[name] += e.get("dur", 0.0)
+    return {name: round(us[name] / 1e3 / reps, 4) for name in names}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package-root", default=ROOT)
@@ -113,13 +156,15 @@ def main() -> None:
         for k in (1, 10, 128):
             assert lib.pqv_stream_masked_topk_smem(flag, k) == st.item_scan_smem(backend, k)
     card = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
     want = {}
     if args.digest_file and os.path.exists(args.digest_file):
         with open(args.digest_file) as f:
             want = json.load(f)
     digests, bad = {}, []
     for shape in args.shapes.split(","):
-        n, d, clusters, nprobe, runs = SHAPES[shape]
+        n, d, clusters, nprobe, k, runs = SHAPES[shape]
         x, sq, rc, centres = make_rows(torch, n, d, clusters, seed=n + d)
         lcl, tc = tile_tables(torch, rc)
         c_sq = (centres * centres).sum(1)
@@ -131,11 +176,12 @@ def main() -> None:
             emb = x if storage == "f32" else x.to(torch.bfloat16)
             q = q_all[:b].contiguous()
             qf = q.to(emb.dtype)
-            ids, mask = probe(torch, q, centres, c_sq, nprobe)
-            a3 = (qf, emb, sq, st.cluster_offsets(rc, clusters), ids, K)
+            ids, _ = probe(torch, q, centres, c_sq, nprobe)
+            offsets = st.cluster_offsets(rc, clusters)
+            a3 = (qf, emb, sq, offsets, ids, k)
             got = st.stream_masked_scan(*a3)
             torch.cuda.synchronize()
-            name = f"{shape} {storage} B={b} nprobe={nprobe}"
+            name = f"{shape} {storage} B={b} nprobe={nprobe}" + (f" k={k}" if k != 10 else "")
             h = hashlib.sha256(got[0].cpu().numpy().tobytes())
             h.update(got[1].cpu().numpy().tobytes())
             digests[name] = h.hexdigest()[:16]
@@ -143,15 +189,24 @@ def main() -> None:
                 bad.append(name)
             line = {"label": args.label, "shape": name, "card": card,
                     "ms": round(device_ms(torch, lambda: st.stream_masked_scan(*a3)), 4),
+                    "k3_split_ms": kernel_split_ms(torch, lambda: st.stream_masked_scan(*a3),
+                                                   K3_KERNELS),
                     "digest": digests[name], "same_as_file": want.get(name, digests[name])
                     == digests[name]}
-            if b <= 256:  # K4's route at this batch: the local mask's gather, K4, the merge
-                def k4_chain():
-                    lmask = mask[:, tc.long()].permute(1, 0, 2).contiguous()
-                    return sc._final_merge(*sc.masked_local_scan(qf, emb, sq, lcl, lmask, K,
-                                                                 TILE), K)
 
-                line["k4_chain_ms"] = round(device_ms(torch, k4_chain), 4)
+            def k3_route():
+                return st.stream_masked_topk(q, centres, c_sq, offsets, emb, sq, nprobe, k,
+                                             emb_ref=x)
+
+            line["k3_route_ms"] = round(device_ms(torch, k3_route), 4)
+            if b <= 256:  # K4's route at this batch: the local mask's gather, K4, the merge
+                def k4_route():
+                    return sc.masked_local_topk(q, centres, c_sq, lcl, tc, emb, sq, nprobe, k,
+                                                TILE, emb_ref=x)
+
+                line["k4_route_ms"] = round(device_ms(torch, k4_route), 4)
+                line["routes_ids_differ"] = round(
+                    float((k3_route()[1] != k4_route()[1]).float().mean()), 6)
             profiling.clear_store()
             with profiling.tracing():
                 st.stream_masked_scan(*a3)
@@ -159,7 +214,8 @@ def main() -> None:
             profiling.clear_store()
             line.update(items=items, chunks=chunks,
                         rows_read_pct=round(100.0 * chunks * 128 / n, 2),
-                        segments=st.masked_segments(b * nprobe))
+                        segments=st.masked_segments(b * nprobe),
+                        nvidia_smi=smi)
             print(json.dumps(line), flush=True)
             del emb, qf, got, a3
         del x, sq, rc, lcl, tc

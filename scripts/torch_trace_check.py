@@ -9,8 +9,9 @@
 2. On the card: ``torch._C._autograd._profiler_enabled()`` inside a
    CUDA-only ``torch.profiler`` session, as ``pqbench/devtrace.py`` runs one.
 3. One ``sift1m.search.b256`` batch (the benchmark's own set-up,
-   ``pqbench/drivers/search_loop.py:setup``): K4's ``k4.chunks`` counter
-   and ``search.k4_rows_read_pct`` against ``scan_topk.scored_chunks``.
+   ``pqbench/drivers/search_loop.py:setup``) through ``search(pallas)``:
+   K4's ``k4.chunks`` counter and ``search.k4_rows_read_pct`` against
+   ``scan_topk.scored_chunks``.
 4. ``device_trace`` over three batches: each kernel's launch (its CUDA
    runtime call, by correlation id) lies in the innermost span open on the
    launching thread at that time; each kernel starts after that span's start.
@@ -113,7 +114,7 @@ def search_run(seed: int, cell: str, seconds: float):
 
 
 def k4_check(searcher, q, k: int, nprobe: int) -> dict:
-    """One batch's K4 counter and share against ``scored_chunks``."""
+    """One ``pallas`` batch's K4 counter and share against ``scored_chunks``."""
     from pqbench import spans
     from pqvector_tpu_torch.kernels import scan_topk as sc
     from pqvector_tpu_torch.kernels import score_tile
@@ -121,7 +122,7 @@ def k4_check(searcher, q, k: int, nprobe: int) -> dict:
 
     profiling.clear_store()
     with profiling.tracing():
-        searcher.search(q, k, nprobe)
+        searcher.search(q, k, nprobe, mode="pallas")
     st = profiling.read_store()
     spans.use(st)
     got_pct = spans.k4_rows_read_pct()
@@ -176,13 +177,13 @@ def trace_check(searcher, pool, b: int, k: int, nprobe: int, out: Path) -> dict:
         rows.append({"kernel": e["name"][:60], "span": span and span["name"],
                      "launch_in_span_us": span and call["ts"] - span["ts"],
                      "start_after_span_us": span and e["ts"] - span["ts"]})
-    k4 = [r for r in rows if "masked_local_kernel" in r["kernel"]]
+    k3 = [r for r in rows if "stream_masked_kernel" in r["kernel"]]  # ``auto``'s scan
     sorts = [r for r in rows if "sort" in r["kernel"].lower()]
     merge_starts = sorted(s["ts"] for s in spans if s["name"] == "search.merge")
     return {
         "device_ops": len(rows), "launch_not_found": missing,
         "launch_inside_a_span": inside, "start_after_its_span": after,
-        "k4": k4, "sorts_by_span": {n: sum(r["span"] == n for r in sorts)
+        "k3": k3, "sorts_by_span": {n: sum(r["span"] == n for r in sorts)
                                     for n in sorted({r["span"] or "-" for r in sorts})},
         "sorts_after_their_span": all(r["start_after_span_us"] is not None
                                       and r["start_after_span_us"] >= 0 for r in sorts),
@@ -311,7 +312,7 @@ def main(argv=None) -> int:
         result["k4"] = k4_check(st["searcher"], st["pool"][:b], tr["k"], tr["nprobe"])
         log(f"k4: {result['k4']}")
         result["trace"] = trace_check(st["searcher"], st["pool"], b, tr["k"], tr["nprobe"], out)
-        log(f"trace: { {k: v for k, v in result['trace'].items() if k != 'k4'} }")
+        log(f"trace: { {k: v for k, v in result['trace'].items() if k != 'k3'} }")
         result["on_cost_search"] = on_cost_search(st, run, args.seconds, args.pairs)
         log(f"on cost, search: {result['on_cost_search']}")
         del st

@@ -1,12 +1,13 @@
 """``search(mode="auto")`` on a DEEP10M-shaped deployment, scaled down for
 the CPU: 96-d rows of a seeded mixture (64 modes, 4 clusters a mode as in
 the 10M x 96, IVF-4096 one of 1024 modes), bf16 storage with the f32
-re-score copy, rows sorted by cluster. Both of ``auto``'s routes on that
-layout, K4 and K3, are held to the benchmark's plain reference
+re-score copy, rows sorted by cluster. Both routes on that layout, K3
+(``auto``) and K4 (``pallas``), are held to the benchmark's plain reference
 (``pqbench.reference``) through the numbers that decide a cell's
 ``correct``; the reference one precision step down (the control) fails
-them. And the route rule at the cell's own geometry: 9,766 tiles of 1024
-rows take K3 at B = 4096 and K4 at B = 256."""
+them. And the route rules at the cell's own geometry: ``auto`` takes K3 at
+every batch; ``pallas`` takes K4 on 9,766 tiles of 1024 rows while the local
+mask fits (B = 256), K6 beyond (B = 4096)."""
 
 import pytest
 import torch
@@ -68,14 +69,12 @@ def _routes(monkeypatch):
 
 @pytest.mark.parametrize("route", ["K4", "K3"])
 def test_auto_meets_the_reference_on_a_deep_shaped_layout(deployment, monkeypatch, route):
+    """K3 is ``auto``'s route on the sorted layout; K4 stays under
+    ``pallas`` (its local mask is ~0.2 MB at 40k rows)."""
     searcher, layout, q = deployment
-    if route == "K3":
-        # At 40k rows the [nt, B, cmax] local mask is ~0.2 MB; the 10M-row
-        # deployment's passes the 256 MiB cap at B = 4096. A cap of 0 sends
-        # this batch where that one goes.
-        monkeypatch.setattr(device_mod, "_LOCAL_MASK_CAP", 0)
     taken = _routes(monkeypatch)
-    d, ids = searcher.search(q.numpy(), K, NPROBE, mode="auto")
+    mode = "auto" if route == "K3" else "pallas"
+    d, ids = searcher.search(q.numpy(), K, NPROBE, mode=mode)
     assert taken == [route]
     numbers = _numbers(layout, q, d, ids)
     assert numbers["dist_err"] <= DIST_TOL, numbers
@@ -119,8 +118,15 @@ def test_scan_tile_and_tiles_at_the_cell_size():
     (256, 27, "K3"),  # 270 MB
 ])
 def test_the_route_rule_at_the_cell_geometry(batch, cmax, route):
-    """``auto``'s rule on the deployment's layout: K4 while the [nt, B,
-    cmax] f32 local mask stays within ``_LOCAL_MASK_CAP``, K3 beyond."""
+    """The rules on the deployment's layout: ``auto`` takes K3 (``stream``)
+    at every batch and k <= 128, ``gather`` beyond; ``pallas`` takes K4
+    while the [nt, B, cmax] f32 local mask stays within
+    ``_LOCAL_MASK_CAP``. ``route`` is K4 where the mask fits and K3 where it
+    does not: there ``pallas`` takes K6, and ``auto`` K3 as everywhere."""
+    s = _cell_geometry(cmax)
+    assert s._auto_mode(K, NPROBE, batch) == "stream"
+    assert s._auto_mode(100, NPROBE, batch) == "stream"
+    assert s._auto_mode(device_mod.MAX_K + 1, NPROBE, batch) == "gather"
     want_k4 = 9766 * batch * cmax * 4 <= 256 << 20
     assert want_k4 == (route == "K4")
-    assert _cell_geometry(cmax)._use_local_mask(1024, batch) is want_k4
+    assert s._use_local_mask(1024, batch) is want_k4

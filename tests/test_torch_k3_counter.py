@@ -3,14 +3,19 @@
 nothing; on the card, while tracing is on, ``k3.tiles`` and ``k3.chunks``
 are the work items with rows and their (item, 128-row chunk) pairs that the
 work list (``stream_topk.scored_items``) says K3 scores, and the scan's span
-carries ``k3.launches``."""
+carries ``k3.launches``. And ``search(auto)`` on a 1M-row sorted layout at
+B = 4096, k = 100 takes K3 alone (no K4, no cross-tile merge) and gives the
+plain scan's answer."""
 
 import numpy as np
 import pytest
 import torch
 
 from pqvector_tpu_torch import DeviceIvfSearcher, IvfIndex
+from pqvector_tpu_torch.kernels import _build
 from pqvector_tpu_torch.kernels import stream_topk as tst
+from pqvector_tpu_torch.kernels.probe import probe_ids
+from pqvector_tpu_torch.kernels.scan_topk import _refine
 from pqvector_tpu_torch.utils import profiling
 
 
@@ -84,3 +89,32 @@ def test_the_trace_counter_equals_the_rule(cuda_device, dtype, nt, tile, cmax, b
     assert [st["counters"]["k3.tiles"], st["counters"]["k3.chunks"]] == want_counts
     scans = [s for s in st["spans"] if s["name"] == "search.scan"]
     assert [s["counters"] for s in scans] == [{"k3.launches": 1}]
+
+
+@pytest.mark.cuda
+def test_auto_at_b4096_k100_takes_k3_and_equals_the_plain_scan(cuda_device):
+    """1M x 128 grid rows from 1,024 modes, one cluster a mode, bf16 with
+    the f32 copy: every score is exact, so K3 and the plain scan select the
+    same rows. ``auto`` launches K3 once, and neither K4 nor the cross-tile
+    merge whose [980, 4096, 100] lists fault."""
+    n, d, modes, b, k, nprobe = 1_000_000, 128, 1024, 4096, 100, 8
+    rng = np.random.default_rng(1024)
+    cent = rng.integers(-8, 9, (modes, d)).astype(np.float32) / 4
+    assign = rng.integers(0, modes, n)
+    x = cent[assign] + rng.integers(-2, 3, (n, d)).astype(np.float32) / 4
+    q = x[rng.integers(0, n, b)] + rng.integers(-1, 2, (b, d)).astype(np.float32) / 4
+    s = DeviceIvfSearcher(IvfIndex.from_assignments(cent, assign), x, dtype=torch.bfloat16,
+                          cluster_sorted=True, device=cuda_device)
+    before = dict(_build.LAUNCHES)
+    dist, ids = s.search(q, k, nprobe, mode="auto")
+    torch.cuda.synchronize()
+    assert [_build.LAUNCHES[key] - before.get(key, 0) for key in ("K3", "K4", "merge")] == [
+        1, 0, 0]
+    qt = torch.from_numpy(q).to(cuda_device)
+    probe = probe_ids(qt, s.centroids, s.c_sq, nprobe)
+    best = tst.stream_masked_scan_plain(qt.to(s.emb.dtype), s.emb, s._pallas_emb_sq(),
+                                        s.cluster_offsets, probe, k)
+    d2, rows = _refine(qt, s._ref(), *best)
+    assert torch.equal(ids, s._map_ids(d2, rows))
+    torch.testing.assert_close(dist, d2.sqrt(), rtol=0, atol=0)
+    assert bool((ids >= 0).all())

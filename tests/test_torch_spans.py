@@ -21,9 +21,12 @@ from pqvector_tpu_torch.utils import profiling
 #: What ``drain_stages`` gave for one CPU ``build_inplace`` before spans.
 BUILD_STAGES = ["build.decode+transfer", "build.transfer_drain", "build.train",
                 "build.assign", "build.index", "build.append"]
-#: One ``search(mode="auto")`` on a cluster-sorted layout (K4's path).
-SEARCH_SPANS = ["search", "search.merge", "search.probe", "search.refine", "search.scan",
-                "search.upload"]
+#: One ``search(mode="auto")`` on a cluster-sorted layout (K3's path: its
+#: partial lists are merged inside the kernel's launch, so no merge span).
+SEARCH_SPANS = ["search", "search.probe", "search.refine", "search.scan", "search.upload"]
+#: One ``search(mode="pallas")`` there (K4's path: the cross-tile merge).
+K4_SEARCH_SPANS = ["search", "search.merge", "search.probe", "search.refine", "search.scan",
+                   "search.upload"]
 
 
 @pytest.fixture(autouse=True)
@@ -180,6 +183,18 @@ def test_one_search_call_gives_the_spans_of_each_layer_once_under_one_root():
                for r in spans if r is not root)
     selfs = profiling.self_ns(spans)
     assert sum(selfs.values()) == dur(root)
+
+
+def test_a_pallas_search_call_gives_k4s_spans_once_under_one_root():
+    searcher, x = tiny_searcher()
+    profiling.clear_store()
+    with profiling.tracing():
+        searcher.search(x[:3], 5, 2, mode="pallas")
+    spans = profiling.read_store()["spans"]
+    assert sorted(r["name"] for r in spans) == K4_SEARCH_SPANS
+    root = by_name(spans)["search"][0]
+    assert all(r["parent"] == root["id"] for r in spans if r is not root)
+    assert sum(profiling.self_ns(spans).values()) == dur(root)
 
 
 def test_build_spans_on_the_cpu():
