@@ -30,6 +30,7 @@ import torch
 
 from .._device import resolve_device
 from ..errors import ExecutionError, FormatError, PlanError
+from ..utils.profiling import count_root, span, stage
 from .access import (
     CandidateCursor,
     FileEntry,
@@ -148,14 +149,12 @@ class VectorTopKExec(ExecutionPlan):
     # ------------------------------------------------------------------
 
     def execute(self, context: TaskContext) -> pa.Table:
-        from ..utils.profiling import stage
-
         with stage("vector_topk.resident"):
             table = self._try_resident(context)
         if table is None:
-            with stage("vector_topk.collect_candidates"):
+            with stage("vector_topk.collect_candidates"), span("sql.search"):
                 candidates = self._collect_candidates(context)
-            with stage("vector_topk.file_metadata"):
+            with stage("vector_topk.file_metadata"), span("sql.fetch"):
                 file_entries = self._files_with_candidates(context, candidates)
             with stage("vector_topk.fetch_and_topk"):
                 table = self._execute_with_candidates(file_entries, context)
@@ -230,8 +229,6 @@ class VectorTopKExec(ExecutionPlan):
                 return None
             searchers.append((path, searcher))
 
-        from ..utils.profiling import stage
-
         has_filter = any(
             isinstance(node, FilterExec) for node in _walk(self.scan_plan)
         )
@@ -247,7 +244,8 @@ class VectorTopKExec(ExecutionPlan):
             exhausted = True
             total = 0
             k_eff = min(k_fetch, k_cap)
-            with stage("vector_topk.resident.device_search"):
+            count_root("rounds")
+            with stage("vector_topk.resident.device_search"), span("sql.search"):
                 for path, searcher in searchers:
                     k_f = min(k_eff, searcher.n)
                     dist, ids = searcher.search(
@@ -284,8 +282,10 @@ class VectorTopKExec(ExecutionPlan):
                     if take.size:
                         candidates[path] = take
                 total = sum(v.size for v in candidates.values())
+            count_root("candidates", total)
             with stage("vector_topk.resident.fetch_and_topk"):
-                file_entries = self._files_with_candidates(context, candidates)
+                with span("sql.fetch"):
+                    file_entries = self._files_with_candidates(context, candidates)
                 table = self._execute_with_candidates(file_entries, context)
             if table.num_rows >= self.k or exhausted:
                 self._resident_candidates.add(total)
@@ -361,6 +361,14 @@ class VectorTopKExec(ExecutionPlan):
         """Budget -> access plans -> child scan -> top-k (exec.rs:207-245)."""
         if not file_entries:
             raise PlanError("VectorTopKExec requires at least one indexed parquet file")
+        with span("sql.fetch"):
+            table = self._fetch(file_entries, context)
+        with span("sql.topk"):
+            return self._topk_from_table(table, context.device)
+
+    def _fetch(self, file_entries: list[FileEntry], context: TaskContext) -> pa.Table:
+        """The candidates under the budget, read through the scan subtree
+        with access plans attached (its FilterExec applies the predicate)."""
 
         total_candidates = sum(e.candidates.size for e in file_entries)
         max_candidates = (
@@ -383,8 +391,7 @@ class VectorTopKExec(ExecutionPlan):
 
         access_plans = build_access_plans(file_entries, selections_np)
         plan = rewrite_with_access_plans(self.scan_plan, access_plans)
-        table = plan.execute(context)
-        return self._topk_from_table(table, context.device)
+        return plan.execute(context)
 
     # ------------------------------------------------------------------
 

@@ -22,6 +22,7 @@ import pyarrow as pa
 import pyarrow.parquet as pq
 
 from ..errors import PlanError
+from ..utils.profiling import span
 from .access import ParquetAccessPlan, ScanFile
 from .expr import PhysicalExpr
 from .metrics import MetricsSet
@@ -395,7 +396,7 @@ class FilterExec(ExecutionPlan):
 
     def execute(self, context: TaskContext) -> pa.Table:
         table = self.input.execute(context)
-        with self.metrics.elapsed_compute.timer():
+        with span("sql.topk"), self.metrics.elapsed_compute.timer():
             mask = np.asarray(self.predicate.evaluate(table), dtype=bool)
             out = table.filter(pa.array(mask))
         self.metrics.output_rows.add(out.num_rows)
@@ -605,13 +606,14 @@ class ProjectionExec(ExecutionPlan):
         table = self.input.execute(context)
         arrays = []
         names = []
-        for expr, name in self.exprs:
-            if isinstance(expr, Column):
-                arrays.append(table.column(expr.name))
-            else:
-                arrays.append(pa.array(expr.evaluate(table)))
-            names.append(name)
-        out = pa.Table.from_arrays(arrays, names=names)
+        with span("sql.topk"):
+            for expr, name in self.exprs:
+                if isinstance(expr, Column):
+                    arrays.append(table.column(expr.name))
+                else:
+                    arrays.append(pa.array(expr.evaluate(table)))
+                names.append(name)
+            out = pa.Table.from_arrays(arrays, names=names)
         self.metrics.output_rows.add(out.num_rows)
         return out
 

@@ -13,12 +13,14 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import pyarrow as pa
 import torch
 
 from .._device import resolve_device
 from ..errors import PlanError
+from ..utils.profiling import span
 from .access import ScanFile
 from .expr import Column, PhysicalExpr
 from .object_store import DEFAULT_STORE, ObjectStore
@@ -86,7 +88,8 @@ class Session:
         self._tables[name] = _Table(paths, schema)
 
     def sql(self, query: str) -> "DataFrame":
-        return DataFrame(self, parse_sql(query))
+        start_ns = time.perf_counter_ns()
+        return DataFrame(self, parse_sql(query), start_ns)
 
     def device_searcher(self, name: str, **kwargs):
         """Device-resident batched searcher(s) for a registered table
@@ -225,12 +228,24 @@ class Session:
 
 
 class DataFrame:
-    """Lazy query handle (DataFusion DataFrame analog)."""
+    """Lazy query handle (DataFusion DataFrame analog).
 
-    def __init__(self, session: Session, statement: SelectStatement):
+    While tracing is on (``utils/profiling.py``), ``collect()`` records the
+    query as one root span ``sql``, from the parse in ``Session.sql`` to the
+    output table (counter ``rows``); its children are ``sql.plan`` (the
+    parse, ``plan_statement``, ``optimize``), ``sql.search`` (the candidate
+    search: the resident device search or the index scan), ``sql.fetch``
+    (row-group counts and the candidate rows' reads) and ``sql.topk`` (the
+    predicate, the distance recompute, the top-k and the output
+    projection). ``VectorTopKExec`` adds ``rounds`` and ``candidates``, the
+    page reader ``pages`` and ``page_bytes``."""
+
+    def __init__(self, session: Session, statement: SelectStatement,
+                 start_ns: int | None = None):
         self._session = session
         self._statement = statement
         self._plan: ExecutionPlan | None = None
+        self._start_ns = start_ns  # the parse's start, taken by the first collect()
 
     def physical_plan(self) -> ExecutionPlan:
         if self._plan is None:
@@ -239,7 +254,13 @@ class DataFrame:
         return self._plan
 
     def collect(self) -> pa.Table:
-        return self.physical_plan().execute(self._session.task_context())
+        start, self._start_ns = self._start_ns, None
+        with span("sql", start_ns=start) as root:
+            with span("sql.plan", start_ns=start):
+                plan = self.physical_plan()
+            table = plan.execute(self._session.task_context())
+            root.count("rows", table.num_rows)
+        return table
 
     def to_pandas(self):
         return self.collect().to_pandas()

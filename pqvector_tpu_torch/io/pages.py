@@ -38,6 +38,7 @@ from ..errors import ExecutionError, FormatError, ValidationError
 from ..types import EmbeddingColumn
 from .embed import read_footer_metadata
 from ..utils.alloc import alloc_matrix, populate
+from ..utils.profiling import count_root
 from .thrift import (
     CT_BINARY,
     CT_I32,
@@ -717,6 +718,8 @@ class PageSelectiveReader:
                     )
                     chunk = self.row_groups[rg].chunks[self.leaf_idx]
                     page = _decode_page(raw, chunk.codec, self.leaf)
+                    count_root("pages")
+                    count_root("page_bytes", len(raw))
                     row_offsets = np.concatenate(
                         [[0], np.cumsum(page.row_lengths)]
                     )
@@ -789,6 +792,8 @@ class PageSelectiveReader:
                     )
                     chunk = self.row_groups[rg].chunks[self.leaf_idx]
                     page = _decode_page(raw, chunk.codec, self.leaf)
+                    count_root("pages")
+                    count_root("page_bytes", len(raw))
                     row_offsets = np.concatenate(
                         [[0], np.cumsum(page.row_lengths)]
                     )
@@ -824,9 +829,10 @@ class PageSelectiveReader:
         different row groups may run on a thread pool — the analog of the
         multi-partition scan DataFusion runs under the reference's rewrite
         (RepartitionExec, .../snapshots/...filter_plan_tree.snap:24-39).
-        Returns ``(values, row_lengths, gidx, n_pages)`` where ``gidx`` maps
-        each ``local`` row to its row index inside the decoded batch, or
-        None when the native library is unavailable. Raises FormatError for
+        Returns ``(values, row_lengths, gidx, n_pages, n_bytes)`` where
+        ``gidx`` maps each ``local`` row to its row index inside the decoded
+        batch and ``n_bytes`` counts the pages' bytes, or None when the
+        native library is unavailable. Raises FormatError for
         codecs/encodings the native decoder doesn't cover. Metadata caches
         (_locations/_firsts/_offs_sizes) must already be warm.
         """
@@ -907,14 +913,16 @@ class PageSelectiveReader:
         gidx = prs[ppos] + (local - firsts[pidx])
         if np.any(gidx >= prs[ppos + 1]):
             raise ExecutionError("Row beyond decoded page")
-        return values, row_lengths, gidx, int(upages.size)
+        return values, row_lengths, gidx, int(upages.size), int(sizes.sum())
 
     def _decode_selections(
         self, rows: np.ndarray, rg_of: np.ndarray, f, dim: int | None = None
     ) -> list[tuple[np.ndarray, tuple]] | None:
         """Run :meth:`_decode_rg_selection` for every touched row group —
         on the shared scan pool when more than one group is touched and the
-        pool has workers. Returns ``[(sel, result), ...]`` or None."""
+        pool has workers. Returns ``[(sel, result), ...]`` or None. While
+        tracing is on, the data pages decoded and their bytes are added to
+        the call's root span (``pages``, ``page_bytes``)."""
         fd = f.fileno() if f is not None else None
         rgs = [int(r) for r in np.unique(rg_of)]
         sels = {rg: np.flatnonzero(rg_of == rg) for rg in rgs}
@@ -934,6 +942,8 @@ class PageSelectiveReader:
             results = [one(rg) for rg in rgs]
         if any(r is None for r in results):
             return None
+        count_root("pages", sum(r[3] for r in results))
+        count_root("page_bytes", sum(r[4] for r in results))
         return [(sels[rg], res) for rg, res in zip(rgs, results)]
 
     def _read_rows_batched(
@@ -949,7 +959,7 @@ class PageSelectiveReader:
             decoded = self._decode_selections(rows, rg_of, f, dim=dim)
             if decoded is None:
                 return None
-            for sel, (values, row_lengths, gidx, _) in decoded:
+            for sel, (values, row_lengths, gidx, _, _) in decoded:
                 if np.any(row_lengths[gidx] != dim):
                     raise ExecutionError(
                         "Selected embeddings do not match expected dimensions"
@@ -974,7 +984,7 @@ class PageSelectiveReader:
             decoded = self._decode_selections(rows, rg_of, f)
             if decoded is None:
                 return None
-            for sel, (values, row_lengths, gidx, n_pages) in decoded:
+            for sel, (values, row_lengths, gidx, n_pages, _) in decoded:
                 pages_read += n_pages
                 # Uniform-length fast path (embedding columns): a single
                 # reshape+fancy-index replaces the 2M-element repeat/arange

@@ -23,6 +23,8 @@ counts the spans it drops.
   allocated, retained or synced.
 * ``device_counter`` hands a kernel int32 accumulators on the device while
   tracing is on (None off); ``read_store`` folds them into host totals.
+* ``count_root(key, n)`` adds to a host counter of the call in progress:
+  the outermost span open on the thread, while tracing is on.
 * ``device_trace(dir)`` profiles the device (CUDA activity only on a card,
   host ops on the CPU), turns spans on, and writes one Chrome trace in which
   the spans are host-thread events on the profiler's clock.
@@ -104,15 +106,16 @@ class Span:
     ``count(key, n)`` adds to its counters."""
 
     __slots__ = ("name", "id", "parent", "root", "tid", "start_ns", "end_ns",
-                 "counters", "_explicit", "_drain", "_sink", "_probe", "_before")
+                 "counters", "_explicit", "_drain", "_sink", "_probe", "_before", "_start")
 
     def __init__(self, name: str, parent: "Span | None" = None, drain: bool = False,
-                 counters=None):
+                 counters=None, start_ns: int | None = None):
         self.name = name
         self.counters: dict | None = None
         self._explicit = parent
         self._drain = drain
         self._probe = counters
+        self._start = start_ns
 
     def __enter__(self) -> "Span":
         local = _local
@@ -128,7 +131,7 @@ class Span:
         self.tid = local.tid
         self._before = self._probe() if self._probe is not None and tracing_on() else None
         stack.append(self)
-        self.start_ns = time.perf_counter_ns()
+        self.start_ns = time.perf_counter_ns() if self._start is None else self._start
         return self
 
     def __exit__(self, kind, value, tb) -> bool:
@@ -167,11 +170,13 @@ class _Off:
 _OFF = _Off()
 
 
-def span(name: str, parent: Span | None = None):
+def span(name: str, parent: Span | None = None, start_ns: int | None = None):
     """A span recorded only while tracing is on. ``parent``: the span a
-    worker thread's work belongs to (default: the thread's innermost)."""
+    worker thread's work belongs to (default: the thread's innermost).
+    ``start_ns``: an earlier ``time.perf_counter_ns()`` at which the span's
+    work began, for work begun before the span could be opened."""
     if _forced or _profiler_enabled():
-        return Span(name, parent)
+        return Span(name, parent, start_ns=start_ns)
     return _OFF
 
 
@@ -195,6 +200,16 @@ def staged(name: str):
         return inner
 
     return wrap
+
+
+def count_root(key: str, n: int = 1) -> None:
+    """While tracing is on: add ``n`` to the counter ``key`` of this
+    thread's outermost open span, the root of the call in progress (none
+    open: nothing)."""
+    if _forced or _profiler_enabled():
+        stack = _local.stack
+        if stack:
+            stack[0].count(key, n)
 
 
 def current() -> Span | None:

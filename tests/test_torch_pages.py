@@ -158,6 +158,27 @@ def test_batched_native_read_matches_python_fallback(tmp_path, vectors, monkeypa
     np.testing.assert_array_equal(fallback, vectors[rows])
 
 
+def test_remote_store_reads_the_same_rows_in_coalesced_ranges(tmp_path, vectors):
+    """A file behind a store that is not local is read in coalesced spans
+    (one ``get_ranges`` a row group), to the rows a local read gives."""
+    from pqvector_tpu_torch.engine.object_store import MemoryStore
+
+    _native_or_skip()
+    path = _write(tmp_path / "remote.parquet", vectors, compression="snappy",
+                  data_page_size=64, write_batch_size=16, row_group_size=200)
+    store = MemoryStore({path: open(path, "rb").read()})
+    calls = []
+    real = store.get_ranges
+    store.get_ranges = lambda p, ranges: calls.append(len(ranges)) or real(p, ranges)
+    remote = tpages.PageSelectiveReader(path, EmbeddingColumn("vec"), store=store)
+    local = tpages.PageSelectiveReader(path, EmbeddingColumn("vec"))
+    rows = np.array([3, 4, 5, 150, 260, 499, 17])
+    got, lens, pages = remote.read_rows_ragged(rows)
+    np.testing.assert_array_equal(got.reshape(-1, D), vectors[rows])
+    assert pages >= 3 and sum(calls) >= 3
+    np.testing.assert_array_equal(local.read_rows(rows, D), vectors[rows])
+
+
 @pytest.mark.parametrize("tag", ["dict", "plain"])
 def test_native_chunk_reader_matches_jax(tmp_path, tag):
     _native_or_skip()
