@@ -291,7 +291,7 @@ class ParquetScanExec(ExecutionPlan):
                     continue
                 vals, lens, pages = reader.read_rows_ragged(global_rows)
             except (_ExecErr, _FmtErr):
-                continue  # dict pages / nulls / etc: row-group fallback
+                continue  # nulls, other encodings: row-group fallback
             arr = _rebuild_float_array(typ, vals, lens)
             if arr is None:
                 continue

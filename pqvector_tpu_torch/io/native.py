@@ -10,6 +10,7 @@ demand from the repo's ``native/`` sources with the system g++.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -46,24 +47,44 @@ _ERRORS = {
 _ZSTD_DECL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "zstd_decl")
 
 
+#: Held while this module builds the library, so that processes which
+#: find it missing at once build it one at a time.
+_LOCK_PATH = os.path.join(os.path.dirname(_NATIVE_DIR), "pqvector_tpu_torch", "_build",
+                          "native.lock")
+
+
 def ensure_built(force: bool = False) -> bool:
     """Compile the native library if needed; True if it is available.
 
     ``make`` in the repo's ``native/`` builds it from its sources, against
-    the declarations in ``zstd_decl/`` and the runtime ``libzstd.so.1``."""
+    the declarations in ``zstd_decl/`` and the runtime ``libzstd.so.1``.
+    Builds take turns under a file lock, and each writes the library under
+    another name and renames it into place, so a process never loads one
+    that this function has half written."""
+    import fcntl
+
     if os.path.exists(_LIB_PATH) and not force:
         return True
     if not os.path.exists(os.path.join(_NATIVE_DIR, "Makefile")):
         return False
+    tmp = f"tmp{os.getpid()}-{os.path.basename(_LIB_PATH)}"
     try:
-        subprocess.run(
-            ["make", "-C", _NATIVE_DIR, "LDLIBS=-l:libzstd.so.1 -lz"],
-            check=True,
-            capture_output=True,
-            timeout=120,
-            env=dict(os.environ, CPLUS_INCLUDE_PATH=_ZSTD_DECL_DIR),
-        )
+        os.makedirs(os.path.dirname(_LOCK_PATH), exist_ok=True)
+        with open(_LOCK_PATH, "a") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if os.path.exists(_LIB_PATH) and not force:
+                return True  # another process built it while this one waited
+            subprocess.run(
+                ["make", "-C", _NATIVE_DIR, f"LIB={tmp}", "LDLIBS=-l:libzstd.so.1 -lz"],
+                check=True,
+                capture_output=True,
+                timeout=120,
+                env=dict(os.environ, CPLUS_INCLUDE_PATH=_ZSTD_DECL_DIR),
+            )
+            os.replace(os.path.join(_NATIVE_DIR, tmp), _LIB_PATH)
     except (subprocess.SubprocessError, OSError):
+        with contextlib.suppress(OSError):
+            os.remove(os.path.join(_NATIVE_DIR, tmp))
         return False
     return os.path.exists(_LIB_PATH)
 
@@ -97,8 +118,16 @@ def load() -> ctypes.CDLL | None:
                     _load_failed = True
                     return None
         except OSError:
-            _load_failed = True
-            return None
+            # Unreadable: possibly written in place by another loader of the
+            # same file at this moment. Rebuild it once, then give up.
+            if not ensure_built(force=True):
+                _load_failed = True
+                return None
+            try:
+                lib = ctypes.CDLL(_LIB_PATH)
+            except OSError:
+                _load_failed = True
+                return None
         lib.pqv_splice_kv.restype = ctypes.c_int64
         lib.pqv_splice_kv.argtypes = [
             ctypes.c_char_p,
@@ -351,11 +380,13 @@ def decode_chunk_native(
     value_cap: int,
     out_values=None,
 ):
-    """Sequential decode of a whole column chunk (no offset index).
+    """Sequential decode of a whole column chunk (no offset index), or of a
+    chunk's dictionary page followed by some of its data pages, back to
+    back.
 
     Returns ``(values f32 [nv], row_lengths i64 [nr])`` or None when the
     library is unavailable; raises FormatError for unsupported layouts
-    (dictionary pages, non-PLAIN encodings, nulls) so callers can fall
+    (encodings other than PLAIN and dictionary, nulls) so callers can fall
     back to pyarrow. ``out_values`` may be a preallocated f32 array of at
     least ``value_cap`` elements (decode writes in place, no copy).
     """

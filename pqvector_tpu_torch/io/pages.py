@@ -11,17 +11,20 @@ parser (io/thrift.py):
   chunks and their ``OffsetIndex`` locations,
 * for a candidate row set: offset-index binary search -> exact page byte
   ranges -> page-header parse -> decompress -> RLE/bit-packed level decode ->
-  PLAIN float decode -> row extraction.
+  PLAIN float decode, or a gather from the chunk's dictionary -> row
+  extraction.
 
 Supports the layouts the reference reads/writes: List/FixedSizeList of
-FLOAT/DOUBLE, PLAIN-encoded data pages (V1 and V2), SNAPPY/ZSTD/GZIP/
-UNCOMPRESSED codecs, no nulls (nulls are rejected exactly like
+FLOAT/DOUBLE, PLAIN and dictionary-encoded data pages (V1 and V2), SNAPPY/
+ZSTD/GZIP/UNCOMPRESSED codecs, no nulls (nulls are rejected exactly like
 search.rs:212-218). Files without an offset index fall back to the row-group
 reader in query/selective.py.
 
-This is a copy of the JAX package's module, host code only. The timings in
-its comments are the JAX package's, measured on that package's host; none
-was taken for this port.
+This is a copy of the JAX package's module, host code only, which also
+serves dictionary-encoded pages page-exact (the JAX package's reader refuses
+them) and decodes into buffers each thread keeps from call to call. The
+timings in its comments are the JAX package's, measured on that package's
+host; none was taken for this port.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from ..errors import ExecutionError, FormatError, ValidationError
 from ..types import EmbeddingColumn
 from .embed import read_footer_metadata
 from ..utils.alloc import alloc_matrix, populate
-from ..utils.profiling import count_root
+from ..utils.profiling import count_root, tracing_on
 from .thrift import (
     CT_BINARY,
     CT_I32,
@@ -75,6 +78,9 @@ _PAGE_DATA_V2 = 3
 # Encoding enum
 _ENC_PLAIN = 0
 _ENC_RLE = 3
+#: PLAIN_DICTIONARY (2) and RLE_DICTIONARY (8): a data page of indices into
+#: the column chunk's dictionary page.
+_DICT_ENCODINGS = (2, 8)
 
 
 def _list_items(buf: memoryview, pos: int) -> tuple[int, int, int]:
@@ -339,6 +345,15 @@ def parse_page_header(data: bytes | memoryview) -> PageHeader:
                     h.def_encoding = val
                 elif s.field_id == 4:
                     h.rep_encoding = val
+        elif f.field_id == 7 and f.ctype == CT_STRUCT:  # DictionaryPageHeader
+            sub, _ = parse_struct_fields(buf[f.body_start :])
+            for s in sub:
+                if s.field_id in (1, 2) and s.ctype == CT_I32:
+                    v, _ = read_varint(buf, f.body_start + s.body_start)
+                    if s.field_id == 1:
+                        h.num_values = zigzag_decode(v)
+                    else:
+                        h.encoding = zigzag_decode(v)
         elif f.field_id == 8 and f.ctype == CT_STRUCT:  # DataPageHeaderV2
             sub, _ = parse_struct_fields(buf[f.body_start :])
             h.v2_is_compressed = True
@@ -420,17 +435,67 @@ class DecodedPage:
     row_lengths: np.ndarray  # values per row (from rep levels)
 
 
+def _float_values(data, ptype: int, n: int) -> np.ndarray:
+    """``n`` PLAIN FLOAT or DOUBLE values at the start of ``data`` as f32."""
+    if ptype == _TYPE_FLOAT:
+        return np.frombuffer(data, dtype="<f4", count=n).astype(np.float32, copy=True)
+    if ptype == _TYPE_DOUBLE:
+        return np.frombuffer(data, dtype="<f8", count=n).astype(np.float32)
+    raise ExecutionError("Embedding values are not float32/float64")
+
+
+def decode_dictionary_page(raw: bytes, codec: str, leaf: SchemaLeaf) -> np.ndarray:
+    """A column chunk's dictionary page -> its entries as f32 (PLAIN values,
+    narrowed from DOUBLE as data pages are)."""
+    header = parse_page_header(raw)
+    if header.page_type != _PAGE_DICT:
+        raise ExecutionError(f"Expected a dictionary page, got page type {header.page_type}")
+    width = 8 if leaf.ptype == _TYPE_DOUBLE else 4
+    if (
+        header.num_values < 0
+        or header.compressed_size < 0
+        or header.uncompressed_size < header.num_values * width
+        or header.header_len + header.compressed_size > len(raw)
+    ):
+        raise ExecutionError("Malformed dictionary page header")
+    body = memoryview(raw)[header.header_len : header.header_len + header.compressed_size]
+    data = _decompress(bytes(body), codec, header.uncompressed_size)
+    if len(data) < header.num_values * width:
+        raise ExecutionError("Truncated dictionary page")
+    return _float_values(data, leaf.ptype, header.num_values)
+
+
+def _dictionary_values(data, n: int, dictionary: np.ndarray) -> np.ndarray:
+    """A dictionary-encoded page's values section (a bit-width byte, then
+    ``n`` RLE/bit-packed indices) -> the dictionary's entries."""
+    if len(data) < 1:
+        raise ExecutionError("Truncated dictionary-encoded page")
+    bit_width = data[0]
+    if bit_width > 32:
+        raise ExecutionError(f"Malformed dictionary index bit width {bit_width}")
+    idx = decode_rle_levels(memoryview(data)[1:], bit_width, n)
+    if n and (idx.min() < 0 or idx.max() >= dictionary.size):
+        raise ExecutionError("Dictionary index out of range")
+    return dictionary[idx]
+
+
 def decode_data_page(
-    raw: bytes, codec: str, leaf: SchemaLeaf, fixed_list_size: int | None = None
+    raw: bytes, codec: str, leaf: SchemaLeaf, fixed_list_size: int | None = None,
+    dictionary: np.ndarray | None = None,
 ) -> DecodedPage:
+    """One data page -> its values and row lengths. A dictionary-encoded page
+    needs its column chunk's ``dictionary`` (``decode_dictionary_page``)."""
     header = parse_page_header(raw)
     body = memoryview(raw)[header.header_len : header.header_len + header.compressed_size]
 
     if header.page_type == _PAGE_DICT:
-        raise ExecutionError("Dictionary-encoded embedding pages are not supported")
+        raise ExecutionError("Expected a data page, got a dictionary page")
     if header.page_type not in (_PAGE_DATA, _PAGE_DATA_V2):
         raise ExecutionError(f"Unsupported page type {header.page_type}")
-    if header.encoding != _ENC_PLAIN:
+    dict_encoded = header.encoding in _DICT_ENCODINGS
+    if dict_encoded and dictionary is None:
+        raise ExecutionError("Dictionary-encoded page read without its dictionary")
+    if header.encoding != _ENC_PLAIN and not dict_encoded:
         raise ExecutionError(
             f"Embedding pages must be PLAIN encoded, got encoding {header.encoding}"
         )
@@ -498,14 +563,10 @@ def decode_data_page(
     if np.any(defs != leaf.max_def):
         raise ExecutionError("Embedding column contains null rows")
 
-    if leaf.ptype == _TYPE_FLOAT:
-        values = np.frombuffer(values_raw, dtype="<f4", count=n).astype(
-            np.float32, copy=True
-        )
-    elif leaf.ptype == _TYPE_DOUBLE:
-        values = np.frombuffer(values_raw, dtype="<f8", count=n).astype(np.float32)
+    if dict_encoded:
+        values = _dictionary_values(values_raw, n, dictionary)
     else:
-        raise ExecutionError("Embedding values are not float32/float64")
+        values = _float_values(values_raw, leaf.ptype, n)
 
     if leaf.max_rep:
         row_starts = np.flatnonzero(rep == 0)
@@ -554,9 +615,37 @@ def _scan_pool():
     return _SCAN_POOL or None
 
 
-def _decode_page(raw: bytes, codec: str, leaf: SchemaLeaf) -> DecodedPage:
+def _dictionary_encoded(page) -> bool:
+    """Whether the data page starting ``page`` holds dictionary indices."""
+    return parse_page_header(page).encoding in _DICT_ENCODINGS
+
+
+def _gather_rows(values: np.ndarray, lengths: np.ndarray, gidx: np.ndarray):
+    """Rows ``gidx`` of a decoded batch -> (their lengths, their values back
+    to back), in fresh arrays."""
+    lens = lengths[gidx]
+    u = int(lengths[0]) if lengths.size else 0
+    if u > 0 and values.size == lengths.size * u and np.all(lengths == u):
+        # Uniform rows (embedding columns): one fancy index, no index build.
+        return lens, values.reshape(-1, u)[gidx].reshape(-1)
+    starts = np.concatenate([[0], np.cumsum(lengths)])[gidx]
+    boff = np.concatenate([[0], np.cumsum(lens)])
+    idx = (
+        np.arange(int(boff[-1]), dtype=np.int64)
+        - np.repeat(boff[:-1], lens)
+        + np.repeat(starts, lens)
+    )
+    return lens, values[idx]
+
+
+def _decode_page(
+    raw: bytes, codec: str, leaf: SchemaLeaf, dictionary: np.ndarray | None = None
+) -> DecodedPage:
     """Native C++ decode when available (native/pqvector_pages.cpp), Python
-    decoder as fallback/oracle."""
+    decoder as fallback/oracle; a dictionary-encoded page (``dictionary``
+    given) by the Python decoder."""
+    if dictionary is not None:
+        return decode_data_page(raw, codec, leaf, dictionary=dictionary)
     try:
         from .native import decode_data_page_native
 
@@ -686,55 +775,25 @@ class PageSelectiveReader:
 
     def read_rows(self, rows: np.ndarray, dim: int) -> np.ndarray:
         rows = np.asarray(rows, dtype=np.int64)
-        out = np.empty((rows.size, dim), dtype=np.float32)
         if rows.size == 0:
-            return out
+            return np.empty((0, dim), dtype=np.float32)
         total_rows = int(self._rg_starts[-1])
         if rows.max(initial=-1) >= total_rows:
             raise ExecutionError(
                 f"Candidate row {int(rows.max())} out of bounds for file with "
                 f"{total_rows} rows"
             )
-        order = np.argsort(rows, kind="stable")
         with self._open() as f:
             rg_of = np.searchsorted(self._rg_starts, rows, side="right") - 1
             batched = self._read_rows_batched(rows, rg_of, dim, f)
             if batched is not None:
                 return batched
-            page_cache: tuple[int, int, DecodedPage, np.ndarray] | None = None
-            for oi in order:
-                row = int(rows[oi])
-                rg = int(rg_of[oi])
-                local = row - int(self._rg_starts[rg])
-                locs = self._locations(rg, f)
-                firsts = self._firsts(rg, f)
-                pidx = int(np.searchsorted(firsts, local, side="right") - 1)
-                if page_cache is not None and page_cache[0] == rg and page_cache[1] == pidx:
-                    _, _, page, row_offsets = page_cache
-                else:
-                    loc = locs[pidx]
-                    raw = self._read_at(
-                        f, loc.offset, loc.compressed_page_size
-                    )
-                    chunk = self.row_groups[rg].chunks[self.leaf_idx]
-                    page = _decode_page(raw, chunk.codec, self.leaf)
-                    count_root("pages")
-                    count_root("page_bytes", len(raw))
-                    row_offsets = np.concatenate(
-                        [[0], np.cumsum(page.row_lengths)]
-                    )
-                    page_cache = (rg, pidx, page, row_offsets)
-                in_page = local - int(firsts[pidx])
-                if in_page >= page.row_lengths.size:
-                    raise ExecutionError("Row beyond decoded page")
-                start = int(row_offsets[in_page])
-                length = int(page.row_lengths[in_page])
-                if length != dim:
-                    raise ExecutionError(
-                        "Selected embeddings do not match expected dimensions"
-                    )
-                out[oi] = page.values[start : start + dim]
-        return out
+            values, lengths, _ = self._read_rows_paged(rows, rg_of, f)
+        if np.any(lengths != dim):
+            raise ExecutionError(
+                "Selected embeddings do not match expected dimensions"
+            )
+        return values.reshape(rows.size, dim)
 
     def read_rows_ragged(
         self, rows: np.ndarray
@@ -762,51 +821,79 @@ class PageSelectiveReader:
                 f"Selected row {int(rows.max())} out of bounds for file with "
                 f"{total_rows} rows"
             )
-        order = np.argsort(rows, kind="stable")
-        out_vals: list[np.ndarray] = [None] * rows.size
-        out_lens = np.empty(rows.size, np.int64)
-        pages_read = 0
         with self._open() as f:
             rg_of = np.searchsorted(self._rg_starts, rows, side="right") - 1
             batched = self._read_rows_ragged_batched(rows, rg_of, f)
             if batched is not None:
                 return batched
-            page_cache = None  # (rg, pidx, page, row_offsets)
-            for oi in order:
-                row = int(rows[oi])
-                rg = int(rg_of[oi])
-                local = row - int(self._rg_starts[rg])
-                locs = self._locations(rg, f)
-                firsts = self._firsts(rg, f)
-                pidx = int(np.searchsorted(firsts, local, side="right") - 1)
-                if (
-                    page_cache is not None
-                    and page_cache[0] == rg
-                    and page_cache[1] == pidx
-                ):
-                    _, _, page, row_offsets = page_cache
-                else:
-                    loc = locs[pidx]
-                    raw = self._read_at(
-                        f, loc.offset, loc.compressed_page_size
-                    )
-                    chunk = self.row_groups[rg].chunks[self.leaf_idx]
-                    page = _decode_page(raw, chunk.codec, self.leaf)
-                    count_root("pages")
-                    count_root("page_bytes", len(raw))
-                    row_offsets = np.concatenate(
-                        [[0], np.cumsum(page.row_lengths)]
-                    )
-                    page_cache = (rg, pidx, page, row_offsets)
-                    pages_read += 1
-                in_page = local - int(firsts[pidx])
-                if in_page >= page.row_lengths.size:
-                    raise ExecutionError("Row beyond decoded page")
-                start = int(row_offsets[in_page])
-                length = int(page.row_lengths[in_page])
-                out_lens[oi] = length
-                out_vals[oi] = page.values[start : start + length]
-        return np.concatenate(out_vals), out_lens, pages_read
+            return self._read_rows_paged(rows, rg_of, f)
+
+    def _dictionary(self, rg: int, f) -> tuple[np.ndarray, int]:
+        """Row group ``rg``'s dictionary, decoded, and its page's bytes."""
+        off, length = self._dictionary_span(rg)
+        if not length:
+            raise ExecutionError(
+                "Dictionary-encoded page in a column chunk without a dictionary page"
+            )
+        chunk = self.row_groups[rg].chunks[self.leaf_idx]
+        raw = self._read_at(f, off, length)
+        return decode_dictionary_page(raw, chunk.codec, self.leaf), len(raw)
+
+    def _read_rows_paged(
+        self, rows: np.ndarray, rg_of: np.ndarray, f
+    ) -> tuple[np.ndarray, np.ndarray, int]:
+        """One page at a time, each decoded alone: the path without the
+        native library, and for pages its batched decode declines. Returns
+        ``(values, row_lengths, pages_read)`` with rows in input order. A
+        row group's dictionary is read once a call, where a page needs it.
+        Each page is counted as it is read, so a read refused partway counts
+        the pages it got through."""
+        order = np.argsort(rows, kind="stable")
+        out_vals: list[np.ndarray] = [None] * rows.size
+        out_lens = np.empty(rows.size, np.int64)
+        pages = 0
+        count_root("dict_pages", 0)
+        count_root("dict_bytes", 0)
+        dictionaries: dict[int, np.ndarray] = {}
+        page_cache = None  # (rg, pidx, page, row_offsets)
+        for oi in order:
+            row = int(rows[oi])
+            rg = int(rg_of[oi])
+            local = row - int(self._rg_starts[rg])
+            locs = self._locations(rg, f)
+            firsts = self._firsts(rg, f)
+            pidx = int(np.searchsorted(firsts, local, side="right") - 1)
+            if (
+                page_cache is not None
+                and page_cache[0] == rg
+                and page_cache[1] == pidx
+            ):
+                _, _, page, row_offsets = page_cache
+            else:
+                loc = locs[pidx]
+                raw = self._read_at(f, loc.offset, loc.compressed_page_size)
+                chunk = self.row_groups[rg].chunks[self.leaf_idx]
+                dictionary = None
+                if _dictionary_encoded(raw):
+                    if rg not in dictionaries:
+                        dictionaries[rg], nbytes = self._dictionary(rg, f)
+                        count_root("dict_bytes", nbytes)
+                    dictionary = dictionaries[rg]
+                page = _decode_page(raw, chunk.codec, self.leaf, dictionary)
+                count_root("pages")
+                count_root("page_bytes", len(raw))
+                count_root("dict_pages", int(dictionary is not None))
+                pages += 1
+                row_offsets = np.concatenate([[0], np.cumsum(page.row_lengths)])
+                page_cache = (rg, pidx, page, row_offsets)
+            in_page = local - int(firsts[pidx])
+            if in_page >= page.row_lengths.size:
+                raise ExecutionError("Row beyond decoded page")
+            start = int(row_offsets[in_page])
+            length = int(page.row_lengths[in_page])
+            out_lens[oi] = length
+            out_vals[oi] = page.values[start : start + length]
+        return np.concatenate(out_vals), out_lens, pages
 
     # Gap below which two selected pages are fetched in one read: with the
     # 1-row-per-page layout, neighboring candidate pages are usually within
@@ -816,8 +903,19 @@ class PageSelectiveReader:
     # 64k = 109 ms, 256k = 292 ms — dead gap bytes dominate past ~16 KB.
     _COALESCE_GAP = 1 << 12
 
+    def _dictionary_span(self, rg: int) -> tuple[int, int]:
+        """(offset, length) of row group ``rg``'s dictionary page: from the
+        chunk's dictionary page offset to its first data page. (0, 0) where
+        the chunk has none. Its page locations must already be cached."""
+        off = self.row_groups[rg].chunks[self.leaf_idx].dictionary_page_offset
+        first = self._page_locations[rg][0].offset
+        if off is None or not 0 < off < first:
+            return 0, 0
+        return off, first - off
+
     def _decode_rg_selection(
-        self, rg: int, local: np.ndarray, fd: int, dim: int | None = None
+        self, rg: int, local: np.ndarray, fd: int, dim: int | None = None,
+        count_dict: bool = False,
     ):
         """Decode every page touched by ``local`` rows of one row group in a
         single native FFI call (span-coalesced preadv reads).
@@ -826,12 +924,14 @@ class PageSelectiveReader:
         1-row-per-page files that overhead dominates the query path (the
         reference amortizes it inside parquet-rs, search.rs:186-198).
         Reads go through ``os.preadv`` (no shared seek state), so calls for
-        different row groups may run on a thread pool — the analog of the
-        multi-partition scan DataFusion runs under the reference's rewrite
-        (RepartitionExec, .../snapshots/...filter_plan_tree.snap:24-39).
-        Returns ``(values, row_lengths, gidx, n_pages, n_bytes)`` where
-        ``gidx`` maps each ``local`` row to its row index inside the decoded
-        batch and ``n_bytes`` counts the pages' bytes, or None when the
+        different row groups may run on a thread pool. ``pqv_decode_pages``
+        takes no dictionary, so where it refuses a page and the chunk has a
+        dictionary page, that page and the touched pages are laid back to
+        back and ``pqv_decode_chunk`` walks them, serving dictionary-encoded
+        pages against it (``_decode_with_dictionary``). Returns
+        ``(row_lengths, values, pages, page_bytes, dict_pages, dict_bytes)``:
+        the rows of ``local`` in its order, and what was read
+        (``dict_pages`` counted only under ``count_dict``); or None when the
         native library is unavailable. Raises FormatError for
         codecs/encodings the native decoder doesn't cover. Metadata caches
         (_locations/_firsts/_offs_sizes) must already be warm.
@@ -841,9 +941,9 @@ class PageSelectiveReader:
         firsts = self._page_firsts[rg]
         pidx = np.searchsorted(firsts, local, side="right") - 1
         upages = np.unique(pidx)
-        page_rows_all = np.diff(
+        page_rows = np.diff(
             np.concatenate([firsts, [self.row_groups[rg].num_rows]])
-        )
+        )[upages]
         offs_all, sizes_all = self._page_offs[rg]
         offs = offs_all[upages]
         sizes = sizes_all[upages]
@@ -885,44 +985,121 @@ class PageSelectiveReader:
             span_pos[page_span] + (offs - span_off[page_span])
         ).astype(np.uint64)
         view.release()
-        n_page_rows = int(page_rows_all[upages].sum())
+        n_page_rows = int(page_rows.sum())
         chunk = self.row_groups[rg].chunks[self.leaf_idx]
-        res = decode_pages_native(
-            buf,
-            buf_offsets,
-            sizes,
-            chunk.codec,
-            self.leaf.ptype,
-            self.leaf.max_def,
-            self.leaf.max_rep,
-            row_cap=n_page_rows,
-            # Under a dimension contract the touched pages hold exactly
-            # rows*dim values (a malformed page trips the native capacity
-            # check -> FormatError -> per-page fallback raises the canonical
-            # dim error). Without one, the chunk's leaf value count is the
-            # only bound — chunk-wide, so reserve it for the ragged path.
-            value_cap=(
-                n_page_rows * dim if dim else int(chunk.num_values)
-            ),
-        )
+        # Under a dimension contract the touched pages hold exactly rows*dim
+        # values (a malformed page trips the native capacity check ->
+        # FormatError -> per-page fallback raises the canonical dim error).
+        # Without one, first the chunk's mean values a row times the pages'
+        # rows (exact for rows of one length), then the chunk's whole leaf
+        # value count: that bound for a few pages is a fresh mapping of the
+        # chunk's size each call (32 MiB at 65,536 x 128), whose page faults
+        # cost system time.
+        num_values = int(chunk.num_values)
+        if dim:
+            caps = [n_page_rows * dim]
+        else:
+            mean_cap = -(-num_values * n_page_rows // int(self.row_groups[rg].num_rows))
+            caps = [mean_cap, num_values] if mean_cap < num_values else [num_values]
+
+        def decode(plain: bool):
+            for i, cap in enumerate(caps):
+                try:
+                    if not plain:
+                        return self._decode_with_dictionary(
+                            buf, buf_offsets, sizes, chunk, dict_off, dict_bytes,
+                            fd, page_rows, cap,
+                        )
+                    res = decode_pages_native(
+                        buf, buf_offsets, sizes, chunk.codec, self.leaf.ptype,
+                        self.leaf.max_def, self.leaf.max_rep,
+                        row_cap=n_page_rows, value_cap=cap,
+                    )
+                    # values, row lengths, page row starts
+                    return None if res is None else (res[0], res[1], res[3])
+                except FormatError:
+                    if i + 1 == len(caps):
+                        raise
+
+        dict_pages = dict_bytes = 0
+        try:
+            res = decode(plain=True)
+        except FormatError:
+            dict_off, dict_bytes = self._dictionary_span(rg)
+            if not dict_bytes:
+                raise
+            res = decode(plain=False)
+            if count_dict:
+                dict_pages = sum(
+                    _dictionary_encoded(memoryview(buf)[p : p + n])
+                    for p, n in zip(buf_offsets.tolist(), sizes.tolist())
+                )
         if res is None:
             return None
-        values, row_lengths, _, prs = res
-        # Global row index of each candidate inside the decoded batch.
+        values, lengths, prs = res
+        # Row index of each candidate inside the decoded batch.
         ppos = np.searchsorted(upages, pidx)
         gidx = prs[ppos] + (local - firsts[pidx])
         if np.any(gidx >= prs[ppos + 1]):
             raise ExecutionError("Row beyond decoded page")
-        return values, row_lengths, gidx, int(upages.size), int(sizes.sum())
+        lens, vals = _gather_rows(values, lengths, gidx)
+        return (lens, vals, int(upages.size), int(sizes.sum()), dict_pages,
+                dict_bytes)
+
+    def _decode_with_dictionary(
+        self, buf, buf_offsets, sizes, chunk, dict_off, dict_len, fd,
+        page_rows, value_cap,
+    ):
+        """The touched pages of ``buf`` decoded against their chunk's
+        dictionary page (``dict_len`` bytes at ``dict_off``): that page, then
+        the pages back to back, walked by ``pqv_decode_chunk``, which serves
+        PLAIN and dictionary-encoded pages alike. Returns ``(values,
+        row_lengths, page_row_starts)``, the row starts from the offset
+        index, or None without the library."""
+        from .native import decode_chunk_native
+
+        seq = bytearray(dict_len + int(sizes.sum()))
+        view = memoryview(seq)
+        if fd is not None:
+            if os.preadv(fd, [view[:dict_len]], dict_off) != dict_len:
+                raise FormatError("Truncated dictionary page read")
+        else:
+            data = self._store.get_range(self.path, dict_off, dict_off + dict_len)
+            if len(data) != dict_len:
+                raise FormatError("Truncated dictionary page read")
+            view[:dict_len] = data
+        at = dict_len
+        for p, n in zip(buf_offsets.tolist(), sizes.tolist()):
+            view[at : at + n] = buf[p : p + n]
+            at += n
+        view.release()
+        n_rows = int(page_rows.sum())
+        res = decode_chunk_native(
+            seq, chunk.codec, self.leaf.ptype, self.leaf.max_def,
+            self.leaf.max_rep, row_cap=n_rows, value_cap=value_cap,
+            out_values=np.empty(value_cap, np.float32),
+        )
+        if res is None:
+            return None
+        values, lengths = res
+        if lengths.size != n_rows:
+            raise FormatError("Decoded rows disagree with the offset index")
+        return values, lengths, np.concatenate([[0], np.cumsum(page_rows)])
 
     def _decode_selections(
         self, rows: np.ndarray, rg_of: np.ndarray, f, dim: int | None = None
-    ) -> list[tuple[np.ndarray, tuple]] | None:
+    ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray, int]] | None:
         """Run :meth:`_decode_rg_selection` for every touched row group —
         on the shared scan pool when more than one group is touched and the
-        pool has workers. Returns ``[(sel, result), ...]`` or None. While
-        tracing is on, the data pages decoded and their bytes are added to
-        the call's root span (``pages``, ``page_bytes``)."""
+        pool has workers — the analog of the multi-partition scan DataFusion
+        runs under the reference's rewrite (RepartitionExec,
+        .../snapshots/...filter_plan_tree.snap:24-39). Returns ``[(sel,
+        row_lengths, values, pages), ...]``, or None without the native
+        library or where a page needs the Python decoder. While tracing is
+        on, the data pages decoded and their bytes are added to the call's
+        root span (``pages``, ``page_bytes``; dictionary-encoded ones also
+        under ``dict_pages``), and the dictionary pages' bytes under
+        ``dict_bytes``."""
         fd = f.fileno() if f is not None else None
         rgs = [int(r) for r in np.unique(rg_of)]
         sels = {rg: np.flatnonzero(rg_of == rg) for rg in rgs}
@@ -930,21 +1107,26 @@ class PageSelectiveReader:
             self._locations(rg, f)
             self._firsts(rg, f)
             self._offs_sizes(rg, f)
+        count_dict = tracing_on()  # the caller's thread holds the root span
 
         def one(rg: int):
             local = rows[sels[rg]] - int(self._rg_starts[rg])
-            return self._decode_rg_selection(rg, local, fd, dim=dim)
+            return self._decode_rg_selection(rg, local, fd, dim, count_dict)
 
         pool = _scan_pool() if len(rgs) > 1 else None
-        if pool is not None:
-            results = list(pool.map(one, rgs))
-        else:
-            results = [one(rg) for rg in rgs]
+        try:
+            if pool is not None:
+                results = list(pool.map(one, rgs))
+            else:
+                results = [one(rg) for rg in rgs]
+        except FormatError:
+            return None  # unsupported codec/encoding: per-page Python decoder
         if any(r is None for r in results):
             return None
-        count_root("pages", sum(r[3] for r in results))
-        count_root("page_bytes", sum(r[4] for r in results))
-        return [(sels[rg], res) for rg, res in zip(rgs, results)]
+        for key, i in (("pages", 2), ("page_bytes", 3), ("dict_pages", 4),
+                       ("dict_bytes", 5)):
+            count_root(key, sum(r[i] for r in results))
+        return [(sels[rg], r[0], r[1], r[2]) for rg, r in zip(rgs, results)]
 
     def _read_rows_batched(
         self, rows: np.ndarray, rg_of: np.ndarray, dim: int, f
@@ -954,82 +1136,48 @@ class PageSelectiveReader:
         Returns None — and the caller falls back to the per-page loop — when
         the native library is unavailable or a page needs the Python decoder.
         """
+        decoded = self._decode_selections(rows, rg_of, f, dim=dim)
+        if decoded is None:
+            return None
         out = np.empty((rows.size, dim), dtype=np.float32)
-        try:
-            decoded = self._decode_selections(rows, rg_of, f, dim=dim)
-            if decoded is None:
-                return None
-            for sel, (values, row_lengths, gidx, _, _) in decoded:
-                if np.any(row_lengths[gidx] != dim):
-                    raise ExecutionError(
-                        "Selected embeddings do not match expected dimensions"
-                    )
-                starts = np.concatenate([[0], np.cumsum(row_lengths)])[gidx]
-                out[sel] = values[starts[:, None] + np.arange(dim)]
-        except FormatError:
-            return None  # unsupported codec/encoding: per-page Python decoder
+        for sel, lengths, values, _ in decoded:
+            if np.any(lengths != dim):
+                raise ExecutionError(
+                    "Selected embeddings do not match expected dimensions"
+                )
+            out[sel] = values.reshape(-1, dim)
         return out
 
     def _read_rows_ragged_batched(
         self, rows: np.ndarray, rg_of: np.ndarray, f
     ) -> tuple[np.ndarray, np.ndarray, int] | None:
         """Ragged analog of :meth:`_read_rows_batched` (no dimension
-        contract): one native decode call per touched row group, vectorized
-        variable-length gather. Returns (values, row_lengths, pages_read)
-        with rows in input order, or None to fall back."""
+        contract). Returns (values, row_lengths, pages_read) with rows in
+        input order, or None to fall back."""
+        decoded = self._decode_selections(rows, rg_of, f)
+        if decoded is None:
+            return None
         out_lens = np.empty(rows.size, np.int64)
-        blocks: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
-        pages_read = 0
-        try:
-            decoded = self._decode_selections(rows, rg_of, f)
-            if decoded is None:
-                return None
-            for sel, (values, row_lengths, gidx, n_pages, _) in decoded:
-                pages_read += n_pages
-                # Uniform-length fast path (embedding columns): a single
-                # reshape+fancy-index replaces the 2M-element repeat/arange
-                # index build (~31 ms/query at 16k x 128 candidates).
-                u = int(row_lengths[0]) if row_lengths.size else 0
-                if u > 0 and values.size == row_lengths.size * u and np.all(
-                    row_lengths == u
-                ):
-                    out_lens[sel] = u
-                    blocks.append(
-                        (sel, values.reshape(-1, u)[gidx].ravel(), None, u)
-                    )
-                    continue
-                lens_sel = row_lengths[gidx]
-                starts_sel = np.concatenate([[0], np.cumsum(row_lengths)])[
-                    gidx
-                ]
-                out_lens[sel] = lens_sel
-                # Flat gather of the selected rows' values, in sel order.
-                boff = np.concatenate([[0], np.cumsum(lens_sel)])
-                idx = (
-                    np.arange(int(boff[-1]), dtype=np.int64)
-                    - np.repeat(boff[:-1], lens_sel)
-                    + np.repeat(starts_sel, lens_sel)
-                )
-                blocks.append((sel, values[idx], lens_sel, None))
-        except FormatError:
-            return None  # unsupported codec/encoding: per-page Python decoder
+        for sel, lengths, _, _ in decoded:
+            out_lens[sel] = lengths
+        pages_read = sum(d[3] for d in decoded)
+        u = int(out_lens[0])
+        if u > 0 and np.all(out_lens == u):
+            # Uniform rows (embedding columns): row slices of one matrix.
+            out = np.empty((rows.size, u), np.float32)
+            for sel, _, values, _ in decoded:
+                out[sel] = values.reshape(-1, u)
+            return out.reshape(-1), out_lens, pages_read
         final_starts = np.concatenate([[0], np.cumsum(out_lens)])
         out_vals = np.empty(int(final_starts[-1]), np.float32)
-        for sel, block, lens_sel, u in blocks:
-            if u is not None:
-                # All-uniform file: destinations are sel-row slices.
-                dest0 = final_starts[sel]
-                out_vals.reshape(-1)[
-                    (dest0[:, None] + np.arange(u)).ravel()
-                ] = block
-                continue
-            boff = np.concatenate([[0], np.cumsum(lens_sel)])
+        for sel, lengths, values, _ in decoded:
+            boff = np.concatenate([[0], np.cumsum(lengths)])
             dest = (
-                np.arange(block.size, dtype=np.int64)
-                - np.repeat(boff[:-1], lens_sel)
-                + np.repeat(final_starts[sel], lens_sel)
+                np.arange(values.size, dtype=np.int64)
+                - np.repeat(boff[:-1], lengths)
+                + np.repeat(final_starts[sel], lengths)
             )
-            out_vals[dest] = block
+            out_vals[dest] = values
         return out_vals, out_lens, pages_read
 
 

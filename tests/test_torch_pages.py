@@ -179,6 +179,237 @@ def test_remote_store_reads_the_same_rows_in_coalesced_ranges(tmp_path, vectors)
     np.testing.assert_array_equal(local.read_rows(rows, D), vectors[rows])
 
 
+def _write_dictionary(path, x, **kw):
+    """``x`` as a list<float32> column ``vec`` (beside an ``id``) with the
+    writer's dictionary on, pages of 16 rows and an offset index."""
+    n, d = x.shape
+    vec = pa.ListArray.from_arrays(pa.array(np.arange(n + 1, dtype=np.int32) * d),
+                                   pa.array(x.reshape(-1), pa.float32()))
+    pq.write_table(pa.table({"id": pa.array(np.arange(n)), "vec": vec}), path,
+                   write_page_index=True, use_dictionary=True, data_page_size=16 * d * 4,
+                   write_batch_size=16, **kw)
+    return str(path)
+
+
+def _page_encodings(path):
+    """Whether each data page of ``vec`` holds dictionary indices, per row group."""
+    _, reader = _readers(path)
+    out = []
+    with open(path, "rb") as f:
+        for rg in range(len(reader.row_groups)):
+            flags = []
+            for loc in reader._locations(rg, f):
+                f.seek(loc.offset)
+                flags.append(tpages._dictionary_encoded(f.read(loc.compressed_page_size)))
+            out.append(flags)
+    return out
+
+
+#: name -> (values: "noise" fills the dictionary, which falls back to PLAIN
+#: mid-chunk; "few" keeps every page dictionary-encoded; the writer's options)
+DICT_LAYOUTS = {
+    "fallback_snappy": ("noise", dict(compression="snappy", dictionary_pagesize_limit=2048)),
+    "fallback_zstd": ("noise", dict(compression="zstd", dictionary_pagesize_limit=2048)),
+    "fallback_none": ("noise", dict(compression="none", dictionary_pagesize_limit=2048)),
+    "all_dict_snappy": ("few", dict(compression="snappy")),
+    "all_dict_zstd": ("few", dict(compression="zstd")),
+    "all_dict_none": ("few", dict(compression="none")),
+    "v2_fallback": ("noise", dict(compression="zstd", data_page_version="2.0",
+                                  dictionary_pagesize_limit=2048)),
+    "v2_all_dict": ("few", dict(compression="snappy", data_page_version="2.0")),
+}
+
+
+def _dictionary_file(tmp_path, layout, n=3000, row_group_size=1000):
+    kind, kw = DICT_LAYOUTS[layout]
+    rng = np.random.default_rng(21)
+    x = (rng.standard_normal((n, D)) if kind == "noise"
+         else rng.integers(0, 7, (n, D))).astype(np.float32)
+    path = _write_dictionary(tmp_path / f"{layout}.parquet", x,
+                             row_group_size=row_group_size, **kw)
+    table = pq.read_table(path)
+    want = np.stack(table.column("vec").to_numpy(zero_copy_only=False)).astype(np.float32)
+    return path, want
+
+
+def _touched_pages(reader, rows):
+    """(row group, page) of each page that holds one of ``rows``, from the
+    offset index."""
+    rg = np.searchsorted(reader._rg_starts, rows, side="right") - 1
+    with open(reader.path, "rb") as f:
+        return sorted({(int(g), int(np.searchsorted(reader._firsts(int(g), f),
+                                                    r - reader._rg_starts[g], "right") - 1))
+                       for g, r in zip(rg, rows)})
+
+
+def _no_native(monkeypatch):
+    """The Python decoder alone: the library off, as ``PQVECTOR_TPU_NO_NATIVE`` turns it off."""
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setenv("PQVECTOR_TPU_NO_NATIVE", "1")
+    assert tnative.load() is None
+
+
+@pytest.mark.parametrize("read", ["local", "store", "python"])
+@pytest.mark.parametrize("layout", sorted(DICT_LAYOUTS))
+def test_dictionary_pages_match_pyarrow(tmp_path, monkeypatch, layout, read):
+    """Dictionary-encoded pages are read page-exact, bit for bit what
+    ``pq.read_table`` gives for the same rows: from a local file, through a
+    store that is not local (``get_ranges``) and by the Python decoder alone;
+    rows in three row groups, read on the scan pool."""
+    from pqvector_tpu_torch.engine.object_store import MemoryStore
+
+    path, want = _dictionary_file(tmp_path, layout)
+    encodings = _page_encodings(path)
+    dict_kind = DICT_LAYOUTS[layout][0]
+    for flags in encodings:
+        assert flags[0] and (all(flags) if dict_kind == "few" else not all(flags))
+    if read == "python":
+        _no_native(monkeypatch)
+    else:
+        _native_or_skip()
+    store = MemoryStore({path: open(path, "rb").read()}) if read == "store" else None
+    reader = tpages.PageSelectiveReader(path, EmbeddingColumn("vec"), store=store)
+    assert len(reader.row_groups) == 3 and tpages._scan_pool() is not None
+    rng = np.random.default_rng(4)
+    for rows in (np.array([0, 2999, 1000, 15, 16, 1999, 2000, 5]), rng.integers(0, 3000, 97),
+                 np.arange(0, 3000, 29)):
+        np.testing.assert_array_equal(reader.read_rows(rows, D), want[rows])
+        values, lengths, pages = reader.read_rows_ragged(rows)
+        np.testing.assert_array_equal(values, want[rows].reshape(-1))
+        np.testing.assert_array_equal(lengths, np.full(rows.size, D))
+        assert pages == len(_touched_pages(reader, rows))
+    if read != "python":  # the batched native decode served them
+        rows = np.array([1, 17, 999, 1500, 2998])
+        rg_of = np.searchsorted(reader._rg_starts, rows, side="right") - 1
+        with reader._open() as f:
+            got = reader._read_rows_batched(rows, rg_of, D, f)
+        np.testing.assert_array_equal(got, want[rows])
+
+
+@pytest.mark.parametrize("read", ["native", "python"])
+def test_dictionary_pages_are_counted(tmp_path, monkeypatch, read):
+    """While tracing, the call's root counts the dictionary-encoded data pages
+    it decoded (``dict_pages``, also among ``pages`` and ``page_bytes``) and
+    the dictionary pages' bytes it read (``dict_bytes``), once a row group."""
+    path, want = _dictionary_file(tmp_path, "fallback_snappy")
+    if read == "python":
+        _no_native(monkeypatch)
+    else:
+        _native_or_skip()
+    reader = tpages.PageSelectiveReader(path, EmbeddingColumn("vec"))
+    encodings = _page_encodings(path)
+    with open(path, "rb") as f:
+        for rg in range(3):
+            reader._locations(rg, f)
+    dict_len = [reader._dictionary_span(rg)[1] for rg in range(3)]
+    assert all(dict_len)
+    for rows in (np.array([0, 1, 17, 1000, 2500]), np.array([2999, 1999]), np.arange(0, 3000, 7)):
+        pages = _touched_pages(reader, rows)
+        dict_pages = [(rg, p) for rg, p in pages if encodings[rg][p]]
+        tprofiling.clear_store()
+        with tprofiling.tracing():
+            with tprofiling.span("call") as root:
+                got, _, n_pages = reader.read_rows_ragged(rows)
+        np.testing.assert_array_equal(got, want[rows].reshape(-1))
+        c = root.counters
+        assert c["pages"] == n_pages == len(pages) and c["page_bytes"] > 0
+        assert c["dict_pages"] == len(dict_pages)
+        assert c["dict_bytes"] == sum(dict_len[rg] for rg in {rg for rg, _ in dict_pages})
+
+
+@pytest.mark.parametrize("dictionary", [False, True], ids=["plain", "dictionary"])
+def test_ragged_rows_longer_than_the_chunk_mean(tmp_path, monkeypatch, dictionary):
+    """Rows of uneven length, read where the touched pages hold more values
+    than the chunk's mean a row gives them: the batched decode still serves
+    them (it widens its bound to the chunk's), equal to pyarrow's rows."""
+    _native_or_skip()
+    rng = np.random.default_rng(8)
+    lens = np.where(np.arange(600) < 100, 40, 2)
+    vals = (rng.integers(0, 5, int(lens.sum())) if dictionary
+            else rng.standard_normal(int(lens.sum()))).astype(np.float32)
+    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    vec = pa.ListArray.from_arrays(pa.array(offsets), pa.array(vals, pa.float32()))
+    path = str(tmp_path / "uneven.parquet")
+    pq.write_table(pa.table({"id": pa.array(np.arange(600)), "vec": vec}), path,
+                   write_page_index=True, use_dictionary=dictionary, data_page_size=256,
+                   write_batch_size=16, row_group_size=300, compression="snappy")
+    want = pq.read_table(path).column("vec").to_pylist()
+    reader = tpages.PageSelectiveReader(path, EmbeddingColumn("vec"))
+    monkeypatch.setattr(reader, "_read_rows_paged", None)  # the batched decode alone
+    for rows in (np.array([0, 5, 50, 99]), np.array([3, 310, 20, 599, 77])):
+        values, lengths, _ = reader.read_rows_ragged(rows)
+        np.testing.assert_array_equal(lengths, lens[rows])
+        np.testing.assert_array_equal(values, np.concatenate([want[r] for r in rows]))
+
+
+def test_one_reader_serves_large_small_large(tmp_path):
+    """One reader serves a large call, a small one, then the large one again,
+    each equal to a fresh reader's answer and to the file's rows."""
+    _native_or_skip()
+    path, want = _dictionary_file(tmp_path, "fallback_zstd", row_group_size=3000)
+    reader = tpages.PageSelectiveReader(path, EmbeddingColumn("vec"))
+    large = np.random.default_rng(6).integers(0, 3000, 600)
+    small = np.array([2, 2900])
+    for rows in (large, small, large):
+        fresh = tpages.PageSelectiveReader(path, EmbeddingColumn("vec"))
+        got, lengths, pages = reader.read_rows_ragged(rows)
+        np.testing.assert_array_equal(got, want[rows].reshape(-1))
+        for a, b in zip((got, lengths, pages), fresh.read_rows_ragged(rows)):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(reader.read_rows(rows, D), fresh.read_rows(rows, D))
+
+
+@pytest.mark.parametrize("layout", ["plain", "dictionary"])
+def test_rows_returned_survive_the_next_call(tmp_path, vectors, layout):
+    """What one call returns is its own: the next call leaves it
+    unchanged."""
+    _native_or_skip()
+    if layout == "plain":
+        path = _write(tmp_path / "p.parquet", vectors, data_page_size=64,
+                      write_batch_size=16, row_group_size=200)
+        want = vectors
+    else:
+        path, want = _dictionary_file(tmp_path, "all_dict_snappy")
+    reader = tpages.PageSelectiveReader(path, EmbeddingColumn("vec"))
+    first_rows = np.array([3, 40, 250, 499])
+    other_rows = np.array([4, 41, 251, 498, 100, 300])
+    matrix = reader.read_rows(first_rows, D)
+    values, lengths, _ = reader.read_rows_ragged(first_rows)
+    kept = (matrix.copy(), values.copy(), lengths.copy())
+    reader.read_rows(other_rows, D)
+    reader.read_rows_ragged(other_rows)
+    for a, b in zip((matrix, values, lengths), kept):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(matrix, want[first_rows])
+
+
+def test_native_build_takes_turns_and_renames_into_place(tmp_path, monkeypatch):
+    """Builders that find the library missing at once take turns under the
+    lock: one runs ``make``, into another name renamed into place, and the
+    rest find its finished file; no temporary file is left."""
+    src = tmp_path / "native"
+    src.mkdir()
+    (src / "Makefile").write_text(
+        "LIB := libpqvector_host.so\nall: $(LIB)\n$(LIB):\n"
+        "\techo make >> runs.txt\n\tsleep 0.3\n\techo whole > $@\n")
+    monkeypatch.setattr(tnative, "_NATIVE_DIR", str(src))
+    monkeypatch.setattr(tnative, "_LIB_PATH", str(src / "libpqvector_host.so"))
+    monkeypatch.setattr(tnative, "_LOCK_PATH", str(tmp_path / "lock" / "native.lock"))
+    results = []
+    threads = [threading.Thread(target=lambda: results.append(tnative.ensure_built()))
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert results == [True] * 4
+    assert (src / "runs.txt").read_text() == "make\n"
+    assert (src / "libpqvector_host.so").read_text() == "whole\n"
+    assert tnative.ensure_built(force=True)
+    assert (src / "runs.txt").read_text() == "make\nmake\n"
+    assert sorted(p.name for p in src.iterdir()) == ["Makefile", "libpqvector_host.so", "runs.txt"]
+
+
 @pytest.mark.parametrize("tag", ["dict", "plain"])
 def test_native_chunk_reader_matches_jax(tmp_path, tag):
     _native_or_skip()

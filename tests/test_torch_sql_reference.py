@@ -29,10 +29,9 @@ DIST_RTOL = 1e-5
 @pytest.fixture(scope="module", params=["plain", "dictionary"])
 def indexed(tmp_path_factory, request):
     """4,096 x 32 rows of 8 seeded modes, pages of 64 rows with an offset
-    index, IVF-16 by the port's build. ``plain``: PLAIN pages, which the page
-    reader serves; ``dictionary``: the writer's default, every page
-    dictionary-encoded, which the page reader refuses, so the engine reads
-    the candidates' row groups whole."""
+    index, IVF-16 by the port's build. ``plain``: PLAIN pages;
+    ``dictionary``: the writer's default, every page dictionary-encoded. The
+    page reader serves both page-exact."""
     rng = np.random.default_rng(11)
     modes = rng.uniform(-1, 1, (8, DIM)).astype(np.float32)
     rows = (modes[rng.integers(0, 8, N)] + 0.15 * rng.standard_normal((N, DIM))).astype(np.float32)
@@ -132,8 +131,10 @@ def test_sql_span_tree_and_counters(indexed):
     assert c["rounds"] >= 1 and c["candidates"] >= K
     if layout == "plain":
         assert c["pages"] >= 1 and c["page_bytes"] > c["pages"] * 1024
-    else:  # no data page decoded: the row groups were read whole
-        assert c.get("pages", 0) == 0
+        assert c["dict_pages"] == c["dict_bytes"] == 0
+    else:  # every data page dictionary-encoded, each decoded page-exact
+        assert c["pages"] >= 1 and c["dict_pages"] >= 1
+        assert c["dict_pages"] == c["pages"] and c["dict_bytes"] > 0
     selfs = profiling.self_ns(mine)
     assert sum(selfs[s["id"]] for s in mine) == root["end_ns"] - root["start_ns"]
 
@@ -168,3 +169,96 @@ def test_reference_checks_the_index_lists(indexed, fault):
     assert ref.index_faults == (0 if fault == "none" else 1)
     numbers, info, _ = ref.judge(torch.from_numpy(queries[:0]), np.zeros(0, bool), [], K, NPROBE)
     assert numbers["sql_faults"] == ref.index_faults == info["index_faults"]
+
+
+def _write_rows(path, rows, **kw):
+    n, dim = rows.shape
+    vec = pa.ListArray.from_arrays(pa.array(np.arange(n + 1, dtype=np.int32) * dim),
+                                   pa.array(rows.reshape(-1), pa.float32()))
+    pq.write_table(pa.table({"id": pa.array(np.arange(n)), "embedding": vec}), path,
+                   compression="snappy", write_page_index=True, row_group_size=512,
+                   data_page_size=32 * dim * 4, write_batch_size=32, **kw)
+
+
+@pytest.mark.parametrize("remote", [False, True], ids=["local", "remote"])
+def test_dictionary_pages_are_served_page_exact(tmp_path, monkeypatch, remote):
+    """A file whose row groups start on dictionary-encoded pages (the
+    writer's default: the dictionary fills and the rest falls back to PLAIN)
+    is served page-exact by the engine: no query reads its ``embedding``
+    column's row groups whole, and every table, on the host path and the
+    resident one, equals the one a PLAIN copy of the file gives."""
+    from pqvector_tpu_torch.engine.object_store import MemoryStore
+
+    n, dim = 2048, 16
+    rng = np.random.default_rng(5)
+    modes = rng.uniform(-1, 1, (8, dim)).astype(np.float32)
+    rows = (modes[rng.integers(0, 8, n)] + 0.15 * rng.standard_normal((n, dim))).astype(np.float32)
+    queries = (modes[rng.integers(0, 8, 6)] + 0.15 * rng.standard_normal((6, dim))).astype(np.float32)
+    sessions = {}
+    for layout in ("plain", "dictionary"):
+        path = str(tmp_path / f"{layout}.parquet")
+        _write_rows(path, rows, use_dictionary=layout == "dictionary",
+                    dictionary_pagesize_limit=8 << 10)
+        IndexBuilder(path, "embedding", device="cpu").n_clusters(8).build_inplace()
+        store = MemoryStore({path: open(path, "rb").read()}) if remote else None
+        for resident in (False, True):
+            s = tengine.Session(tengine.VectorTopKOptions(nprobe=3), device="cpu",
+                                **({"object_store": store} if remote else {}))
+            s.register_parquet("t", path)
+            if resident:
+                s.device_searcher("t", dtype=torch.float32)
+            sessions[layout, resident] = s
+    reads = []
+    real = pq.ParquetFile.read_row_group
+
+    def read_row_group(self, i, columns=None, **kw):
+        reads.append(tuple(columns or ["*"]))
+        return real(self, i, columns=columns, **kw)
+
+    monkeypatch.setattr(pq.ParquetFile, "read_row_group", read_row_group)
+    counters = []
+    for q in queries:
+        lit = ", ".join(repr(float(v)) for v in q)
+        for where in ("", "WHERE id >= 1024"):
+            text = (f"SELECT id, embedding, array_distance(embedding, [{lit}]) AS dist "
+                    f"FROM t {where} ORDER BY dist LIMIT {K}")
+            for resident in (False, True):
+                want = sessions["plain", resident].sql(text).collect()
+                with profiling.tracing():
+                    with profiling.span("query") as root:
+                        got = sessions["dictionary", resident].sql(text).collect()
+                counters.append(root.counters)
+                assert got.num_rows == want.num_rows > 0
+                assert got.equals(want)
+                np.testing.assert_array_equal(
+                    np.stack(got.column("embedding").to_numpy(zero_copy_only=False)),
+                    rows[got.column("id").to_numpy()])
+    assert not [c for c in reads if "embedding" in c or "*" in c]
+    assert all(c["pages"] >= 1 for c in counters)
+    assert sum(c["dict_pages"] for c in counters) >= 1
+    assert sum(c["pages"] - c["dict_pages"] for c in counters) >= 1
+
+
+@pytest.mark.parametrize("counted", [False, True], ids=["parent", "dict_pages"])
+def test_dict_pages_reader(counted):
+    """The benchmark's ``sql.dict_pages`` reads the ``dict_pages`` counter of
+    the traced queries' root ``sql`` spans, a mean a query; a program whose
+    page reader keeps no such counter gives None, as one without spans does."""
+    from pathlib import Path
+
+    from pqbench import spans
+    from pqbench.harness import Bench
+
+    read = Bench(Path(__file__).resolve().parents[1]).reader("sql.dict_pages")
+    store = []
+    for i, n in enumerate((0, 3)):
+        counters = {"rows": K, "pages": 9, **({"dict_pages": n} if counted else {})}
+        store.append({"name": "sql", "id": i + 1, "parent": 0, "root": i + 1, "tid": 1,
+                      "start_ns": i * 100, "end_ns": i * 100 + 50, "counters": counters})
+    try:
+        spans.use(None)
+        assert read({}) is None
+        spans.use({"spans": store, "dropped": 0, "counters": {}})
+        assert read({}) == (1.5 if counted else None)
+    finally:
+        spans.use(spans._UNREAD)
